@@ -1,0 +1,22 @@
+"""halo2_liam_eagen_msm_tpu_torch: the PyTorch/CUDA port of the witness
+pipeline for Liam Eagen's MSM argument (eprint 2022/596), for one NVIDIA
+Hopper card.
+
+Module names follow the JAX package so that a reader finds the counterpart:
+
+  fields.py, limbs.py   field/curve specs and host int <-> limb conversions
+  config.py             debug switches and the device resolver
+  convert.py            numpy limb arrays <-> torch tensors
+  ops/cuda_ff.py        the hand-written CUDA kernels (ops/csrc/), their
+                        wrappers, launch counters and plain PyTorch versions
+  ops/ff.py, ops/ec.py  field and curve layers (kernel on a CUDA tensor,
+                        plain version on a CPU tensor)
+  ops/msm.py            Pippenger best_multiexp
+  utils/pyref.py        exact Python-int oracles
+
+The package imports torch and numpy only.
+"""
+
+from . import fields, limbs
+
+__version__ = "0.1.0"

@@ -1,0 +1,139 @@
+"""Field layer of the PyTorch port against the JAX package and exact ints.
+
+Everything is integer arithmetic: the tolerance is exact equality, limb for
+limb.  Inputs come from a seeded `random.Random` and reach both packages as
+the same numpy limb arrays (convert.py)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from halo2_liam_eagen_msm_tpu.ops import pallas_ff as PF
+from halo2_liam_eagen_msm_tpu.ops.ff import ff as jax_ff
+from halo2_liam_eagen_msm_tpu_torch import fields as TF
+from halo2_liam_eagen_msm_tpu_torch.convert import limbs_from_numpy, limbs_to_numpy
+from halo2_liam_eagen_msm_tpu_torch.limbs import (
+    ints_to_limbs, ints_to_mont_limbs, limbs_to_ints, mont_limbs_to_ints)
+from halo2_liam_eagen_msm_tpu_torch.ops import cuda_ff as CF
+from halo2_liam_eagen_msm_tpu_torch.ops.ff import ff
+
+torch.set_num_threads(1)
+
+SPECS = list(TF.FIELDS.values())
+
+
+def _pairs(rng, spec, n):
+    xs = [rng.randrange(spec.p) for _ in range(n)]
+    ys = [rng.randrange(spec.p) for _ in range(n)]
+    xs[:4] = [0, spec.p - 1, 1, 0]
+    ys[:4] = [spec.p - 1, spec.p - 1, spec.p - 1, 0]
+    return xs, ys
+
+
+def _jax_spec(spec):
+    from halo2_liam_eagen_msm_tpu import fields as JF
+    return JF.FIELDS[spec.name]
+
+
+def test_specs_match_the_jax_package():
+    from halo2_liam_eagen_msm_tpu import fields as JF
+    for name, spec in TF.FIELDS.items():
+        assert (spec.p, spec.generator, spec.s) == \
+            (JF.FIELDS[name].p, JF.FIELDS[name].generator, JF.FIELDS[name].s)
+    for name, c in TF.CURVES.items():
+        j = JF.CURVES[name]
+        assert (c.a, c.b, c.gen_x, c.gen_y, c.field.name, c.scalar_field.name) == \
+            (j.a, j.b, j.gen_x, j.gen_y, j.field.name, j.scalar_field.name)
+
+
+@pytest.mark.parametrize("spec", SPECS, ids=lambda s: s.name)
+@pytest.mark.parametrize("n", [67, 4100], ids=["small", "large"])
+def test_plain_field_ops_vs_ints(spec, n, rng):
+    """Both forms of the plain product (outer product up to 2048 rows,
+    shifted multiply-accumulates above) and add/sub, for every field."""
+    xs, ys = _pairs(rng, spec, n)
+    a = limbs_from_numpy(ints_to_mont_limbs(xs, spec), "cpu")
+    b = limbs_from_numpy(ints_to_mont_limbs(ys, spec), "cpu")
+    p = spec.p
+    got = mont_limbs_to_ints(limbs_to_numpy(CF.mont_mul_plain(spec, a, b)), spec)
+    assert got == [x * y % p for x, y in zip(xs, ys)]
+    got = mont_limbs_to_ints(limbs_to_numpy(CF.mont_addsub_plain(spec, False, a, b)), spec)
+    assert got == [(x + y) % p for x, y in zip(xs, ys)]
+    got = mont_limbs_to_ints(limbs_to_numpy(CF.mont_addsub_plain(spec, True, a, b)), spec)
+    assert got == [(x - y) % p for x, y in zip(xs, ys)]
+
+
+def test_plain_vs_pallas_interpret(rng):
+    """mont_mul_plain / mont_addsub_plain against the TPU kernels run in
+    interpret mode at one block, limb for limb."""
+    spec = TF.PALLAS_FP
+    xs, ys = _pairs(rng, spec, 1024)
+    an = ints_to_mont_limbs(xs, spec)
+    bn = ints_to_mont_limbs(ys, spec)
+    a, b = limbs_from_numpy(an, "cpu"), limbs_from_numpy(bn, "cpu")
+    ja, jb = jnp.asarray(an), jnp.asarray(bn)
+    js = _jax_spec(spec)
+    assert np.array_equal(limbs_to_numpy(CF.mont_mul_plain(spec, a, b)),
+                          np.asarray(PF.mont_mul(js, ja, jb)))
+    assert np.array_equal(limbs_to_numpy(CF.mont_addsub_plain(spec, False, a, b)),
+                          np.asarray(PF.mont_addsub(js, False, ja, jb)))
+    assert np.array_equal(limbs_to_numpy(CF.mont_addsub_plain(spec, True, a, b)),
+                          np.asarray(PF.mont_addsub(js, True, ja, jb)))
+
+
+@pytest.mark.parametrize("spec", [TF.PALLAS_FP, TF.BN254_FR], ids=lambda s: s.name)
+def test_ff_vs_jax_jnp_path(spec, rng):
+    """FF.mul/add/sub/neg of the port against the JAX package's jnp path."""
+    xs, ys = _pairs(rng, spec, 64)
+    an = ints_to_mont_limbs(xs, spec)
+    bn = ints_to_mont_limbs(ys, spec)
+    a, b = limbs_from_numpy(an, "cpu"), limbs_from_numpy(bn, "cpu")
+    k, jk = ff(spec), jax_ff(_jax_spec(spec))
+    ja, jb = jnp.asarray(an), jnp.asarray(bn)
+    for name in ("mul", "add", "sub"):
+        got = limbs_to_numpy(getattr(k, name)(a, b))
+        assert np.array_equal(got, np.asarray(getattr(jk, name)(ja, jb))), name
+    assert np.array_equal(limbs_to_numpy(k.neg(a)), np.asarray(jk.neg(ja)))
+    assert np.array_equal(limbs_to_numpy(k.double(a)), np.asarray(jk.double(ja)))
+    assert np.array_equal(limbs_to_numpy(k.one("cpu")), jk.one)
+    assert np.array_equal(limbs_to_numpy(k.const(12345, "cpu")), jk.const(12345))
+
+
+@pytest.mark.parametrize("spec", SPECS, ids=lambda s: s.name)
+def test_mont_roundtrip_select_eq(spec, rng):
+    k = ff(spec)
+    xs = [rng.randrange(spec.p) for _ in range(16)]
+    raw = limbs_from_numpy(ints_to_limbs(xs), "cpu")
+    m = k.to_mont(raw)
+    assert mont_limbs_to_ints(limbs_to_numpy(m), spec) == xs
+    assert limbs_to_ints(limbs_to_numpy(k.from_mont(m))) == xs
+    mask = torch.tensor([i % 2 == 0 for i in range(16)])
+    sel = k.select(mask, m, raw)
+    assert torch.equal(sel[0], m[0]) and torch.equal(sel[1], raw[1])
+    assert k.eq(m, m).all() and not k.eq(m, k.add(m, k.one("cpu"))).any()
+    assert k.is_zero(torch.zeros(3, 16, dtype=torch.int32)).all()
+    assert not k.is_zero(m).any()
+
+
+def test_inv(rng):
+    spec = TF.PALLAS_FP
+    k = ff(spec)
+    xs = [rng.randrange(spec.p) for _ in range(16)]
+    xs[0], xs[1] = 1, 0  # inv(0) == 0
+    a = limbs_from_numpy(ints_to_mont_limbs(xs, spec), "cpu")
+    got = mont_limbs_to_ints(limbs_to_numpy(k.inv(a)), spec)
+    assert got == [pow(x, spec.p - 2, spec.p) for x in xs]
+
+
+@pytest.mark.parametrize("n", [33, 700], ids=["fermat", "chains"])
+def test_batch_inv(n, rng):
+    """Zeros map to zeros, below and above the 512-element switch to the
+    64-step product chains."""
+    spec = TF.PALLAS_FP
+    k = ff(spec)
+    xs = [rng.randrange(spec.p) for _ in range(n)]
+    xs[5] = xs[n - 1] = 0
+    a = limbs_from_numpy(ints_to_mont_limbs(xs, spec), "cpu")
+    got = mont_limbs_to_ints(limbs_to_numpy(k.batch_inv(a)), spec)
+    assert got == [pow(x, spec.p - 2, spec.p) if x else 0 for x in xs]

@@ -8,16 +8,31 @@ without a card, and on any failed build, failed launch or mismatch.  It
 
   1. prints the card's name and power limit (nvidia-smi),
   2. builds the kernel library from halo2_liam_eagen_msm_tpu_torch/ops/csrc/,
-  3. holds each of the six kernels against its plain PyTorch version on the
-     card: torch.equal on every output (integer arithmetic, tolerance zero),
-     on seeded inputs with edge lanes, at a ragged size and at the shape the
-     main path gives it, and times both there; and checks that the curve
-     ops without a kernel yet raise on a CUDA tensor,
-  4. drives the main path: best_multiexp on the Pallas curve at 2^20 points
+  3. holds each of the eight kernels against its plain PyTorch version on
+     the card: torch.equal on every output (integer arithmetic, tolerance
+     zero), on seeded inputs with edge lanes, at a ragged size and at the
+     shape its path gives it, and times both there (ec_madd_xyzz_fast at
+     the lanes of the stepwise scan's widest window, the only shape a card
+     path launches it with),
+  4. drives the MSM path: best_multiexp on the Pallas curve at 2^20 points
      with full-width scalars (64 random base points tiled, as the headline
      benchmark makes them), checks the result against the exact Python-int
-     oracle, and checks that every kernel was launched in that run,
-  5. prints one JSON line describing the kernels and, last, one JSON line
+     oracle, and checks that each of its six kernels was launched in that run,
+  5. drives the carry stage of the argument at the same 2^20 points: scalars
+     below sqrt(q), base 5, 56 digit rounds decomposed on the host, then
+     argument._carries_only on the card; the final carry must equal the
+     Python-int oracle and the port's own best_multiexp, every round's carry
+     must satisfy the host recurrence, and no round may be flagged,
+  6. drives the exception fallback on the card: round_sums with -T placed
+     so that exactly one round is flagged and recomputed with complete adds,
+     exact in every round, at 2^14 points (the fused scan flags) and at half
+     of ops/msm.FUSED_SCAN_MIN_ROWS (the stepwise scan flags), so that
+     ec_madd_xyzz_fast and ec_add_mixed are both launched; then best_multiexp
+     at n = 16 (safe flavor) against the oracle,
+  7. times one window by the fused and the stepwise scan at 2^6 to 2^16
+     points, on the host clock and as the device's busy time (torch.profiler),
+     and requires equal window sums,
+  8. prints one JSON line describing the kernels and, last, one JSON line
      {"ok": true, "device": {...}}.
 
 Each kernel's bound is the least time the card could take for the same work:
@@ -41,9 +56,11 @@ import time
 import numpy as np
 import torch
 
-from halo2_liam_eagen_msm_tpu_torch.convert import JPoint, limbs_from_numpy
+from halo2_liam_eagen_msm_tpu_torch import argument as A
+from halo2_liam_eagen_msm_tpu_torch.convert import JPoint, digits_to_rounds, limbs_from_numpy
 from halo2_liam_eagen_msm_tpu_torch.fields import PALLAS, N_LIMBS
 from halo2_liam_eagen_msm_tpu_torch.limbs import ints_to_mont_limbs
+from halo2_liam_eagen_msm_tpu_torch.negbase import negbase_decompose_batch
 from halo2_liam_eagen_msm_tpu_torch.ops import cuda_ff as CF
 from halo2_liam_eagen_msm_tpu_torch.ops import msm as M
 from halo2_liam_eagen_msm_tpu_torch.ops.ec import ec
@@ -67,7 +84,13 @@ KERNEL_TABLE = {
     "ec_add_fast": (630, 16, 7, 9),
     "ec_double": (832, 7, 14, 6),
     "fused_madd_scan_xyzz": (740, 10, 7, 5),  # per packed row: 1 in, 4 out
+    "ec_madd_xyzz_fast": (699, 10, 7, 10),    # 6 in, 4 out (+ 1 flag byte)
+    "ec_add_mixed": (599, 18, 21, 8),         # 5 in, 3 out (+ 1 mask byte)
 }
+MSM_KERNELS = ("mont_mul", "mont_addsub", "ec_add", "ec_add_fast", "ec_double",
+               "fused_madd_scan_xyzz")
+FALLBACK_KERNELS = ("ec_madd_xyzz_fast", "ec_add_mixed")
+BASE = 5  # radix of the argument's digit rounds
 CURVE = PALLAS
 SPEC = PALLAS.field
 
@@ -186,6 +209,45 @@ def curve_inputs(nprng, base_pts, b: int, dev):
     return p, q, hp, hq
 
 
+def mixed_inputs(nprng, base_pts, b: int, dev):
+    """A batch of b Jacobian points p and b affine points q with the edge
+    lanes 0..4: p identity, q identity, both identity, q == p, q == -p; in
+    every other lane q is another base point than p's.
+    Returns (p, qx, qy, q identity mask, host points of p, host points of q),
+    the host lists covering the first min(b, 64) lanes.  An affine identity
+    is the all-zero row, as EC.to_affine makes it."""
+    p, ip = random_points(nprng, base_pts, b, dev)
+    p = JPoint(*(c.clone() for c in p))
+    ip_host = ip.cpu().numpy()
+    iq = (ip_host + nprng.integers(1, len(base_pts), size=b)) % len(base_pts)
+    neg = np.zeros(b, dtype=bool)
+    mask = np.zeros(b, dtype=bool)
+    if b >= 5:
+        iq[3], iq[4], neg[4] = ip_host[3], ip_host[4], True
+        mask[1] = mask[2] = True
+    bx = limbs_from_numpy(ints_to_mont_limbs([q[0] for q in base_pts], SPEC), dev)
+    by = limbs_from_numpy(ints_to_mont_limbs([q[1] for q in base_pts], SPEC), dev)
+    iq_t = torch.from_numpy(iq).to(dev)
+    qx, qy = bx[iq_t], by[iq_t]
+    neg_t = torch.from_numpy(neg).to(dev)
+    qy = torch.where(neg_t[:, None],
+                     CF.mont_addsub_plain(SPEC, True, torch.zeros_like(qy), qy), qy)
+    mask_t = torch.from_numpy(mask).to(dev)
+    qx = torch.where(mask_t[:, None], torch.zeros_like(qx), qx)
+    qy = torch.where(mask_t[:, None], torch.zeros_like(qy), qy)
+    if b >= 5:
+        p.z[0] = 0
+        p.z[2] = 0
+    k = min(b, 64)
+    hp = [base_pts[i] for i in ip_host[:k].tolist()]
+    hq = [pyref.ec_neg(base_pts[i], CURVE) if n else base_pts[i]
+          for i, n in zip(iq[:k].tolist(), neg[:k].tolist())]
+    if b >= 5:
+        hp[0] = hp[2] = None
+        hq[1] = hq[2] = None
+    return p, qx, qy, mask_t, hp, hq
+
+
 def scan_rows(nprng, base_pts, g: int, w: int, dev):
     """g*w packed affine rows: tiled base points with zero rows (affine
     identities) in the stream, and lane 5 starting with -T, which must flag
@@ -234,10 +296,12 @@ def check_kernel(dev, name, kernel, plain, make_inputs, sizes, reps, elems_of=No
         args = make_inputs(size)
         got = flatten_outs(kernel(*args))
         sync(dev)
-        t0 = time.perf_counter()
-        want = flatten_outs(plain(*args))
-        sync(dev)
-        plain_ms = (time.perf_counter() - t0) * 1e3
+        plain_ms = float("inf")
+        for _ in range(2):  # the first call also pays for PyTorch's own start-up
+            t0 = time.perf_counter()
+            want = flatten_outs(plain(*args))
+            sync(dev)
+            plain_ms = min(plain_ms, (time.perf_counter() - t0) * 1e3)
         err = outputs_equal(got, want)
         worst = max(worst, err)
         require(err == 0, f"{name} equals {name}_plain at size {size} "
@@ -322,6 +386,52 @@ def check_kernels(dev, base_pts, ragged: int, shapes: dict, scan_small_g: int, r
         lambda *a: CF.ec_double_plain(CURVE, *a),
         one_point, [ragged, shapes["ec_double"]], reps, host_check=vs_pyref_double))
 
+    def mixed(b):
+        p, qx, qy, mask, hp, hq = mixed_inputs(nprng, base_pts, b, dev)
+        host["p"], host["q"] = hp, hq
+        return (*p, qx, qy, mask)
+
+    def vs_pyref_mixed(size, args, got):
+        k = len(host["p"])
+        pts = E.points_to_ints(JPoint(*(c[:k] for c in got)))
+        require(pts == [pyref.ec_add(a, b, CURVE) for a, b in zip(host["p"], host["q"])],
+                f"first {k} lanes (p identity, q identity, both, q == p, q == -p "
+                f"among them) equal the Python-int oracle at size {size}")
+
+    recs.append(check_kernel(
+        dev, "ec_add_mixed", lambda *a: CF.ec_add_mixed(CURVE, *a),
+        lambda *a: CF.ec_add_mixed_plain(CURVE, *a),
+        mixed, [ragged, shapes["ec_add_mixed"]], reps,
+        extra_bytes_of=lambda b: b, host_check=vs_pyref_mixed))
+
+    def xyzz_step(b):
+        """The carry in XYZZ form (zz = z^2, zzz = z^3; the identity all
+        zero in zz, zzz) and an affine q, the affine identity as qy == 0."""
+        p, qx, qy, _, hp, hq = mixed_inputs(nprng, base_pts, b, dev)
+        host["p"], host["q"] = hp, hq
+        zz = CF.mont_mul_plain(SPEC, p.z, p.z)
+        return (p.x, p.y, zz, CF.mont_mul_plain(SPEC, zz, p.z), qx, qy)
+
+    def xyzz_flags(size, args, got):
+        k = len(host["p"])
+        flags = got[4].nonzero().flatten().tolist()
+        require(flags == [0, 3, 4],
+                f"ec_madd_xyzz_fast flags the identity carry (lane 0), carry == Q "
+                f"(lane 3) and carry == -Q (lane 4) and nothing else at size {size}; "
+                f"qy == 0 (lanes 1, 2) passes unflagged")
+        pts = E.points_to_ints(E.xyzz_to_jacobian(*(c[:k] for c in got[:4])))
+        want = [pyref.ec_add(a, b, CURVE) for a, b in zip(host["p"], host["q"])]
+        keep = [i for i in range(k) if i not in (0, 3, 4)]
+        require([pts[i] for i in keep] == [want[i] for i in keep],
+                f"unflagged lanes among the first {k} equal the Python-int oracle "
+                f"at size {size}")
+
+    recs.append(check_kernel(
+        dev, "ec_madd_xyzz_fast", lambda *a: CF.ec_madd_xyzz_fast(CURVE, *a),
+        lambda *a: CF.ec_madd_xyzz_fast_plain(CURVE, *a),
+        xyzz_step, [ragged, shapes["ec_madd_xyzz_fast"]], reps,
+        extra_bytes_of=lambda b: b, host_check=xyzz_flags))
+
     w = CF.SCAN_W
     xi, yi = E.offset_point_ints()
     t_limbs = tuple(tuple(int(v) for v in ints_to_mont_limbs([c], SPEC)[0]) for c in (xi, yi))
@@ -341,27 +451,25 @@ def check_kernels(dev, base_pts, ragged: int, shapes: dict, scan_small_g: int, r
     return recs
 
 
-def check_unported_ops_raise(dev) -> None:
-    """The two curve ops whose kernels are still to be ported raise on a CUDA
-    tensor and name the kernel; nothing falls back to the plain version."""
-    print("ops without a kernel yet", flush=True)
-    E = ec(CURVE)
-    p = E.generator((4,), dev)
-    qid = torch.zeros(4, dtype=torch.bool, device=dev)
-    for what, call in (("ec_add_mixed", lambda: E.add_mixed(p, p.x, p.y, qid)),
-                       ("ec_madd_xyzz_fast",
-                        lambda: E.madd_xyzz_fast(p.x, p.y, p.z, p.z, p.x, p.y))):
-        try:
-            call()
-        except NotImplementedError as e:
-            require(what in str(e), f"{what} raises NotImplementedError on a CUDA tensor")
-        else:
-            raise Failure(f"{what} did not raise on a CUDA tensor")
+# ---------------------------------------------------------------------------
+# phase 4: the MSM path
+# ---------------------------------------------------------------------------
+
+def one_point(res: JPoint):
+    """A single JPoint -> its affine ints (or None)."""
+    return ec(CURVE).points_to_ints(JPoint(*(c[None] for c in res)))[0]
 
 
-# ---------------------------------------------------------------------------
-# phase 4: the main path
-# ---------------------------------------------------------------------------
+def tiled_msm_oracle(sc, base_pts):
+    """The exact MSM of (n, 16) numpy scalar limbs over points tiled from
+    base_pts: sum_i s_i P_i = sum_j (sum_{i = j mod 64} s_i mod q) B_j, a
+    64-point MSM in Python ints."""
+    distinct = len(base_pts)
+    q = CURVE.scalar_field.p
+    limb_sums = sc.astype(np.int64).reshape(-1, distinct, N_LIMBS).sum(axis=0)
+    folded = [sum(int(v) << (16 * k) for k, v in enumerate(row)) % q for row in limb_sums]
+    return pyref.ec_msm(folded, base_pts, CURVE)
+
 
 def main_path(dev, base_pts, logn: int):
     """best_multiexp at 2^logn Pallas points, full-width scalars, against the
@@ -382,21 +490,14 @@ def main_path(dev, base_pts, logn: int):
     sc[:, 15] &= 0x3FFF  # full-width scalars below 2^254 < q
     scalars = limbs_from_numpy(sc, dev)
 
-    # oracle: the points are tiled, so sum_i s_i P_i = sum_j (sum_{i = j mod
-    # 64} s_i mod q) B_j, a 64-point MSM in Python ints
-    q = CURVE.scalar_field.p
-    limb_sums = sc.astype(np.int64).reshape(reps, distinct, N_LIMBS).sum(axis=0)
-    folded = [sum(int(v) << (16 * k) for k, v in enumerate(row)) % q for row in limb_sums]
-    want = pyref.ec_msm(folded, base_pts, CURVE)
+    want = tiled_msm_oracle(sc, base_pts)
 
-    E = ec(CURVE)
     c = M.pick_window(n)
-    bits = q.bit_length()
+    bits = CURVE.scalar_field.p.bit_length()
     # warm-up through the fast flavor itself, to read its exception flag
     res, exc = M._best_multiexp(CURVE, c, bits, "fast", scalars, pts)
     require(not bool(exc), "the fast flavor's exception flag is clear")
-    got = E.points_to_ints(JPoint(*(cc[None] for cc in res)))[0]
-    require(got == want, "warm-up result equals the Python-int oracle (affine)")
+    require(one_point(res) == want, "warm-up result equals the Python-int oracle (affine)")
 
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -410,10 +511,9 @@ def main_path(dev, base_pts, logn: int):
     if dev.type == "cuda":
         print(f"  peak device memory of one MSM: "
               f"{torch.cuda.max_memory_allocated(dev) / 2**20:.0f} MiB", flush=True)
-    got = E.points_to_ints(JPoint(*(cc[None] for cc in res)))[0]
-    require(got == want, "timed result equals the Python-int oracle (affine)")
-    for name in CF.KERNELS:
-        require(counts[name] > 0, f"{name} was launched on the main path ({counts[name]} times)")
+    require(one_point(res) == want, "timed result equals the Python-int oracle (affine)")
+    for name in MSM_KERNELS:
+        require(counts[name] > 0, f"{name} was launched on the MSM path ({counts[name]} times)")
     for _ in range(2):  # the path is paced by the host: show the spread
         t0 = time.perf_counter()
         M.best_multiexp(CURVE, scalars, pts)
@@ -425,21 +525,262 @@ def main_path(dev, base_pts, logn: int):
     return seconds, counts, (scalars, pts)
 
 
-def profile_main_path(dev, scalars, pts) -> None:
-    """Optional (--profile): device time by kernel over one best_multiexp."""
+def profile_call(dev, what: str, fn) -> None:
+    """Optional (--profile): device time by kernel over one call of fn."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        M.best_multiexp(CURVE, scalars, pts)
+        fn()
         sync(dev)
+    print(f"profile of {what}", flush=True)
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25), flush=True)
+
+
+def device_busy_ms(dev, fn) -> float:
+    """The device's busy time over one call of fn: the sum of the times of
+    every kernel and copy it ran there, as torch.profiler traces them (the
+    "Self CUDA time total" of its table)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync(dev)
+    busy_us = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and not getattr(ev, "is_user_annotation", False):
+            own = getattr(ev, "self_device_time_total", None)
+            busy_us += own if own is not None else ev.self_cuda_time_total
+    if busy_us <= 0:
+        raise Failure("the profiler traced no device time")
+    return busy_us / 1e3
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the carry stage
+# ---------------------------------------------------------------------------
+
+def base_digit_sums(digits, distinct: int):
+    """(d, n) digits over points tiled from `distinct` base points -> (d,
+    distinct) Python-int digit sums per base point, summed on the device."""
+    d, n = digits.shape
+    return digits.reshape(d, n // distinct, distinct).sum(dim=1, dtype=torch.int64).tolist()
+
+
+def carry_path(dev, base_pts, pts: JPoint, logn: int, profile: bool):
+    """argument._carries_only at 2^logn Pallas points, scalars below sqrt(q),
+    base 5, all digit rounds.  Returns (best seconds of three timed runs,
+    launch counts of the first of them, the number of rounds)."""
+    n = 1 << logn
+    distinct = len(base_pts)
+    q = CURVE.scalar_field.p
+    d = A.num_digits_for(CURVE, BASE)
+    print(f"carry stage: _carries_only, Pallas, n = 2^{logn}, base {BASE}, "
+          f"{d} rounds", flush=True)
+    nprng = np.random.default_rng(0xCA77)
+    sc = np.zeros((n, N_LIMBS), dtype=np.uint32)
+    sc[:, :8] = nprng.integers(0, 1 << 16, size=(n, 8), dtype=np.uint32)
+    sc[:, 7] &= 0x3FFF  # below 2^126 < sqrt(q)
+    t0 = time.perf_counter()
+    digits_host = negbase_decompose_batch(sc, BASE, d)
+    decompose_s = time.perf_counter() - t0
+    digits = digits_to_rounds(digits_host, dev)
+    print(f"  host: negbase_decompose_batch of {n} scalars into {d} digits: "
+          f"{decompose_s:.3f} s; digits on the device: "
+          f"{digits.numel() * digits.element_size() / 2**20:.0f} MiB", flush=True)
+
+    want = tiled_msm_oracle(sc, base_pts)
+
+    # warm-up through the fast flavor itself, to read its per-round flags
+    _, excs = M._round_sums(CURVE, BASE, "fast", digits, pts)
+    require(not bool(excs.any()), f"no round of {d} is flagged by the fast flavor")
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    CF.reset_launch_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    carry_prev, carry_new, final = A._carries_only(CURVE, BASE, digits, pts)
+    sync(dev)
+    runs = [time.perf_counter() - t0]
+    counts = dict(CF.LAUNCHES)
+    if dev.type == "cuda":
+        print(f"  peak device memory of one carry stage: "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**20:.0f} MiB", flush=True)
+    print("  launches: " + ", ".join(f"{k} {v}" for k, v in counts.items()), flush=True)
+    for name in MSM_KERNELS:
+        require(counts[name] > 0,
+                f"{name} was launched on the carry path ({counts[name]} times)")
+
+    got = one_point(final)
+    require(got == want, "the final carry equals the Python-int oracle (affine)")
+    msm = M.best_multiexp(CURVE, limbs_from_numpy(sc, dev), pts, max_scalar_bits=128)
+    require(one_point(msm) == got, "the final carry equals the port's best_multiexp")
+
+    E = ec(CURVE)
+    p_prev, p_new = E.points_to_ints(carry_prev), E.points_to_ints(carry_new)
+    sums = base_digit_sums(digits, distinct)
+    carry, ok = None, True
+    for k in range(d):
+        ok = ok and p_prev[k] == carry
+        s_k = pyref.ec_msm(sums[k], base_pts, CURVE)
+        carry = pyref.ec_msm([(-BASE) % q, 1], [carry, s_k], CURVE)
+        ok = ok and p_new[k] == carry
+    require(ok and carry == got,
+            f"carry_prev[k] and carry_new[k] satisfy carry' = -{BASE} carry + S_k "
+            f"on the host for all {d} rounds")
+
+    for _ in range(2):  # the path is paced by the host: show the spread
+        t0 = time.perf_counter()
+        A._carries_only(CURVE, BASE, digits, pts)
+        sync(dev)
+        runs.append(time.perf_counter() - t0)
+    seconds = min(runs)
+    print("  _carries_only: runs of " + ", ".join(f"{r:.4f}" for r in runs)
+          + f" s; best {seconds:.4f} s, {seconds / d * 1e3:.2f} ms a round", flush=True)
+    if profile:
+        profile_call(dev, "_carries_only",
+                     lambda: A._carries_only(CURVE, BASE, digits, pts))
+    return seconds, counts, d
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the exception fallback on the card
+# ---------------------------------------------------------------------------
+
+def adversarial_rounds(nprng, n: int, rounds: int, flagged: int):
+    """(rounds, n) base-5 digits for a point list whose point 0 is -T.  In
+    round `flagged` point 0 has digit 1 and every other digit is in [2, 5),
+    so -T sorts first and the blinded scan opens with T + (-T).  In the other
+    rounds point 0 has digit 4 and an odd number of points sort before it, so
+    it never opens a lane (lane widths are even) and nothing is flagged."""
+    digits = nprng.integers(0, BASE, size=(rounds, n)).astype(np.int32)
+    digits[:, 0] = BASE - 1
+    for k in range(rounds):
+        if (digits[k] < BASE - 1).sum() % 2 == 0:
+            digits[k, 1] = 0 if digits[k, 1] == BASE - 1 else BASE - 1
+    digits[flagged] = nprng.integers(2, BASE, size=n)
+    digits[flagged, 0] = 1
+    return digits
+
+
+def fallback_path(dev, base_pts, logn: int):
+    """round_sums at 2^logn points with one round that the fast flavor must
+    flag, then best_multiexp at n = 16 (safe flavor).  Returns the launch
+    counts of the round_sums call."""
+    n = 1 << logn
+    distinct = len(base_pts)
+    rounds, flagged = 4, 2
+    print(f"fallback: round_sums, n = 2^{logn}, {rounds} rounds, point 0 = -T "
+          f"sorted first in round {flagged}", flush=True)
+    route = "stepwise" if n < M.FUSED_SCAN_MIN_ROWS else "fused"
+    print(f"  the fast flavor takes the {route} scan at this size", flush=True)
+    E = ec(CURVE)
+    neg_t = pyref.ec_neg(E.offset_point_ints(), CURVE)
+    tiled = E.points_from_ints([neg_t] + list(base_pts[1:]), dev)
+    pts = JPoint(*(c.repeat(n // distinct, 1) for c in tiled))
+    first = E.points_from_ints([base_pts[0]], dev)
+    for c, f in zip(pts, first):
+        c[distinct::distinct] = f[0]     # only point 0 is -T
+    nprng = np.random.default_rng(0xADE5)
+    digits_host = adversarial_rounds(nprng, n, rounds, flagged)
+    digits = torch.from_numpy(digits_host).to(dev)
+
+    _, excs = M._round_sums(CURVE, BASE, "fast", digits, pts)
+    require(excs.tolist() == [k == flagged for k in range(rounds)],
+            f"the fast flavor flags round {flagged} and no other")
+
+    CF.reset_launch_counts()
+    got = E.points_to_ints(M.round_sums(CURVE, BASE, digits, pts))
+    counts = dict(CF.LAUNCHES)
+    rest = digits.clone()
+    rest[:, 0] = 0
+    sums = base_digit_sums(rest, distinct)
+    want = [pyref.ec_add(pyref.ec_msm(sums[k], base_pts, CURVE),
+                         pyref.ec_mul(neg_t, int(digits_host[k, 0]), CURVE), CURVE)
+            for k in range(rounds)]
+    require(got == want, f"round_sums equals the Python-int oracle in all {rounds} rounds")
+    require(counts["ec_add_mixed"] > 0 and counts[
+        "ec_madd_xyzz_fast" if route == "stepwise" else "fused_madd_scan_xyzz"] > 0,
+            f"round_sums launched ec_add_mixed ({counts['ec_add_mixed']} times) and the "
+            f"{route} scan's kernel")
+
+    rng = random.Random(0x5AFE)
+    q = CURVE.scalar_field.p
+    scalars = [rng.randrange(q) for _ in range(16)]
+    small = list(base_pts[:16])
+    small[3] = None
+    before = CF.LAUNCHES["ec_add_mixed"]
+    res = M.msm_ints(CURVE, scalars, small, c=4, device=dev)
+    require(res == pyref.ec_msm(scalars, small, CURVE)
+            and CF.LAUNCHES["ec_add_mixed"] > before,
+            "best_multiexp at n = 16 (safe flavor, on the card) equals the oracle")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 7: one window by the fused and by the stepwise scan
+# ---------------------------------------------------------------------------
+
+def time_window_routes(dev, base_pts, logns, reps: int = 5):
+    """Time one carry-stage window (base-5 digits) by both scan routes at each
+    size; the routes must give the same window sum.  The route follows
+    ops/msm.FUSED_SCAN_MIN_ROWS, which is set for the measurement and put back.
+    Returns [(n, fused ms, stepwise ms, fused device ms, stepwise device ms)]:
+    the first pair the best of `reps` host-clock times of a call ending in a
+    synchronise, the second the device's busy time over one such call (the
+    sum of its kernels' and copies' times; a window waits for the host in
+    bincount, so CUDA events around it would read the host's pace again)."""
+    print("one window by both scan routes (host clock: best of "
+          f"{reps} after a warm-up; device: busy time of one call)", flush=True)
+    E = ec(CURVE)
+    tiled = E.points_from_ints(list(base_pts), dev)
+    nprng = np.random.default_rng(0x2077)
+    c = max(1, (BASE - 1).bit_length())
+    out = []
+    kept = M.FUSED_SCAN_MIN_ROWS
+    try:
+        for logn in logns:
+            n = 1 << logn
+            pts = JPoint(*(cc.repeat(n // len(base_pts), 1) for cc in tiled))
+            ax, ay, _ = E.to_affine(pts)
+            window = M._make_one_window(E, c, "fast", M._pack_pair(ax, ay), n)
+            keys = torch.from_numpy(nprng.integers(0, BASE, size=n).astype(np.int32)).to(dev)
+            ms, dev_ms, sums = {}, {}, {}
+            for route, bound in (("fused", 0), ("stepwise", 1 << 62)):
+                M.FUSED_SCAN_MIN_ROWS = bound
+                CF.reset_launch_counts()
+                res, exc = window(keys)
+                sync(dev)
+                used = CF.LAUNCHES["fused_madd_scan_xyzz" if route == "fused"
+                                   else "ec_madd_xyzz_fast"]
+                if used == 0 or bool(exc):
+                    raise Failure(f"the {route} route did not run clean at n = {n}")
+                sums[route] = one_point(res)
+                best = float("inf")
+                for _ in range(reps):
+                    t0 = time.perf_counter()
+                    window(keys)
+                    sync(dev)
+                    best = min(best, time.perf_counter() - t0)
+                ms[route] = best * 1e3
+                dev_ms[route] = device_busy_ms(dev, lambda: window(keys))
+            require(sums["fused"] == sums["stepwise"],
+                    f"n = 2^{logn}: both routes give the same window sum; fused "
+                    f"{ms['fused']:.3f} ms ({dev_ms['fused']:.3f} on the device), stepwise "
+                    f"{ms['stepwise']:.3f} ms ({dev_ms['stepwise']:.3f} on the device)")
+            out.append((n, ms["fused"], ms["stepwise"], dev_ms["fused"], dev_ms["stepwise"]))
+    finally:
+        M.FUSED_SCAN_MIN_ROWS = kept
+    return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--logn", type=int, default=20, help="log2 of the MSM size")
+    ap.add_argument("--logn", type=int, default=20,
+                    help="log2 of the MSM and carry-stage size")
     ap.add_argument("--profile", action="store_true",
-                    help="also print a torch.profiler table of one MSM")
+                    help="also print torch.profiler tables of one MSM and one carry stage")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -467,23 +808,54 @@ def main() -> int:
     n = 1 << args.logn
     g = max(1, n // CF.SCAN_W)
     nb = 1 << M.pick_window(n)
+    # ec_madd_xyzz_fast runs only in card windows below FUSED_SCAN_MIN_ROWS
+    # points: its shape is the lanes of the widest of them, the one the
+    # fallback phase drives.  ec_add_mixed: one step of a safe window at n.
+    step_logn = (M.FUSED_SCAN_MIN_ROWS // 2).bit_length() - 1
+    step_lanes = (1 << step_logn) // M._pick_block_width(1 << step_logn, True)
     shapes = {"mont_mul": n, "mont_addsub": nb, "ec_add": min(g, 2048),
-              "ec_add_fast": nb, "ec_double": 1, "fused_madd_scan_xyzz": g}
+              "ec_add_fast": nb, "ec_double": 1, "fused_madd_scan_xyzz": g,
+              "ec_madd_xyzz_fast": step_lanes, "ec_add_mixed": g}
     recs = check_kernels(dev, base_pts, ragged=5000, shapes=shapes,
                          scan_small_g=2050, reps=50)
 
-    check_unported_ops_raise(dev)
-
-    seconds, counts, (scalars, pts) = main_path(dev, base_pts, args.logn)
-    for rec in recs:
-        rec["launches"] = counts[rec["name"]]
-        print(f"  {rec['name']}: {rec['launches']} launches, {rec['ms']:.4f} ms each "
-              f"on the device at shape {rec['shape']}", flush=True)
+    seconds, msm_counts, (scalars, pts) = main_path(dev, base_pts, args.logn)
     if args.profile:
-        profile_main_path(dev, scalars, pts)
+        profile_call(dev, "best_multiexp", lambda: M.best_multiexp(CURVE, scalars, pts))
+    del scalars
+    carry_s, carry_counts, rounds = carry_path(dev, base_pts, pts, args.logn, args.profile)
+    del pts
+    # at 2^14 the fused scan flags and the safe flavor redoes the round at a
+    # real width; at half of FUSED_SCAN_MIN_ROWS the stepwise scan runs
+    fallback_counts = {name: 0 for name in CF.KERNELS}
+    for logn in (min(14, args.logn), step_logn):
+        for name, count in fallback_path(dev, base_pts, logn).items():
+            fallback_counts[name] += count
+    for name in FALLBACK_KERNELS:
+        require(fallback_counts[name] > 0,
+                f"{name} was launched by the fallback's round_sums "
+                f"({fallback_counts[name]} times)")
+    routes = time_window_routes(dev, base_pts, (6, 7, 8, 10, 12, 14, 16))
+
+    for rec in recs:
+        name = rec["name"]
+        rec["launches"] = (fallback_counts if name in FALLBACK_KERNELS else msm_counts)[name]
+        rec["launches_msm"] = msm_counts[name]
+        rec["launches_carry"] = carry_counts[name]
+        rec["launches_fallback"] = fallback_counts[name]
+        print(f"  {name}: launches {rec['launches_msm']} (MSM), {rec['launches_carry']} "
+              f"(carry stage), {rec['launches_fallback']} (fallback round_sums); "
+              f"{rec['ms']:.4f} ms each on the device at shape {rec['shape']}", flush=True)
+        require(rec["launches"] > 0, f"{name} was launched on the path that runs it")
 
     print(f"msm: n = {n}, seconds = {seconds}, points_per_s = {n / seconds}, card = {card}",
           flush=True)
+    print(f"carries: n = {n}, base = {BASE}, rounds = {rounds}, seconds = {carry_s}, "
+          f"card = {card}", flush=True)
+    for rn, fused_ms, step_ms, fused_dev, step_dev in routes:
+        print(f"window routes: n = {rn}, fused_ms = {fused_ms}, stepwise_ms = {step_ms}, "
+              f"fused_device_ms = {fused_dev}, stepwise_device_ms = {step_dev}, "
+              f"FUSED_SCAN_MIN_ROWS = {M.FUSED_SCAN_MIN_ROWS}, card = {card}", flush=True)
     print(json.dumps({"kernels": recs}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

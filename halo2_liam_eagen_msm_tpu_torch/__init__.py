@@ -6,12 +6,14 @@ Module names follow the JAX package so that a reader finds the counterpart:
 
   fields.py, limbs.py   field/curve specs and host int <-> limb conversions
   config.py             debug switches and the device resolver
-  convert.py            numpy limb arrays <-> torch tensors
+  convert.py            numpy limb arrays and digits <-> torch tensors
+  negbase.py            radix -base scalar decomposition (host, numpy)
+  argument.py           the argument's carry stage (round sums -> carries)
   ops/cuda_ff.py        the hand-written CUDA kernels (ops/csrc/), their
                         wrappers, launch counters and plain PyTorch versions
   ops/ff.py, ops/ec.py  field and curve layers (kernel on a CUDA tensor,
                         plain version on a CPU tensor)
-  ops/msm.py            Pippenger best_multiexp
+  ops/msm.py            Pippenger best_multiexp and round_sums
   utils/pyref.py        exact Python-int oracles
 
 The package imports torch and numpy only.

@@ -5,7 +5,12 @@ limbs (the JAX package's layout too), so a test can feed both packages the
 same arrays and compare limb for limb.  The torch side stores the same
 words as int32: torch has no uint32 arithmetic on the CPU.  Limb values are
 below 2^16; packed rows (ops/msm._pack_pair) use all 32 bits and keep
-their bit pattern across the cast."""
+their bit pattern across the cast.
+
+The carry stage's state crosses the same way: the (N, d) uint8 digits of
+negbase.negbase_decompose_batch become the (d, N) int32 msb-first rounds both
+packages consume (digits_to_rounds), and a (d,) batch of carries is a JPoint
+of (d, 16) limb arrays (jpoint_from_numpy / jpoint_to_numpy)."""
 
 from __future__ import annotations
 
@@ -45,3 +50,14 @@ def jpoint_from_numpy(x, y, z, device="cuda") -> JPoint:
 
 def jpoint_to_numpy(p: JPoint):
     return limbs_to_numpy(p.x), limbs_to_numpy(p.y), limbs_to_numpy(p.z)
+
+
+def digits_to_rounds(digits, device="cuda") -> torch.Tensor:
+    """(N, d) uint8 little-endian negbase digits (numpy) -> (d, N) int32
+    tensor on `device`, most significant round first.  The bytes cross to the
+    device as they are and widen there."""
+    digits = np.asarray(digits)
+    if digits.ndim != 2 or digits.dtype != np.uint8:
+        raise ValueError("expected (N, d) uint8 digits")
+    rounds = np.ascontiguousarray(digits[:, ::-1].T)
+    return torch.from_numpy(rounds).to(resolve_device(device)).to(torch.int32)

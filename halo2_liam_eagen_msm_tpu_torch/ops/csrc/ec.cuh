@@ -1,8 +1,9 @@
 // Curve formulas for the CUDA kernels, on short-Weierstrass curves with
 // a = 0 (every supported curve): the device-side counterpart of the curve
 // formulas of the JAX package (ops/pallas_ff.py: k_ec_double, k_ec_add,
-// k_ec_add_fast, k_ec_madd_xyzz_fast).  Each follows the same formula and the
-// same select order, so the Jacobian representative is the same limb for limb.
+// k_ec_add_fast, k_ec_add_mixed, k_ec_madd_xyzz_fast).  Each follows the same
+// formula and the same select order, so the Jacobian representative is the
+// same limb for limb.
 //
 // Identity is Z == 0 (Jacobian) / ZZ == 0 (XYZZ); the affine identity is
 // y == 0 (no point of a prime-order curve has y = 0).
@@ -88,6 +89,46 @@ __device__ __forceinline__ Jac ec_add_complete(const Jac& p, const Jac& q,
   o = jac_select(id2 && !id1, p, o);
   o = jac_select(id1 && !id2, q, o);
   o = jac_select(id1 && id2, ident, o);
+  return o;
+}
+
+// Complete Jacobian + affine add (madd-2007-bl, Z2 = 1): 11 products for the
+// generic sum and 7 for the doubling of p, then the selects in the order of
+// the JAX package's k_ec_add_mixed (doubling, inverse, q identity, p
+// identity, both).  q_ident marks the affine identity; with p the identity
+// the result is (qx, qy, 1).
+__device__ __forceinline__ Jac ec_add_mixed_complete(const Jac& p, const Fe& qx,
+                                                     const Fe& qy, bool q_ident,
+                                                     const FieldParams& P) {
+  Fe z1z1 = fe_sqr(p.z, P);
+  Fe u2 = fe_mul(qx, z1z1, P);
+  Fe s2 = fe_mul(qy, fe_mul(p.z, z1z1, P), P);
+  Fe h = fe_sub(u2, p.x, P);
+  Fe r = fe_sub(s2, p.y, P);
+  Fe hh = fe_sqr(h, P);
+  Fe hhh = fe_mul(h, hh, P);
+  Fe v = fe_mul(p.x, hh, P);
+  Jac o;
+  o.x = fe_sub(fe_sub(fe_sqr(r, P), hhh, P), fe_double(v, P), P);
+  o.y = fe_sub(fe_mul(r, fe_sub(v, o.x, P), P), fe_mul(p.y, hhh, P), P);
+  o.z = fe_mul(p.z, h, P);
+  bool id1 = fe_is_zero(p.z);
+  bool h0 = fe_is_zero(h);
+  bool r0 = fe_is_zero(r);
+  Jac dbl = ec_double(p, P);
+  Jac ident;
+  ident.x = fe_one(P);
+  ident.y = fe_one(P);
+  ident.z = fe_zero();
+  Jac q;
+  q.x = qx;
+  q.y = qy;
+  q.z = fe_one(P);
+  o = jac_select(h0 && r0, dbl, o);
+  o = jac_select(h0 && !r0, ident, o);
+  o = jac_select(q_ident && !id1, p, o);
+  o = jac_select(id1 && !q_ident, q, o);
+  o = jac_select(id1 && q_ident, ident, o);
   return o;
 }
 

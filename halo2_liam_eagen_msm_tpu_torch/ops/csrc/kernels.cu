@@ -1,4 +1,4 @@
-// The six kernels of the MSM slice and their C launchers.  Each kernel is one
+// The eight kernels of the MSM and carry-stage slices and their C launchers.  Each kernel is one
 // thread per element (per lane for the scan): it reads its (16,) rows, does
 // the whole formula in registers (ff.cuh, ec.cuh) and writes its rows back.
 // No kernel allocates or synchronises; a launcher enqueues on the stream it
@@ -6,7 +6,7 @@
 //
 // What bounds them on this card: mont_mul and mont_addsub move 192 bytes for
 // at most 136 multiply-adds of 32 bits and are bound by bytes; the curve
-// kernels do 7 to 23 field products on 6 to 9 rows and sit at the crossover
+// kernels do 7 to 23 field products on 5 to 10 rows and sit at the crossover
 // of bytes and integer operations.  So every kernel keeps all intermediates
 // of its formula in registers and touches device memory once per input and
 // output, in 16-byte accesses.
@@ -149,6 +149,61 @@ fused_madd_scan_xyzz_kernel(FieldParams P, Fe tx, Fe ty,
   exc[lane] = any ? 1 : 0;
 }
 
+// ---- 7. ec_madd_xyzz_fast: replaces pallas_ff.ec_madd_xyzz_fast -----------------
+//
+// One step of the blinded XYZZ prefix scan as a kernel of its own, for scans
+// that step through their rows in Python (card windows below
+// ops/msm.FUSED_SCAN_MIN_ROWS points, which the fused scan would walk with a
+// handful of threads).  10 products on 6 rows in, 4 rows and a flag byte out:
+// bound by bytes, and by the launch itself at the widths it is called with
+// (half a window's points, so fewer than FUSED_SCAN_MIN_ROWS / 2 lanes).
+
+__global__ void __launch_bounds__(BLOCK)
+ec_madd_xyzz_fast_kernel(FieldParams P, const uint32_t* x1, const uint32_t* y1,
+                         const uint32_t* zz1, const uint32_t* zzz1,
+                         const uint32_t* qx, const uint32_t* qy,
+                         uint32_t* ox, uint32_t* oy, uint32_t* ozz, uint32_t* ozzz,
+                         uint8_t* exc, int64_t n) {
+  int64_t i = global_index();
+  if (i >= n) return;
+  Xyzz c;
+  c.x = fe_load(x1 + i * ELEMS_PER_ROW);
+  c.y = fe_load(y1 + i * ELEMS_PER_ROW);
+  c.zz = fe_load(zz1 + i * ELEMS_PER_ROW);
+  c.zzz = fe_load(zzz1 + i * ELEMS_PER_ROW);
+  bool e;
+  Xyzz r = ec_madd_xyzz_fast(c, fe_load(qx + i * ELEMS_PER_ROW),
+                             fe_load(qy + i * ELEMS_PER_ROW), P, &e);
+  fe_store(ox + i * ELEMS_PER_ROW, r.x);
+  fe_store(oy + i * ELEMS_PER_ROW, r.y);
+  fe_store(ozz + i * ELEMS_PER_ROW, r.zz);
+  fe_store(ozzz + i * ELEMS_PER_ROW, r.zzz);
+  exc[i] = e ? 1 : 0;
+}
+
+// ---- 8. ec_add_mixed: replaces pallas_ff.ec_add_mixed ---------------------------
+//
+// Complete Jacobian + affine add, the step of the safe flavor's prefix scan.
+// 18 products (the generic sum and the doubling, both computed, then
+// selected) on 5 rows and one mask byte in, 3 rows out: bytes and operations
+// nearly level, bytes the larger by a hair (513 bytes against 18 products and
+// 21 adds an element).
+// The JAX package streams the identity mask as a (B, 16) row; here it is one
+// byte an element.
+
+__global__ void __launch_bounds__(BLOCK)
+ec_add_mixed_kernel(FieldParams P, const uint32_t* x1, const uint32_t* y1,
+                    const uint32_t* z1, const uint32_t* qx, const uint32_t* qy,
+                    const uint8_t* __restrict__ q_ident,
+                    uint32_t* ox, uint32_t* oy, uint32_t* oz, int64_t n) {
+  int64_t i = global_index();
+  if (i >= n) return;
+  Jac r = ec_add_mixed_complete(jac_load(x1, y1, z1, i),
+                                fe_load(qx + i * ELEMS_PER_ROW),
+                                fe_load(qy + i * ELEMS_PER_ROW), q_ident[i] != 0, P);
+  jac_store(ox, oy, oz, i, r);
+}
+
 // ---- C launchers ------------------------------------------------------------
 
 extern "C" {
@@ -219,6 +274,31 @@ int fused_madd_scan_xyzz_launch(const FieldParams* P, const uint32_t* tx, const 
         (uint32_t*)totx, (uint32_t*)toty, (uint32_t*)totzz, (uint32_t*)totzzz,
         (uint8_t*)exc);
   }
+  return (int)cudaGetLastError();
+}
+
+int ec_madd_xyzz_fast_launch(const FieldParams* P, const void* x1, const void* y1,
+                             const void* zz1, const void* zzz1, const void* qx,
+                             const void* qy, void* ox, void* oy, void* ozz, void* ozzz,
+                             void* exc, int64_t n, void* stream) {
+  if (n > 0)
+    ec_madd_xyzz_fast_kernel<<<grid_for(n, BLOCK), BLOCK, 0, (cudaStream_t)stream>>>(
+        *P, (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)zz1,
+        (const uint32_t*)zzz1, (const uint32_t*)qx, (const uint32_t*)qy,
+        (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)ozz, (uint32_t*)ozzz,
+        (uint8_t*)exc, n);
+  return (int)cudaGetLastError();
+}
+
+int ec_add_mixed_launch(const FieldParams* P, const void* x1, const void* y1,
+                        const void* z1, const void* qx, const void* qy,
+                        const void* q_ident, void* ox, void* oy, void* oz,
+                        int64_t n, void* stream) {
+  if (n > 0)
+    ec_add_mixed_kernel<<<grid_for(n, BLOCK), BLOCK, 0, (cudaStream_t)stream>>>(
+        *P, (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)z1,
+        (const uint32_t*)qx, (const uint32_t*)qy, (const uint8_t*)q_ident,
+        (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, n);
   return (int)cudaGetLastError();
 }
 

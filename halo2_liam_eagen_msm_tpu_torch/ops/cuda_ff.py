@@ -1,7 +1,8 @@
 """CUDA kernels for field and curve arithmetic, with their plain versions.
 
-The counterpart of the JAX package's ops/pallas_ff.py.  Six kernels carry the
-MSM (sources under ops/csrc/, CUDA C++ for sm_90a):
+The counterpart of the JAX package's ops/pallas_ff.py.  Eight kernels carry the
+MSM and the argument's carry stage (sources under ops/csrc/, CUDA C++ for
+sm_90a):
 
   kernel                  replaces (ops/pallas_ff.py)   what it computes
   mont_mul                mont_mul                      a*b*R^-1 mod p
@@ -11,6 +12,10 @@ MSM (sources under ops/csrc/, CUDA C++ for sm_90a):
   ec_double               ec_double                     Jacobian doubling
   fused_madd_scan_xyzz    fused_madd_scan_xyzz          one window's blinded
                                                         XYZZ prefix scan
+  ec_madd_xyzz_fast       ec_madd_xyzz_fast             one XYZZ + affine step
+                                                        with a flag
+  ec_add_mixed            ec_add_mixed                  complete Jacobian +
+                                                        affine add
 
 On this card mont_mul and mont_addsub are bound by bytes (192 bytes moved for
 at most 136 multiply-adds of 32 bits), and the curve kernels sit at the
@@ -26,9 +31,7 @@ of the checkout and loaded with ctypes.
 Beside every kernel stands its plain PyTorch version, `<name>_plain`: the same
 function on the same tensors, device-agnostic, in int64 arithmetic.  The
 callers (ops/ff.py, ops/ec.py, ops/msm.py) take the kernel for a CUDA tensor
-and the plain version for a CPU tensor.  `ec_add_mixed_plain` and
-`ec_madd_xyzz_fast_plain` have no kernel yet (pallas_ff.ec_add_mixed and
-pallas_ff.ec_madd_xyzz_fast are still to be ported).
+and the plain version for a CPU tensor.
 
 LAUNCHES counts kernel launches by name: a wrapper adds one exactly where it
 launches its kernel.
@@ -49,7 +52,7 @@ import torch
 from ..fields import CurveSpec, FieldSpec, LIMB_BITS, LIMB_MASK, N_LIMBS, R
 
 KERNELS = ("mont_mul", "mont_addsub", "ec_add", "ec_add_fast", "ec_double",
-           "fused_madd_scan_xyzz")
+           "fused_madd_scan_xyzz", "ec_madd_xyzz_fast", "ec_add_mixed")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 SCAN_W = 64  # sequential madd steps per lane of the fused scan
@@ -143,6 +146,8 @@ def _lib():
             "ec_double_launch": [fpp] + [vp] * 6 + [i64, vp],
             "fused_madd_scan_xyzz_launch":
                 [fpp, u32p, u32p, vp, ci, i64] + [vp] * 9 + [vp],
+            "ec_madd_xyzz_fast_launch": [fpp] + [vp] * 11 + [i64, vp],
+            "ec_add_mixed_launch": [fpp] + [vp] * 9 + [i64, vp],
         }
         for name, argtypes in sigs.items():
             fn = getattr(lib, name)
@@ -251,6 +256,39 @@ def ec_double(curve: CurveSpec, x1, y1, z1):
     outs = tuple(torch.empty_like(flat[0]) for _ in range(3))
     _launch("ec_double", flat[0].device, ctypes.byref(_field_params(curve.field)),
             *_ptrs(flat + outs), flat[0].shape[0])
+    return tuple(o.reshape(lead + (N_LIMBS,)) for o in outs)
+
+
+def ec_madd_xyzz_fast(curve: CurveSpec, x1, y1, zz1, zzz1, qx, qy):
+    """Batched XYZZ + affine addition without exceptional paths, one kernel
+    launch: returns (x3, y3, zz3, zzz3, exc) with exc a (...,) bool tensor
+    (identity carry or carry == +-Q; the affine identity qy == 0 passes the
+    carry through unflagged)."""
+    _check_cuda("ec_madd_xyzz_fast", x1, y1, zz1, zzz1, qx, qy)
+    lead, flat = _flatten(x1, y1, zz1, zzz1, qx, qy)
+    outs = tuple(torch.empty_like(flat[0]) for _ in range(4))
+    exc = torch.empty(flat[0].shape[0], dtype=torch.uint8, device=flat[0].device)
+    _launch("ec_madd_xyzz_fast", flat[0].device,
+            ctypes.byref(_field_params(curve.field)),
+            *_ptrs(flat + outs), exc.data_ptr(), flat[0].shape[0])
+    return tuple(o.reshape(lead + (N_LIMBS,)) for o in outs) + \
+        (exc.reshape(lead) != 0,)
+
+
+def ec_add_mixed(curve: CurveSpec, x1, y1, z1, qx, qy, q_is_identity):
+    """Batched complete Jacobian + affine addition, one kernel launch.
+    q_is_identity: (...,) bool mask of the affine identity slots; the kernel
+    reads it as one byte an element."""
+    _require_a_zero(curve)
+    _check_cuda("ec_add_mixed", x1, y1, z1, qx, qy)
+    if q_is_identity.dtype != torch.bool or q_is_identity.device != x1.device:
+        raise TypeError("ec_add_mixed: q_is_identity must be a bool tensor on "
+                        "the device of the points")
+    lead, flat = _flatten(x1, y1, z1, qx, qy)
+    mask = q_is_identity.expand(lead).reshape(-1).contiguous()  # 1 byte a bool
+    outs = tuple(torch.empty_like(flat[0]) for _ in range(3))
+    _launch("ec_add_mixed", flat[0].device, ctypes.byref(_field_params(curve.field)),
+            *_ptrs(flat), mask.data_ptr(), *_ptrs(outs), flat[0].shape[0])
     return tuple(o.reshape(lead + (N_LIMBS,)) for o in outs)
 
 
@@ -551,9 +589,8 @@ def ec_add_fast_plain(curve: CurveSpec, x1, y1, z1, x2, y2, z2):
 
 
 def ec_add_mixed_plain(curve: CurveSpec, x1, y1, z1, qx, qy, q_is_identity):
-    """Complete Jacobian + affine addition (madd-2007-bl with mask dispatch);
-    q_is_identity: (...,) bool.  Its kernel (pallas_ff.ec_add_mixed) is still
-    to be ported."""
+    """Plain version of ec_add_mixed: complete Jacobian + affine addition
+    (madd-2007-bl with mask dispatch); q_is_identity: (...,) bool."""
     f = _PlainField(curve.field)
     x1, y1, z1, qx, qy = _broadcast_rows(x1, y1, z1, qx, qy)
     z1z1 = f.sqr(z1)
@@ -575,11 +612,10 @@ def ec_add_mixed_plain(curve: CurveSpec, x1, y1, z1, qx, qy, q_is_identity):
 
 
 def ec_madd_xyzz_fast_plain(curve: CurveSpec, x1, y1, zz1, zzz1, qx, qy):
-    """XYZZ + affine addition (madd-2008-s) without exceptional paths:
-    returns (x3, y3, zz3, zzz3, exc).  The affine identity (qy == 0) passes
-    the carry through unflagged; an identity carry or carry == +-Q is
-    flagged.  As one step it has no kernel yet (pallas_ff.ec_madd_xyzz_fast is
-    still to be ported); the fused scan kernel runs it in its loop."""
+    """Plain version of ec_madd_xyzz_fast: XYZZ + affine addition
+    (madd-2008-s) without exceptional paths: returns (x3, y3, zz3, zzz3,
+    exc).  The affine identity (qy == 0) passes the carry through unflagged;
+    an identity carry or carry == +-Q is flagged."""
     f = _PlainField(curve.field)
     x1, y1, zz1, zzz1, qx, qy = _broadcast_rows(x1, y1, zz1, zzz1, qx, qy)
     u2 = f.mul(qx, zz1)

@@ -1,6 +1,7 @@
 """Batched Jacobian-coordinate elliptic curve ops.
 
-Counterpart of the JAX package's ops/ec.py, as far as the MSM needs it.
+Counterpart of the JAX package's ops/ec.py, as far as the MSM and the
+argument's carry stage need it.
 
   * points are structure-of-arrays (X, Y, Z) limb tensors, batched over
     leading axes
@@ -8,11 +9,10 @@ Counterpart of the JAX package's ops/ec.py, as far as the MSM needs it.
     cases are computed in parallel and mask-selected
   * identity is encoded as Z == 0
 
-Routing is by the tensor: on a CUDA tensor `double`, `add` and `add_fast`
-launch their kernels (ops/cuda_ff.py); on a CPU tensor they run the kernels'
-plain versions.  `add_mixed` and `madd_xyzz_fast` have a plain version only:
-on a CUDA tensor they raise, naming the kernel still to be ported.
-scalar_mul_small, projective_coords and add_mixed_fast are not ported yet.
+Routing is by the tensor: on a CUDA tensor `double`, `add`, `add_fast`,
+`add_mixed` and `madd_xyzz_fast` launch their kernels (ops/cuda_ff.py); on a
+CPU tensor they run the kernels' plain versions.  projective_coords and
+add_mixed_fast are not ported yet.
 
 All supported curves (Pallas, Vesta, Grumpkin) have a = 0.
 """
@@ -105,12 +105,8 @@ class EC:
     def add_mixed(self, p: JPoint, qx, qy, q_is_identity) -> JPoint:
         """p + affine(qx, qy), complete (madd-2007-bl + mask dispatch).
         q_is_identity: (...,) bool mask for affine identity slots."""
-        if p.x.is_cuda:
-            raise NotImplementedError(
-                "EC.add_mixed on a CUDA tensor needs the kernel that replaces "
-                "pallas_ff.ec_add_mixed, which is still to be ported")
-        return JPoint(*cuda_ff.ec_add_mixed_plain(
-            self.curve, p.x, p.y, p.z, qx, qy, q_is_identity))
+        fn = cuda_ff.ec_add_mixed if p.x.is_cuda else cuda_ff.ec_add_mixed_plain
+        return JPoint(*fn(self.curve, p.x, p.y, p.z, qx, qy, q_is_identity))
 
     # ------------------------------------------------------------- XYZZ form
     # x = X/ZZ, y = Y/ZZZ with ZZ^3 = ZZZ^2; identity encoded ZZ = ZZZ = 0.
@@ -121,12 +117,8 @@ class EC:
         """XYZZ + affine fast add: returns (x3, y3, zz3, zzz3, exc).  The
         affine identity is encoded as qy == 0 and passes through unflagged;
         an identity carry or carry == +-Q is flagged."""
-        if x.is_cuda:
-            raise NotImplementedError(
-                "EC.madd_xyzz_fast on a CUDA tensor needs the kernel that "
-                "replaces pallas_ff.ec_madd_xyzz_fast, which is still to be "
-                "ported (the fused scan kernel covers the MSM's use of it)")
-        return cuda_ff.ec_madd_xyzz_fast_plain(self.curve, x, y, zz, zzz, qx, qy)
+        fn = cuda_ff.ec_madd_xyzz_fast if x.is_cuda else cuda_ff.ec_madd_xyzz_fast_plain
+        return fn(self.curve, x, y, zz, zzz, qx, qy)
 
     def xyzz_offset(self, shape=(), device="cuda"):
         """The blinding point T in XYZZ form (affine, so ZZ = ZZZ = 1)."""
@@ -186,6 +178,20 @@ class EC:
         return JPoint(x, y, z)
 
     # ------------------------------------------------------------ arithmetic
+    def scalar_mul_small(self, p: JPoint, k: int) -> JPoint:
+        """p * k for a small static k >= 0 (double-and-add over the bits of
+        k; the carry stage's carry * base).  k = 0 gives the identity."""
+        if k < 0:
+            raise ValueError("scalar_mul_small: k must be non-negative")
+        if k == 0:
+            return self.identity(tuple(p.z.shape[:-1]), p.z.device)
+        acc = p
+        for bit in bin(k)[3:]:
+            acc = self.double(acc)
+            if bit == "1":
+                acc = self.add(acc, p)
+        return acc
+
     def sum(self, p: JPoint, axis: int = 0) -> JPoint:
         """Reduce a batch of points along `axis` of the limb tensors (0 is the
         first axis, -2 the last point axis; other leading axes ride along).  On the card: a scan of full-width complete adds down to

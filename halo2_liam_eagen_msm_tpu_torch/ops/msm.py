@@ -1,7 +1,8 @@
-"""Pippenger multi-scalar multiplication (best_multiexp).
+"""Pippenger multi-scalar multiplication (best_multiexp) and the per-round
+digit sums of the Eagen argument's carry stage (round_sums).
 
-Counterpart of the JAX package's ops/msm.py, without the radix reorder and
-without round_sums (the argument's carry stage), which are not ported yet.
+Counterpart of the JAX package's ops/msm.py, without the radix reorder, which
+is not ported yet.
 
 Sort-first bucket method with no scatter of points:
 
@@ -21,12 +22,16 @@ Sort-first bucket method with no scatter of points:
 
 If any flag is set (inputs aligned with T), the whole MSM is recomputed with
 complete adds (the "safe" flavor), so the result is exact for every input.
+round_sums keeps the flags per round and recomputes only the flagged rounds.
 
 Point arrays are (..., N, 16) per coordinate: every scan here runs along the
 last point axis and lets leading axes ride along.  On the CPU the windows of
 one MSM run together on such a leading axis (eager PyTorch pays per op, not
-per element, at test sizes); on the card they run one after another, each
-through the fused scan kernel (cuda_ff.fused_madd_scan_xyzz).
+per element, at test sizes); on the card they run one after another.  There a
+window of at least FUSED_SCAN_MIN_ROWS points goes through the fused scan
+kernel (cuda_ff.fused_madd_scan_xyzz); a smaller one steps through its rows
+with cuda_ff.ec_madd_xyzz_fast, as the JAX package does for windows that are
+no multiple of its fused scan's unit.
 """
 
 from __future__ import annotations
@@ -41,6 +46,20 @@ from ..limbs import ints_to_limbs, ints_to_mont_limbs
 from . import cuda_ff
 from .ec import EC, JPoint, SUM_G, ec
 
+
+# Card windows below this many points take the stepwise blinded scan (w =
+# _pick_block_width launches of ec_madd_xyzz_fast), larger ones the fused scan
+# kernel, which pads to SCAN_W rows a lane and so has only n/64 threads, each
+# walking 64 dependent steps.  The JAX package draws the line at its fused
+# scan's unit of 64 * 1024 rows.  Here chip_smoke.py times one window by both
+# routes at 2^6 to 2^16 points.  On the wall clock, which the host paces, the
+# fused route wins at every size (its offsets scan runs over n/64 lanes, the
+# stepwise one over n/w >= n/64, each round a launch).  On the device's busy
+# time the stepwise route is the cheaper one up to 2^14.  So the line is not a
+# measured crossover: it keeps the stepwise route alive, at sizes where it
+# costs a few ms a window and no prover's traffic lies, as the route to widen
+# once a window's launches are batched and the device's time is what counts.
+FUSED_SCAN_MIN_ROWS = 1 << 8
 
 # ---------------------------------------------------------------------------
 # generic blocked scans over point arrays
@@ -422,9 +441,9 @@ def best_multiexp(
 
 
 def _make_one_window(E: EC, c: int, flavor: str, pay, n: int):
-    """Build the per-window bucket-sum closure (each round of the Eagen
-    argument's carry stage IS one Pippenger window, so this is what its port
-    will reuse).
+    """Build the per-window bucket-sum closure shared by best_multiexp and
+    round_sums (each round of the Eagen argument's carry stage IS one
+    Pippenger window: S_k = sum_j d_kj * P_j with d_kj < base <= 2^c).
 
     pay: (N, 16) packed affine rows (_pack_pair); returns one_window(keys)
     mapping (..., N) int32 keys in [0, 2^c) to sum_b b * B_b: a point for the
@@ -536,7 +555,7 @@ def _make_one_window(E: EC, c: int, flavor: str, pay, n: int):
                                     device=dev)
 
         rows, hi = classic_rows_hi()
-        if rows.is_cuda:
+        if rows.is_cuda and n >= FUSED_SCAN_MIN_ROWS:
             inner_at, offsets, w, exc = scan_packed_padded(rows, n)
         else:
             sx, sy = _unpack_pair(rows)
@@ -554,6 +573,26 @@ def _make_one_window(E: EC, c: int, flavor: str, pay, n: int):
 # windows of one MSM that run together on a leading axis on the CPU: as many
 # as keep windows * max(n, 2^c) rows at or below this
 _CPU_WINDOW_ROWS = 1 << 16
+
+
+def _run_windows(one_window, digits, n: int, c: int, flavor: str):
+    """Run one_window over the (W, N) keys: one window after another on the
+    card, several on a leading axis on the CPU.  Returns ((W,) JPoint of
+    window sums, (W,) bool flags for the "fast" flavor, else None)."""
+    num_windows = digits.shape[0]
+    if digits.is_cuda:
+        batches = [digits[i] for i in range(num_windows)]
+    else:
+        wb = max(1, _CPU_WINDOW_ROWS // max(n, 1 << c))
+        batches = [digits[i:i + wb] for i in range(0, num_windows, wb)]
+    outs = [one_window(keys) for keys in batches]
+    excs = None
+    if flavor == "fast":
+        excs = torch.cat([e.reshape(-1) for _, e in outs])
+        outs = [pt for pt, _ in outs]
+    sums = JPoint(*(torch.cat([o[k].reshape(-1, N_LIMBS) for o in outs])
+                    for k in range(3)))  # (W, 16) each
+    return sums, excs
 
 
 def _best_multiexp(curve: CurveSpec, c: int, total_bits: int, flavor: str,
@@ -575,20 +614,8 @@ def _best_multiexp(curve: CurveSpec, c: int, total_bits: int, flavor: str,
     ax, ay, _ = E.to_affine(pts)
     pay = _pack_pair(ax, ay)  # (N, 16) int32
 
-    one_window = _make_one_window(E, c, flavor, pay, n)
-    if dev.type == "cuda":
-        batches = [digits[i] for i in range(num_windows)]
-    else:
-        wb = max(1, _CPU_WINDOW_ROWS // max(n, 1 << c))
-        batches = [digits[i:i + wb] for i in range(0, num_windows, wb)]
-    outs = [one_window(keys) for keys in batches]
-
-    exc_any = None
-    if flavor == "fast":
-        exc_any = torch.stack([e.reshape(-1).any() for _, e in outs]).any()
-        outs = [pt for pt, _ in outs]
-    window_sums = JPoint(*(torch.cat([o[k].reshape(-1, N_LIMBS) for o in outs])
-                           for k in range(3)))  # (W, 16) each
+    window_sums, excs = _run_windows(_make_one_window(E, c, flavor, pay, n),
+                                     digits, n, c, flavor)
 
     acc = E.identity((), dev)
     for i in range(num_windows):
@@ -596,8 +623,46 @@ def _best_multiexp(curve: CurveSpec, c: int, total_bits: int, flavor: str,
             acc = E.double(acc)
         acc = E.add(acc, JPoint(*(cc[num_windows - 1 - i] for cc in window_sums)))
     if flavor == "fast":
-        return acc, exc_any
+        return acc, excs.any()
     return acc
+
+
+# ---------------------------------------------------------------------------
+# per-round digit sums of the argument's carry stage
+# ---------------------------------------------------------------------------
+
+def _round_sums(curve: CurveSpec, base: int, flavor: str, digits, pts: JPoint):
+    """One Pippenger window a round: S_k = sum_j digits[k, j] * P_j.
+
+    digits: (d, N) int32 in [0, base); pts: (N,).  Returns ((d,) JPoint,
+    PER-ROUND flags (d,) bool) for "fast", the (d,) JPoint for "safe"."""
+    E = ec(curve)
+    n = pts.x.shape[-2]
+    c = max(1, (base - 1).bit_length())
+    ax, ay, _ = E.to_affine(pts)
+    pay = _pack_pair(ax, ay)
+    sums, excs = _run_windows(_make_one_window(E, c, flavor, pay, n),
+                              digits, n, c, flavor)
+    if flavor == "fast":
+        return sums, excs
+    return sums
+
+
+def round_sums(curve: CurveSpec, base: int, digits, pts: JPoint) -> JPoint:
+    """Per-round digit-weighted sums for the Eagen argument's carry
+    recurrence: the blinded fast flavor with its flags checked on the host
+    (the contract of best_multiexp: exact for every input).  Only the FLAGGED
+    rounds are recomputed in the safe flavor and written over the fast
+    results.
+
+    digits: (d, N) int32 in [0, base), pts: (N,) on the same device.
+    Returns a (d,) JPoint batch."""
+    sums, excs = _round_sums(curve, base, "fast", digits, pts)
+    idx = excs.nonzero().flatten()
+    if idx.numel():
+        safe = _round_sums(curve, base, "safe", digits[idx], pts)
+        sums = JPoint(*(s.index_copy(0, idx, v) for s, v in zip(sums, safe)))
+    return sums
 
 
 # ---------------------------------------------------------------------------

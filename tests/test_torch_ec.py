@@ -128,6 +128,19 @@ def test_mixed_adds_vs_jax_and_pyref(curve, rng):
         [w for i, w in enumerate(want) if i not in (0, 3, 4)]
 
 
+@pytest.mark.parametrize("k", [0, 1, 2, 5, 7])
+def test_scalar_mul_small_vs_pyref(k, rng):
+    curve = PALLAS
+    E = ec(curve)
+    pts = pyref.random_points(rng, curve, 4)
+    pts[1] = None  # an identity lane
+    got = E.scalar_mul_small(E.points_from_ints(pts, "cpu"), k)
+    assert tuple(got.x.shape) == (4, 16)
+    assert E.points_to_ints(got) == [pyref.ec_mul(p, k, curve) for p in pts]
+    with pytest.raises(ValueError):
+        E.scalar_mul_small(got, -1)
+
+
 def test_constants_conversions_sum(rng):
     curve = PALLAS
     E, JE = ec(curve), jax_ec(JF.PALLAS)

@@ -16,6 +16,8 @@ import {PKG}
 import {PKG}.ops.msm
 import {PKG}.ops.cuda_ff
 import {PKG}.convert
+import {PKG}.argument
+import {PKG}.negbase
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "{JAX_PKG}" or m.startswith("{JAX_PKG}."))

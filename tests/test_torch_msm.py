@@ -1,6 +1,6 @@
 """MSM layer of the PyTorch port: the blocked scans, the fused scan's plain
-version, and best_multiexp against the exact Python-int oracle and against
-the JAX package on the same numpy inputs.
+version, best_multiexp and round_sums against the exact Python-int oracle,
+and best_multiexp against the JAX package on the same inputs.
 
 All on the CPU, on the plain versions.  Integer arithmetic: every comparison
 is exact.  Points are compared as affine integers where the add order may
@@ -163,6 +163,20 @@ def test_pick_window():
     assert M.pick_window(1 << 20) == 15
 
 
+def _jax_msm_256(scalars, pts):
+    """The JAX package's MSM of the same scalars and points (Pallas), at the
+    one static signature both JAX-comparing cases share, n = 256, c = 4,
+    full-width scalars, so that the JAX graph is traced and compiled once a
+    process; shorter inputs are padded with identity points and zero scalars,
+    which add nothing to the sum."""
+    from halo2_liam_eagen_msm_tpu import fields as JF
+    from halo2_liam_eagen_msm_tpu.ops import msm as jax_msm
+
+    pad = 256 - len(pts)
+    return jax_msm.msm_ints(JF.PALLAS, list(scalars) + [0] * pad,
+                            list(pts) + [None] * pad, c=4)
+
+
 def _small_case(rng, curve):
     q = curve.scalar_field.p
     n = 16
@@ -178,15 +192,11 @@ def _small_case(rng, curve):
 
 @pytest.mark.medium
 def test_msm_small_vs_jax_and_pyref(rng):
-    """The slice as a whole: the same numpy points and scalars through the JAX
-    package's best_multiexp and the port's (n = 16, c = 8, full-width
-    scalars, Pallas), equal as affine integers, and equal to the oracle."""
-    import jax.numpy as jnp
-
-    from halo2_liam_eagen_msm_tpu import fields as JF
-    from halo2_liam_eagen_msm_tpu.ops import ec as jax_ec_mod
-    from halo2_liam_eagen_msm_tpu.ops import msm as jax_msm
-
+    """The slice as a whole: the same points and scalars through the JAX
+    package's MSM and the port's best_multiexp (n = 16, c = 8, full-width
+    scalars, Pallas, from numpy limb arrays), equal as affine integers, and
+    equal to the oracle.  (The JAX package's own small-n safe path is held
+    against the port in test_torch_argument.py.)"""
     curve = PALLAS
     scalars, pts = _small_case(rng, curve)
     spec = curve.field
@@ -200,13 +210,7 @@ def test_msm_small_vs_jax_and_pyref(rng):
                           jpoint_from_numpy(xs, ys, zs, "cpu"), c=8)
     got = E.points_to_ints(JPoint(*(c[None] for c in res)))[0]
     assert got == pyref.ec_msm(scalars, pts, curve)
-
-    JE = jax_ec_mod.ec(JF.PALLAS)
-    jres = jax_msm.best_multiexp(
-        JF.PALLAS, jnp.asarray(sc),
-        jax_ec_mod.JPoint(jnp.asarray(xs), jnp.asarray(ys), jnp.asarray(zs)), 8)
-    jgot = JE.points_to_ints(jax_ec_mod.JPoint(jres.x[None], jres.y[None], jres.z[None]))[0]
-    assert got == jgot
+    assert got == _jax_msm_256(scalars, pts)
 
 
 @pytest.mark.medium
@@ -272,9 +276,6 @@ def test_msm_adversarial_input_falls_back(rng):
 def test_msm_larger_batch_vs_jax_and_pyref(rng):
     """n = 256, c = 4, 64-bit scalars (the fast flavor), duplicate points:
     port == JAX package == oracle, as affine integers."""
-    from halo2_liam_eagen_msm_tpu import fields as JF
-    from halo2_liam_eagen_msm_tpu.ops import msm as jax_msm
-
     curve = PALLAS
     n = 256
     pts = pyref.random_points(rng, curve, n)
@@ -282,7 +283,82 @@ def test_msm_larger_batch_vs_jax_and_pyref(rng):
     pts[10] = pts[11] = pts[12]
     got = M.msm_ints(curve, scalars, pts, c=4, max_scalar_bits=64, device="cpu")
     assert got == pyref.ec_msm(scalars, pts, curve)
-    assert got == jax_msm.msm_ints(JF.PALLAS, scalars, pts, c=4, max_scalar_bits=64)
+    assert got == _jax_msm_256(scalars, pts)
+
+
+# ---------------------------------------------------------------------------
+# round_sums (the argument's carry stage: one window a round)
+# ---------------------------------------------------------------------------
+
+def _round_digits(rng, d, n, base=5):
+    return np.array([[rng.randrange(base) for _ in range(n)] for _ in range(d)],
+                    dtype=np.int32)
+
+
+def _round_oracle(digits, pts, curve):
+    return [pyref.ec_msm(row, pts, curve) for row in digits.tolist()]
+
+
+def test_round_sums_safe_path(rng):
+    """n = 8 < 64: every round takes the complete-add path; an all-zero and
+    an all-max round among them."""
+    curve = PALLAS
+    E = ec(curve)
+    n, base, d = 8, 5, 6
+    pts = pyref.random_points(rng, curve, n)
+    digits = _round_digits(rng, d, n)
+    digits[0, :] = 0
+    digits[1, :] = base - 1
+    got = M.round_sums(curve, base, torch.from_numpy(digits), E.points_from_ints(pts, "cpu"))
+    assert tuple(got.x.shape) == (d, N_LIMBS)
+    assert E.points_to_ints(got) == _round_oracle(digits, pts, curve)
+
+
+def test_round_sums_fast_flavor(rng):
+    """n = 70: the blinded fast flavor on an odd n with an identity point, a
+    repeated point and an all-zero round (every bucket empty); no round is
+    flagged and every round is exact."""
+    curve = PALLAS
+    E = ec(curve)
+    n, base, d = 70, 5, 4
+    pts = pyref.random_points(rng, curve, n)
+    pts[3] = None
+    pts[10] = pts[11] = pts[12]
+    digits = _round_digits(rng, d, n)
+    digits[0, :] = 0
+    dt = torch.from_numpy(digits)
+    batch = E.points_from_ints(pts, "cpu")
+    want = _round_oracle(digits, pts, curve)
+    sums, excs = M._round_sums(curve, base, "fast", dt, batch)
+    assert excs.dtype == torch.bool and not excs.any()
+    assert E.points_to_ints(sums) == want
+    assert E.points_to_ints(M.round_sums(curve, base, dt, batch)) == want
+    assert E.points_to_ints(M._round_sums(curve, base, "safe", dt, batch)) == want
+
+
+def test_round_sums_flags_one_round_and_recomputes_it(rng):
+    """Point 0 is -T.  In round 2 it has digit 1 and every other digit is in
+    [2, 5), so it sorts first and the blinded scan opens with T + (-T): the
+    fast flavor flags exactly that round, and round_sums recomputes it with
+    complete adds and is exact in every round.  In the other rounds -T has
+    digit 4 behind an odd number of smaller digits, so it opens no lane."""
+    curve = PALLAS
+    E = ec(curve)
+    n, base, d, flagged = 64, 5, 4, 2
+    pts = pyref.random_points(rng, curve, n)
+    pts[0] = pyref.ec_neg(E.offset_point_ints(), curve)
+    digits = _round_digits(rng, d, n)
+    digits[:, 0] = base - 1
+    for k in range(d):
+        if (digits[k] < base - 1).sum() % 2 == 0:
+            digits[k, 1] = 0 if digits[k, 1] == base - 1 else base - 1
+    digits[flagged] = [1] + [rng.randrange(2, base) for _ in range(n - 1)]
+    dt = torch.from_numpy(digits)
+    batch = E.points_from_ints(pts, "cpu")
+    _, excs = M._round_sums(curve, base, "fast", dt, batch)
+    assert excs.tolist() == [k == flagged for k in range(d)]
+    assert E.points_to_ints(M.round_sums(curve, base, dt, batch)) == \
+        _round_oracle(digits, pts, curve)
 
 
 def test_cuda_entry_points_raise_without_a_card():

@@ -32,7 +32,24 @@ without a card, and on any failed build, failed launch or mismatch.  It
   7. times one window by the fused and the stepwise scan at 2^6 to 2^16
      points, on the host clock and as the device's busy time (torch.profiler),
      and requires equal window sums,
-  8. prints one JSON line describing the kernels and, last, one JSON line
+  8. holds the divisor merge tree's five limb-major kernels (ops/csrc/ntt.cuh)
+     against their plain versions at a ragged size and at the shapes one
+     round gives them, runs a 2^21 transform forward and back (n x back), and
+     the limb-major forward transform against the element-major one,
+  9. drives one full-width round of the argument's witness: round 28 of the
+     carry stage's 2^20 points (1,048,582 slots, 20 merge levels, 15 of them
+     fused) through compute_divisor_witness_partial on the card; the output
+     must be the identity, the witness must vanish at 64 sampled slots (on
+     the card, and at two of them by Python-int Horner on the host), no level
+     may take the coefficient fallback, and each of the five kernels must
+     have been launched,
+ 10. drives argument.compute_lhs_witness_streamed whole at a cut width,
+     2^10 points x 56 rounds: final carry equal to the Python-int oracle and
+     to best_multiexp, every round closing, round 28 equal limb for limb to
+     the same round computed on the CPU by the plain versions,
+ 11. drives the exact fallback of a fused level on the card (128 points whose
+     two halves are equal: a degenerate line) against the CPU result,
+ 12. prints one JSON line describing the kernels and, last, one JSON line
      {"ok": true, "device": {...}}.
 
 Each kernel's bound is the least time the card could take for the same work:
@@ -42,6 +59,8 @@ data sheet states no int32 rate; an SM has 64 int32 lanes beside its 128
 float32 lanes, so the rate is taken as half the 67 TFLOP/s float32 figure
 (one multiply-add = 2 operations).  A field product counts 136 multiply-adds
 (8x8 for a*b, 8x8 for m*p, 8 for m), a field add/sub 8 word additions.
+A butterfly stage counts half a product and one add/sub an element, and its
+twiddles (s rows for a stage of half-size s) once.
 """
 
 from __future__ import annotations
@@ -57,12 +76,16 @@ import numpy as np
 import torch
 
 from halo2_liam_eagen_msm_tpu_torch import argument as A
-from halo2_liam_eagen_msm_tpu_torch.convert import JPoint, digits_to_rounds, limbs_from_numpy
+from halo2_liam_eagen_msm_tpu_torch import divisor as D
+from halo2_liam_eagen_msm_tpu_torch.convert import (
+    JPoint, digits_to_rounds, limbs_from_numpy, limbs_to_numpy)
 from halo2_liam_eagen_msm_tpu_torch.fields import PALLAS, N_LIMBS
-from halo2_liam_eagen_msm_tpu_torch.limbs import ints_to_mont_limbs
+from halo2_liam_eagen_msm_tpu_torch.limbs import ints_to_mont_limbs, mont_limbs_to_ints
 from halo2_liam_eagen_msm_tpu_torch.negbase import negbase_decompose_batch
 from halo2_liam_eagen_msm_tpu_torch.ops import cuda_ff as CF
+from halo2_liam_eagen_msm_tpu_torch.ops import cuda_ntt as CN
 from halo2_liam_eagen_msm_tpu_torch.ops import msm as M
+from halo2_liam_eagen_msm_tpu_torch.ops import ntt as NTT
 from halo2_liam_eagen_msm_tpu_torch.ops.ec import ec
 from halo2_liam_eagen_msm_tpu_torch.utils import pyref
 
@@ -73,23 +96,32 @@ ADD_OPS = 8         # one field add/sub/double
 ROW_BYTES = 4 * N_LIMBS
 SPIN_CYCLES_PER_S = 2.0e9  # upper estimate of the card's clock, for the spin kernel
 
-SOURCE = "halo2_liam_eagen_msm_tpu_torch/ops/csrc/kernels.cu"
+CSRC = "halo2_liam_eagen_msm_tpu_torch/ops/csrc/"
 PALLAS_FF = "halo2_liam_eagen_msm_tpu/ops/pallas_ff.py"
-# kernel -> (line of the TPU kernel's function, field products, field adds,
-#            rows read + written per element)
+PALLAS_NTT = "halo2_liam_eagen_msm_tpu/ops/pallas_ntt.py"
+# kernel -> (source, TPU kernel's file, line of its function, field products,
+#            field adds, rows read + written per element; per stage for
+#            stages_small)
 KERNEL_TABLE = {
-    "mont_mul": (515, 1, 0, 3),
-    "mont_addsub": (541, 0, 1, 3),
-    "ec_add": (568, 23, 21, 9),
-    "ec_add_fast": (630, 16, 7, 9),
-    "ec_double": (832, 7, 14, 6),
-    "fused_madd_scan_xyzz": (740, 10, 7, 5),  # per packed row: 1 in, 4 out
-    "ec_madd_xyzz_fast": (699, 10, 7, 10),    # 6 in, 4 out (+ 1 flag byte)
-    "ec_add_mixed": (599, 18, 21, 8),         # 5 in, 3 out (+ 1 mask byte)
+    "mont_mul": ("kernels.cu", PALLAS_FF, 515, 1, 0, 3),
+    "mont_addsub": ("kernels.cu", PALLAS_FF, 541, 0, 1, 3),
+    "ec_add": ("kernels.cu", PALLAS_FF, 568, 23, 21, 9),
+    "ec_add_fast": ("kernels.cu", PALLAS_FF, 630, 16, 7, 9),
+    "ec_double": ("kernels.cu", PALLAS_FF, 832, 7, 14, 6),
+    "fused_madd_scan_xyzz": ("kernels.cu", PALLAS_FF, 740, 10, 7, 5),  # per packed row: 1 in, 4 out
+    "ec_madd_xyzz_fast": ("kernels.cu", PALLAS_FF, 699, 10, 7, 10),    # 6 in, 4 out (+ 1 flag byte)
+    "ec_add_mixed": ("kernels.cu", PALLAS_FF, 599, 18, 21, 8),         # 5 in, 3 out (+ 1 mask byte)
+    "lm_mul": ("ntt.cuh", PALLAS_NTT, 121, 1, 0, 3),
+    "lm_addsub": ("ntt.cuh", PALLAS_NTT, 136, 0, 1, 3),
+    "lm_mul_const": ("ntt.cuh", PALLAS_NTT, 152, 1, 0, 2),
+    "stage_big": ("ntt.cuh", PALLAS_NTT, 186, 0.5, 1, 2),      # + the stage's s twiddle rows
+    "stages_small": ("ntt.cuh", PALLAS_NTT, 255, 0.5, 1, 2),   # products, adds per stage
 }
 MSM_KERNELS = ("mont_mul", "mont_addsub", "ec_add", "ec_add_fast", "ec_double",
                "fused_madd_scan_xyzz")
 FALLBACK_KERNELS = ("ec_madd_xyzz_fast", "ec_add_mixed")
+ROUND_KERNELS = ("lm_mul", "lm_addsub", "lm_mul_const", "stage_big", "stages_small")
+ROUND_K = 28  # the round of the carry stage the round phase takes (= d // 2)
 BASE = 5  # radix of the argument's digit rounds
 CURVE = PALLAS
 SPEC = PALLAS.field
@@ -138,10 +170,10 @@ def time_ms(dev, fn, reps: int):
     return start.elapsed_time(end) / reps, call_ms
 
 
-def bound_ms(name: str, elems: int, extra_bytes: int = 0):
-    _, muls, adds, rows = KERNEL_TABLE[name]
+def bound_ms(name: str, elems: int, extra_bytes: int = 0, stages: int = 1):
+    *_, muls, adds, rows = KERNEL_TABLE[name]
     t_bytes = (elems * rows * ROW_BYTES + extra_bytes) / HBM_BYTES_PER_S
-    t_ops = elems * (muls * MUL_OPS + adds * ADD_OPS) / INT32_OPS_PER_S
+    t_ops = stages * elems * (muls * MUL_OPS + adds * ADD_OPS) / INT32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -287,7 +319,7 @@ def flatten_outs(out):
 
 
 def check_kernel(dev, name, kernel, plain, make_inputs, sizes, reps, elems_of=None,
-                 extra_bytes_of=None, host_check=None):
+                 extra_bytes_of=None, host_check=None, stages_of=None, shape_of=str):
     """Compare kernel and plain version at every size; time both at the last
     (the main-path shape).  Returns the kernel's record for the JSON line."""
     print(f"kernel {name}", flush=True)
@@ -311,12 +343,12 @@ def check_kernel(dev, name, kernel, plain, make_inputs, sizes, reps, elems_of=No
     ms, call_ms = time_ms(dev, lambda: kernel(*args), reps)
     elems = elems_of(size) if elems_of else size
     extra = extra_bytes_of(size) if extra_bytes_of else 0
-    b_ms, b_by = bound_ms(name, elems, extra)
-    line = KERNEL_TABLE[name][0]
-    rec = {"name": name, "route": "cuda", "source": SOURCE,
-           "replaces": f"{PALLAS_FF}:{line}", "launches": 0, "max_abs_err": worst,
+    b_ms, b_by = bound_ms(name, elems, extra, stages_of(size) if stages_of else 1)
+    src, tpu_file, line = KERNEL_TABLE[name][:3]
+    rec = {"name": name, "route": "cuda", "source": CSRC + src,
+           "replaces": f"{tpu_file}:{line}", "launches": 0, "max_abs_err": worst,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-           "library_ms": None, "shape": str(size), "call_ms": call_ms}
+           "library_ms": None, "shape": shape_of(size), "call_ms": call_ms}
     print(f"  time {name} at {size}: kernel {ms:.4f} ms on the device, {call_ms:.4f} ms "
           f"a call on the host, plain {plain_ms:.1f} ms, bound {b_ms:.5f} ms ({b_by})",
           flush=True)
@@ -570,7 +602,8 @@ def base_digit_sums(digits, distinct: int):
 def carry_path(dev, base_pts, pts: JPoint, logn: int, profile: bool):
     """argument._carries_only at 2^logn Pallas points, scalars below sqrt(q),
     base 5, all digit rounds.  Returns (best seconds of three timed runs,
-    launch counts of the first of them, the number of rounds)."""
+    launch counts of the first of them, the number of rounds, (digits,
+    carry_prev, carry_new))."""
     n = 1 << logn
     distinct = len(base_pts)
     q = CURVE.scalar_field.p
@@ -641,7 +674,7 @@ def carry_path(dev, base_pts, pts: JPoint, logn: int, profile: bool):
     if profile:
         profile_call(dev, "_carries_only",
                      lambda: A._carries_only(CURVE, BASE, digits, pts))
-    return seconds, counts, d
+    return seconds, counts, d, (digits, carry_prev, carry_new)
 
 
 # ---------------------------------------------------------------------------
@@ -775,12 +808,308 @@ def time_window_routes(dev, base_pts, logns, reps: int = 5):
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# phase 8: the merge tree's limb-major kernels
+# ---------------------------------------------------------------------------
+
+def lm_inputs(nprng, e: int, dev, edges):
+    """(16, e) random reduced elements; the first lanes hold `edges`, given
+    as raw limb values (0, 1, the Montgomery forms of p - 1 and of 1)."""
+    x = nprng.integers(0, 1 << 16, size=(e, N_LIMBS), dtype=np.uint32)
+    x[:, 15] &= 0x3FFF
+    k = min(e, len(edges))
+    x[:k] = np.stack([np.array([(v >> (16 * i)) & 0xFFFF for i in range(N_LIMBS)],
+                               dtype=np.uint32) for v in edges[:k]])
+    return CN.to_lm(limbs_from_numpy(x, dev))
+
+
+def mont(v: int) -> int:
+    return (v << 256) % SPEC.p
+
+
+EDGES_A = (0, 1, mont(SPEC.p - 1), mont(1), mont(SPEC.p - 1), 0)
+EDGES_B = (mont(SPEC.p - 1), mont(1), 1, 0, mont(SPEC.p - 1), mont(1))
+
+
+def check_ntt_kernels(dev, ragged: int, reps: int, top_logn: int):
+    """The five kernels of csrc/ntt.cuh against their plain versions at a
+    ragged size and at the shapes one round gives them (the last size of
+    each is the one timed): at 2^20 points the top level is one pair at
+    n = 2^top_logn = 2^21 and the lowest fused level 8,192 pairs at n = 128.
+    Then a 2^top_logn transform forward and back, and the limb-major forward
+    transform against the element-major one."""
+    nprng = np.random.default_rng(0x1177)
+    recs = []
+    top = 1 << top_logn
+
+    def pair(e):
+        return lm_inputs(nprng, e, dev, EDGES_A), lm_inputs(nprng, e, dev, EDGES_B)
+
+    recs.append(check_kernel(
+        dev, "lm_mul", lambda a, b: (CN.lm_mul(SPEC, a, b),),
+        lambda a, b: (CN.lm_mul_plain(SPEC, a, b),), pair, [ragged, top], reps))
+
+    def addsub(fn):
+        return lambda a, b: (fn(SPEC, False, a, b), fn(SPEC, True, a, b))
+    rec = check_kernel(dev, "lm_addsub", addsub(CN.lm_addsub), addsub(CN.lm_addsub_plain),
+                       pair, [ragged, top], reps)
+    for key in ("ms", "call_ms", "plain_ms"):  # the timed call launches twice (add, sub)
+        rec[key] /= 2
+    recs.append(rec)
+
+    n_mont = (top << 256) % SPEC.p  # the folded n of the top level
+    recs.append(check_kernel(
+        dev, "lm_mul_const", lambda a: (CN.lm_mul_const(SPEC, a, n_mont),),
+        lambda a: (CN.lm_mul_const_plain(SPEC, a, n_mont),),
+        lambda e: (lm_inputs(nprng, e, dev, EDGES_A),), [ragged, top], reps))
+
+    def stage_inputs(size):
+        """size (n, w, E): E elements of transforms of size n; w is the
+        stage's half-size for stage_big, the tile for stages_small."""
+        n, w, e = size
+        logn = n.bit_length() - 1
+        return (lm_inputs(nprng, e, dev, EDGES_A), CN.tables(SPEC, logn, False, dev),
+                CN.tables(SPEC, logn, True, dev), w)
+
+    def both_dirs(fn):
+        return lambda x, tf, ti, w: (fn(SPEC, x, w, False, tf), fn(SPEC, x, w, True, ti))
+
+    for kernel, sizes, extra, stages in (
+            ("stage_big", [(1 << 11, 1024, 3 << 11), (top, 1024, top), (top, top // 2, top)],
+             lambda size: size[1] * ROW_BYTES, None),
+            ("stages_small", [(128, 128, 3 * 128), (128, 128, top // 2), (top, 1024, top)],
+             lambda size: (size[1] - 1) * ROW_BYTES,
+             lambda size: size[1].bit_length() - 1)):
+        rec = check_kernel(
+            dev, kernel, both_dirs(getattr(CN, kernel)), both_dirs(getattr(CN, kernel + "_plain")),
+            stage_inputs, sizes, max(1, reps // 5), elems_of=lambda size: size[2],
+            extra_bytes_of=extra, stages_of=stages,
+            shape_of=lambda size: f"n = {size[0]}, {'s' if stages is None else 'tile'} = "
+                                  f"{size[1]}, E = {size[2]}")
+        for key in ("ms", "call_ms", "plain_ms"):  # forward and inverse each call
+            rec[key] /= 2
+        recs.append(rec)
+
+    print("transforms", flush=True)
+    x = lm_inputs(nprng, top, dev, EDGES_A)
+    back = CN.intt_dit_lm(SPEC, CN.ntt_dif_lm(SPEC, x, top_logn), top_logn)
+    require(torch.equal(back, CN.lm_mul_const_plain(SPEC, x, n_mont)),
+            f"intt_dit_lm(ntt_dif_lm(x)) == n x at n = 2^{top_logn}")
+    em = CN.from_lm(lm_inputs(nprng, 8 << 12, dev, EDGES_A), (8, 1 << 12))
+    require(torch.equal(CN.from_lm(CN.ntt_dif_lm(SPEC, CN.to_lm(em), 12), (8, 1 << 12)),
+                        NTT.ntt_dif(SPEC, em)),
+            "ntt_dif_lm equals the element-major ntt_dif (mont_mul, mont_addsub) on 8 "
+            "transforms at n = 2^12")
+    return recs
+
+
+# ---------------------------------------------------------------------------
+# phase 9: one full-width round of the witness
+# ---------------------------------------------------------------------------
+
+def fused_logns(slots: int):
+    """The NTT sizes (log2) of the fused levels of a merge tree over `slots`
+    points, in level order, and the number of levels."""
+    m = (slots + 1) // 2
+    la, lb, b_sem, levels, out = 2, 1, 1, 0, []
+    while m > 1:
+        b_sem *= 2
+        if la >= D.FUSE_MIN_LA:
+            out.append(D.fused_logn(la, lb))
+        la, lb = b_sem + 1, b_sem
+        m = (m + 1) // 2
+        levels += 1
+    return out, levels
+
+
+def expected_round_launches(logns):
+    f = len(logns)
+    return {"lm_mul": 14 * f, "lm_addsub": 7 * f, "lm_mul_const": f,
+            "stages_small": 6 * f, "stage_big": 6 * sum(max(0, l - 10) for l in logns)}
+
+
+def horner(coeffs, x: int) -> int:
+    p = SPEC.p
+    acc = 0
+    for c in reversed(coeffs):
+        acc = (acc * x + c) % p
+    return acc
+
+
+def round_path(dev, pts: JPoint, carry_state, profile: bool):
+    """One round of the witness at full width: round ROUND_K of the carry
+    stage's points through _one_round_slots and
+    compute_divisor_witness_partial.  Returns a dict of what it measured."""
+    digits, carry_prev, carry_new = carry_state
+    n = pts.x.shape[0]
+    slots = BASE + n + 1
+    k = ROUND_K
+    E = ec(CURVE)
+    logns, levels = fused_logns(slots)
+    print(f"round: compute_divisor_witness_partial, round {k}, n = {n}, {slots} slots, "
+          f"{levels} levels, {len(logns)} fused (NTT 2^{logns[0]} .. 2^{logns[-1]})", flush=True)
+    t0 = time.perf_counter()
+    for logn in logns:
+        D._fused_consts_dev(CURVE, logn, dev)
+    sync(dev)
+    setup_s = time.perf_counter() - t0
+    print(f"  host set-up: evaluation-domain constants and twiddle tables of the "
+          f"{len(logns)} fused sizes, built and uploaded: {setup_s:.3f} s", flush=True)
+    precomp = A.precompute_multiplicities(E, pts, BASE)
+
+    def one_round():
+        rp = A._one_round_slots(CURVE, BASE, digits[k], precomp,
+                                A._at(carry_prev, k), A._at(carry_new, k))
+        return rp, D.compute_divisor_witness_partial(CURVE, rp)
+
+    one_round()
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    runs = []
+    for i in range(2):
+        CF.reset_launch_counts()
+        D.reset_level_counts()
+        t0 = time.perf_counter()
+        rp, (w, out) = one_round()
+        sync(dev)
+        runs.append(time.perf_counter() - t0)
+        if i == 0:
+            counts, level_counts = dict(CF.LAUNCHES), dict(D.LEVEL_COUNTS)
+            peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    print("  one round: runs of " + ", ".join(f"{r:.4f}" for r in runs) + " s", flush=True)
+    print(f"  peak device memory of one round: {peak / 2**20:.0f} MiB", flush=True)
+    print(f"  levels by route: {level_counts}", flush=True)
+    want = expected_round_launches(logns)
+    print("  launches: " + ", ".join(f"{name} {counts[name]} (expected {want[name]})"
+                                     for name in ROUND_KERNELS)
+          + "; " + ", ".join(f"{name} {counts[name]}" for name in CF.KERNELS
+                             if name not in ROUND_KERNELS), flush=True)
+    require(level_counts == {"coefficient": levels - len(logns), "fused": len(logns),
+                             "fallback": 0},
+            f"{len(logns)} levels took the fused tail, none the coefficient fallback")
+    for name in ROUND_KERNELS:
+        require(counts[name] == want[name] > 0,
+                f"{name} was launched {counts[name]} times in the round, as counted")
+
+    require(bool(E.is_identity(JPoint(*(c[None] for c in out)))[0]),
+            "the round's output is the identity (its slots sum to zero)")
+    require(tuple(w.a.shape) == (n + 1, N_LIMBS) and tuple(w.b.shape) == (n, N_LIMBS),
+            f"witness shapes {tuple(w.a.shape)}, {tuple(w.b.shape)}")
+
+    # 64 sampled non-identity slots: a carry slot, the closing slot, 62 digit slots
+    nprng = np.random.default_rng(0x5107)
+    nz = (digits[k] != 0).nonzero().flatten().cpu().numpy()
+    pick = [0, slots - 1] + [BASE + int(j) for j in nprng.choice(nz, 62, replace=False)]
+    sel = JPoint(*(c[torch.tensor(pick, device=dev)] for c in rp))
+    ax, ay, aid = E.to_affine(sel)
+    require(not bool(aid.any()), "the 64 sampled slots are not the identity")
+    vals = torch.cat([D.rf_eval(CURVE, w, ax[i:i + 8], ay[i:i + 8]) for i in range(0, 64, 8)])
+    require(bool((vals == 0).all()),
+            "the witness vanishes at the 64 sampled slots (rf_eval on the device; a "
+            "carry slot and the closing slot among them)")
+    host_pts = E.points_to_ints(JPoint(*(c[:2] for c in sel)))
+    a_ints = mont_limbs_to_ints(limbs_to_numpy(w.a), SPEC)
+    b_ints = mont_limbs_to_ints(limbs_to_numpy(w.b), SPEC)
+    require(all((horner(a_ints, x) + y * horner(b_ints, x)) % SPEC.p == 0 for x, y in host_pts),
+            "it vanishes at the carry slot and the closing slot by Python-int Horner too")
+    del rp, w, out, vals, a_ints, b_ints
+    busy = device_busy_ms(dev, one_round) if dev.type == "cuda" else 0.0
+    print(f"  device busy in one round: {busy:.3f} ms", flush=True)
+    if profile:
+        profile_call(dev, "one round", one_round)
+    return {"n": n, "slots": slots, "levels": levels, "fused": len(logns), "runs": runs,
+            "seconds": min(runs), "setup_s": setup_s, "peak": peak, "busy_ms": busy,
+            "counts": counts}
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the streamed witness end to end, at a cut width
+# ---------------------------------------------------------------------------
+
+def streamed_path(dev, base_pts, logn: int):
+    """argument.compute_lhs_witness_streamed at 2^logn points (base points
+    tiled), base 5, all rounds, on the card."""
+    n = 1 << logn
+    E = ec(CURVE)
+    d = A.num_digits_for(CURVE, BASE)
+    print(f"witness: compute_lhs_witness_streamed, n = 2^{logn} (cut from 2^20 to fit the "
+          f"run), base {BASE}, {d} rounds", flush=True)
+    host_pts = (list(base_pts) * (n // len(base_pts)))[:n]
+    pts = E.points_from_ints(host_pts, dev)
+    rng = random.Random(0x57AE)
+    scalars = [A.gen_random_coeff(rng, CURVE.scalar_field) for _ in range(n)]
+    scalars[0] = 0
+    want = pyref.ec_msm(scalars, host_pts, CURVE)
+    closes, kept = [], {}
+
+    def on_round(k, wtns_k, out_k):
+        closes.append(bool(E.is_identity(JPoint(*(c[None] for c in out_k)))[0]))
+        if k == ROUND_K:
+            kept["a"], kept["b"] = wtns_k.a.cpu(), wtns_k.b.cpu()
+
+    D.reset_level_counts()
+    t0 = time.perf_counter()
+    final = A.compute_lhs_witness_streamed(CURVE, scalars, pts, BASE, on_round)
+    sync(dev)
+    seconds = time.perf_counter() - t0
+    print(f"  {seconds:.3f} s for {d} rounds; levels by route: {dict(D.LEVEL_COUNTS)}",
+          flush=True)
+    require(one_point(final) == want, "the final carry equals the Python-int oracle")
+    sc = limbs_from_numpy(np.asarray(
+        [[(s >> (16 * i)) & 0xFFFF for i in range(N_LIMBS)] for s in scalars], np.uint32), dev)
+    require(one_point(M.best_multiexp(CURVE, sc, pts, max_scalar_bits=128)) == want,
+            "the final carry equals the port's best_multiexp")
+    require(len(closes) == d and all(closes), f"all {d} rounds close to the identity")
+
+    rounds = digits_to_rounds(negbase_decompose_batch(sc.cpu().numpy().view(np.uint32),
+                                                      BASE, d), dev)
+    cp, cn, _ = A._carries_only(CURVE, BASE, rounds, pts)
+    cpu = torch.device("cpu")
+    on_cpu = lambda p: JPoint(*(c.to(cpu) for c in p))
+    precomp = A.precompute_multiplicities(E, on_cpu(pts), BASE)
+    rp = A._one_round_slots(CURVE, BASE, rounds[ROUND_K].to(cpu), precomp,
+                            on_cpu(A._at(cp, ROUND_K)), on_cpu(A._at(cn, ROUND_K)))
+    t0 = time.perf_counter()
+    w_cpu, _ = D.compute_divisor_witness_partial(CURVE, rp)
+    cpu_s = time.perf_counter() - t0
+    require(torch.equal(w_cpu.a, kept["a"]) and torch.equal(w_cpu.b, kept["b"]),
+            f"round {ROUND_K}'s witness equals the same round on the CPU (plain versions, "
+            f"{cpu_s:.1f} s there), limb for limb")
+    return seconds
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the exact fallback of a fused level on the card
+# ---------------------------------------------------------------------------
+
+def divisor_fallback_path(dev):
+    """128 points whose two 64-point halves are equal: the top level (fused,
+    incoming a-poly 33 long) sees a.out == b.out, a degenerate line, and is
+    redone by intt_dit + kate_div.  The witness must equal the CPU's."""
+    E = ec(CURVE)
+    half = pyref.random_points(random.Random(0xDE6), CURVE, 64)
+    pts = half + half
+    print("divisor fallback: 128 points, two equal halves (degenerate line at the fused "
+          "top level)", flush=True)
+    D.reset_level_counts()
+    w, out = D.compute_divisor_witness_partial(CURVE, E.points_from_ints(pts, dev))
+    levels = dict(D.LEVEL_COUNTS)
+    require(levels == {"coefficient": 5, "fused": 1, "fallback": 1},
+            f"the fused level took the exact fallback on the card ({levels})")
+    w_cpu, out_cpu = D.compute_divisor_witness_partial(CURVE, E.points_from_ints(pts, "cpu"))
+    require(torch.equal(w.a.cpu(), w_cpu.a) and torch.equal(w.b.cpu(), w_cpu.b)
+            and one_point(out) == one_point(out_cpu),
+            "the witness and the output equal the CPU's, limb for limb")
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--logn", type=int, default=20,
-                    help="log2 of the MSM and carry-stage size")
+                    help="log2 of the MSM, carry-stage and round size")
     ap.add_argument("--profile", action="store_true",
-                    help="also print torch.profiler tables of one MSM and one carry stage")
+                    help="also print torch.profiler tables of one MSM, one carry stage "
+                         "and one round")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -818,13 +1147,16 @@ def main() -> int:
               "ec_madd_xyzz_fast": step_lanes, "ec_add_mixed": g}
     recs = check_kernels(dev, base_pts, ragged=5000, shapes=shapes,
                          scan_small_g=2050, reps=50)
+    recs += check_ntt_kernels(dev, ragged=5000, reps=50, top_logn=args.logn + 1)
 
     seconds, msm_counts, (scalars, pts) = main_path(dev, base_pts, args.logn)
     if args.profile:
         profile_call(dev, "best_multiexp", lambda: M.best_multiexp(CURVE, scalars, pts))
     del scalars
-    carry_s, carry_counts, rounds = carry_path(dev, base_pts, pts, args.logn, args.profile)
-    del pts
+    carry_s, carry_counts, rounds, carry_state = carry_path(dev, base_pts, pts, args.logn,
+                                                           args.profile)
+    rnd = round_path(dev, pts, carry_state, args.profile)
+    del pts, carry_state
     # at 2^14 the fused scan flags and the safe flavor redoes the round at a
     # real width; at half of FUSED_SCAN_MIN_ROWS the stepwise scan runs
     fallback_counts = {name: 0 for name in CF.KERNELS}
@@ -836,15 +1168,20 @@ def main() -> int:
                 f"{name} was launched by the fallback's round_sums "
                 f"({fallback_counts[name]} times)")
     routes = time_window_routes(dev, base_pts, (6, 7, 8, 10, 12, 14, 16))
+    witness_s = streamed_path(dev, base_pts, min(10, args.logn))
+    divisor_fallback_path(dev)
 
     for rec in recs:
         name = rec["name"]
-        rec["launches"] = (fallback_counts if name in FALLBACK_KERNELS else msm_counts)[name]
+        rec["launches"] = (fallback_counts if name in FALLBACK_KERNELS else
+                           rnd["counts"] if name in ROUND_KERNELS else msm_counts)[name]
         rec["launches_msm"] = msm_counts[name]
         rec["launches_carry"] = carry_counts[name]
         rec["launches_fallback"] = fallback_counts[name]
+        rec["launches_round"] = rnd["counts"][name]
         print(f"  {name}: launches {rec['launches_msm']} (MSM), {rec['launches_carry']} "
-              f"(carry stage), {rec['launches_fallback']} (fallback round_sums); "
+              f"(carry stage), {rec['launches_fallback']} (fallback round_sums), "
+              f"{rec['launches_round']} (one round); "
               f"{rec['ms']:.4f} ms each on the device at shape {rec['shape']}", flush=True)
         require(rec["launches"] > 0, f"{name} was launched on the path that runs it")
 
@@ -856,6 +1193,14 @@ def main() -> int:
         print(f"window routes: n = {rn}, fused_ms = {fused_ms}, stepwise_ms = {step_ms}, "
               f"fused_device_ms = {fused_dev}, stepwise_device_ms = {step_dev}, "
               f"FUSED_SCAN_MIN_ROWS = {M.FUSED_SCAN_MIN_ROWS}, card = {card}", flush=True)
+    print(f"round: n = {rnd['n']}, slots = {rnd['slots']}, levels = {rnd['levels']}, "
+          f"fused_levels = {rnd['fused']}, seconds = {rnd['seconds']}, "
+          f"runs = {rnd['runs']}, device_busy_ms = {rnd['busy_ms']}, "
+          f"peak_mib = {rnd['peak'] / 2**20}, setup_s = {rnd['setup_s']}, card = {card}",
+          flush=True)
+    print(f"witness: n = {1 << min(10, args.logn)}, rounds = {rounds}, seconds = {witness_s}, "
+          f"(n cut from 2^20: the entry point whole within the run), card = {card}",
+          flush=True)
     print(json.dumps({"kernels": recs}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

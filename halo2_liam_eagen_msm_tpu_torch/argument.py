@@ -1,9 +1,10 @@
 """The carry stage of Liam Eagen's MSM argument (eprint 2022/596, pp. 8-9).
 
-Counterpart of the JAX package's argument.py, as far as the carry stage
-goes: the host helpers, the carry recurrence over the d digit rounds, and the
-per-round slotted point lists.  compute_lhs_witness and
-compute_lhs_witness_streamed need the divisor engine and are not ported yet.
+Counterpart of the JAX package's argument.py: the host helpers, the carry
+recurrence over the d digit rounds, the per-round slotted point lists, and
+the two witness entry points on top of the divisor merge tree
+(compute_lhs_witness, all rounds batched, and compute_lhs_witness_streamed,
+one round at a time, the production-scale path).
 
 Semantics preserved exactly (digit streams, carry recurrence, per-round point
 multisets, final carry == MSM result):
@@ -25,9 +26,11 @@ import math
 
 import torch
 
-from .convert import JPoint, limbs_from_numpy
+from .convert import RF, JPoint, digits_to_rounds, limbs_from_numpy
+from .divisor import compute_divisor_witness_partial
 from .fields import CurveSpec, FieldSpec
 from .limbs import ints_to_limbs
+from .negbase import negbase_decompose_batch
 from .ops.ec import EC, ec
 from .ops.msm import round_sums
 
@@ -153,3 +156,53 @@ def _one_round_slots(curve: CurveSpec, base: int, digits_k, precomp: JPoint,
     (base-1, N) multiplicity table, computed once by the caller."""
     return _slots(base, carry_prev, _select_digit_points(precomp, digits_k),
                   carry_new, ec(curve))
+
+
+# ------------------------------------------------------------- entry points
+
+def _msb_rounds(curve: CurveSpec, scalars, n: int, base: int, device):
+    """Range-check the scalars and decompose them: (d, N) int32 msb-first
+    digit rounds on `device`."""
+    if len(scalars) != n:
+        raise ValueError(f"incompatible amount of coefficients: {len(scalars)} for {n} points")
+    sq_p = math.isqrt(order(curve.scalar_field)) + 2
+    if any(not 0 <= s < sq_p for s in scalars):
+        raise ValueError("scalar out of range [0, sqrt(q) + 2)")
+    d = num_digits_for(curve, base)
+    return digits_to_rounds(negbase_decompose_batch(ints_to_limbs(scalars), base, d), device)
+
+
+def compute_lhs_witness_streamed(curve: CurveSpec, scalars, pts: JPoint, base: int,
+                                 round_callback):
+    """The production-scale compute_lhs_witness: the d digit rounds are
+    computed ONE AT A TIME (peak memory is one round's merge tree), each
+    handed to round_callback(k, wtns_k, out_k), msb-first (the reference's
+    order before its final reversal).  The carries come from the carry stage
+    (_carries_only); round k's slots from _one_round_slots.  Returns the
+    final carry (= sum_i s_i P_i).  pts: (N,) JPoint; the device is theirs."""
+    E = ec(curve)
+    rounds = _msb_rounds(curve, scalars, pts.x.shape[0], base, pts.x.device)
+    carry_prev, carry_new, final = _carries_only(curve, base, rounds, pts)
+    precomp = precompute_multiplicities(E, pts, base)
+    for k in range(rounds.shape[0]):
+        rp = _one_round_slots(curve, base, rounds[k], precomp,
+                              _at(carry_prev, k), _at(carry_new, k))
+        wtns_k, out_k = compute_divisor_witness_partial(curve, rp)
+        round_callback(k, wtns_k, out_k)
+    return final
+
+
+def compute_lhs_witness(curve: CurveSpec, scalars, pts: JPoint, base: int):
+    """The core function: per digit round, the regular function witnessing
+    the LHS of Eagen's argument, all rounds batched through one merge tree.
+    scalars: host ints in [0, sqrt(q) + 2); pts: (N,) JPoint.
+
+    Returns (carry, witness, round_pts): witness is an RF with leading dim d,
+    LSB round first as the reference returns it (round_pts stays msb-first);
+    raises if a round does not close to the identity."""
+    rounds = _msb_rounds(curve, scalars, pts.x.shape[0], base, pts.x.device)
+    round_pts, carry = _rounds_and_carries(curve, base, rounds, pts)
+    wtns, outs = compute_divisor_witness_partial(curve, round_pts)
+    if not bool(ec(curve).is_identity(outs).all()):
+        raise AssertionError("divisor round does not close to the identity")
+    return carry, RF(wtns.a.flip(0), wtns.b.flip(0)), round_pts

@@ -1,0 +1,473 @@
+"""Regular functions and divisor witnesses: the core of the Eagen argument.
+
+Counterpart of the JAX package's divisor.py (the merge tree; the naive line
+arrangement, a second oracle off the main path, is not ported yet):
+
+  * a regular function a(x) + y*b(x) is a pair of coefficient tensors
+    (..., M, La, 16) / (..., M, Lb, 16), batched over the merge tree's
+    population M and any leading dims (the argument's digit rounds)
+  * the merge recursion is level-synchronous: each level merges all
+    consecutive pairs at once; polynomial lengths double per level and are
+    trimmed to their semantic lengths (La_k = 2^k + 1, Lb_k = 2^k)
+  * identity points, degenerate lines and zero outputs are masks; absent
+    points are identity-padded slots
+  * lines are built from affine-normalized points, so witness coefficients
+    are a deterministic function of the input points (the canonical
+    convention of the JAX package and its host oracle)
+
+Levels whose incoming a-poly is shorter than FUSE_MIN_LA take the
+coefficient route (naive products, kate division).  Longer ones take the
+fused evaluation-domain tail: four forward transforms, the whole numerator
+pointwise, the two divisions by (x - root) as one batch inversion, two
+inverse transforms.  On every device that is the limb-major tail
+(_merge_tail_fused_lm) over ops/cuda_ntt.py: the kernels for a CUDA tensor,
+their plain versions for a CPU one.  The element-major _merge_tail_fused
+(the JAX package's CPU route) stays beside it as the second route the tests
+hold it against.  A level whose inputs break the pointwise division (a
+degenerate line, a 2-torsion output, a root on the evaluation domain) is
+found with one host-side flag and redone by exact coefficient division, so
+every level is bit-identical to the coefficient route.
+
+LEVEL_COUNTS counts the levels by the route they took, so that a caller can
+show which routes a run went through.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .convert import JPoint, Level, RF, limbs_from_numpy
+from .fields import CurveSpec, N_LIMBS
+from .ops import cuda_ntt as CN
+from .ops import poly as P
+from .ops.ec import EC, ec
+from .ops.ff import ff
+from .ops.ntt import _bitrev_perm, _mont_powers, intt_dit, ntt_dif, twiddle_flat
+
+
+# Minimum incoming a-poly length for the fused evaluation-domain merge: the
+# big product's operands reach the NTT length of ops/poly.mul_auto exactly
+# when la >= 32.
+FUSE_MIN_LA = 32
+
+LEVEL_COUNTS = {"coefficient": 0, "fused": 0, "fallback": 0}
+
+
+def reset_level_counts() -> None:
+    for key in LEVEL_COUNTS:
+        LEVEL_COUNTS[key] = 0
+
+
+# ---------------------------------------------------------------------------
+# regular-function algebra (batched)
+# ---------------------------------------------------------------------------
+
+_SUBST: dict = {}
+
+
+def _subst_poly(curve: CurveSpec, device) -> torch.Tensor:
+    """x^3 + A x + B as a (4, 16) Montgomery coefficient tensor on `device`."""
+    key = (curve.name, str(torch.device(device)))
+    t = _SUBST.get(key)
+    if t is None:
+        k = ff(curve.field)
+        t = _SUBST[key] = torch.stack([k.const(c, device) for c in (curve.b, curve.a, 0, 1)])
+    return t
+
+
+def rf_mul(curve: CurveSpec, f: RF, g: RF) -> RF:
+    """(a1 + y b1)(a2 + y b2) with y^2 = x^3 + A x + B substituted."""
+    spec = curve.field
+    a = P.mul_auto(spec, f.a, g.a)
+    bb = P.mul_auto(spec, f.b, g.b)
+    subst = _subst_poly(curve, bb.device).expand(bb.shape[:-2] + (4, N_LIMBS))
+    a_out = P.add_padded(spec, a, P.mul_naive(spec, bb, subst))
+    b_out = P.add_padded(spec, P.mul_auto(spec, f.a, g.b), P.mul_auto(spec, f.b, g.a))
+    return RF(a_out, b_out)
+
+
+def rf_eval(curve: CurveSpec, f: RF, x, y):
+    """Evaluate at affine (x, y): a(x) + y b(x)."""
+    k = ff(curve.field)
+    return k.add(P.eval_poly(curve.field, f.a, x),
+                 k.mul(P.eval_poly(curve.field, f.b, x), y))
+
+
+def linefunc_affine(curve: CurveSpec, x1, y1, id1, x2, y2, id2):
+    """Line through two canonical projective points (x, y, 1), or (0, 1, 0)
+    for the identity: cross-product coefficients (lx, ly, lz) of the line
+    lx*X + ly*Y + lz."""
+    k = ff(curve.field)
+    zero = torch.zeros_like(x1)
+    one = k.one(x1.device).expand(x1.shape)
+    ax, ay, az = k.select(id1, zero, x1), k.select(id1, one, y1), k.select(id1, zero, one)
+    bx, by, bz = k.select(id2, zero, x2), k.select(id2, one, y2), k.select(id2, zero, one)
+    lx = k.sub(k.mul(ay, bz), k.mul(az, by))
+    ly = k.sub(k.mul(az, bx), k.mul(ax, bz))
+    lz = k.sub(k.mul(ax, by), k.mul(ay, bx))
+    return lx, ly, lz
+
+
+def _line_rf(lx, ly, lz) -> RF:
+    """Line to regular function: a-poly [lz, lx], b-poly [ly]."""
+    return RF(torch.stack([lz, lx], dim=-2), ly[..., None, :])
+
+
+# ---------------------------------------------------------------------------
+# seeds and merges
+# ---------------------------------------------------------------------------
+
+def _eval_domain_consts(curve: CurveSpec, logn: int, device):
+    """Evaluation-domain constants of the fused merge at NTT size 2^logn:
+    W[i] = w^rev(i) and S[i] = W[i]^3 + A W[i] + B (the y^2 substitution),
+    (n, 16) Montgomery limb tensors on `device` in BIT-REVERSED order, the
+    order ntt_dif's spectrum comes in.  W is a running product on the host in
+    the Montgomery domain; S is computed from it on the device (fully
+    reduced, so the same limbs as the host's integers would give)."""
+    spec = curve.field
+    if logn > spec.s:
+        raise ValueError(f"size 2^{logn} exceeds the 2-adicity of {spec.name}")
+    powers = _mont_powers(spec, spec.omega_pow(spec.s - logn), 1 << logn)
+    W = limbs_from_numpy(powers[_bitrev_perm(logn)], device)
+    k = ff(spec)
+    S = k.add(k.mul(k.sqr(W), W), k.const(curve.b, device).expand(W.shape))
+    if curve.a:
+        S = k.add(S, k.mul(W, k.const(curve.a, device).expand(W.shape)))
+    return W, S
+
+
+_FUSED_DEV: dict = {}
+
+
+def _fused_consts_dev(curve: CurveSpec, logn: int, device):
+    """Device constants of the fused merge at NTT size 2^logn, built once
+    per (curve, logn, device): (W, S) as (n, 16) int32 and the limb-major
+    forward and inverse twiddle tables (16, n - 1)."""
+    key = (curve.name, logn, str(torch.device(device)))
+    c = _FUSED_DEV.get(key)
+    if c is None:
+        c = _FUSED_DEV[key] = (*_eval_domain_consts(curve, logn, device),
+                               CN.tables(curve.field, logn, False, device),
+                               CN.tables(curve.field, logn, True, device))
+    return c
+
+
+def _multi_affine(E: EC, pts_list):
+    """Affine-normalize several point batches of one shape with ONE shared
+    batch inversion (EC.to_affine on them stacked): [(x, y, is_identity)],
+    identities as (0, 0)."""
+    x, y, ident = E.to_affine(JPoint(*(torch.stack(c) for c in zip(*pts_list))))
+    return [(x[i], y[i], ident[i]) for i in range(len(pts_list))]
+
+
+def _take_pts(p: JPoint, sl) -> JPoint:
+    return JPoint(p.x[..., sl, :], p.y[..., sl, :], p.z[..., sl, :])
+
+
+def _take_level(lv: Level, sl) -> Level:
+    return Level(_take_pts(lv.out, sl),
+                 RF(lv.wtns.a[..., sl, :, :], lv.wtns.b[..., sl, :, :]))
+
+
+def _pad_poly(arr, n: int):
+    cur = arr.shape[-2]
+    if cur == n:
+        return arr
+    return torch.nn.functional.pad(arr, (0, 0, 0, n - cur))
+
+
+def seeds(curve: CurveSpec, pts: JPoint) -> Level:
+    """Seed level from N points (N even): consecutive pairs (p1, p2)
+
+      p1 != id             -> line(p1, p2), output -(p1 + p2)
+      p1 == id, p2 != id   -> line(p2, -p2), output -p2
+      both id              -> witness 1, output id
+
+    so the output is -(p1 + p2) in every case.  The line's points and the
+    degenerate case's third point c = -(left + right) are normalized by one
+    batch inversion."""
+    E = ec(curve)
+    k = ff(curve.field)
+    p1 = _take_pts(pts, slice(0, None, 2))
+    p2 = _take_pts(pts, slice(1, None, 2))
+    id1 = E.is_identity(p1)
+    id2 = E.is_identity(p2)
+
+    out = E.neg(E.add(p1, p2))
+
+    # line arguments: (p1, p2) normally; (p2, -p2) when p1 is the identity
+    left = E.select(id1, p2, p1)
+    right = E.select(id1, E.neg(p2), p2)
+    cpt = E.neg(E.add(left, right))
+    (lxa, lya, ida), (lxb, lyb, idb), (cx, cy, cid) = _multi_affine(E, [left, right, cpt])
+    lx, ly, lz = linefunc_affine(curve, lxa, lya, ida, lxb, lyb, idb)
+
+    # degenerate: the cross product vanished (projectively equal arguments,
+    # the tangent case p1 == p2): the line through c = -(left + right)
+    deg = k.is_zero(lx) & k.is_zero(ly) & k.is_zero(lz)
+    lx2, ly2, lz2 = linefunc_affine(curve, lxa, lya, ida, cx, cy, cid)
+    lx, ly, lz = k.select(deg, lx2, lx), k.select(deg, ly2, ly), k.select(deg, lz2, lz)
+
+    # both-identity slots: the witness is the constant 1
+    both = id1 & id2
+    zero = torch.zeros_like(lx)
+    lx, ly = k.select(both, zero, lx), k.select(both, zero, ly)
+    lz = k.select(both, k.one(lz.device).expand(lz.shape), lz)
+    return Level(out, _line_rf(lx, ly, lz))
+
+
+def fused_logn(la: int, lb: int) -> int:
+    """NTT size exponent the fused merge uses for input lengths (la, lb)."""
+    return (la + lb + 2 - 1).bit_length()
+
+
+def merge_head(curve: CurveSpec, a_out: JPoint, b_out: JPoint):
+    """The point/line/root computation every merge route shares: from the
+    two subtree outputs, the merged output, the bypass mask, the
+    degenerate-line flag, the (masked) line coefficients, the outputs'
+    negated y and the division roots.  -a.out, -b.out and a.out + b.out are
+    normalized by one batch inversion."""
+    E = ec(curve)
+    k = ff(curve.field)
+
+    out = E.add(a_out, b_out)
+    bypass = E.is_identity(a_out) | E.is_identity(b_out)
+
+    na, nb = E.neg(a_out), E.neg(b_out)
+    (nax, nay, naid), (nbx, nby, nbid), (cx, cy, cid) = _multi_affine(E, [na, nb, out])
+    lx, ly, lz = linefunc_affine(curve, nax, nay, naid, nbx, nby, nbid)
+
+    # degenerate line (equal points, -a.out == -b.out): through c = a + b
+    deg = k.is_zero(lx) & k.is_zero(ly) & k.is_zero(lz) & ~bypass
+    lx2, ly2, lz2 = linefunc_affine(curve, nax, nay, naid, cx, cy, cid)
+    lx, ly, lz = k.select(deg, lx2, lx), k.select(deg, ly2, ly), k.select(deg, lz2, lz)
+
+    # bypass slots: line = constant 1, so the product is wtns_a * wtns_b
+    one = k.one(lx.device).expand(lx.shape)
+    zero = torch.zeros_like(lx)
+    lx, ly, lz = k.select(bypass, zero, lx), k.select(bypass, zero, ly), k.select(bypass, one, lz)
+
+    # roots of the divisions: the affine x of the outputs (x is
+    # negation-invariant, so nax / nbx serve)
+    root_a = k.select(bypass, one, nax)
+    root_b = k.select(bypass, one, nbx)
+    return out, bypass, deg, (lx, ly, lz), (nay, nby), (root_a, root_b)
+
+
+def merge_pairs(curve: CurveSpec, a: Level, b: Level, consts=None, tail=None) -> Level:
+    """Batched merge of propagations: for each slot
+      output = a.out + b.out
+      witness = a.wtns * b.wtns * line(-a.out, -b.out) / (x - ax)(x - bx)
+    with the division skipped (and the line set to 1) where either output is
+    the identity.
+
+    tail: optional override of the numerator/division computation (same
+    signature as _merge_tail_fused), taken at every level when given."""
+    k = ff(curve.field)
+    spec = curve.field
+
+    out, bypass, deg, line, neg_ys, roots = merge_head(curve, a.out, b.out)
+
+    if tail is not None:
+        return tail(curve, a, b, out, bypass, deg, line, neg_ys, roots, consts)
+    if a.wtns.a.shape[-2] >= FUSE_MIN_LA:
+        return _merge_tail_fused_lm(curve, a, b, out, bypass, deg, line, neg_ys, roots, consts)
+
+    LEVEL_COUNTS["coefficient"] += 1
+    root_a, root_b = roots
+    num = rf_mul(curve, a.wtns, rf_mul(curve, b.wtns, _line_rf(*line)))
+    qa = P.kate_div(spec, P.kate_div(spec, num.a, root_a), root_b)
+    qb = P.kate_div(spec, P.kate_div(spec, num.b, root_a), root_b)
+    return Level(out, RF(k.select(bypass[..., None], num.a, qa),
+                         k.select(bypass[..., None], num.b, qb)))
+
+
+def _unsafe(k, bypass, deg, neg_ys, den_zero) -> bool:
+    """The one host-side flag of a fused level: a degenerate line, a
+    2-torsion output or a zero denominator breaks the pointwise division."""
+    nay, nby = neg_ys
+    torsion = ~bypass & (k.is_zero(nay) | k.is_zero(nby))
+    return bool((deg.any() | torsion.any() | den_zero).item())
+
+
+def _div_coeff(spec, num_a, num_b, bypass, roots):
+    """Exact coefficient-domain division of a level's numerators (the
+    fallback): two kate divisions each, bypass slots undivided."""
+    k = ff(spec)
+    root_a, root_b = roots
+    qa = P.kate_div(spec, P.kate_div(spec, num_a, root_a), root_b)
+    qb = P.kate_div(spec, P.kate_div(spec, num_b, root_a), root_b)
+    return k.select(bypass[..., None], num_a, qa), k.select(bypass[..., None], num_b, qb)
+
+
+def _merge_tail_fused_lm(curve, a, b, out, bypass, deg, line, neg_ys, roots, consts=None):
+    """The fused tail on limb-major (16, E) data through ops/cuda_ntt: one
+    layout transpose per operand at entry and one per result at exit; every
+    transform and pointwise op in between is one of the five kernels (or its
+    plain version on the CPU).  The inverse transforms' 1/n is folded into
+    the denominator before its batch inversion (dinv = 1/(n den)).  Same
+    math and same results as _merge_tail_fused."""
+    k = ff(curve.field)
+    spec = curve.field
+    lx, ly, lz = line
+
+    la, lb = a.wtns.a.shape[-2], a.wtns.b.shape[-2]
+    out_len_a, out_len_b = la + lb + 2, la + lb + 1
+    logn = fused_logn(la, lb)
+    n = 1 << logn
+    dev = a.wtns.a.device
+    W, S, tw_f, tw_i = consts if consts is not None else _fused_consts_dev(curve, logn, dev)
+    LEVEL_COUNTS["fused"] += 1
+
+    lead = a.wtns.a.shape[:-2]            # (..., m2)
+    pairs = int(np.prod(lead))
+
+    def fwd(arr):
+        return CN.ntt_dif_lm(spec, CN.to_lm(_pad_poly(arr, n)), logn, tw_f)
+
+    fa1, fb1, fa2, fb2 = fwd(a.wtns.a), fwd(a.wtns.b), fwd(b.wtns.a), fwd(b.wtns.b)
+    S_lm, W_lm = CN.bcast_table_lm(S, pairs), CN.bcast_table_lm(W, pairs)
+    lx_lm, ly_lm, lz_lm = (CN.bcast_pairs_lm(v, n) for v in (lx, ly, lz))
+    ra_lm, rb_lm = (CN.bcast_pairs_lm(r, n) for r in roots)
+
+    def mul(x, y):
+        return CN.lm_mul(spec, x, y)
+
+    def add(x, y):
+        return CN.lm_add(spec, x, y)
+
+    # (a1 + y b1)(a2 + y b2) = P + y Q with y^2 -> S, times the line
+    # (lz + lx x) + y ly
+    pv = add(mul(fa1, fa2), mul(mul(fb1, fb2), S_lm))
+    qv = add(mul(fa1, fb2), mul(fb1, fa2))
+    del fa1, fb1, fa2, fb2
+    lv = add(lz_lm, mul(lx_lm, W_lm))
+    num_a_v = add(mul(pv, lv), mul(mul(qv, S_lm), ly_lm))
+    num_b_v = add(mul(pv, ly_lm), mul(qv, lv))
+    del pv, qv, lv, S_lm, lx_lm, lz_lm, ly_lm
+
+    den = mul(CN.lm_sub(spec, W_lm, ra_lm), CN.lm_sub(spec, W_lm, rb_lm))
+    del W_lm, ra_lm, rb_lm
+    # bypass slots: den = one, so the quotient is intt(num) / n, the
+    # element-major tail's bypass result
+    byp = bypass.reshape(-1).repeat_interleave(n)
+    den = torch.where(byp[None, :], k.one(dev)[:, None], den)
+    # fold the inverse transforms' 1/n into the batch inversion
+    den = CN.lm_mul_const(spec, den, (n << 256) % spec.p)
+
+    den_zero = (den == 0).all(dim=0).any()
+    if _unsafe(k, bypass, deg, neg_ys, den_zero):
+        LEVEL_COUNTS["fallback"] += 1
+        tw_em = twiddle_flat(spec, logn, True, dev)
+        num_a = intt_dit(spec, CN.from_lm(num_a_v, lead + (n,)), tws=tw_em)
+        num_b = intt_dit(spec, CN.from_lm(num_b_v, lead + (n,)), tws=tw_em)
+        wa, wb = _div_coeff(spec, num_a, num_b, bypass, roots)
+    else:
+        dinv = CN.to_lm(k.batch_inv(CN.from_lm(den, (pairs * n,)), axis=0))
+        del den
+        wa = CN.from_lm(CN.intt_dit_lm(spec, mul(num_a_v, dinv), logn, tw_i), lead + (n,))
+        wb = CN.from_lm(CN.intt_dit_lm(spec, mul(num_b_v, dinv), logn, tw_i), lead + (n,))
+    return Level(out, RF(wa[..., :out_len_a, :], wb[..., :out_len_b, :]))
+
+
+def _merge_tail_fused(curve, a, b, out, bypass, deg, line, neg_ys, roots, consts=None):
+    """The fused tail on element-major (..., n, 16) data through ops/ff and
+    ops/ntt: 4 forward transforms, the numerator a.wtns * b.wtns * line
+    pointwise (the y^2 substitution is the value vector S), the two kate
+    divisions by (x - root) pointwise, 2 inverse transforms.  The numerator
+    is exactly divisible by (x - ax)(x - bx) unless an output is 2-torsion,
+    the two roots coincide (the degenerate-line flag) or a root is an
+    evaluation point; those levels are redone by exact coefficient division,
+    so the result is bit-identical to the coefficient route."""
+    k = ff(curve.field)
+    spec = curve.field
+    lx, ly, lz = line
+    root_a, root_b = roots
+
+    la, lb = a.wtns.a.shape[-2], a.wtns.b.shape[-2]
+    out_len_a, out_len_b = la + lb + 2, la + lb + 1
+    logn = fused_logn(la, lb)
+    n = 1 << logn
+    dev = a.wtns.a.device
+    W, S = (consts if consts is not None else _fused_consts_dev(curve, logn, dev))[:2]
+    tw_f, tw_i = twiddle_flat(spec, logn, False, dev), twiddle_flat(spec, logn, True, dev)
+    LEVEL_COUNTS["fused"] += 1
+
+    # the spectra stay in ntt_dif's bit-reversed order: everything below is
+    # pointwise
+    fa1, fb1, fa2, fb2 = (ntt_dif(spec, _pad_poly(x, n), tws=tw_f)
+                          for x in (a.wtns.a, a.wtns.b, b.wtns.a, b.wtns.b))
+    pv = k.add(k.mul(fa1, fa2), k.mul(k.mul(fb1, fb2), S))
+    qv = k.add(k.mul(fa1, fb2), k.mul(fb1, fa2))
+    lv = k.add(lz[..., None, :], k.mul(lx[..., None, :], W))
+    lyv = ly[..., None, :]
+    num_a_v = k.add(k.mul(pv, lv), k.mul(k.mul(qv, S), lyv))
+    num_b_v = k.add(k.mul(pv, lyv), k.mul(qv, lv))
+
+    den = k.mul(k.sub(W, root_a[..., None, :]), k.sub(W, root_b[..., None, :]))
+    den = torch.where(bypass[..., None, None], k.one(dev), den)
+
+    if _unsafe(k, bypass, deg, neg_ys, k.is_zero(den).any()):
+        LEVEL_COUNTS["fallback"] += 1
+        num_a = intt_dit(spec, num_a_v, tws=tw_i)[..., :out_len_a, :]
+        num_b = intt_dit(spec, num_b_v, tws=tw_i)[..., :out_len_b, :]
+        return Level(out, RF(*_div_coeff(spec, num_a, num_b, bypass, roots)))
+    dinv = k.batch_inv(den, axis=-2)
+    wa = intt_dit(spec, k.mul(num_a_v, dinv), tws=tw_i)
+    wb = intt_dit(spec, k.mul(num_b_v, dinv), tws=tw_i)
+    return Level(out, RF(wa[..., :out_len_a, :], wb[..., :out_len_b, :]))
+
+
+def merge_level(curve: CurveSpec, a_sem: int, b_sem: int, lv: Level,
+                consts=None, tail=None) -> Level:
+    """One level: merge consecutive pairs; an odd last entry passes through
+    (padded).  a_sem / b_sem: the level's semantic output lengths; everything
+    beyond is provably zero and trimmed.  consts: optional _fused_consts_dev
+    tuple of the fused route; tail: optional merge-tail override."""
+    m = lv.out.x.shape[-2]
+    m2 = m // 2
+    a = _take_level(lv, slice(0, 2 * m2, 2))
+    b = _take_level(lv, slice(1, 2 * m2, 2))
+    merged = merge_pairs(curve, a, b, consts, tail=tail)
+    merged = Level(merged.out, RF(merged.wtns.a[..., :a_sem, :], merged.wtns.b[..., :b_sem, :]))
+    if m % 2:
+        last = _take_level(lv, slice(2 * m2, m))
+        la, lb = merged.wtns.a.shape[-2], merged.wtns.b.shape[-2]
+        merged = Level(
+            JPoint(*(torch.cat([mc, tc], dim=-2) for mc, tc in zip(merged.out, last.out))),
+            RF(torch.cat([merged.wtns.a, _pad_poly(last.wtns.a, la)], dim=-3),
+               torch.cat([merged.wtns.b, _pad_poly(last.wtns.b, lb)], dim=-3)))
+    return merged
+
+
+def compute_divisor_witness_partial(curve: CurveSpec, pts: JPoint):
+    """The reference's compute_divisor_witness_partial, batched: returns
+    (RF witness, output point) with output = -(sum of pts).  pts: JPoint of
+    (..., N, 16) coordinates; an odd N is identity-padded.  The witness
+    vanishes at every non-identity input and at the output."""
+    n = pts.x.shape[-2]
+    if n == 0:
+        raise ValueError("empty point list")
+    if n % 2:
+        idp = ec(curve).identity(pts.x.shape[:-2] + (1,), pts.x.device)
+        pts = JPoint(*(torch.cat([c, i], dim=-2) for c, i in zip(pts, idp)))
+    lv = seeds(curve, pts)
+    b_sem = 1  # seeds: a-len 2, b-len 1
+    while lv.out.x.shape[-2] > 1:
+        b_sem *= 2
+        la, lb = lv.wtns.a.shape[-2], lv.wtns.b.shape[-2]
+        consts = (_fused_consts_dev(curve, fused_logn(la, lb), pts.x.device)
+                  if la >= FUSE_MIN_LA else None)
+        lv = merge_level(curve, b_sem + 1, b_sem, lv, consts)
+    out = JPoint(*(c[..., 0, :] for c in lv.out))
+    return RF(lv.wtns.a[..., 0, :, :], lv.wtns.b[..., 0, :, :]), out
+
+
+def compute_divisor_witness(curve: CurveSpec, pts: JPoint) -> RF:
+    """The reference's compute_divisor_witness: raises unless the points sum
+    to the identity."""
+    wtns, out = compute_divisor_witness_partial(curve, pts)
+    if not bool(ec(curve).is_identity(out).all()):
+        raise AssertionError("points do not sum to the identity")
+    return wtns

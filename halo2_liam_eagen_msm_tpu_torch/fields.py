@@ -10,6 +10,7 @@ Montgomery form with R = 2^256.
 from __future__ import annotations
 
 import dataclasses
+from functools import lru_cache
 
 # ----------------------------------------------------------------------------
 # Limb layout (shared by host conversions, tensors and CUDA kernels).
@@ -54,6 +55,33 @@ class FieldSpec:
     def t_odd(self) -> int:
         """Odd part of p-1 (for Tonelli-Shanks)."""
         return (self.p - 1) >> self.s
+
+    # -- roots of unity for the NTT (host ints; device tables in ops/ntt.py) --
+    @property
+    def root_of_unity(self) -> int:
+        """g^((p-1)/2^s): a primitive 2^s-th root of unity."""
+        return pow(self.generator, (self.p - 1) >> self.s, self.p)
+
+    @property
+    def root_of_unity_inv(self) -> int:
+        return pow(self.root_of_unity, self.p - 2, self.p)
+
+    @property
+    def two_inv(self) -> int:
+        return pow(2, self.p - 2, self.p)
+
+    @lru_cache(maxsize=None)
+    def omega_pow(self, exp2: int) -> int:
+        """root_of_unity^(2^exp2): a primitive 2^(s - exp2)-th root of unity."""
+        return pow(self.root_of_unity, 1 << exp2, self.p)
+
+    @lru_cache(maxsize=None)
+    def omega_pow_inv(self, exp2: int) -> int:
+        return pow(self.root_of_unity_inv, 1 << exp2, self.p)
+
+    @lru_cache(maxsize=None)
+    def half_pow(self, exp: int) -> int:
+        return pow(self.two_inv, exp, self.p)
 
 
 # ----------------------------------------------------------------------------

@@ -79,6 +79,17 @@ __device__ __forceinline__ void fe_store_limb_major(uint32_t* __restrict__ base,
   }
 }
 
+// Limb-major load, the twin of the store above: limb j of this element at
+// base[j * stride].
+__device__ __forceinline__ Fe fe_load_limb_major(const uint32_t* __restrict__ base,
+                                                 int64_t stride) {
+  Fe a;
+#pragma unroll
+  for (int k = 0; k < FE_WORDS; k++)
+    a.v[k] = (base[(2 * k) * stride] & 0xFFFFu) | (base[(2 * k + 1) * stride] << 16);
+  return a;
+}
+
 // ---- predicates / selects ----------------------------------------------------
 
 __device__ __forceinline__ bool fe_is_zero(const Fe& a) {

@@ -1,4 +1,5 @@
-// The eight kernels of the MSM and carry-stage slices and their C launchers.  Each kernel is one
+// The eight kernels of the MSM and carry-stage slices and their C launchers
+// (the five of the divisor merge tree are in ntt.cuh, included below).  Each kernel is one
 // thread per element (per lane for the scan): it reads its (16,) rows, does
 // the whole formula in registers (ff.cuh, ec.cuh) and writes its rows back.
 // No kernel allocates or synchronises; a launcher enqueues on the stream it
@@ -24,6 +25,8 @@ static inline unsigned int grid_for(int64_t n, int block) {
 __device__ __forceinline__ int64_t global_index() {
   return (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
 }
+
+#include "ntt.cuh"
 
 // ---- 1. mont_mul: replaces pallas_ff.mont_mul ---------------------------------
 

@@ -34,7 +34,9 @@ callers (ops/ff.py, ops/ec.py, ops/msm.py) take the kernel for a CUDA tensor
 and the plain version for a CPU tensor.
 
 LAUNCHES counts kernel launches by name: a wrapper adds one exactly where it
-launches its kernel.
+launches its kernel.  The same library, counters and launcher carry the five
+kernels of the divisor merge tree (csrc/ntt.cuh), whose wrappers and plain
+versions are in ops/cuda_ntt.py.
 """
 
 from __future__ import annotations
@@ -52,7 +54,9 @@ import torch
 from ..fields import CurveSpec, FieldSpec, LIMB_BITS, LIMB_MASK, N_LIMBS, R
 
 KERNELS = ("mont_mul", "mont_addsub", "ec_add", "ec_add_fast", "ec_double",
-           "fused_madd_scan_xyzz", "ec_madd_xyzz_fast", "ec_add_mixed")
+           "fused_madd_scan_xyzz", "ec_madd_xyzz_fast", "ec_add_mixed",
+           # the divisor merge tree's five, in csrc/ntt.cuh (ops/cuda_ntt.py)
+           "lm_mul", "lm_addsub", "lm_mul_const", "stage_big", "stages_small")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 SCAN_W = 64  # sequential madd steps per lane of the fused scan
@@ -148,6 +152,11 @@ def _lib():
                 [fpp, u32p, u32p, vp, ci, i64] + [vp] * 9 + [vp],
             "ec_madd_xyzz_fast_launch": [fpp] + [vp] * 11 + [i64, vp],
             "ec_add_mixed_launch": [fpp] + [vp] * 9 + [i64, vp],
+            "lm_mul_launch": [fpp, vp, vp, vp, i64, vp],
+            "lm_addsub_launch": [fpp, ci, vp, vp, vp, i64, vp],
+            "lm_mul_const_launch": [fpp, u32p, vp, vp, i64, vp],
+            "stage_big_launch": [fpp, ci, vp, vp, vp, i64, i64, i64, vp],
+            "stages_small_launch": [fpp, ci, vp, vp, vp, i64, ci, i64, vp],
         }
         for name, argtypes in sigs.items():
             fn = getattr(lib, name)

@@ -1,6 +1,6 @@
 """Batched prime-field arithmetic: 16 x 16-bit limbs, Montgomery form.
 
-Counterpart of the JAX package's ops/ff.py, as far as the MSM needs it.
+Counterpart of the JAX package's ops/ff.py.
 
   * a field element is a (..., 16) int32 tensor, little-endian 16-bit limbs
   * Montgomery domain with R = 2^256 throughout, values fully reduced
@@ -10,8 +10,12 @@ Routing is by the tensor: an op on a CUDA tensor launches the hand-written
 kernel (ops/cuda_ff.py), an op on a CPU tensor runs the kernel's plain PyTorch
 version.  Constants are made on the device of the tensor they meet.
 
-mul_small, reduce_columns, sum, dot and pow_fixed belong to the NTT and
-polynomial layers and are not ported yet.
+The lazy sums of reduce_columns, sum and dot (the polynomial layer's
+anti-diagonal and dot-product sums) are plain PyTorch: the column sums of
+16-bit limbs are taken exactly in int64 (the JAX package keeps them in
+uint32, which bounds how many it may add; int64 leaves room for 2^46 a
+column), then carried into limbs on the tensor's device and reduced by two
+Montgomery products.
 """
 
 from __future__ import annotations
@@ -20,9 +24,12 @@ from functools import lru_cache
 
 import torch
 
-from ..fields import FieldSpec, N_LIMBS
-from ..limbs import int_to_limbs, int_to_mont_limbs
+from ..convert import limbs_from_numpy, limbs_to_numpy
+from ..fields import FieldSpec, N_LIMBS, R
+from ..limbs import int_to_limbs, int_to_mont_limbs, ints_to_limbs, limbs_to_ints
 from . import cuda_ff
+
+_SUM_CHUNK = 4096  # rows added lazily before one reduction (as the JAX package)
 
 
 class FF:
@@ -32,8 +39,6 @@ class FF:
     def __init__(self, spec: FieldSpec):
         self.spec = spec
         self._consts: dict = {}
-        e = spec.p - 2
-        self._inv_bits = [(e >> i) & 1 for i in range(e.bit_length())][::-1]
 
     # ------------------------------------------------------------------ utils
     def _limb_const(self, key, limbs, device) -> torch.Tensor:
@@ -95,6 +100,63 @@ class FF:
     def sqr(self, a):
         return self.mul(a, a)
 
+    def mul_small(self, a, k: int):
+        """a * k for a small static k >= 0 via double-and-add."""
+        if k < 0:
+            raise ValueError("mul_small: k must be non-negative")
+        if k == 0:
+            return torch.zeros_like(a)
+        acc = a
+        for bit in bin(k)[3:]:
+            acc = self.double(acc)
+            if bit == "1":
+                acc = self.add(acc, a)
+        return acc
+
+    # --------------------------------------------------- lazy sums/reductions
+    def reduce_columns(self, cols):
+        """Reduce lazy column sums of Montgomery residues to a fully reduced
+        element: cols (..., K <= 17) integer tensor, every column below
+        2^46 and the total value below 2^271 (both exact in int64).  The
+        columns are carried into 17 limbs; the low 16 are reduced by a
+        Montgomery product with R mod p (lo * R * R^-1 = lo), the top limb by
+        one with (2^256 * R) mod p (top * 2^256), and the two are added."""
+        k = cols.shape[-1]
+        if k > N_LIMBS + 1:
+            raise ValueError(f"reduce_columns: at most {N_LIMBS + 1} columns, got {k}")
+        cols = torch.nn.functional.pad(cols.to(torch.int64), (0, N_LIMBS + 1 - k))
+        C = cuda_ff._plain_consts(self.spec, cols.device)
+        limbs, _ = cuda_ff._normalize(C, cols, folds=3)
+        limbs = limbs.to(torch.int32)
+        one = self.one(cols.device).expand(limbs.shape[:-1] + (N_LIMBS,))
+        lo = self.mul(limbs[..., :N_LIMBS], one)
+        top = torch.nn.functional.pad(limbs[..., N_LIMBS:], (0, N_LIMBS - 1))
+        c256 = self._limb_const("c256", int_to_limbs((R * self.spec.r_mod_p) % self.spec.p),
+                                cols.device)
+        return self.add(lo, self.mul(top, c256.expand(top.shape)))
+
+    def sum(self, a, axis: int = -2):
+        """Sum field elements along `axis`: lazy int64 column sums over chunks
+        of 4096 rows, one reduction per chunk, until one row is left."""
+        a = a.movedim(axis, -2)
+        n = a.shape[-2]
+        if n == 0:
+            return torch.zeros(a.shape[:-2] + (N_LIMBS,), dtype=a.dtype, device=a.device)
+        while n > 1:
+            c = min(n, _SUM_CHUNK)
+            pad = (-n) % c
+            if pad:
+                a = torch.nn.functional.pad(a, (0, 0, 0, pad))
+            g = (n + pad) // c
+            cols = a.reshape(a.shape[:-2] + (g, c, N_LIMBS)).sum(-2, dtype=torch.int64)
+            a = self.reduce_columns(cols)
+            n = g
+        return a[..., 0, :]
+
+    def dot(self, a, b, axis: int = -2):
+        """sum(mul(a, b)) along `axis`."""
+        return self.sum(self.mul(a, b), axis=axis)
+
     # ------------------------------------------------------- mont conversions
     def to_mont(self, a_raw):
         """Canonical limbs -> Montgomery limbs."""
@@ -105,16 +167,36 @@ class FF:
         """Montgomery limbs -> canonical limbs."""
         return self.mul(a, self._limb_const("raw1", int_to_limbs(1), a.device))
 
-    # ---------------------------------------------------------------- inv
-    def inv(self, a):
-        """a^(p-2): Fermat inversion, inv(0) = 0.  Square-and-multiply over
-        the static bits of p - 2 (the leading bit is 1: start from a)."""
+    # ------------------------------------------------------------ pow / inv
+    def pow_fixed(self, a, e: int):
+        """a^e for a static exponent e >= 0 (square-and-multiply)."""
+        if e < 0:
+            raise ValueError("pow_fixed: e must be non-negative")
+        if e == 0:
+            return self.one(a.device).expand(a.shape)
         acc = a
-        for bit in self._inv_bits[1:]:
+        for bit in bin(e)[3:]:
             acc = self.sqr(acc)
-            if bit:
+            if bit == "1":
                 acc = self.mul(acc, a)
         return acc
+
+    def inv(self, a):
+        """a^(p-2): Fermat inversion, inv(0) = 0.  On the card a chain of
+        about 380 product launches (_inv_fermat); on the CPU, where each of
+        those products costs tens of small tensor ops, the same power is
+        taken exactly with Python ints (_inv_host)."""
+        return self._inv_fermat(a) if a.is_cuda else self._inv_host(a)
+
+    def _inv_host(self, a):
+        """inv on the host: (a R)^-1 R^2 = a^-1 R mod p, element by element."""
+        p, r2 = self.spec.p, self.spec.r2_mod_p
+        vals = limbs_to_ints(limbs_to_numpy(a))
+        out = ints_to_limbs([pow(x, p - 2, p) * r2 % p for x in vals])
+        return limbs_from_numpy(out.reshape(tuple(a.shape)), a.device)
+
+    def _inv_fermat(self, a):
+        return self.pow_fixed(a, self.spec.p - 2)
 
     def batch_inv(self, a, axis: int = 0):
         """Montgomery-trick batch inversion along `axis`; zeros map to zeros.

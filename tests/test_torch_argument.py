@@ -1,7 +1,10 @@
-"""The carry stage of the argument in the PyTorch port: against the JAX
+"""The argument in the PyTorch port.  The carry stage: against the JAX
 package on the same numpy points and digits (n = 8, base 5, all 56 rounds),
 against the exact Python-int oracle and the host recurrence (n = 128, the
-fast flavor), and the slotted round lists.
+fast flavor), and the slotted round lists.  The witness entry points
+(n = 8, base 5, all 56 rounds): every streamed round against the host-int
+divisor oracle on the round's slots built by the host recurrence, and the
+batched compute_lhs_witness against the streamed rounds, reversed.
 
 All on the CPU, on the plain versions.  Integer arithmetic: points are
 compared as affine integers, tolerance zero."""
@@ -20,6 +23,7 @@ from halo2_liam_eagen_msm_tpu_torch.fields import PALLAS
 from halo2_liam_eagen_msm_tpu_torch.limbs import ints_to_limbs, limbs_to_int
 from halo2_liam_eagen_msm_tpu_torch.negbase import negbase_decompose_batch
 from halo2_liam_eagen_msm_tpu_torch.ops.ec import ec
+from halo2_liam_eagen_msm_tpu_torch.ops.poly import Poly
 from halo2_liam_eagen_msm_tpu_torch.utils import pyref
 
 torch.set_num_threads(1)
@@ -168,3 +172,74 @@ def test_rounds_and_carries_slots_and_one_round(rng):
                                  A._at(prev, k), A._at(new, k))
         assert tuple(one.x.shape) == (BASE + n + 1, 16)
         assert E.points_to_ints(one) == slots[k]
+
+
+@pytest.fixture(scope="module")
+def streamed():
+    """The port's compute_lhs_witness_streamed at n = 8, base 5 (the shapes
+    of test_argument.py::test_streamed_matches_batched), run once: the host
+    points and scalars, the rounds handed to the callback and the carry."""
+    rng = random.Random(0x57AE)
+    pts = pyref.random_points(rng, CURVE, 8)
+    pts[3] = None
+    scalars = [A.gen_random_coeff(rng, CURVE.scalar_field) for _ in range(8)]
+    scalars[0] = 0
+    rounds = {}
+
+    def on_round(k, wtns_k, out_k):
+        rounds[k] = (wtns_k, out_k)
+
+    E = ec(CURVE)
+    final = A.compute_lhs_witness_streamed(CURVE, scalars, E.points_from_ints(pts, "cpu"),
+                                           BASE, on_round)
+    return pts, scalars, rounds, final
+
+
+def test_streamed_witness_rounds_equal_host_oracle(streamed):
+    """Every round, msb-first, equals ref_divisor.divisor_witness_host (the
+    JAX package's host oracle) on the round's slots [base x (-carry_prev)] +
+    digit multiples + [-carry_new] from the host recurrence, coefficient for
+    coefficient, and closes to the identity; the final carry is the MSM."""
+    from halo2_liam_eagen_msm_tpu.utils import ref_divisor
+
+    pts, scalars, rounds, final = streamed
+    E = ec(CURVE)
+    q = CURVE.scalar_field.p
+    d = A.num_digits_for(CURVE, BASE)
+    digits = digits_to_rounds(negbase_decompose_batch(ints_to_limbs(scalars), BASE, d), "cpu")
+    assert sorted(rounds) == list(range(d))
+    carry = None
+    for k, row in enumerate(digits.tolist()):
+        s_k = pyref.ec_msm(row, [p for p in pts], CURVE)
+        new = pyref.ec_msm([(-BASE) % q, 1], [carry, s_k], CURVE)
+        slots = [pyref.ec_neg(carry, CURVE)] * BASE \
+            + [pyref.ec_mul(p, dig, CURVE) for p, dig in zip(pts, row)] + [pyref.ec_neg(new, CURVE)]
+        carry = new
+        wtns, out = rounds[k]
+        hrf, hout = ref_divisor.divisor_witness_host(CURVE, slots)
+        assert hout is None and bool(E.is_identity(JPoint(*(c[None] for c in out)))[0])
+        for mine, theirs in ((wtns.a, hrf.a), (wtns.b, hrf.b)):
+            got = Poly.from_device(CURVE.field, mine).coeffs
+            want = theirs.coeffs + [0] * (len(got) - len(theirs.coeffs))
+            assert got == want[:len(got)] and not any(want[len(got):]), f"round {k}"
+    assert E.points_to_ints(JPoint(*(c[None] for c in final)))[0] == carry
+    assert carry == pyref.ec_msm(scalars, pts, CURVE)
+
+
+def test_lhs_witness_is_streamed_rounds_reversed(streamed):
+    """compute_lhs_witness (all rounds through one batched merge tree) gives
+    the streamed rounds in reverse order (LSB round first, as the
+    reference returns them), limb for limb, and the same carry."""
+    pts, scalars, rounds, final = streamed
+    E = ec(CURVE)
+    carry, wtns, round_pts = A.compute_lhs_witness(CURVE, scalars,
+                                                   E.points_from_ints(pts, "cpu"), BASE)
+    d = len(rounds)
+    assert tuple(wtns.a.shape[:1]) == (d,) and tuple(round_pts.x.shape[:2]) == (d, BASE + 9)
+    for k in range(d):
+        assert torch.equal(wtns.a[d - 1 - k], rounds[k][0].a), f"round {k}"
+        assert torch.equal(wtns.b[d - 1 - k], rounds[k][0].b), f"round {k}"
+    assert E.points_to_ints(JPoint(*(c[None] for c in carry))) == \
+        E.points_to_ints(JPoint(*(c[None] for c in final)))
+    with pytest.raises(ValueError):
+        A.compute_lhs_witness(CURVE, scalars[:-1], E.points_from_ints(pts, "cpu"), BASE)

@@ -18,6 +18,10 @@ import {PKG}.ops.cuda_ff
 import {PKG}.convert
 import {PKG}.argument
 import {PKG}.negbase
+import {PKG}.divisor
+import {PKG}.ops.ntt
+import {PKG}.ops.poly
+import {PKG}.ops.cuda_ntt
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "{JAX_PKG}" or m.startswith("{JAX_PKG}."))

@@ -1,8 +1,12 @@
 """The CUDA sources of the port, rehearsed without a card: csrc/kernels.cu
-compiles for the host with g++ behind a small shim (thread and block indices
-as loop variables, `kernel<<<grid, block, 0, stream>>>(...)` rewritten into
-that loop), the result is loaded in place of the nvcc library, and every
-kernel's wrapper is held against its plain PyTorch version on CPU tensors.
+(with csrc/ntt.cuh) compiles for the host with g++ behind a small shim, the
+result is loaded in place of the nvcc library, and every kernel's wrapper is
+held against its plain PyTorch version on CPU tensors.
+
+The shim rewrites `kernel<<<grid, block, 0, stream>>>(...)` into a call of
+host_launch, which runs the blocks one after another and each thread of a
+block as a std::thread, with __syncthreads() a C++20 std::barrier over the
+block's threads and __shared__ arrays static (one block is alive at a time).
 
 This checks the arithmetic of the device functions, the C interface and the
 wrappers' pointer plumbing; that the sources compile with nvcc and run on
@@ -20,6 +24,7 @@ from halo2_liam_eagen_msm_tpu_torch.convert import JPoint
 from halo2_liam_eagen_msm_tpu_torch.fields import PALLAS
 from halo2_liam_eagen_msm_tpu_torch.limbs import ints_to_mont_limbs
 from halo2_liam_eagen_msm_tpu_torch.ops import cuda_ff as CF
+from halo2_liam_eagen_msm_tpu_torch.ops import cuda_ntt as CN
 from halo2_liam_eagen_msm_tpu_torch.ops import msm as M
 from halo2_liam_eagen_msm_tpu_torch.ops.ec import ec
 from halo2_liam_eagen_msm_tpu_torch.utils import pyref
@@ -32,19 +37,61 @@ B = 37  # ragged: not a multiple of the block of 128 threads
 
 _SHIM = """
 #include <stdint.h>
+#include <barrier>
+#include <thread>
+#include <vector>
 #define __device__
 #define __global__
 #define __forceinline__ inline
 #define __restrict__
 #define __launch_bounds__(x)
+#define __shared__ static
 struct uint4 { uint32_t x, y, z, w; };
 struct idx3 { unsigned int x; };
-static idx3 blockIdx, blockDim, threadIdx;
+static thread_local idx3 blockIdx, threadIdx;
+static idx3 blockDim, gridDim;
+static thread_local std::barrier<>* block_barrier;
+static inline void __syncthreads() { block_barrier->arrive_and_wait(); }
 typedef void* cudaStream_t;
 static inline int cudaGetLastError() { return 0; }
+template <class F>
+static void host_launch(unsigned int grid, unsigned int block, F body) {
+  gridDim.x = grid;
+  blockDim.x = block;
+  for (unsigned int b = 0; b < grid; b++) {
+    std::barrier<> bar(block);
+    std::vector<std::thread> threads;
+    for (unsigned int t = 0; t < block; t++)
+      threads.emplace_back([&, b, t]() {
+        blockIdx.x = b;
+        threadIdx.x = t;
+        block_barrier = &bar;
+        body();
+      });
+    for (auto& th : threads) th.join();
+  }
+}
 """
-_LAUNCH = re.compile(
-    r"(\w+)<<<(grid_for\([^)]*\)),\s*(\w+),\s*0,\s*\(cudaStream_t\)\s*stream>>>\(", re.S)
+_LAUNCH = re.compile(r"(\w+)<<<(.*?),\s*([^,]+?),\s*0,\s*\(cudaStream_t\)\s*stream>>>\(", re.S)
+
+
+def _rewrite_launches(src: str):
+    """kernel<<<grid, block, 0, (cudaStream_t)stream>>>(args); ->
+    host_launch(grid, block, [&]() { kernel(args); });"""
+    out, pos, count = [], 0, 0
+    for m in _LAUNCH.finditer(src):
+        depth, i = 1, m.end()
+        while depth:
+            depth += {"(": 1, ")": -1}.get(src[i], 0)
+            i += 1
+        assert src[i] == ";"
+        out.append(src[pos:m.start()])
+        out.append(f"host_launch({m.group(2)}, {m.group(3)}, [&]() {{ "
+                   f"{m.group(1)}({src[m.end():i - 1]}); }})")
+        pos = i
+        count += 1
+    out.append(src[pos:])
+    return "".join(out), count
 
 
 @pytest.fixture(scope="module")
@@ -53,16 +100,19 @@ def host_library(tmp_path_factory):
     if gxx is None:
         pytest.skip("no g++ to compile the CUDA sources for the host")
     csrc = Path(CF.__file__).resolve().parent / "csrc"
-    src = (csrc / "kernels.cu").read_text().replace("#include <cuda_runtime.h>", _SHIM)
-    src, n = _LAUNCH.subn(
-        r"for (blockDim.x = \3, blockIdx.x = 0; blockIdx.x < \2; blockIdx.x++) "
-        r"for (threadIdx.x = 0; threadIdx.x < \3; threadIdx.x++) \1(", src)
-    assert n == len(CF.KERNELS), "every launcher launches one kernel"
     out = tmp_path_factory.mktemp("host_kernels")
-    (out / "kernels_host.cpp").write_text(src)
+    n = 0
+    for name in ("kernels.cu", "ntt.cuh"):
+        src = (csrc / name).read_text().replace("#include <cuda_runtime.h>", _SHIM)
+        src, count = _rewrite_launches(src)
+        n += count
+        (out / (name.replace(".cu", ".cpp") if name.endswith(".cu") else name)).write_text(src)
+    assert n == len(CF.KERNELS), "every launcher launches one kernel"
+    for name in ("ff.cuh", "ec.cuh"):
+        shutil.copy(csrc / name, out / name)
     lib = out / "libkernels_host.so"
-    subprocess.run([gxx, "-std=c++17", "-O1", "-shared", "-fPIC", f"-I{csrc}",
-                    "-o", str(lib), str(out / "kernels_host.cpp")],
+    subprocess.run([gxx, "-std=c++20", "-O1", "-pthread", "-shared", "-fPIC",
+                    "-o", str(lib), str(out / "kernels.cpp")],
                    check=True, capture_output=True, text=True, timeout=300)
     return lib
 
@@ -80,6 +130,8 @@ def host_kernels(host_library, monkeypatch):
     monkeypatch.setattr(CF, "_LIB", None)
     monkeypatch.setattr(CF, "_check_cuda", lambda name, *tensors: None)
     monkeypatch.setattr(CF, "_launch", launch)
+    monkeypatch.setattr(CN, "_check_device", lambda name, *tensors: None)
+    monkeypatch.setattr(CN, "_use_kernel", lambda t: True)
     return CF
 
 
@@ -113,9 +165,53 @@ def _edge_points(rng):
     return p, q
 
 
+def _lm(nprng, e):
+    """(16, e) limb-major field elements with the edge values first."""
+    return _field(nprng, e).t().contiguous()
+
+
+def _lm_case(name, nprng):
+    """The five kernels of csrc/ntt.cuh.  The stages run at small sizes:
+    stage_big at n = 16 (s = 8, 4), at n = 32 with E = 3 * 32 (s = 16, 8)
+    and at s = 1024 (n = 2048); stages_small at n = 8, at n = 64 with
+    E = 3 * 64 and at n = 1024 (the full tile, one block of 512 threads)."""
+    if name == "lm_mul":
+        return (lambda a, b: (CN.lm_mul(SPEC, a, b),),
+                lambda a, b: (CN.lm_mul_plain(SPEC, a, b),), (_lm(nprng, B), _lm(nprng, B)))
+    if name == "lm_addsub":
+        def both(fn):
+            return lambda a, b: (fn(SPEC, False, a, b), fn(SPEC, True, a, b))
+        return both(CN.lm_addsub), both(CN.lm_addsub_plain), (_lm(nprng, B), _lm(nprng, B))
+    if name == "lm_mul_const":
+        c = (SPEC.r_mod_p * 0x1234567) % SPEC.p
+        return (lambda a: (CN.lm_mul_const(SPEC, a, c), CN.lm_mul_const(SPEC, a, SPEC.p - 1)),
+                lambda a: (CN.lm_mul_const_plain(SPEC, a, c),
+                           CN.lm_mul_const_plain(SPEC, a, SPEC.p - 1)),
+                (_lm(nprng, B),))
+    cases = []
+    if name == "stage_big":
+        for logn, e, stages in ((4, 32, (8, 4)), (5, 96, (16, 8)), (11, 2048, (1024,))):
+            for inverse in (False, True):
+                tw = CN.tables(SPEC, logn, inverse, "cpu")
+                cases += [(s, inverse, tw, e) for s in stages]
+        fn, plain = CN.stage_big, CN.stage_big_plain
+    else:
+        assert name == "stages_small"
+        for logn, e in ((3, 16), (6, 192), (10, 1024)):
+            for inverse in (False, True):
+                cases.append((1 << logn, inverse, CN.tables(SPEC, logn, inverse, "cpu"), e))
+        fn, plain = CN.stages_small, CN.stages_small_plain
+    xs = [_lm(nprng, e) for *_, e in cases]
+    return (lambda *x: tuple(fn(SPEC, xi, w, inv, tw) for xi, (w, inv, tw, _) in zip(x, cases)),
+            lambda *x: tuple(plain(SPEC, xi, w, inv, tw) for xi, (w, inv, tw, _) in zip(x, cases)),
+            tuple(xs))
+
+
 def _case(name, rng, nprng):
     """(kernel call, plain call, arguments) for kernel `name`."""
     E = ec(CURVE)
+    if name.startswith("lm_") or name.startswith("stage"):
+        return _lm_case(name, nprng)
     if name == "mont_mul":
         return (lambda a, b: (CF.mont_mul(SPEC, a, b),),
                 lambda a, b: (CF.mont_mul_plain(SPEC, a, b),),
@@ -177,3 +273,27 @@ def test_kernel_source_on_host_equals_plain(name, host_kernels, rng, nprng):
         assert got[4].nonzero().flatten().tolist() == [0, 3, 4]
     if name == "fused_madd_scan_xyzz":
         assert got[8].nonzero().flatten().tolist() == [5]
+
+
+def test_fused_merge_level_on_host_kernels(host_kernels, rng):
+    """One fused merge level (two pairs at NTT size 128, the top pair of a
+    128-point list at 128 too) through the limb-major tail with the five
+    kernels of the host build, their wrappers' layout checks included: the
+    same level as the plain versions give."""
+    from halo2_liam_eagen_msm_tpu_torch import divisor as D
+
+    pts = ec(CURVE).points_from_ints(pyref.random_points(rng, CURVE, 256), "cpu")
+    lv, b_sem = D.seeds(CURVE, pts), 1
+    for _ in range(5):
+        b_sem *= 2
+        lv = D.merge_level(CURVE, b_sem + 1, b_sem, lv)
+    for m in (4, 2):  # two pairs, then one (pairs = 1: the top level's shape)
+        a, b = D._take_level(lv, slice(0, m, 2)), D._take_level(lv, slice(1, m, 2))
+        before = dict(CF.LAUNCHES)
+        got = D.merge_pairs(CURVE, a, b)
+        assert all(CF.LAUNCHES[k] > before[k] for k in
+                   ("lm_mul", "lm_addsub", "lm_mul_const", "stages_small"))
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(CN, "_use_kernel", lambda t: False)
+            want = D.merge_pairs(CURVE, a, b)
+        assert torch.equal(got.wtns.a, want.wtns.a) and torch.equal(got.wtns.b, want.wtns.b)

@@ -1,0 +1,173 @@
+"""The polynomial layer of the PyTorch port (and the field layer's lazy sums
+under it): every function against the exact Python-int Poly of both packages,
+kate division on both sides of its n <= 64 switch and at b = 0, products on
+both sides of the naive/NTT threshold, and one jitted JAX call at
+test_poly.py's shapes.
+
+All on the CPU.  Integer arithmetic: tolerance zero."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from halo2_liam_eagen_msm_tpu import fields as JF
+from halo2_liam_eagen_msm_tpu.ops import poly as jax_poly
+from halo2_liam_eagen_msm_tpu_torch.convert import limbs_from_numpy, limbs_to_numpy
+from halo2_liam_eagen_msm_tpu_torch.fields import PALLAS_FP
+from halo2_liam_eagen_msm_tpu_torch.limbs import ints_to_mont_limbs, mont_limbs_to_ints
+from halo2_liam_eagen_msm_tpu_torch.ops import poly as P
+from halo2_liam_eagen_msm_tpu_torch.ops.ff import ff
+from halo2_liam_eagen_msm_tpu_torch.ops.poly import Poly
+
+torch.set_num_threads(1)
+
+SPEC = PALLAS_FP
+
+
+def rand_poly(rng, n):
+    return Poly(SPEC, [rng.randrange(SPEC.p) for _ in range(n)])
+
+
+def dev(p: Poly, pad=None):
+    return p.to_device(pad, device="cpu")
+
+
+def back(arr, length=None):
+    return Poly.from_device(SPEC, arr, length)
+
+
+def elem(x: int):
+    return limbs_from_numpy(ints_to_mont_limbs([x], SPEC)[0], "cpu")
+
+
+def test_host_poly_equals_jax_poly(rng):
+    """The port's own Poly copy: the reference's poly_test identities and
+    every operation equal to the JAX package's Poly, Karatsuba included."""
+    p, q = rand_poly(rng, 100), rand_poly(rng, 57)
+    jp, jq = jax_poly.Poly(JF.PALLAS_FP, p.coeffs), jax_poly.Poly(JF.PALLAS_FP, q.coeffs)
+    t = rng.randrange(SPEC.p)
+    assert (p + q).coeffs == (jp + jq).coeffs
+    assert (p * q).coeffs == (jp * jq).coeffs
+    kp = p.mul_karatsuba(q)
+    assert kp.coeffs == jp.mul_karatsuba(jq).coeffs   # lengths included
+    assert kp.ev(t) == p.ev(t) * q.ev(t) % SPEC.p
+    assert p.kate_div(t).coeffs == jp.kate_div(t).coeffs
+    assert p.scale(t).coeffs == jp.scale(t).coeffs
+    assert (p >> 3).coeffs == (jp >> 3).coeffs
+    assert p.ev(t) == jp.ev(t)
+    assert (p * q).ev(t) == p.ev(t) * q.ev(t) % SPEC.p
+    p2 = p + Poly(SPEC, [-p.ev(t)])
+    t2 = rng.randrange(SPEC.p)
+    assert p2.ev(t2) == p.kate_div(t).ev(t2) * (t2 - t) % SPEC.p
+    assert len(Poly(SPEC, [0] * 5).kate_div(t)) == 4
+
+
+def test_field_lazy_sums(rng):
+    """ff.mul_small, reduce_columns, sum, dot and pow_fixed against ints."""
+    k = ff(SPEC)
+    xs = [rng.randrange(SPEC.p) for _ in range(9000)]
+    xs[:2] = [SPEC.p - 1, SPEC.p - 1]
+    a = limbs_from_numpy(ints_to_mont_limbs(xs, SPEC), "cpu")
+    ints = lambda t: mont_limbs_to_ints(limbs_to_numpy(t), SPEC)
+    assert ints(k.sum(a, axis=0)) == [sum(xs) % SPEC.p]        # three chunks of 4096
+    ys = xs[::-1]
+    b = limbs_from_numpy(ints_to_mont_limbs(ys, SPEC), "cpu")
+    assert ints(k.dot(a[:300], b[:300], axis=0)) == [
+        sum(x * y for x, y in zip(xs[:300], ys[:300])) % SPEC.p]
+    assert ints(k.mul_small(a[:5], 13)) == [x * 13 % SPEC.p for x in xs[:5]]
+    assert ints(k.mul_small(a[:5], 0)) == [0] * 5
+    assert ints(k.pow_fixed(a[:5], 65537)) == [pow(x, 65537, SPEC.p) for x in xs[:5]]
+    assert ints(k.pow_fixed(a[:5], 0)) == [1] * 5
+    # 17 lazy columns: 2^40 in column 3 and a top limb, total below 2^271
+    cols = torch.zeros(2, 17, dtype=torch.int64)
+    cols[0, 3] = 1 << 40
+    cols[1, 16] = 0xFFFF
+    cols[1, 0] = 12345
+    want = [(v * pow(1 << 256, SPEC.p - 2, SPEC.p)) % SPEC.p
+            for v in ((1 << 40) << 48, (0xFFFF << 256) + 12345)]
+    assert ints(k.reduce_columns(cols)) == want
+
+
+def test_inv_routes_agree(rng):
+    """FF.inv on the CPU (exact host powers) equals the Fermat chain the card
+    runs, zero included."""
+    k = ff(SPEC)
+    xs = [rng.randrange(SPEC.p) for _ in range(6)] + [0, 1]
+    a = limbs_from_numpy(ints_to_mont_limbs(xs, SPEC), "cpu")
+    assert torch.equal(k.inv(a), k._inv_fermat(a))
+
+
+def test_eval_and_powers(rng):
+    p = rand_poly(rng, 200)
+    xs = [rng.randrange(SPEC.p) for _ in range(4)] + [0]
+    x = limbs_from_numpy(ints_to_mont_limbs(xs, SPEC), "cpu")
+    got = mont_limbs_to_ints(limbs_to_numpy(P.eval_poly(SPEC, dev(p)[None], x)), SPEC)
+    assert got == [p.ev(v) for v in xs]
+    pw = mont_limbs_to_ints(limbs_to_numpy(P.powers(SPEC, x[:1], 7)), SPEC)
+    assert pw == [pow(xs[0], j, SPEC.p) for j in range(7)]
+
+
+@pytest.mark.parametrize("n", [5, 64, 65, 77])
+def test_kate_div(rng, n):
+    """Both forms (sequential to n = 64, suffix sums above), b random and
+    b = 0 (the shift), batched over two polynomials."""
+    ps = [rand_poly(rng, n) for _ in range(2)]
+    bs = [rng.randrange(SPEC.p), 0]
+    coeffs = torch.stack([dev(p) for p in ps])
+    b = torch.stack([elem(v) for v in bs])
+    got = P.kate_div(SPEC, coeffs, b)
+    assert tuple(got.shape) == (2, n, 16)
+    for i in range(2):
+        assert back(got[i], n - 1).coeffs == ps[i].kate_div(bs[i]).coeffs
+        assert back(got[i]).coeffs[n - 1] == 0
+    assert back(got[1], n - 1).coeffs == ps[1].coeffs[1:]
+
+
+@pytest.mark.parametrize("la, lb", [(1, 1), (3, 8), (31, 31), (7, 100), (32, 32), (40, 40),
+                                    (33, 120)])
+def test_mul_naive_fft_auto(rng, la, lb):
+    p, q = rand_poly(rng, la), rand_poly(rng, lb)
+    want = (p * q).coeffs
+    assert back(P.mul_naive(SPEC, dev(p), dev(q)), la + lb - 1).coeffs == want
+    assert back(P.mul_fft(SPEC, dev(p), dev(q)), la + lb - 1).coeffs == want
+    assert back(P.mul_auto(SPEC, dev(p), dev(q)), la + lb - 1).coeffs == want
+
+
+def test_add_scale_shr_batched(rng):
+    p, q = rand_poly(rng, 10), rand_poly(rng, 25)
+    sc = rng.randrange(SPEC.p)
+    assert back(P.add_padded(SPEC, dev(p), dev(q)), 25).coeffs == (p + q).coeffs
+    assert back(P.scale(SPEC, dev(p), elem(sc)), 10).coeffs == p.scale(sc).coeffs
+    assert back(P.shr(SPEC, dev(p), 4), 14).coeffs == (p >> 4).coeffs
+    ps = [rand_poly(rng, 9) for _ in range(6)]
+    qs = [rand_poly(rng, 12) for _ in range(6)]
+    got = P.mul_naive(SPEC, torch.stack([dev(x) for x in ps]), torch.stack([dev(x) for x in qs]))
+    for i in range(6):
+        assert back(got[i], 20).coeffs == (ps[i] * qs[i]).coeffs
+
+
+def test_device_functions_equal_jax(rng):
+    """One jitted JAX call at test_poly.py's shapes (kate division at 77,
+    b random and b = 0; a batched 6 x (9, 12) naive product; an evaluation
+    of a 200-term polynomial at 4 points): the same limbs as the port."""
+    p77, p200 = rand_poly(rng, 77), rand_poly(rng, 200)
+    ps = np.stack([ints_to_mont_limbs(rand_poly(rng, 9).coeffs, SPEC) for _ in range(6)])
+    qs = np.stack([ints_to_mont_limbs(rand_poly(rng, 12).coeffs, SPEC) for _ in range(6)])
+    b = ints_to_mont_limbs([rng.randrange(SPEC.p), 0], SPEC)
+    x4 = ints_to_mont_limbs([rng.randrange(SPEC.p) for _ in range(4)], SPEC)
+    c77 = ints_to_mont_limbs(p77.coeffs, SPEC)
+    c200 = ints_to_mont_limbs(p200.coeffs, SPEC)
+
+    def jax_all(c77, b, ps, qs, c200, x4):
+        return (jax_poly.kate_div(JF.PALLAS_FP, c77[None], b),
+                jax_poly.mul_naive(JF.PALLAS_FP, ps, qs),
+                jax_poly.eval_poly(JF.PALLAS_FP, c200[None], x4))
+
+    want = jax.jit(jax_all)(*(jnp.asarray(v) for v in (c77, b, ps, qs, c200, x4)))
+    t = lambda v: limbs_from_numpy(v, "cpu")
+    got = (P.kate_div(SPEC, t(c77)[None], t(b)), P.mul_naive(SPEC, t(ps), t(qs)),
+           P.eval_poly(SPEC, t(c200)[None], t(x4)))
+    for g, w in zip(got, want):
+        assert np.array_equal(limbs_to_numpy(g), np.asarray(w))

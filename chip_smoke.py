@@ -49,7 +49,28 @@ without a card, and on any failed build, failed launch or mismatch.  It
      the same round computed on the CPU by the plain versions,
  11. drives the exact fallback of a fused level on the card (128 points whose
      two halves are equal: a degenerate line) against the CPU result,
- 12. prints one JSON line describing the kernels and, last, one JSON line
+ 12. holds the radix reorder's four kernels (ops/csrc/radix.cuh) against their
+     plain versions (torch.equal) at a ragged plan (three tiles of 768 rows,
+     the first overflowing its spill rows, the second spilling some) and at
+     the plan of a 2^20, c = 15 window, and times them there beside the one
+     PyTorch call that does the shuffle's scatter (index_copy_) and the
+     compaction's gather (index_select),
+ 13. drives the radix route of the MSM (config.RADIX_MSM): best_multiexp at
+     2^20 Pallas points, full-width scalars below q (all below 2^254, so
+     max_scalar_bits = 254 and the top window is split off at 14 bits),
+     against the Python-int oracle and the classic route, flag clear, each
+     radix kernel launched; seconds, device busy time, peak memory and
+     launches of both routes from this call, the spilled rows of every
+     window; then once at the default bound of 255 bits, where the top
+     window keeps c = 15 bits, overflows every tile, and the safe redo gives
+     the exact result,
+ 14. times one 2^20, c = 15 window by both routes, the reorder alone (radix
+     reorder against sort + gather + histogram) and the whole window, on the
+     host clock and as the device's busy time,
+ 15. drives the radix route's overflow on the card: 2^17 points, scalars
+     below 7 (one window, c = 12, every row in coarse partition 0): every tile
+     overflows, the flag is set, and the safe redo is exact,
+ 16. prints one JSON line describing the kernels and, last, one JSON line
      {"ok": true, "device": {...}}.
 
 Each kernel's bound is the least time the card could take for the same work:
@@ -60,7 +81,8 @@ float32 lanes, so the rate is taken as half the 67 TFLOP/s float32 figure
 (one multiply-add = 2 operations).  A field product counts 136 multiply-adds
 (8x8 for a*b, 8x8 for m*p, 8 for m), a field add/sub 8 word additions.
 A butterfly stage counts half a product and one add/sub an element, and its
-twiddles (s rows for a stage of half-size s) once.
+twiddles (s rows for a stage of half-size s) once.  The radix kernels move
+data and count: their bound is their bytes alone, from this run's inputs.
 """
 
 from __future__ import annotations
@@ -76,16 +98,19 @@ import numpy as np
 import torch
 
 from halo2_liam_eagen_msm_tpu_torch import argument as A
+from halo2_liam_eagen_msm_tpu_torch import config
 from halo2_liam_eagen_msm_tpu_torch import divisor as D
 from halo2_liam_eagen_msm_tpu_torch.convert import (
     JPoint, digits_to_rounds, limbs_from_numpy, limbs_to_numpy)
-from halo2_liam_eagen_msm_tpu_torch.fields import PALLAS, N_LIMBS
+from halo2_liam_eagen_msm_tpu_torch.fields import LIMB_BITS, N_LIMBS, PALLAS
 from halo2_liam_eagen_msm_tpu_torch.limbs import ints_to_mont_limbs, mont_limbs_to_ints
 from halo2_liam_eagen_msm_tpu_torch.negbase import negbase_decompose_batch
 from halo2_liam_eagen_msm_tpu_torch.ops import cuda_ff as CF
 from halo2_liam_eagen_msm_tpu_torch.ops import cuda_ntt as CN
+from halo2_liam_eagen_msm_tpu_torch.ops import cuda_radix as CR
 from halo2_liam_eagen_msm_tpu_torch.ops import msm as M
 from halo2_liam_eagen_msm_tpu_torch.ops import ntt as NTT
+from halo2_liam_eagen_msm_tpu_torch.ops import radix as RX
 from halo2_liam_eagen_msm_tpu_torch.ops.ec import ec
 from halo2_liam_eagen_msm_tpu_torch.utils import pyref
 
@@ -99,9 +124,10 @@ SPIN_CYCLES_PER_S = 2.0e9  # upper estimate of the card's clock, for the spin ke
 CSRC = "halo2_liam_eagen_msm_tpu_torch/ops/csrc/"
 PALLAS_FF = "halo2_liam_eagen_msm_tpu/ops/pallas_ff.py"
 PALLAS_NTT = "halo2_liam_eagen_msm_tpu/ops/pallas_ntt.py"
+RADIX_PY = "halo2_liam_eagen_msm_tpu/ops/radix.py"
 # kernel -> (source, TPU kernel's file, line of its function, field products,
 #            field adds, rows read + written per element; per stage for
-#            stages_small)
+#            stages_small; the radix kernels' bytes come as extra bytes)
 KERNEL_TABLE = {
     "mont_mul": ("kernels.cu", PALLAS_FF, 515, 1, 0, 3),
     "mont_addsub": ("kernels.cu", PALLAS_FF, 541, 0, 1, 3),
@@ -116,11 +142,16 @@ KERNEL_TABLE = {
     "lm_mul_const": ("ntt.cuh", PALLAS_NTT, 152, 1, 0, 2),
     "stage_big": ("ntt.cuh", PALLAS_NTT, 186, 0.5, 1, 2),      # + the stage's s twiddle rows
     "stages_small": ("ntt.cuh", PALLAS_NTT, 255, 0.5, 1, 2),   # products, adds per stage
+    "radix_rank": ("radix.cuh", RADIX_PY, 235, 0, 0, 0),
+    "radix_shuffle": ("radix.cuh", RADIX_PY, 270, 0, 0, 0),
+    "radix_pass_b": ("radix.cuh", RADIX_PY, 363, 0, 0, 0),
+    "radix_compact": ("radix.cuh", RADIX_PY, 421, 0, 0, 0),
 }
 MSM_KERNELS = ("mont_mul", "mont_addsub", "ec_add", "ec_add_fast", "ec_double",
                "fused_madd_scan_xyzz")
 FALLBACK_KERNELS = ("ec_madd_xyzz_fast", "ec_add_mixed")
 ROUND_KERNELS = ("lm_mul", "lm_addsub", "lm_mul_const", "stage_big", "stages_small")
+RADIX_KERNELS = ("radix_rank", "radix_shuffle", "radix_pass_b", "radix_compact")
 ROUND_K = 28  # the round of the carry stage the round phase takes (= d // 2)
 BASE = 5  # radix of the argument's digit rounds
 CURVE = PALLAS
@@ -503,25 +534,35 @@ def tiled_msm_oracle(sc, base_pts):
     return pyref.ec_msm(folded, base_pts, CURVE)
 
 
+def tiled_points(dev, base_pts, n: int) -> JPoint:
+    """n points tiled from base_pts, affine (z = 1)."""
+    reps = n // len(base_pts)
+    xs = ints_to_mont_limbs([p[0] for p in base_pts], SPEC)
+    ys = ints_to_mont_limbs([p[1] for p in base_pts], SPEC)
+    return JPoint(limbs_from_numpy(np.tile(xs, (reps, 1)), dev),
+                  limbs_from_numpy(np.tile(ys, (reps, 1)), dev),
+                  limbs_from_numpy(np.tile(ints_to_mont_limbs([1], SPEC), (n, 1)), dev))
+
+
+def msm_inputs(dev, base_pts, logn: int):
+    """The headline MSM's inputs at 2^logn: points tiled from base_pts and
+    full-width random scalars (below 2^254 < q).  Returns (scalar limbs on
+    the host, scalars, points)."""
+    n = 1 << logn
+    nprng = np.random.default_rng(0xBE7C)
+    sc = nprng.integers(0, 1 << 16, size=(n, N_LIMBS), dtype=np.uint32)
+    sc[:, 15] &= 0x3FFF
+    return sc, limbs_from_numpy(sc, dev), tiled_points(dev, base_pts, n)
+
+
 def main_path(dev, base_pts, logn: int):
     """best_multiexp at 2^logn Pallas points, full-width scalars, against the
     exact oracle.  Returns (best seconds of three timed runs, launch counts of
     the first of them, the inputs)."""
     n = 1 << logn
-    distinct = len(base_pts)
-    reps = n // distinct
     print(f"main path: best_multiexp, Pallas, n = 2^{logn}, 255-bit scalars, "
           f"c = {M.pick_window(n)}", flush=True)
-    xs = ints_to_mont_limbs([p[0] for p in base_pts], SPEC)
-    ys = ints_to_mont_limbs([p[1] for p in base_pts], SPEC)
-    pts = JPoint(limbs_from_numpy(np.tile(xs, (reps, 1)), dev),
-                 limbs_from_numpy(np.tile(ys, (reps, 1)), dev),
-                 limbs_from_numpy(np.tile(ints_to_mont_limbs([1], SPEC), (n, 1)), dev))
-    nprng = np.random.default_rng(0xBE7C)
-    sc = nprng.integers(0, 1 << 16, size=(n, N_LIMBS), dtype=np.uint32)
-    sc[:, 15] &= 0x3FFF  # full-width scalars below 2^254 < q
-    scalars = limbs_from_numpy(sc, dev)
-
+    sc, scalars, pts = msm_inputs(dev, base_pts, logn)
     want = tiled_msm_oracle(sc, base_pts)
 
     c = M.pick_window(n)
@@ -1103,6 +1144,334 @@ def divisor_fallback_path(dev):
             and one_point(out) == one_point(out_cpu),
             "the witness and the output equal the CPU's, limb for limb")
 
+# ---------------------------------------------------------------------------
+# phase 12: the radix reorder's four kernels
+# ---------------------------------------------------------------------------
+
+def radix_inputs(nprng, dev, n: int, c: int, T, crowd=()):
+    """One window's keys (uniform in [0, 2^c)) and packed rows (random words,
+    1 % all-zero rows of no point); crowd[t] rows of tile t moved into
+    coarse partition 9.  Returns (plan, keys, payload)."""
+    plan = RX.make_plan(n, c, T)
+    keys = nprng.integers(0, 1 << c, size=n).astype(np.int32)
+    pay = nprng.integers(0, 1 << 32, size=(n, 16), dtype=np.uint32).view(np.int32)
+    pay[nprng.random(n) < 0.01] = 0
+    for t, k in enumerate(crowd):
+        rows = t * plan.T + nprng.choice(plan.T, size=k, replace=False)
+        keys[rows] = (9 << plan.fb) + nprng.integers(0, 1 << plan.fb, size=k)
+    return plan, torch.from_numpy(keys).to(dev), torch.from_numpy(pay).to(dev)
+
+
+def check_radix_kernels(dev, logn: int, reps: int):
+    """The four kernels of csrc/radix.cuh against their plain versions at a
+    ragged plan and at the plan of one 2^logn window (c = pick_window), the
+    last timed.  Each kernel's inputs come from the kernels before it.  The
+    bound is bytes: each input read once (the shuffle's and the compaction's
+    payload rows where they land), each output written once, the image's and
+    the stream's zero rows included (the kernels write them)."""
+    nprng = np.random.default_rng(0x4AD1)
+    n = 1 << logn
+    cases = {"ragged": radix_inputs(nprng, dev, 3 * 768, 10, 768, crowd=(400, 60)),
+             "full": radix_inputs(nprng, dev, n, M.pick_window(n), M.RADIX_TILE)}
+    st = {}
+    for key, (plan, keys, pay) in cases.items():
+        dst, cnt = CR.rank(plan, keys, pay)
+        tiles = CR.shuffle(plan, keys, dst, pay)
+        base4, spills = RX.ghost_bases(plan, cnt)
+        main = RX.partition_major(plan, tiles)
+        parts, _ = CR.pass_b(plan, main)
+        st[key] = dict(plan=plan, keys=keys, pay=pay, dst=dst, main=main, parts=parts,
+                       base4=base4, spills=spills, landed=int((dst < plan.OUT_ROWS).sum()))
+        print(f"  radix plan {key}: n = {plan.n}, c = {plan.c}, T = {plan.T}, P = {plan.P}, "
+              f"S = {plan.S}, SP = {plan.SP}, OUT_ROWS = {plan.OUT_ROWS}, R = {plan.R}, "
+              f"R_pad = {plan.R_pad}, n_ext = {plan.n_ext}; spills a tile: "
+              f"{spills.tolist()[:8]}", flush=True)
+    spills, sp = st["ragged"]["spills"], st["ragged"]["plan"].SP
+    require(int(spills[0]) > sp and 0 < int(spills[1]) <= sp,
+            "the ragged plan's tile 0 overflows its spill rows and tile 1 spills within them")
+
+    def shape(key):
+        p = st[key]["plan"]
+        return f"n = {p.n}, c = {p.c}, T = {p.T}, P = {p.P}"
+
+    def bytes_of(name):
+        def count(key):
+            d = st[key]
+            p = d["plan"]
+            if name == "radix_rank":
+                return p.n * (4 + ROW_BYTES + 4) + p.n_tiles * p.P * 4
+            if name == "radix_shuffle":
+                return p.n * 4 + d["landed"] * (ROW_BYTES + 4) + p.n_tiles * p.OUT_ROWS * 80
+            if name == "radix_pass_b":
+                # the payload and the key of each slot row (the image's
+                # zero columns 17-19 are never read)
+                return (p.P * p.R * (ROW_BYTES + 4) + p.P * p.R_pad * ROW_BYTES
+                        + p.P * ((1 << p.fb) + 1) * 4)
+            gathered = min(p.n_ext, int(d["base4"][-1]) + p.R_pad)
+            return p.P * 4 + (gathered + p.n_ext) * ROW_BYTES
+        return count
+
+    calls = {
+        "radix_rank": (lambda d: (d["keys"], d["pay"]),
+                       lambda p, k, y: CR.rank(p, k, y), lambda p, k, y: CR.rank_plain(p, k, y)),
+        "radix_shuffle": (lambda d: (d["keys"], d["dst"], d["pay"]),
+                          lambda p, k, t, y: (CR.shuffle(p, k, t, y),),
+                          lambda p, k, t, y: (CR.shuffle_plain(p, k, t, y),)),
+        "radix_pass_b": (lambda d: (d["main"],), lambda p, m: CR.pass_b(p, m),
+                         lambda p, m: CR.pass_b_plain(p, m)),
+        "radix_compact": (lambda d: (d["parts"], d["base4"]),
+                          lambda p, a, b: (CR.compact(p, a, b),),
+                          lambda p, a, b: (CR.compact_plain(p, a, b),)),
+    }
+    recs = []
+    for name, (args_of, kernel, plain) in calls.items():
+        recs.append(check_kernel(
+            dev, name, kernel, plain, lambda key: (st[key]["plan"], *args_of(st[key])),
+            ["ragged", "full"], reps, elems_of=lambda key: 0, extra_bytes_of=bytes_of(name),
+            shape_of=shape))
+
+    # the one PyTorch call for the same data movement, and its result.  The
+    # shuffle's is timed with the zero fill of the image (the kernel writes
+    # every image row), not with the build of its flat indices and source
+    # rows (the key column appended), which the kernel does in place
+    d = st["full"]
+    p = d["plan"]
+    kept = (d["dst"] < p.OUT_ROWS).nonzero().flatten()
+    flat = torch.div(kept, p.T, rounding_mode="floor") * p.OUT_ROWS + d["dst"][kept]
+    src = torch.cat([d["pay"], d["keys"][:, None], d["pay"].new_zeros((p.n, 3))], dim=1)[kept]
+    img = d["pay"].new_empty((p.n_tiles * p.OUT_ROWS, 20))
+    lib_shuffle = lambda: img.zero_().index_copy_(0, flat, src)
+    lib_shuffle()
+    require(torch.equal(img.view(p.n_tiles, p.OUT_ROWS, 20),
+                        CR.shuffle(p, d["keys"], d["dst"], d["pay"])),
+            "index_copy_ into a zeroed image equals radix_shuffle at the full plan")
+    r = torch.arange(p.n_ext, device=dev)
+    part = torch.searchsorted(d["base4"].to(torch.int64), r, right=True) - 1
+    off = r - d["base4"].to(torch.int64)[part]
+    rowmap = torch.where(off < p.R_pad, part * p.R_pad + off, p.P * p.R_pad)
+    table = torch.cat([d["parts"].reshape(-1, 16), d["parts"].new_zeros((1, 16))])
+    lib_compact = lambda: table.index_select(0, rowmap)
+    require(torch.equal(lib_compact(), CR.compact(p, d["parts"], d["base4"])),
+            "index_select through the row map equals radix_compact at the full plan")
+    for rec, lib in zip(recs, (None, lib_shuffle, None, lib_compact)):
+        if lib is not None:
+            rec["library_ms"] = time_ms(dev, lib, reps)[0]
+            print(f"  time {rec['name']}: one PyTorch call {rec['library_ms']:.4f} ms on "
+                  f"the device", flush=True)
+    return recs
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the radix route of the MSM
+# ---------------------------------------------------------------------------
+
+def timed_msms(dev, scalars, pts, bits: int, runs: int = 3):
+    """Three timed best_multiexp calls after a warm-up (host clock, each
+    ending in a synchronise), the launch counts and peak memory of the first,
+    and the device's busy time of one more.  Returns a dict."""
+    M.best_multiexp(CURVE, scalars, pts, max_scalar_bits=bits)
+    torch.cuda.reset_peak_memory_stats(dev)
+    CF.reset_launch_counts()
+    times = []
+    for i in range(runs):
+        sync(dev)
+        t0 = time.perf_counter()
+        res = M.best_multiexp(CURVE, scalars, pts, max_scalar_bits=bits)
+        sync(dev)
+        times.append(time.perf_counter() - t0)
+        if i == 0:
+            counts = dict(CF.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated(dev)
+    busy = device_busy_ms(dev, lambda: M.best_multiexp(CURVE, scalars, pts,
+                                                       max_scalar_bits=bits))
+    return dict(res=one_point(res), runs=times, counts=counts, peak=peak, busy_ms=busy,
+                launches=sum(counts.values()))
+
+
+def radix_msm_path(dev, base_pts, logn: int):
+    """best_multiexp with config.RADIX_MSM on at 2^logn (the main path's
+    inputs) against the oracle and the classic route, timed beside it.  The
+    scalars are random below q, which lies just above 2^254: all of them fit
+    254 bits (checked), and max_scalar_bits = 254 splits the top window off
+    at c_top = 14 by the JAX package's predicate.  Then one call at the
+    default bound of 255 bits, where c_top = c: the top window's keys, below
+    2^14, crowd half the coarse partitions, every tile overflows, and the
+    MSM ends in the safe redo, exact."""
+    n = 1 << logn
+    c = M.pick_window(n)
+    full_bits = CURVE.scalar_field.p.bit_length()
+    bits = full_bits - 1
+    num_windows = -(-bits // c)
+    c_top = bits - (num_windows - 1) * c
+    print(f"radix route: best_multiexp, Pallas, n = 2^{logn}, c = {c}, {num_windows} "
+          f"windows, max_scalar_bits = {bits}: the top one split off at c_top = {c_top}",
+          flush=True)
+    sc, scalars, pts = msm_inputs(dev, base_pts, logn)
+    require(bool((sc[:, N_LIMBS - 1] >> (bits - LIMB_BITS * (N_LIMBS - 1)) == 0).all()),
+            f"every scalar fits {bits} bits")
+    want = tiled_msm_oracle(sc, base_pts)
+    out = {}
+    try:
+        config.RADIX_MSM = True
+        res, exc = M._best_multiexp(CURVE, c, bits, "fast", scalars, pts)
+        require(not bool(exc), "the radix route's fast flavor runs with its flag clear")
+        out["radix"] = timed_msms(dev, scalars, pts, bits)
+    finally:
+        config.RADIX_MSM = False
+    out["classic"] = timed_msms(dev, scalars, pts, bits)
+    r, k = out["radix"], out["classic"]
+    require(one_point(res) == r["res"] == k["res"] == want,
+            "the radix route's result equals the Python-int oracle and the classic route's")
+    for name in RADIX_KERNELS:
+        require(r["counts"][name] == num_windows,
+                f"{name} was launched once a window on the radix route ({r['counts'][name]})")
+    for route in ("radix", "classic"):
+        o = out[route]
+        print(f"  {route}: runs " + ", ".join(f"{t:.4f}" for t in o["runs"])
+              + f" s; device busy {o['busy_ms']:.2f} ms; peak {o['peak'] / 2**20:.0f} MiB; "
+              f"{o['launches']} kernel launches of the port's", flush=True)
+
+    # spilled rows of every window, and the top window at c (the default bound)
+    E = ec(CURVE)
+    ax, ay, _ = E.to_affine(pts)
+    pay = M._pack_pair(ax, ay)
+    digits = M.window_digits(scalars, c, num_windows)
+    spilled = []
+    for w in range(num_windows):
+        width = c_top if w == num_windows - 1 else c
+        plan = RX.make_plan(n, width, M.RADIX_TILE)
+        _, _, sp_pay, _, ov = RX.radix_window(plan, digits[w], pay)
+        require(not bool(ov), f"window {w} does not overflow")
+        spilled.append(int(sp_pay.any(dim=1).sum()))
+    plan = RX.make_plan(n, c, M.RADIX_TILE)
+    top_spills = RX.ghost_bases(plan, CR.rank(plan, digits[-1], pay)[1])[1]
+    out.update(spilled=spilled, top_at_c=(int(top_spills.float().mean()),
+                                          int((top_spills > plan.SP).sum()), plan.n_tiles))
+    print(f"  spilled rows a window (of {n}): {spilled}; the top window at c = {c} "
+          f"(the default bound of {full_bits} bits) spills {out['top_at_c'][0]} rows a "
+          f"tile on average (SP = {plan.SP}) and overflows {out['top_at_c'][1]} of "
+          f"{plan.n_tiles} tiles", flush=True)
+
+    # the default bound: the fast flavor flags the top window's overflow and
+    # best_multiexp redoes the MSM in the safe flavor
+    try:
+        config.RADIX_MSM = True
+        CF.reset_launch_counts()
+        _, exc = M._best_multiexp(CURVE, c, full_bits, "fast", scalars, pts)
+        require(bool(exc), f"at {full_bits} bits the radix route's fast flavor flags")
+        CF.reset_launch_counts()
+        sync(dev)
+        t0 = time.perf_counter()
+        res = M.best_multiexp(CURVE, scalars, pts)
+        sync(dev)
+        seconds = time.perf_counter() - t0
+    finally:
+        config.RADIX_MSM = False
+    require(one_point(res) == want and CF.LAUNCHES["ec_add_mixed"] > 0,
+            f"at {full_bits} bits the radix route ends in the safe redo (ec_add_mixed "
+            f"launched), equal to the Python-int oracle")
+    out["overflowing"] = dict(seconds=seconds, launches=sum(CF.LAUNCHES.values()))
+    print(f"  radix route at {full_bits} bits: {seconds:.4f} s with the safe redo, "
+          f"{out['overflowing']['launches']} kernel launches of the port's", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: one window by both routes
+# ---------------------------------------------------------------------------
+
+def radix_window_routes(dev, base_pts, logn: int, reps: int = 5):
+    """One c = pick_window window of the main path's inputs (window 0) by both
+    routes: the reorder alone and the whole window, host clock (best of
+    `reps` after a warm-up, each ending in a synchronise) and device busy
+    time of one call.  The window sums must be equal."""
+    n = 1 << logn
+    c = M.pick_window(n)
+    print(f"one window by both routes at n = 2^{logn}, c = {c}", flush=True)
+    _, scalars, pts = msm_inputs(dev, base_pts, logn)
+    E = ec(CURVE)
+    ax, ay, _ = E.to_affine(pts)
+    pay = M._pack_pair(ax, ay)
+    keys = M.window_digits(scalars, c, 1)[0]
+    plan = RX.make_plan(n, c, M.RADIX_TILE)
+    windows = {}
+    for route in ("radix", "classic"):
+        config.RADIX_MSM = route == "radix"
+        try:
+            windows[route] = M._make_one_window(E, c, "fast", pay, n)
+        finally:
+            config.RADIX_MSM = False
+    fns = {
+        ("reorder", "radix"): lambda: RX.radix_window(plan, keys, pay),
+        ("reorder", "classic"): lambda: (pay[torch.sort(keys, stable=True).indices],
+                                         M.bucket_bounds_hist(keys, c)),
+        ("window", "radix"): lambda: windows["radix"](keys),
+        ("window", "classic"): lambda: windows["classic"](keys),
+    }
+    sums = {}
+    for route in ("radix", "classic"):
+        pt, exc = windows[route](keys)
+        require(not bool(exc), f"the {route} window runs with its flag clear")
+        sums[route] = one_point(pt)
+    require(sums["radix"] == sums["classic"], "both routes give the same window sum")
+    out = {}
+    for key, fn in fns.items():
+        fn()
+        best = float("inf")
+        for _ in range(reps):
+            sync(dev)
+            t0 = time.perf_counter()
+            fn()
+            sync(dev)
+            best = min(best, time.perf_counter() - t0)
+        out[key] = (best * 1e3, device_busy_ms(dev, fn))
+        print(f"  {key[0]} by the {key[1]} route: {out[key][0]:.3f} ms on the host clock, "
+              f"{out[key][1]:.3f} ms device busy", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the radix route's overflow on the card
+# ---------------------------------------------------------------------------
+
+def radix_overflow_path(dev, base_pts, logn: int = 17):
+    """2^logn points, scalars below 7, max_scalar_bits = 3: one window of
+    c = pick_window, all keys in coarse partition 0, so every tile spills
+    past SP; the fast flavor flags and best_multiexp redoes the MSM in the
+    safe flavor (classic route), exact."""
+    n = 1 << logn
+    c = M.pick_window(n)
+    print(f"radix overflow: n = 2^{logn}, scalars below 7, c = {c}", flush=True)
+    nprng = np.random.default_rng(0x0F10)
+    sc = np.zeros((n, N_LIMBS), dtype=np.uint32)
+    sc[:, 0] = nprng.integers(0, 7, size=n)
+    scalars = limbs_from_numpy(sc, dev)
+    pts = tiled_points(dev, base_pts, n)
+    want = tiled_msm_oracle(sc, base_pts)
+    plan = RX.make_plan(n, c, M.RADIX_TILE)
+    E = ec(CURVE)
+    ax, ay, _ = E.to_affine(pts)
+    spills = RX.ghost_bases(plan, CR.rank(plan, M.window_digits(scalars, c, 1)[0],
+                                          M._pack_pair(ax, ay))[1])[1]
+    require(bool((spills > plan.SP).all()),
+            f"all {plan.n_tiles} tiles overflow ({int(spills.min())} or more spills, SP = "
+            f"{plan.SP})")
+    try:
+        config.RADIX_MSM = True
+        CF.reset_launch_counts()
+        _, exc = M._best_multiexp(CURVE, c, 3, "fast", scalars, pts)
+        require(all(CF.LAUNCHES[k] > 0 for k in RADIX_KERNELS),
+                "the four radix kernels were launched on the overflowing window")
+        require(bool(exc), "the radix route's fast flavor flags the overflow")
+        CF.reset_launch_counts()
+        res = M.best_multiexp(CURVE, scalars, pts, max_scalar_bits=3)
+        require(one_point(res) == want and CF.LAUNCHES["ec_add_mixed"] > 0,
+                "best_multiexp redoes it in the safe flavor (ec_add_mixed launched) and "
+                "equals the Python-int oracle")
+    finally:
+        config.RADIX_MSM = False
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--logn", type=int, default=20,
@@ -1148,6 +1517,7 @@ def main() -> int:
     recs = check_kernels(dev, base_pts, ragged=5000, shapes=shapes,
                          scan_small_g=2050, reps=50)
     recs += check_ntt_kernels(dev, ragged=5000, reps=50, top_logn=args.logn + 1)
+    recs += check_radix_kernels(dev, args.logn, reps=50)
 
     seconds, msm_counts, (scalars, pts) = main_path(dev, base_pts, args.logn)
     if args.profile:
@@ -1170,19 +1540,28 @@ def main() -> int:
     routes = time_window_routes(dev, base_pts, (6, 7, 8, 10, 12, 14, 16))
     witness_s = streamed_path(dev, base_pts, min(10, args.logn))
     divisor_fallback_path(dev)
+    # the radix route takes windows of at least 2^17 points
+    radix_logn = max(args.logn, 17)
+    radix = radix_msm_path(dev, base_pts, radix_logn)
+    radix_counts = radix["radix"]["counts"]
+    window_routes = radix_window_routes(dev, base_pts, radix_logn)
+    radix_overflow_path(dev, base_pts)
 
     for rec in recs:
         name = rec["name"]
         rec["launches"] = (fallback_counts if name in FALLBACK_KERNELS else
-                           rnd["counts"] if name in ROUND_KERNELS else msm_counts)[name]
+                           rnd["counts"] if name in ROUND_KERNELS else
+                           radix_counts if name in RADIX_KERNELS else msm_counts)[name]
         rec["launches_msm"] = msm_counts[name]
         rec["launches_carry"] = carry_counts[name]
         rec["launches_fallback"] = fallback_counts[name]
         rec["launches_round"] = rnd["counts"][name]
+        rec["launches_radix_msm"] = radix_counts[name]
         print(f"  {name}: launches {rec['launches_msm']} (MSM), {rec['launches_carry']} "
               f"(carry stage), {rec['launches_fallback']} (fallback round_sums), "
-              f"{rec['launches_round']} (one round); "
-              f"{rec['ms']:.4f} ms each on the device at shape {rec['shape']}", flush=True)
+              f"{rec['launches_round']} (one round), {rec['launches_radix_msm']} (radix-route "
+              f"MSM); {rec['ms']:.4f} ms each on the device at shape {rec['shape']}",
+              flush=True)
         require(rec["launches"] > 0, f"{name} was launched on the path that runs it")
 
     print(f"msm: n = {n}, seconds = {seconds}, points_per_s = {n / seconds}, card = {card}",
@@ -1201,6 +1580,20 @@ def main() -> int:
     print(f"witness: n = {1 << min(10, args.logn)}, rounds = {rounds}, seconds = {witness_s}, "
           f"(n cut from 2^20: the entry point whole within the run), card = {card}",
           flush=True)
+    for route in ("radix", "classic"):
+        o = radix[route]
+        print(f"msm route: route = {route}, n = {1 << radix_logn}, runs = {o['runs']}, "
+              f"device_busy_ms = {o['busy_ms']}, peak_mib = {o['peak'] / 2**20}, "
+              f"launches = {o['launches']}, card = {card}", flush=True)
+    print(f"msm route: route = radix at {CURVE.scalar_field.p.bit_length()} bits (safe redo), "
+          f"n = {1 << radix_logn}, seconds = {radix['overflowing']['seconds']}, "
+          f"launches = {radix['overflowing']['launches']}, card = {card}", flush=True)
+    print(f"radix spills: spilled_rows_by_window = {radix['spilled']}, "
+          f"top_window_at_c = (mean spills a tile, overflowing tiles, tiles) "
+          f"{radix['top_at_c']}, card = {card}", flush=True)
+    for (what, route), (wall_ms, busy_ms) in window_routes.items():
+        print(f"window route: part = {what}, route = {route}, n = {1 << radix_logn}, "
+              f"wall_ms = {wall_ms}, device_busy_ms = {busy_ms}, card = {card}", flush=True)
     print(json.dumps({"kernels": recs}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 // The eight kernels of the MSM and carry-stage slices and their C launchers
-// (the five of the divisor merge tree are in ntt.cuh, included below).  Each kernel is one
+// (the five of the divisor merge tree are in ntt.cuh, the four of the MSM's
+// radix reorder in radix.cuh, both included below).  Each kernel is one
 // thread per element (per lane for the scan): it reads its (16,) rows, does
 // the whole formula in registers (ff.cuh, ec.cuh) and writes its rows back.
 // No kernel allocates or synchronises; a launcher enqueues on the stream it
@@ -27,6 +28,7 @@ __device__ __forceinline__ int64_t global_index() {
 }
 
 #include "ntt.cuh"
+#include "radix.cuh"
 
 // ---- 1. mont_mul: replaces pallas_ff.mont_mul ---------------------------------
 

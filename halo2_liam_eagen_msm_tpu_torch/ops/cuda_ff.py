@@ -36,7 +36,8 @@ and the plain version for a CPU tensor.
 LAUNCHES counts kernel launches by name: a wrapper adds one exactly where it
 launches its kernel.  The same library, counters and launcher carry the five
 kernels of the divisor merge tree (csrc/ntt.cuh), whose wrappers and plain
-versions are in ops/cuda_ntt.py.
+versions are in ops/cuda_ntt.py, and the four of the MSM's radix reorder
+(csrc/radix.cuh), whose wrappers and plain versions are in ops/cuda_radix.py.
 """
 
 from __future__ import annotations
@@ -56,7 +57,9 @@ from ..fields import CurveSpec, FieldSpec, LIMB_BITS, LIMB_MASK, N_LIMBS, R
 KERNELS = ("mont_mul", "mont_addsub", "ec_add", "ec_add_fast", "ec_double",
            "fused_madd_scan_xyzz", "ec_madd_xyzz_fast", "ec_add_mixed",
            # the divisor merge tree's five, in csrc/ntt.cuh (ops/cuda_ntt.py)
-           "lm_mul", "lm_addsub", "lm_mul_const", "stage_big", "stages_small")
+           "lm_mul", "lm_addsub", "lm_mul_const", "stage_big", "stages_small",
+           # the radix reorder's four, in csrc/radix.cuh (ops/cuda_radix.py)
+           "radix_rank", "radix_shuffle", "radix_pass_b", "radix_compact")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 SCAN_W = 64  # sequential madd steps per lane of the fused scan
@@ -157,6 +160,10 @@ def _lib():
             "lm_mul_const_launch": [fpp, u32p, vp, vp, i64, vp],
             "stage_big_launch": [fpp, ci, vp, vp, vp, i64, i64, i64, vp],
             "stages_small_launch": [fpp, ci, vp, vp, vp, i64, ci, i64, vp],
+            "radix_rank_launch": [vp, vp, vp, vp, i64] + [ci] * 6 + [vp],
+            "radix_shuffle_launch": [vp, vp, vp, vp, i64, ci, ci, vp],
+            "radix_pass_b_launch": [vp, vp, vp, ci, i64, i64, ci, vp],
+            "radix_compact_launch": [vp, vp, vp, ci, i64, i64, vp],
         }
         for name, argtypes in sigs.items():
             fn = getattr(lib, name)
@@ -164,6 +171,19 @@ def _lib():
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def _use_kernel(t: torch.Tensor) -> bool:
+    """The routing rule of every wrapper: a CUDA tensor launches the kernel,
+    a CPU tensor takes the plain version."""
+    return t.is_cuda
+
+
+def _check_device(name: str, *tensors) -> None:
+    dev = tensors[0].device
+    for t in tensors:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{name}: every tensor must lie on one CUDA device")
 
 
 def _check_cuda(name: str, *tensors) -> None:

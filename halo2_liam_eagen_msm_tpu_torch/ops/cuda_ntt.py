@@ -46,19 +46,8 @@ from .ntt import _twiddle_flat_host
 BLOCK = 1024  # stages of half-size >= BLOCK are stage_big launches, the rest one stages_small
 
 
-def _use_kernel(t: torch.Tensor) -> bool:
-    return t.is_cuda
-
-
-def _check_device(name: str, *tensors) -> None:
-    dev = tensors[0].device
-    for t in tensors:
-        if not t.is_cuda or t.device != dev:
-            raise ValueError(f"{name}: every tensor must lie on one CUDA device")
-
-
 def _check_lm(name: str, *tensors) -> None:
-    _check_device(name, *tensors)
+    CF._check_device(name, *tensors)
     shape = tensors[0].shape
     for t in tensors:
         if t.dtype != torch.int32:
@@ -140,7 +129,7 @@ def tables(spec: FieldSpec, logn: int, inverse: bool, device) -> torch.Tensor:
 
 def lm_mul(spec: FieldSpec, a, b):
     """Pointwise Montgomery product of two (16, E) tensors."""
-    if not _use_kernel(a):
+    if not CF._use_kernel(a):
         return lm_mul_plain(spec, a, b)
     _check_lm("lm_mul", a, b)
     out = torch.empty_like(a)
@@ -151,7 +140,7 @@ def lm_mul(spec: FieldSpec, a, b):
 
 def lm_addsub(spec: FieldSpec, is_sub: bool, a, b):
     """Pointwise (a +- b) mod p of two (16, E) tensors."""
-    if not _use_kernel(a):
+    if not CF._use_kernel(a):
         return lm_addsub_plain(spec, is_sub, a, b)
     _check_lm("lm_addsub", a, b)
     out = torch.empty_like(a)
@@ -173,7 +162,7 @@ def lm_mul_const(spec: FieldSpec, a, c: int):
     integer value (below p); the kernel takes it by value."""
     if not 0 <= c < spec.p:
         raise ValueError("lm_mul_const: c must be a reduced field element")
-    if not _use_kernel(a):
+    if not CF._use_kernel(a):
         return lm_mul_const_plain(spec, a, c)
     _check_lm("lm_mul_const", a)
     out = torch.empty_like(a)
@@ -198,7 +187,7 @@ def stage_big(spec: FieldSpec, x, s: int, inverse: bool, tw):
     forward DIF (x0 + x1, tw (x0 - x1)), inverse DIT (x0 + tw x1, x0 - tw x1),
     twiddle index e & (s - 1).  tw: the transform's (16, n - 1) table."""
     _check_stage("stage_big", x, 2 * s, tw)
-    if not _use_kernel(x):
+    if not CF._use_kernel(x):
         return stage_big_plain(spec, x, s, inverse, tw)
     _check_lm("stage_big", x)
     _check_lm("stage_big", tw)
@@ -216,7 +205,7 @@ def stages_small(spec: FieldSpec, x, tile: int, inverse: bool, tw):
     _check_stage("stages_small", x, tile, tw)
     if tile > BLOCK:
         raise ValueError(f"stages_small: tile {tile} above {BLOCK}")
-    if not _use_kernel(x):
+    if not CF._use_kernel(x):
         return stages_small_plain(spec, x, tile, inverse, tw)
     _check_lm("stages_small", x)
     _check_lm("stages_small", tw)

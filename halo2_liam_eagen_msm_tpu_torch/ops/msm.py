@@ -1,8 +1,7 @@
 """Pippenger multi-scalar multiplication (best_multiexp) and the per-round
 digit sums of the Eagen argument's carry stage (round_sums).
 
-Counterpart of the JAX package's ops/msm.py, without the radix reorder, which
-is not ported yet.
+Counterpart of the JAX package's ops/msm.py.
 
 Sort-first bucket method with no scatter of points:
 
@@ -24,6 +23,16 @@ If any flag is set (inputs aligned with T), the whole MSM is recomputed with
 complete adds (the "safe" flavor), so the result is exact for every input.
 round_sums keeps the flags per round and recomputes only the flagged rounds.
 
+With config.RADIX_MSM on, step 2 of a large window (see _radix_ok) is the
+radix reorder of ops/radix.py instead: a bucket-contiguous stream with zero
+rows between the coarse partitions, scanned like the sorted rows; the rows
+it spills take the classic sort and gather and their own scan, and the two
+bucket tables are added before the triangle.  A window that overflows the
+reorder's spill rows sets the flag, so the safe flavor, which always takes
+the classic route, redoes the MSM.  Where the scalars' bit bound leaves the
+top window fewer than c bits, it gets its own narrower width c_top there
+(split_top in _best_multiexp).
+
 Point arrays are (..., N, 16) per coordinate: every scan here runs along the
 last point axis and lets leading axes ride along.  On the CPU the windows of
 one MSM run together on such a leading axis (eager PyTorch pays per op, not
@@ -40,10 +49,12 @@ import math
 
 import torch
 
+from .. import config
 from ..convert import limbs_from_numpy
 from ..fields import CurveSpec, LIMB_BITS, N_LIMBS
 from ..limbs import ints_to_limbs, ints_to_mont_limbs
 from . import cuda_ff
+from . import radix as RX
 from .ec import EC, JPoint, SUM_G, ec
 
 
@@ -60,6 +71,21 @@ from .ec import EC, JPoint, SUM_G, ec
 # costs a few ms a window and no prover's traffic lies, as the route to widen
 # once a window's launches are batched and the device's time is what counts.
 FUSED_SCAN_MIN_ROWS = 1 << 8
+
+# The radix reorder (config.RADIX_MSM) takes windows of at least
+# RADIX_MIN_ROWS points, a multiple of RADIX_TILE, which is also its tile
+# height T: the JAX package's thresholds.  The tests lower both to take the
+# route at a few hundred points.
+RADIX_MIN_ROWS = 1 << 17
+RADIX_TILE = 4096
+
+
+def _radix_ok(n: int, c: int, flavor: str) -> bool:
+    """Whether a window of n points at width c takes the radix reorder: the
+    route is on, the flavor is not the safe one, and the shape suits it (its
+    coarse split needs c >= 8)."""
+    return (config.use_radix_msm() and flavor != "safe" and n >= RADIX_MIN_ROWS
+            and n % RADIX_TILE == 0 and c >= 8)
 
 # ---------------------------------------------------------------------------
 # generic blocked scans over point arrays
@@ -532,6 +558,43 @@ def _make_one_window(E: EC, c: int, flavor: str, pay, n: int):
 
         return inner_at, offsets, w, exc
 
+    def scan_rows(rows):
+        """Blinded scan of (..., m, 16) packed rows in bucket order: on the
+        card the fused scan kernel from FUSED_SCAN_MIN_ROWS rows on, else the
+        stepwise affine scan (leading axes ride along).  Returns (inner_at,
+        offsets, w, exc)."""
+        m = rows.shape[-2]
+        if rows.is_cuda and m >= FUSED_SCAN_MIN_ROWS:
+            return scan_packed_padded(rows, m)
+        sx, sy = _unpack_pair(rows)
+        inner, offsets, w, exc = prefix_scan_parts_affine_fast(E, sx, sy)
+
+        def inner_at(safe):
+            return tuple(_rows(cc, safe) for cc in inner)
+
+        return inner_at, offsets, w, exc
+
+    plan = RX.make_plan(n, c, RADIX_TILE) if _radix_ok(n, c, flavor) else None
+
+    def radix_window_sum(keys_in):
+        """One window through the radix reorder: the main stream's bucket
+        sums plus the spilled rows' (both tables hold true values; empty
+        buckets are identities and pass add_fast unflagged), then the
+        triangle.  The main stream always takes the fused scan, as in the JAX
+        package (its kernel on the card, its plain version on the CPU).
+        Returns (point, exc)."""
+        sorted_pay, hi_r, spill_pay, spill_keys, overflow = RX.radix_window(plan, keys_in, pay)
+        inner_at, offsets, w, exc = scan_packed_padded(sorted_pay, plan.n_ext)
+        bucket_m, e_m = bucket_diffs_fast(hi_r.long(), inner_at, offsets, w)
+
+        srows = spill_pay[torch.sort(spill_keys, stable=True).indices]
+        sin_at, soff, sw, s_exc = scan_rows(srows)
+        bucket_s, e_s = bucket_diffs_fast(bucket_bounds_hist(spill_keys, c), sin_at, soff, sw)
+
+        bucket, e_c = E.add_fast(bucket_m, bucket_s)
+        fast, e_t = triangle_fast(bucket)
+        return fast, overflow | exc | e_m | s_exc | e_s | e_c.any() | e_t
+
     def one_window(keys_in):
         def classic_rows_hi():
             order = torch.sort(keys_in, dim=-1, stable=True).indices
@@ -554,15 +617,16 @@ def _make_one_window(E: EC, c: int, flavor: str, pay, n: int):
             return res, torch.zeros(tuple(keys_in.shape[:-1]), dtype=torch.bool,
                                     device=dev)
 
-        rows, hi = classic_rows_hi()
-        if rows.is_cuda and n >= FUSED_SCAN_MIN_ROWS:
-            inner_at, offsets, w, exc = scan_packed_padded(rows, n)
-        else:
-            sx, sy = _unpack_pair(rows)
-            inner, offsets, w, exc = prefix_scan_parts_affine_fast(E, sx, sy)
+        if plan is not None:
+            if keys_in.dim() == 1:
+                return radix_window_sum(keys_in)
+            # the CPU's batch of windows: the reorder takes one at a time
+            outs = [radix_window_sum(k) for k in keys_in]
+            return (JPoint(*(torch.stack([o[0][i] for o in outs]) for i in range(3))),
+                    torch.stack([o[1] for o in outs]))
 
-            def inner_at(safe):
-                return tuple(_rows(cc, safe) for cc in inner)
+        rows, hi = classic_rows_hi()
+        inner_at, offsets, w, exc = scan_rows(rows)
         bucket, e1 = bucket_diffs_fast(hi, inner_at, offsets, w)
         fast, e2 = triangle_fast(bucket)
         return fast, exc | e1 | e2
@@ -614,8 +678,24 @@ def _best_multiexp(curve: CurveSpec, c: int, total_bits: int, flavor: str,
     ax, ay, _ = E.to_affine(pts)
     pay = _pack_pair(ax, ay)  # (N, 16) int32
 
+    # the top window spans only the leftover bits c_top; on the radix route
+    # its keys would crowd a fraction of the coarse partitions, so it gets its
+    # own width there (elsewhere a second width costs more than it saves),
+    # when the route takes that width too: the JAX package's predicate.  At
+    # the default bound of 255 bits and c = 15 there is no split, and as the
+    # Pallas q lies just above 2^254 the top window's keys fall below 2^14,
+    # in half the coarse partitions: at 2^20 points every tile overflows and
+    # the MSM ends in the safe redo.  Scalars known to fit 254 bits say so
+    # with max_scalar_bits, and the top window is split off at 14.
+    c_top = total_bits - (num_windows - 1) * c  # in (0, c]
+    split_top = (c_top < c and num_windows > 1 and _radix_ok(n, c, flavor)
+                 and _radix_ok(n, c_top, flavor))
     window_sums, excs = _run_windows(_make_one_window(E, c, flavor, pay, n),
-                                     digits, n, c, flavor)
+                                     digits[:-1] if split_top else digits, n, c, flavor)
+    if split_top:
+        top, e_top = _make_one_window(E, c_top, flavor, pay, n)(digits[-1])
+        window_sums = JPoint(*(torch.cat([a, b[None]]) for a, b in zip(window_sums, top)))
+        excs = torch.cat([excs, e_top.reshape(1)])
 
     acc = E.identity((), dev)
     for i in range(num_windows):

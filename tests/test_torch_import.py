@@ -22,6 +22,8 @@ import {PKG}.divisor
 import {PKG}.ops.ntt
 import {PKG}.ops.poly
 import {PKG}.ops.cuda_ntt
+import {PKG}.ops.radix
+import {PKG}.ops.cuda_radix
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "{JAX_PKG}" or m.startswith("{JAX_PKG}."))

@@ -1,12 +1,14 @@
 """The CUDA sources of the port, rehearsed without a card: csrc/kernels.cu
-(with csrc/ntt.cuh) compiles for the host with g++ behind a small shim, the
+(with csrc/ntt.cuh and csrc/radix.cuh) compiles for the host with g++ behind
+a small shim, the
 result is loaded in place of the nvcc library, and every kernel's wrapper is
 held against its plain PyTorch version on CPU tensors.
 
 The shim rewrites `kernel<<<grid, block, 0, stream>>>(...)` into a call of
 host_launch, which runs the blocks one after another and each thread of a
 block as a std::thread, with __syncthreads() a C++20 std::barrier over the
-block's threads and __shared__ arrays static (one block is alive at a time).
+block's threads, __shared__ arrays static (one block is alive at a time) and
+atomicAdd an atomic fetch-and-add.
 
 This checks the arithmetic of the device functions, the C interface and the
 wrappers' pointer plumbing; that the sources compile with nvcc and run on
@@ -25,7 +27,9 @@ from halo2_liam_eagen_msm_tpu_torch.fields import PALLAS
 from halo2_liam_eagen_msm_tpu_torch.limbs import ints_to_mont_limbs
 from halo2_liam_eagen_msm_tpu_torch.ops import cuda_ff as CF
 from halo2_liam_eagen_msm_tpu_torch.ops import cuda_ntt as CN
+from halo2_liam_eagen_msm_tpu_torch.ops import cuda_radix as CR
 from halo2_liam_eagen_msm_tpu_torch.ops import msm as M
+from halo2_liam_eagen_msm_tpu_torch.ops import radix as RX
 from halo2_liam_eagen_msm_tpu_torch.ops.ec import ec
 from halo2_liam_eagen_msm_tpu_torch.utils import pyref
 
@@ -52,6 +56,7 @@ static thread_local idx3 blockIdx, threadIdx;
 static idx3 blockDim, gridDim;
 static thread_local std::barrier<>* block_barrier;
 static inline void __syncthreads() { block_barrier->arrive_and_wait(); }
+static inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
 typedef void* cudaStream_t;
 static inline int cudaGetLastError() { return 0; }
 template <class F>
@@ -102,7 +107,7 @@ def host_library(tmp_path_factory):
     csrc = Path(CF.__file__).resolve().parent / "csrc"
     out = tmp_path_factory.mktemp("host_kernels")
     n = 0
-    for name in ("kernels.cu", "ntt.cuh"):
+    for name in ("kernels.cu", "ntt.cuh", "radix.cuh"):
         src = (csrc / name).read_text().replace("#include <cuda_runtime.h>", _SHIM)
         src, count = _rewrite_launches(src)
         n += count
@@ -130,8 +135,8 @@ def host_kernels(host_library, monkeypatch):
     monkeypatch.setattr(CF, "_LIB", None)
     monkeypatch.setattr(CF, "_check_cuda", lambda name, *tensors: None)
     monkeypatch.setattr(CF, "_launch", launch)
-    monkeypatch.setattr(CN, "_check_device", lambda name, *tensors: None)
-    monkeypatch.setattr(CN, "_use_kernel", lambda t: True)
+    monkeypatch.setattr(CF, "_check_device", lambda name, *tensors: None)
+    monkeypatch.setattr(CF, "_use_kernel", lambda t: True)
     return CF
 
 
@@ -207,11 +212,70 @@ def _lm_case(name, nprng):
             tuple(xs))
 
 
+def _radix_windows(nprng):
+    """(plan, keys, payload) of two windows for the rank and shuffle kernels:
+    two tiles of 256 rows (one chunk of the rank walk, partial), the first
+    overflowing its spill rows, the second spilling some; and two tiles of
+    768 rows (two chunks), 300 rows of each in one partition, so that ranks
+    and spill ranks carry from chunk to chunk.  Identity rows and two keys
+    out of range mixed in."""
+    out = []
+    for n, c, T, crowd in ((512, 8, 256, 200), (1536, 10, 768, 300)):
+        plan = RX.make_plan(n, c, T)
+        keys = nprng.integers(0, 1 << c, size=n).astype("int32")
+        pay = nprng.integers(-1 << 31, 1 << 31, size=(n, 16)).astype("int32")
+        pay[nprng.random(n) < 0.05] = 0
+        keys[nprng.choice(T, size=crowd, replace=False)] = 9 << plan.fb
+        keys[T + nprng.choice(T, size=30 + crowd // 2, replace=False)] = (3 << plan.fb) + 1
+        keys[[1, T + 2]] = [1 << c, -7]  # keys past 2^c: dropped
+        pay[[1, T + 2], 0] = 1
+        out.append((plan, torch.from_numpy(keys), torch.from_numpy(pay)))
+    return out
+
+
+def _radix_case(name, nprng):
+    """The four kernels of csrc/radix.cuh, at the plans above; pass B also at
+    a plan cut to 3 partitions of 300 rows (two chunks, 2^6 + 1 fine ids,
+    a zero tail to 320), compact at 6 partitions whose bases repeat (0, 64,
+    64, 128, 192, 192: partitions 1 and 4 are overwritten by the next) with
+    rows past the last one."""
+    import dataclasses
+
+    if name in ("radix_rank", "radix_shuffle"):
+        wins = _radix_windows(nprng)
+        if name == "radix_rank":
+            return (lambda *a: tuple(CR.rank(p, k, y) for p, k, y in wins),
+                    lambda *a: tuple(CR.rank_plain(p, k, y) for p, k, y in wins), ())
+        dsts = [CR.rank_plain(p, k, y)[0] for p, k, y in wins]
+        return (lambda *a: tuple(CR.shuffle(p, k, d, y) for (p, k, y), d in zip(wins, dsts)),
+                lambda *a: tuple(CR.shuffle_plain(p, k, d, y)
+                                 for (p, k, y), d in zip(wins, dsts)), ())
+    if name == "radix_pass_b":
+        p, k, y = _radix_windows(nprng)[0]
+        tiles = CR.shuffle_plain(p, k, CR.rank_plain(p, k, y)[0], y)
+        main = tiles[:, :p.P * p.S].reshape(p.n_tiles, p.P, p.S, 20).transpose(0, 1) \
+            .reshape(p.P, p.R, 20)
+        cut = dataclasses.replace(RX.make_plan(1 << 18, 12), P=3, R=300, R_pad=320)
+        rnd = torch.from_numpy(nprng.integers(-1 << 31, 1 << 31, size=(3, 300, 20)).astype("int32"))
+        rnd[torch.from_numpy(nprng.random((3, 300)) < 0.2), :16] = 0
+        cases = ((p, main), (cut, rnd))
+        return (lambda *a: tuple(CR.pass_b(q, m) for q, m in cases),
+                lambda *a: tuple(CR.pass_b_plain(q, m) for q, m in cases), ())
+    assert name == "radix_compact"
+    plan = dataclasses.replace(RX.make_plan(512, 8, 256), P=6, R_pad=64, n_ext=300)
+    parts = torch.from_numpy(nprng.integers(-1 << 31, 1 << 31, size=(6, 64, 16)).astype("int32"))
+    base4 = torch.tensor([0, 64, 64, 128, 192, 192], dtype=torch.int32)
+    return (lambda *a: (CR.compact(plan, parts, base4),),
+            lambda *a: (CR.compact_plain(plan, parts, base4),), ())
+
+
 def _case(name, rng, nprng):
     """(kernel call, plain call, arguments) for kernel `name`."""
     E = ec(CURVE)
     if name.startswith("lm_") or name.startswith("stage"):
         return _lm_case(name, nprng)
+    if name.startswith("radix_"):
+        return _radix_case(name, nprng)
     if name == "mont_mul":
         return (lambda a, b: (CF.mont_mul(SPEC, a, b),),
                 lambda a, b: (CF.mont_mul_plain(SPEC, a, b),),
@@ -294,6 +358,6 @@ def test_fused_merge_level_on_host_kernels(host_kernels, rng):
         assert all(CF.LAUNCHES[k] > before[k] for k in
                    ("lm_mul", "lm_addsub", "lm_mul_const", "stages_small"))
         with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(CN, "_use_kernel", lambda t: False)
+            mp.setattr(CF, "_use_kernel", lambda t: False)
             want = D.merge_pairs(CURVE, a, b)
         assert torch.equal(got.wtns.a, want.wtns.a) and torch.equal(got.wtns.b, want.wtns.b)

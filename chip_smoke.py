@@ -8,12 +8,12 @@ without a card, and on any failed build, failed launch or mismatch.  It
 
   1. prints the card's name and power limit (nvidia-smi),
   2. builds the kernel library from halo2_liam_eagen_msm_tpu_torch/ops/csrc/,
-  3. holds each of the eight kernels against its plain PyTorch version on
-     the card: torch.equal on every output (integer arithmetic, tolerance
-     zero), on seeded inputs with edge lanes, at a ragged size and at the
-     shape its path gives it, and times both there (ec_madd_xyzz_fast at
-     the lanes of the stepwise scan's widest window, the only shape a card
-     path launches it with),
+  3. holds each of the nine field and curve kernels against its plain
+     PyTorch version on the card: torch.equal on every output (integer
+     arithmetic, tolerance zero), on seeded inputs with edge lanes, at a
+     ragged size and at the shape its path gives it, and times both there
+     (ec_madd_xyzz_fast at the lanes of the stepwise scan's widest window,
+     the only shape a card path launches it with),
   4. drives the MSM path: best_multiexp on the Pallas curve at 2^20 points
      with full-width scalars (64 random base points tiled, as the headline
      benchmark makes them), checks the result against the exact Python-int
@@ -43,10 +43,9 @@ without a card, and on any failed build, failed launch or mismatch.  It
      the card, and at two of them by Python-int Horner on the host), no level
      may take the coefficient fallback, and each of the five kernels must
      have been launched,
- 10. drives argument.compute_lhs_witness_streamed whole at a cut width,
-     2^10 points x 56 rounds: final carry equal to the Python-int oracle and
-     to best_multiexp, every round closing, round 28 equal limb for limb to
-     the same round computed on the CPU by the plain versions,
+ 10. drives one round of the witness at a cut width, 2^10 points, on the card
+     and on the CPU (plain versions): the carries' final carry equal to the
+     Python-int oracle, round 28 closing on both and equal limb for limb,
  11. drives the exact fallback of a fused level on the card (128 points whose
      two halves are equal: a degenerate line) against the CPU result,
  12. holds the radix reorder's four kernels (ops/csrc/radix.cuh) against their
@@ -70,8 +69,35 @@ without a card, and on any failed build, failed launch or mismatch.  It
  15. drives the radix route's overflow on the card: 2^17 points, scalars
      below 7 (one window, c = 12, every row in coarse partition 0): every tile
      overflows, the flag is set, and the safe redo is exact,
- 16. prints one JSON line describing the kernels and, last, one JSON line
+ 16. drives the curve layer's entry point EC.add_mixed_fast (kernel 9) on 2^20
+     lanes: carries from EC.scalar_mul_small, affine points, an identity
+     carry, an affine identity and carry == +-Q planted; exactly those flagged
+     that should be, unflagged lanes equal to EC.add_mixed (complete) as
+     affine points, 64 sampled lanes equal to the Python-int oracle, and
+     EC.projective_coords there equal to the Python-int change of coordinates,
+ 17. drives the naive line arrangement (compute_divisor_witness_naive_device)
+     on the round phase's 1,048,582 slots and holds it against the round's
+     merge-tree witness f by the ratio check: both have the divisor
+     sum [P_i] - n[O], so f(R1) P(R2) N(R1) == f(R2) P(R1) N(R2) at two random
+     points, P and N the products of the pos and neg line values (a tree of
+     mont_mul, no inversion); then at 2^12 points the card's lines equal the
+     host replica's,
+ 18. drives BASELINE config 4 whole: compute_lhs_witness_streamed at the
+     carry phase's 2^20 points and scalars, base 5, all 56 rounds: the final
+     carry equal to the carry phase's and the oracle, every round closing,
+     round 28 equal to the round phase's witness limb for limb; seconds whole,
+     a round, of the host decomposition; peak; the device's busy time over
+     three rounds,
+ 19. drives the model: EagenMSMWitness at 2^16 points with all 56 rounds
+     batched through one merge tree (carry against the oracle, every round's
+     slots summing to the identity, the first and last round's witness equal
+     to a single-round computation), and entry()'s fn on the card against the
+     same fn on the CPU,
+ 20. prints one JSON line describing the kernels and, last, one JSON line
      {"ok": true, "device": {...}}.
+
+Phases 16-19 run last, on the round's (phase 9) slots and witness and the
+carry stage's inputs, which are kept alive until then.
 
 Each kernel's bound is the least time the card could take for the same work:
 the larger of bytes moved (each input read once, each output written once)
@@ -103,7 +129,10 @@ from halo2_liam_eagen_msm_tpu_torch import divisor as D
 from halo2_liam_eagen_msm_tpu_torch.convert import (
     JPoint, digits_to_rounds, limbs_from_numpy, limbs_to_numpy)
 from halo2_liam_eagen_msm_tpu_torch.fields import LIMB_BITS, N_LIMBS, PALLAS
-from halo2_liam_eagen_msm_tpu_torch.limbs import ints_to_mont_limbs, mont_limbs_to_ints
+from halo2_liam_eagen_msm_tpu_torch.entry import entry
+from halo2_liam_eagen_msm_tpu_torch.limbs import (
+    ints_to_limbs, ints_to_mont_limbs, limbs_to_ints, mont_limbs_to_ints)
+from halo2_liam_eagen_msm_tpu_torch.models.eagen_msm import EagenConfig, EagenMSMWitness
 from halo2_liam_eagen_msm_tpu_torch.negbase import negbase_decompose_batch
 from halo2_liam_eagen_msm_tpu_torch.ops import cuda_ff as CF
 from halo2_liam_eagen_msm_tpu_torch.ops import cuda_ntt as CN
@@ -137,6 +166,7 @@ KERNEL_TABLE = {
     "fused_madd_scan_xyzz": ("kernels.cu", PALLAS_FF, 740, 10, 7, 5),  # per packed row: 1 in, 4 out
     "ec_madd_xyzz_fast": ("kernels.cu", PALLAS_FF, 699, 10, 7, 10),    # 6 in, 4 out (+ 1 flag byte)
     "ec_add_mixed": ("kernels.cu", PALLAS_FF, 599, 18, 21, 8),         # 5 in, 3 out (+ 1 mask byte)
+    "ec_add_mixed_fast": ("kernels.cu", PALLAS_FF, 664, 11, 7, 8),     # 5 in, 3 out (+ 1 flag byte)
     "lm_mul": ("ntt.cuh", PALLAS_NTT, 121, 1, 0, 3),
     "lm_addsub": ("ntt.cuh", PALLAS_NTT, 136, 0, 1, 3),
     "lm_mul_const": ("ntt.cuh", PALLAS_NTT, 152, 1, 0, 2),
@@ -467,6 +497,27 @@ def check_kernels(dev, base_pts, ragged: int, shapes: dict, scan_small_g: int, r
         mixed, [ragged, shapes["ec_add_mixed"]], reps,
         extra_bytes_of=lambda b: b, host_check=vs_pyref_mixed))
 
+    def mixed_fast_flags(size, args, got):
+        k = len(host["p"])
+        require(got[3].nonzero().flatten().tolist() == [0, 3, 4],
+                f"ec_add_mixed_fast flags the identity carry (lane 0), carry == Q (lane 3) "
+                f"and carry == -Q (lane 4) and nothing else at size {size}; qy == 0 with "
+                f"an ordinary and with an identity carry (lanes 1, 2) passes unflagged")
+        require(all(torch.equal(g[1:3], a[1:3]) for g, a in zip(got[:3], args[:3])),
+                f"lanes 1 and 2 (qy == 0) hold the carry itself, limb for limb, at size {size}")
+        pts = E.points_to_ints(JPoint(*(c[:k] for c in got[:3])))
+        want = [pyref.ec_add(a, b, CURVE) for a, b in zip(host["p"], host["q"])]
+        keep = [i for i in range(k) if i not in (0, 3, 4)]
+        require([pts[i] for i in keep] == [want[i] for i in keep],
+                f"unflagged lanes among the first {k} equal the Python-int oracle "
+                f"at size {size}")
+
+    recs.append(check_kernel(
+        dev, "ec_add_mixed_fast", lambda *a: CF.ec_add_mixed_fast(CURVE, *a),
+        lambda *a: CF.ec_add_mixed_fast_plain(CURVE, *a),
+        lambda b: mixed(b)[:5], [ragged, shapes["ec_add_mixed_fast"]], reps,
+        extra_bytes_of=lambda b: b, host_check=mixed_fast_flags))
+
     def xyzz_step(b):
         """The carry in XYZZ form (zz = z^2, zzz = z^3; the identity all
         zero in zz, zzz) and an affine q, the affine identity as qy == 0."""
@@ -612,21 +663,25 @@ def profile_call(dev, what: str, fn) -> None:
 def device_busy_ms(dev, fn) -> float:
     """The device's busy time over one call of fn: the sum of the times of
     every kernel and copy it ran there, as torch.profiler traces them (the
-    "Self CUDA time total" of its table)."""
+    "Self CUDA time total" of its table).  A trace with no device event in it
+    is taken once more (the profiler has returned one on the card for a call
+    that ran kernels); a second empty trace fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        sync(dev)
-    busy_us = 0.0
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA and not getattr(ev, "is_user_annotation", False):
-            own = getattr(ev, "self_device_time_total", None)
-            busy_us += own if own is not None else ev.self_cuda_time_total
-    if busy_us <= 0:
-        raise Failure("the profiler traced no device time")
-    return busy_us / 1e3
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync(dev)
+        busy_us = 0.0
+        for ev in prof.key_averages():
+            if ev.device_type == DeviceType.CUDA and not getattr(ev, "is_user_annotation", False):
+                own = getattr(ev, "self_device_time_total", None)
+                busy_us += own if own is not None else ev.self_cuda_time_total
+        if busy_us > 0:
+            return busy_us / 1e3
+        print("  the profiler traced no device time; tracing the call once more", flush=True)
+    raise Failure("the profiler traced no device time, twice")
 
 
 # ---------------------------------------------------------------------------
@@ -644,7 +699,7 @@ def carry_path(dev, base_pts, pts: JPoint, logn: int, profile: bool):
     """argument._carries_only at 2^logn Pallas points, scalars below sqrt(q),
     base 5, all digit rounds.  Returns (best seconds of three timed runs,
     launch counts of the first of them, the number of rounds, (digits,
-    carry_prev, carry_new))."""
+    carry_prev, carry_new), (scalar limbs, the final carry's affine point))."""
     n = 1 << logn
     distinct = len(base_pts)
     q = CURVE.scalar_field.p
@@ -715,7 +770,7 @@ def carry_path(dev, base_pts, pts: JPoint, logn: int, profile: bool):
     if profile:
         profile_call(dev, "_carries_only",
                      lambda: A._carries_only(CURVE, BASE, digits, pts))
-    return seconds, counts, d, (digits, carry_prev, carry_new)
+    return seconds, counts, d, (digits, carry_prev, carry_new), (sc, got)
 
 
 # ---------------------------------------------------------------------------
@@ -1055,70 +1110,54 @@ def round_path(dev, pts: JPoint, carry_state, profile: bool):
     b_ints = mont_limbs_to_ints(limbs_to_numpy(w.b), SPEC)
     require(all((horner(a_ints, x) + y * horner(b_ints, x)) % SPEC.p == 0 for x, y in host_pts),
             "it vanishes at the carry slot and the closing slot by Python-int Horner too")
-    del rp, w, out, vals, a_ints, b_ints
+    del out, vals, a_ints, b_ints
     busy = device_busy_ms(dev, one_round) if dev.type == "cuda" else 0.0
     print(f"  device busy in one round: {busy:.3f} ms", flush=True)
     if profile:
         profile_call(dev, "one round", one_round)
     return {"n": n, "slots": slots, "levels": levels, "fused": len(logns), "runs": runs,
             "seconds": min(runs), "setup_s": setup_s, "peak": peak, "busy_ms": busy,
-            "counts": counts}
+            "counts": counts, "rp": rp, "w": w, "carry_state": carry_state}
 
 
 # ---------------------------------------------------------------------------
-# phase 10: the streamed witness end to end, at a cut width
+# phase 10: one round at a cut width, on the card and on the CPU
 # ---------------------------------------------------------------------------
 
-def streamed_path(dev, base_pts, logn: int):
-    """argument.compute_lhs_witness_streamed at 2^logn points (base points
-    tiled), base 5, all rounds, on the card."""
+def cpu_round_path(dev, base_pts, logn: int):
+    """Round ROUND_K of 2^logn points (base points tiled, scalars below
+    sqrt(q)) through _one_round_slots and compute_divisor_witness_partial on
+    the card and on the CPU (plain versions): both close, equal limb for limb.
+    The carries come from _carries_only on the card; its final carry must
+    equal the Python-int oracle."""
     n = 1 << logn
     E = ec(CURVE)
-    d = A.num_digits_for(CURVE, BASE)
-    print(f"witness: compute_lhs_witness_streamed, n = 2^{logn} (cut from 2^20 to fit the "
-          f"run), base {BASE}, {d} rounds", flush=True)
-    host_pts = (list(base_pts) * (n // len(base_pts)))[:n]
-    pts = E.points_from_ints(host_pts, dev)
+    print(f"one round on the card and on the CPU: n = 2^{logn}, round {ROUND_K}", flush=True)
+    pts = tiled_points(dev, base_pts, n)
     rng = random.Random(0x57AE)
     scalars = [A.gen_random_coeff(rng, CURVE.scalar_field) for _ in range(n)]
     scalars[0] = 0
-    want = pyref.ec_msm(scalars, host_pts, CURVE)
-    closes, kept = [], {}
-
-    def on_round(k, wtns_k, out_k):
-        closes.append(bool(E.is_identity(JPoint(*(c[None] for c in out_k)))[0]))
-        if k == ROUND_K:
-            kept["a"], kept["b"] = wtns_k.a.cpu(), wtns_k.b.cpu()
-
-    D.reset_level_counts()
-    t0 = time.perf_counter()
-    final = A.compute_lhs_witness_streamed(CURVE, scalars, pts, BASE, on_round)
-    sync(dev)
-    seconds = time.perf_counter() - t0
-    print(f"  {seconds:.3f} s for {d} rounds; levels by route: {dict(D.LEVEL_COUNTS)}",
-          flush=True)
-    require(one_point(final) == want, "the final carry equals the Python-int oracle")
-    sc = limbs_from_numpy(np.asarray(
-        [[(s >> (16 * i)) & 0xFFFF for i in range(N_LIMBS)] for s in scalars], np.uint32), dev)
-    require(one_point(M.best_multiexp(CURVE, sc, pts, max_scalar_bits=128)) == want,
-            "the final carry equals the port's best_multiexp")
-    require(len(closes) == d and all(closes), f"all {d} rounds close to the identity")
-
-    rounds = digits_to_rounds(negbase_decompose_batch(sc.cpu().numpy().view(np.uint32),
-                                                      BASE, d), dev)
-    cp, cn, _ = A._carries_only(CURVE, BASE, rounds, pts)
+    rounds = A._msb_rounds(CURVE, scalars, n, BASE, dev)
+    cp, cn, final = A._carries_only(CURVE, BASE, rounds, pts)
+    require(one_point(final) == tiled_msm_oracle(ints_to_limbs(scalars), base_pts),
+            "the final carry equals the Python-int oracle")
     cpu = torch.device("cpu")
-    on_cpu = lambda p: JPoint(*(c.to(cpu) for c in p))
-    precomp = A.precompute_multiplicities(E, on_cpu(pts), BASE)
-    rp = A._one_round_slots(CURVE, BASE, rounds[ROUND_K].to(cpu), precomp,
-                            on_cpu(A._at(cp, ROUND_K)), on_cpu(A._at(cn, ROUND_K)))
-    t0 = time.perf_counter()
-    w_cpu, _ = D.compute_divisor_witness_partial(CURVE, rp)
-    cpu_s = time.perf_counter() - t0
-    require(torch.equal(w_cpu.a, kept["a"]) and torch.equal(w_cpu.b, kept["b"]),
-            f"round {ROUND_K}'s witness equals the same round on the CPU (plain versions, "
-            f"{cpu_s:.1f} s there), limb for limb")
-    return seconds
+    on_cpu = lambda pt: JPoint(*(c.to(cpu) for c in pt))
+    wtns = {}
+    for where, conv in ((dev, lambda pt: pt), (cpu, on_cpu)):
+        rp = A._one_round_slots(CURVE, BASE, rounds[ROUND_K].to(where),
+                                A.precompute_multiplicities(E, conv(pts), BASE),
+                                conv(A._at(cp, ROUND_K)), conv(A._at(cn, ROUND_K)))
+        t0 = time.perf_counter()
+        w, out = D.compute_divisor_witness_partial(CURVE, rp)
+        sync(dev)
+        wtns[where.type] = (w, time.perf_counter() - t0)
+        require(bool(E.is_identity(JPoint(*(c[None] for c in out)))[0]),
+                f"round {ROUND_K} closes on the {where.type}")
+    (w, card_s), (w_cpu, cpu_s) = wtns["cuda" if dev.type == "cuda" else "cpu"], wtns["cpu"]
+    require(torch.equal(w.a.cpu(), w_cpu.a) and torch.equal(w.b.cpu(), w_cpu.b),
+            f"round {ROUND_K}'s witness on the card ({card_s:.3f} s) equals the CPU's "
+            f"({cpu_s:.1f} s), limb for limb")
 
 
 # ---------------------------------------------------------------------------
@@ -1471,6 +1510,315 @@ def radix_overflow_path(dev, base_pts, logn: int = 17):
     finally:
         config.RADIX_MSM = False
 
+# ---------------------------------------------------------------------------
+# phase 16: the curve layer's entry point EC.add_mixed_fast at full width
+# ---------------------------------------------------------------------------
+
+def add_mixed_fast_path(dev, base_pts, logn: int):
+    """EC.add_mixed_fast on 2^logn lanes: the carries 3 B_i made by
+    EC.scalar_mul_small from the tiled base points (Jacobian, Z != 1), the
+    affine points B_(i+7); lane 0 carries the identity, lane 1 adds the
+    affine identity (qy == 0), lanes 2 and 3 add the carry's own affine point
+    and its negative.  Unflagged lanes must equal EC.add_mixed (complete) as
+    affine points; 64 sampled lanes the Python-int oracle, and
+    EC.projective_coords there the Python-int change of coordinates.
+    Returns (launch counts of the EC.add_mixed_fast call, its seconds)."""
+    n = 1 << logn
+    E = ec(CURVE)
+    k = E.f
+    print(f"curve entry point: EC.add_mixed_fast, n = 2^{logn} lanes", flush=True)
+    base = tiled_points(dev, base_pts, n)
+    carry = JPoint(*(c.clone() for c in E.scalar_mul_small(base, 3)))
+    carry.z[0] = 0
+    shifted = [base_pts[(i + 7) % len(base_pts)] for i in range(len(base_pts))]
+    q = tiled_points(dev, shifted, n)
+    qx, qy = q.x.clone(), q.y.clone()
+    qx[1], qy[1] = 0, 0
+    cx, cy, _ = E.to_affine(JPoint(*(c[2:4] for c in carry)))
+    qx[2:4] = cx
+    qy[2], qy[3] = cy[0], k.neg(cy[1])
+
+    CF.reset_launch_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    res, exc = E.add_mixed_fast(carry, qx, qy)
+    sync(dev)
+    seconds = time.perf_counter() - t0
+    counts = dict(CF.LAUNCHES)
+    require(counts["ec_add_mixed_fast"] == 1 and sum(counts.values()) == 1,
+            f"EC.add_mixed_fast is one launch of ec_add_mixed_fast on the card "
+            f"({seconds * 1e3:.3f} ms on the host clock)")
+    require(exc.nonzero().flatten().tolist() == [0, 2, 3],
+            "it flags exactly the identity carry (lane 0), carry == Q (lane 2) and "
+            "carry == -Q (lane 3); qy == 0 (lane 1) passes unflagged")
+    ref = E.add_mixed(carry, qx, qy, k.is_zero(qy))
+    keep = ~exc
+    fast_aff, ref_aff = E.to_affine(res), E.to_affine(ref)
+    require(all(torch.equal(f[keep], r[keep]) for f, r in zip(fast_aff, ref_aff)),
+            f"on all {int(keep.sum())} unflagged lanes it equals EC.add_mixed (complete, "
+            f"kernel 8) as affine points")
+
+    nprng = np.random.default_rng(0xAF5)
+    pick = [1] + sorted(int(i) for i in nprng.choice(np.arange(4, n), 63, replace=False))
+    idx = torch.tensor(pick, device=dev)
+    take = lambda pt: JPoint(*(c[idx] for c in pt))
+    d = len(base_pts)
+    host_carry = [pyref.ec_mul(base_pts[i % d], 3, CURVE) for i in pick]
+    host_q = [None if i == 1 else shifted[i % d] for i in pick]
+    require(E.points_to_ints(take(res)) ==
+            [pyref.ec_add(a, b, CURVE) for a, b in zip(host_carry, host_q)],
+            "64 sampled lanes (lane 1 among them) equal the Python-int oracle")
+    pp = SPEC.p
+    X, Y, Z = (mont_limbs_to_ints(limbs_to_numpy(c[idx]), SPEC) for c in carry)
+    got = [mont_limbs_to_ints(limbs_to_numpy(c), SPEC) for c in E.projective_coords(take(carry))]
+    want = [[x * z % pp for x, z in zip(X, Z)], Y, [z ** 3 % pp for z in Z]]
+    back = [(px * pow(pz, -1, pp) % pp, py * pow(pz, -1, pp) % pp) for px, py, pz in zip(*got)]
+    require(got == want and back == host_carry,
+            "EC.projective_coords on those 64 lanes equals (X Z, Y, Z^3) in Python ints, "
+            "and (X/Z, Y/Z) gives the carry's affine point")
+    return counts, seconds
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the naive line arrangement at full width
+# ---------------------------------------------------------------------------
+
+def closing_list(rng, n: int):
+    """About n host points summing to the identity, with identities and
+    P, -P pairs (adjacent and apart) planted."""
+    base = pyref.random_points(rng, CURVE, n - 8)
+    pts = base + [pyref.ec_neg(pyref.ec_msm([1] * len(base), base, CURVE), CURVE)]
+    extra = pyref.random_points(rng, CURVE, 3)
+    for at in (2, n // 3, n // 2):
+        pts.insert(at, None)
+    pts += [extra[0], pyref.ec_neg(extra[0], CURVE)]
+    pts.insert(5, extra[1])
+    pts.insert(n // 4, pyref.ec_neg(extra[1], CURVE))
+    pts.insert(n // 5, extra[2])
+    pts.insert(n // 5 + 1, pyref.ec_neg(extra[2], CURVE))
+    return pts
+
+
+def naive_path(dev, rnd):
+    """compute_divisor_witness_naive_device on the round phase's slots; the
+    ratio check against the round's merge-tree witness f: both have the
+    divisor sum [P_i] - n[O], so f = c * P / N with P, N the products of the
+    pos and neg line values, and f(R1) P(R2) N(R1) == f(R2) P(R1) N(R2) at two
+    random points (products by a tree of mont_mul, no inversion).  Then at
+    2^12 points the lines equal the host replica's.  Returns a dict."""
+    rp, w = rnd["rp"], rnd["w"]
+    E = ec(CURVE)
+    k = E.f
+    slots = rp.x.shape[0]
+    print(f"naive arrangement: compute_divisor_witness_naive_device, round {ROUND_K}'s "
+          f"{slots} slots", flush=True)
+    CF.reset_launch_counts()
+    sync(dev)
+    t0 = time.perf_counter()
+    pos, neg = D.compute_divisor_witness_naive_device(CURVE, rp)
+    sync(dev)
+    seconds = time.perf_counter() - t0
+    counts = dict(CF.LAUNCHES)
+    n_pos, n_neg = sum(ln[3] for ln in pos), sum(ln[3] for ln in neg)
+    print(f"  {seconds:.3f} s; {len(pos)} pos and {len(neg)} neg rounds; {n_pos} pos lines, "
+          f"{n_neg} neg lines; launches: "
+          + ", ".join(f"{name} {v}" for name, v in counts.items() if v), flush=True)
+    for name in ("ec_add", "mont_mul", "mont_addsub"):
+        require(counts[name] > 0, f"{name} was launched by the naive arrangement ({counts[name]})")
+
+    r = pyref.random_points(random.Random(0x2A710), CURVE, 2)
+    x, y, _ = E.to_affine(E.points_from_ints(r, dev))
+    t0 = time.perf_counter()
+    f = D.rf_eval(CURVE, w, x, y)
+    P = D.lines_product(CURVE, pos, x, y)
+    N = D.lines_product(CURVE, neg, x, y)
+    lhs = k.mul(k.mul(f[0], P[1]), N[0])
+    rhs = k.mul(k.mul(f[1], P[0]), N[1])
+    sync(dev)
+    ratio_s = time.perf_counter() - t0
+    require(not bool((k.is_zero(f) | k.is_zero(P) | k.is_zero(N)).any()),
+            "f, P and N are non-zero at R1 and R2")
+    require(torch.equal(lhs, rhs),
+            f"ratio check: f(R1) P(R2) N(R1) == f(R2) P(R1) N(R2) over {n_pos} pos and "
+            f"{n_neg} neg lines ({ratio_s:.3f} s): the merge tree's witness and the naive "
+            f"arrangement have the same divisor")
+    del pos, neg
+
+    pts = closing_list(random.Random(0x4A1), 1 << 12)
+    arr = D.compute_divisor_witness_naive_host(CURVE, pts)
+    dpos, dneg = D.compute_divisor_witness_naive_device(CURVE, E.points_from_ints(pts, dev))
+    require(D.naive_device_lines_to_ints(CURVE, dpos) == arr.pos
+            and D.naive_device_lines_to_ints(CURVE, dneg) == arr.neg,
+            f"at {len(pts)} points (identities, P/-P pairs) the card's {len(arr.pos)} pos and "
+            f"{len(arr.neg)} neg lines equal the host replica's, in order")
+    return {"seconds": seconds, "n_pos": n_pos, "n_neg": n_neg, "counts": counts,
+            "ratio_s": ratio_s}
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the model and the entry point
+# ---------------------------------------------------------------------------
+
+def model_path(dev, base_pts, logn: int):
+    """EagenMSMWitness at 2^logn points, all rounds batched through one merge
+    tree: the carry against the tiled Python-int oracle, every round's slots
+    summing to the identity, the first and the last round's witness against
+    compute_divisor_witness_partial of _one_round_slots for that round (the
+    carries from _carries_only); then entry()'s fn on the card against the
+    same fn on the CPU.  Returns a dict."""
+    n = 1 << logn
+    cfg = EagenConfig(num_pts=n)
+    d = cfg.num_digits
+    E = ec(CURVE)
+    print(f"model: EagenMSMWitness, n = 2^{logn}, {d} rounds batched, {cfg.slots} slots "
+          f"a round", flush=True)
+    nprng = np.random.default_rng(0x30DE)
+    sc = np.zeros((n, N_LIMBS), dtype=np.uint32)
+    sc[:, :8] = nprng.integers(0, 1 << 16, size=(n, 8), dtype=np.uint32)
+    sc[:, 7] &= 0x3FFF  # below 2^126 < sqrt(q)
+    scalars = limbs_to_ints(sc)
+    pts = tiled_points(dev, base_pts, n)
+    model = EagenMSMWitness(cfg)
+    t0 = time.perf_counter()
+    digits = torch.from_numpy(model.decompose(scalars)).to(dev)
+    decompose_s = time.perf_counter() - t0
+    model.forward(digits, pts)  # warm-up: tables and constants of every level size
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    CF.reset_launch_counts()
+    t0 = time.perf_counter()
+    carry, wtns = model.forward(digits, pts)
+    sync(dev)
+    seconds = time.perf_counter() - t0
+    counts = dict(CF.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"  decompose {decompose_s:.3f} s on the host; forward {seconds:.3f} s; peak "
+          f"{peak / 2**20:.0f} MiB; witness {tuple(wtns.a.shape)}, {tuple(wtns.b.shape)}",
+          flush=True)
+    require(one_point(carry) == tiled_msm_oracle(sc, base_pts),
+            "the model's carry equals the Python-int oracle")
+    round_pts, _ = A._rounds_and_carries(CURVE, BASE, digits, pts)
+    require(bool(E.is_identity(E.sum(round_pts, axis=1)).all()),
+            f"every one of the {d} rounds' slot lists sums to the identity")
+    del round_pts
+    cp, cn, _ = A._carries_only(CURVE, BASE, digits, pts)
+    precomp = A.precompute_multiplicities(E, pts, BASE)
+    for kk in (0, d - 1):
+        rp = A._one_round_slots(CURVE, BASE, digits[kk], precomp, A._at(cp, kk), A._at(cn, kk))
+        w1, out1 = D.compute_divisor_witness_partial(CURVE, rp)
+        require(bool(E.is_identity(JPoint(*(c[None] for c in out1)))[0])
+                and torch.equal(w1.a, wtns.a[d - 1 - kk]) and torch.equal(w1.b, wtns.b[d - 1 - kk]),
+                f"round {kk} (msb first) closes and its witness equals the model's, limb "
+                f"for limb")
+    del cp, cn, precomp, w1
+    busy = device_busy_ms(dev, lambda: model.forward(digits, pts))
+    print(f"  device busy in one forward: {busy:.3f} ms", flush=True)
+    del carry, wtns
+
+    fn, args = entry("cuda")
+    fn_cpu, args_cpu = entry("cpu")
+    require(all(a.device.type == dev.type and torch.equal(a.cpu(), b)
+                for a, b in zip(args, args_cpu)),
+            "entry(): the example arguments lie on the card and equal the CPU's")
+    got, want = fn(*args), fn_cpu(*args_cpu)
+    require(torch.equal(got[1].cpu(), want[1]) and torch.equal(got[2].cpu(), want[2]),
+            f"entry(): the witness fn returns on the card (wtns.a {tuple(want[1].shape)}, "
+            f"wtns.b {tuple(want[2].shape)}) equals the CPU's (plain versions), limb for limb")
+    # The carry's Jacobian representative follows the order of EC.sum's adds,
+    # which differs by device in both packages (a log-depth scan at one width
+    # on the card, rounds of 64-step scans on the CPU), so the carry is
+    # compared as a point; fn's carry.x is that carry's X.
+    small = EagenMSMWitness(EagenConfig(num_pts=4))
+    carry_card, _ = small.forward(args[0], JPoint(*args[1:]))
+    carry_cpu, _ = small.forward(args_cpu[0], JPoint(*args_cpu[1:]))
+    require(torch.equal(got[0], carry_card.x) and torch.equal(want[0], carry_cpu.x)
+            and one_point(carry_card) == one_point(carry_cpu),
+            f"entry(): the carry on the card equals the CPU's as an affine point (carry.x "
+            f"limb for limb: {torch.equal(got[0].cpu(), want[0])})")
+    return {"n": n, "rounds": d, "seconds": seconds, "decompose_s": decompose_s, "peak": peak,
+            "busy_ms": busy, "counts": counts}
+
+
+# ---------------------------------------------------------------------------
+# phase 19: config 4 whole
+# ---------------------------------------------------------------------------
+
+def config4_path(dev, base_pts, pts: JPoint, carry_out, rnd):
+    """compute_lhs_witness_streamed at the carry phase's points and scalars
+    (base 5, every round): the final carry against the carry phase's result
+    and the tiled oracle, every round closing, round ROUND_K's witness against
+    the round phase's limb for limb.  The callback keeps no witness but that
+    one.  The host decomposition inside the call is timed apart
+    (argument._msb_rounds wrapped for the run).  Then the device's busy time
+    of three rounds.  Returns a dict."""
+    sc, want = carry_out
+    n = pts.x.shape[0]
+    E = ec(CURVE)
+    d = A.num_digits_for(CURVE, BASE)
+    print(f"config 4: compute_lhs_witness_streamed, n = {n}, base {BASE}, {d} rounds",
+          flush=True)
+    scalars = limbs_to_ints(sc)
+    marks, closes, kept = {}, [], {}
+    msb_rounds, carries_only = A._msb_rounds, A._carries_only
+
+    def timed(key, fn):
+        def wrapped(*a):
+            marks[key + "_start"] = time.perf_counter()
+            out = fn(*a)
+            sync(dev)
+            marks[key] = time.perf_counter()
+            return out
+        return wrapped
+
+    def on_round(k, wtns_k, out_k):
+        closes.append(bool(E.is_identity(JPoint(*(c[None] for c in out_k)))[0]))
+        marks[k] = time.perf_counter()
+        if k == ROUND_K:
+            kept["a"], kept["b"] = wtns_k.a, wtns_k.b
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    CF.reset_launch_counts()
+    D.reset_level_counts()
+    A._msb_rounds, A._carries_only = timed("msb", msb_rounds), timed("carries", carries_only)
+    try:
+        t0 = time.perf_counter()
+        final = A.compute_lhs_witness_streamed(CURVE, scalars, pts, BASE, on_round)
+        sync(dev)
+        seconds = time.perf_counter() - t0
+    finally:
+        A._msb_rounds, A._carries_only = msb_rounds, carries_only
+    counts = dict(CF.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    decompose_s = marks["msb"] - marks["msb_start"]
+    carries_s = marks["carries"] - marks["carries_start"]
+    per_round = [marks[0] - marks["carries"]] + [marks[k] - marks[k - 1] for k in range(1, d)]
+    srt = sorted(per_round)
+    print(f"  {seconds:.3f} s whole: host decomposition (_msb_rounds) {decompose_s:.3f} s, "
+          f"carry stage {carries_s:.3f} s, {d} rounds {sum(per_round):.3f} s (a round: min "
+          f"{srt[0]:.3f}, median {srt[d // 2]:.3f}, max {srt[-1]:.3f} s); peak "
+          f"{peak / 2**20:.0f} MiB; levels by route {dict(D.LEVEL_COUNTS)}", flush=True)
+    require(one_point(final) == want == tiled_msm_oracle(sc, base_pts),
+            "the final carry equals the carry phase's result and the Python-int oracle")
+    require(len(closes) == d and all(closes), f"all {d} rounds close to the identity")
+    require(torch.equal(kept["a"], rnd["w"].a) and torch.equal(kept["b"], rnd["w"].b),
+            f"round {ROUND_K}'s witness equals the round phase's, limb for limb")
+    del kept
+
+    digits, carry_prev, carry_new = rnd["carry_state"]
+    precomp = A.precompute_multiplicities(E, pts, BASE)
+
+    def three_rounds():
+        for k in (0, ROUND_K, d - 1):
+            rp = A._one_round_slots(CURVE, BASE, digits[k], precomp,
+                                    A._at(carry_prev, k), A._at(carry_new, k))
+            D.compute_divisor_witness_partial(CURVE, rp)
+
+    busy = device_busy_ms(dev, three_rounds)
+    print(f"  device busy in three rounds (0, {ROUND_K}, {d - 1}): {busy:.3f} ms", flush=True)
+    return {"n": n, "rounds": d, "seconds": seconds, "decompose_s": decompose_s,
+            "carries_s": carries_s, "per_round": per_round, "peak": peak, "busy3_ms": busy,
+            "counts": counts}
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1513,7 +1861,7 @@ def main() -> int:
     step_lanes = (1 << step_logn) // M._pick_block_width(1 << step_logn, True)
     shapes = {"mont_mul": n, "mont_addsub": nb, "ec_add": min(g, 2048),
               "ec_add_fast": nb, "ec_double": 1, "fused_madd_scan_xyzz": g,
-              "ec_madd_xyzz_fast": step_lanes, "ec_add_mixed": g}
+              "ec_madd_xyzz_fast": step_lanes, "ec_add_mixed": g, "ec_add_mixed_fast": n}
     recs = check_kernels(dev, base_pts, ragged=5000, shapes=shapes,
                          scan_small_g=2050, reps=50)
     recs += check_ntt_kernels(dev, ragged=5000, reps=50, top_logn=args.logn + 1)
@@ -1523,10 +1871,10 @@ def main() -> int:
     if args.profile:
         profile_call(dev, "best_multiexp", lambda: M.best_multiexp(CURVE, scalars, pts))
     del scalars
-    carry_s, carry_counts, rounds, carry_state = carry_path(dev, base_pts, pts, args.logn,
-                                                           args.profile)
+    carry_s, carry_counts, rounds, carry_state, carry_out = carry_path(
+        dev, base_pts, pts, args.logn, args.profile)
     rnd = round_path(dev, pts, carry_state, args.profile)
-    del pts, carry_state
+    del carry_state
     # at 2^14 the fused scan flags and the safe flavor redoes the round at a
     # real width; at half of FUSED_SCAN_MIN_ROWS the stepwise scan runs
     fallback_counts = {name: 0 for name in CF.KERNELS}
@@ -1538,7 +1886,7 @@ def main() -> int:
                 f"{name} was launched by the fallback's round_sums "
                 f"({fallback_counts[name]} times)")
     routes = time_window_routes(dev, base_pts, (6, 7, 8, 10, 12, 14, 16))
-    witness_s = streamed_path(dev, base_pts, min(10, args.logn))
+    cpu_round_path(dev, base_pts, min(10, args.logn))
     divisor_fallback_path(dev)
     # the radix route takes windows of at least 2^17 points
     radix_logn = max(args.logn, 17)
@@ -1546,22 +1894,37 @@ def main() -> int:
     radix_counts = radix["radix"]["counts"]
     window_routes = radix_window_routes(dev, base_pts, radix_logn)
     radix_overflow_path(dev, base_pts)
+    # the paths of this slice last, on the round phase's slots and witness and
+    # the carry phase's inputs, kept until here
+    amf_counts, amf_s = add_mixed_fast_path(dev, base_pts, args.logn)
+    naive = naive_path(dev, rnd)
+    del rnd["rp"]
+    cfg4 = config4_path(dev, base_pts, pts, carry_out, rnd)
+    del pts, rnd["w"], rnd["carry_state"]
+    model = model_path(dev, base_pts, min(16, args.logn))
 
     for rec in recs:
         name = rec["name"]
         rec["launches"] = (fallback_counts if name in FALLBACK_KERNELS else
                            rnd["counts"] if name in ROUND_KERNELS else
-                           radix_counts if name in RADIX_KERNELS else msm_counts)[name]
+                           radix_counts if name in RADIX_KERNELS else
+                           amf_counts if name == "ec_add_mixed_fast" else msm_counts)[name]
         rec["launches_msm"] = msm_counts[name]
         rec["launches_carry"] = carry_counts[name]
         rec["launches_fallback"] = fallback_counts[name]
         rec["launches_round"] = rnd["counts"][name]
         rec["launches_radix_msm"] = radix_counts[name]
+        rec["launches_add_mixed_fast"] = amf_counts[name]
+        rec["launches_naive"] = naive["counts"][name]
+        rec["launches_model"] = model["counts"][name]
+        rec["launches_config4"] = cfg4["counts"][name]
         print(f"  {name}: launches {rec['launches_msm']} (MSM), {rec['launches_carry']} "
               f"(carry stage), {rec['launches_fallback']} (fallback round_sums), "
               f"{rec['launches_round']} (one round), {rec['launches_radix_msm']} (radix-route "
-              f"MSM); {rec['ms']:.4f} ms each on the device at shape {rec['shape']}",
-              flush=True)
+              f"MSM), {rec['launches_add_mixed_fast']} (EC.add_mixed_fast), "
+              f"{rec['launches_naive']} (naive arrangement), {rec['launches_model']} (model "
+              f"forward), {rec['launches_config4']} (config 4); {rec['ms']:.4f} ms each on "
+              f"the device at shape {rec['shape']}", flush=True)
         require(rec["launches"] > 0, f"{name} was launched on the path that runs it")
 
     print(f"msm: n = {n}, seconds = {seconds}, points_per_s = {n / seconds}, card = {card}",
@@ -1577,9 +1940,19 @@ def main() -> int:
           f"runs = {rnd['runs']}, device_busy_ms = {rnd['busy_ms']}, "
           f"peak_mib = {rnd['peak'] / 2**20}, setup_s = {rnd['setup_s']}, card = {card}",
           flush=True)
-    print(f"witness: n = {1 << min(10, args.logn)}, rounds = {rounds}, seconds = {witness_s}, "
-          f"(n cut from 2^20: the entry point whole within the run), card = {card}",
-          flush=True)
+    print(f"add_mixed_fast: n = {n}, seconds = {amf_s}, card = {card}", flush=True)
+    print(f"naive: slots = {rnd['slots']}, seconds = {naive['seconds']}, pos_lines = "
+          f"{naive['n_pos']}, neg_lines = {naive['n_neg']}, ratio_check_s = {naive['ratio_s']}, "
+          f"card = {card}", flush=True)
+    print(f"model: n = {model['n']}, rounds = {model['rounds']}, seconds = {model['seconds']}, "
+          f"decompose_s = {model['decompose_s']}, device_busy_ms = {model['busy_ms']}, "
+          f"peak_mib = {model['peak'] / 2**20}, card = {card}", flush=True)
+    pr = sorted(cfg4["per_round"])
+    print(f"config4: n = {cfg4['n']}, base = {BASE}, rounds = {cfg4['rounds']}, seconds = "
+          f"{cfg4['seconds']}, decompose_s = {cfg4['decompose_s']}, carries_s = "
+          f"{cfg4['carries_s']}, round_s_min = {pr[0]}, round_s_median = {pr[len(pr) // 2]}, "
+          f"round_s_max = {pr[-1]}, device_busy_3_rounds_ms = {cfg4['busy3_ms']}, "
+          f"peak_mib = {cfg4['peak'] / 2**20}, card = {card}", flush=True)
     for route in ("radix", "classic"):
         o = radix[route]
         print(f"msm route: route = {route}, n = {1 << radix_logn}, runs = {o['runs']}, "

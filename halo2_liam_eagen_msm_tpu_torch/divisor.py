@@ -1,7 +1,8 @@
 """Regular functions and divisor witnesses: the core of the Eagen argument.
 
-Counterpart of the JAX package's divisor.py (the merge tree; the naive line
-arrangement, a second oracle off the main path, is not ported yet):
+Counterpart of the JAX package's divisor.py: the merge tree, and the naive
+line arrangement beside it as a second oracle (host replica and device
+version, at the end of this module):
 
   * a regular function a(x) + y*b(x) is a pair of coefficient tensors
     (..., M, La, 16) / (..., M, Lb, 16), batched over the merge tree's
@@ -34,16 +35,20 @@ show which routes a run went through.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
-from .convert import JPoint, Level, RF, limbs_from_numpy
+from .convert import JPoint, Level, RF, limbs_from_numpy, limbs_to_numpy
 from .fields import CurveSpec, N_LIMBS
+from .limbs import mont_limbs_to_ints
 from .ops import cuda_ntt as CN
 from .ops import poly as P
 from .ops.ec import EC, ec
 from .ops.ff import ff
 from .ops.ntt import _bitrev_perm, _mont_powers, intt_dit, ntt_dif, twiddle_flat
+from .utils import pyref
 
 
 # Minimum incoming a-poly length for the fused evaluation-domain merge: the
@@ -471,3 +476,197 @@ def compute_divisor_witness(curve: CurveSpec, pts: JPoint) -> RF:
     if not bool(ec(curve).is_identity(out).all()):
         raise AssertionError("points do not sum to the identity")
     return wtns
+
+
+# ---------------------------------------------------------------------------
+# naive line-arrangement witness (second oracle)
+# ---------------------------------------------------------------------------
+
+class Arrangement(NamedTuple):
+    """Lists of numerator (pos) and denominator (neg) lines, each a host-side
+    list of (lx, ly, lz) canonical int triples."""
+    pos: list
+    neg: list
+
+
+def compute_divisor_witness_naive_host(curve: CurveSpec, pts_ints) -> Arrangement:
+    """Host replica of the reference's compute_divisor_witness_naive, in
+    Python ints: rounds of pairwise addition over pos/neg stacks (popped from
+    the end, as the reference does), accumulating line functions, until each
+    side holds at most one point; then the reference's final assertions.
+    The product of the pos lines over the product of the neg lines has the
+    divisor sum [P_i] - n[O], as the merge tree's witness does."""
+
+    def line_ints(a, b):
+        # the canonical affine cross product of linefunc_affine
+        p = curve.field.p
+
+        def coords(pt):
+            return (0, 1, 0) if pt is None else (pt[0], pt[1], 1)
+
+        ax, ay, az = coords(a)
+        bx, by, bz = coords(b)
+        lx = (ay * bz - az * by) % p
+        ly = (az * bx - ax * bz) % p
+        lz = (ax * by - ay * bx) % p
+        if lx or ly or lz:
+            return (lx, ly, lz)
+        c = pyref.ec_neg(pyref.ec_add(a, b, curve), curve)
+        cx, cy, cz = coords(c)
+        return ((ay * cz - az * cy) % p, (az * cx - ax * cz) % p, (ax * cy - ay * cx) % p)
+
+    pos = list(pts_ints)
+    neg = []
+    ret_pos, ret_neg = [], []
+    tmp = []
+    while len(pos) > 1 or len(neg) > 1:
+        while len(pos) > 1:
+            inc1 = pos.pop()
+            if inc1 is not None:
+                tmp.append((inc1, pos.pop()))
+        # the reference drains tmp with pop(): REVERSED pair order, both for
+        # the emitted lines and for the sums pushed onto the other stack
+        for (x, y) in reversed(tmp):
+            q = pyref.ec_add(x, y, curve)
+            ret_pos.append(line_ints(x, y))
+            neg.append(pyref.ec_neg(q, curve))
+        tmp = []
+        while len(neg) > 1:
+            inc1 = neg.pop()
+            if inc1 is not None:
+                tmp.append((inc1, neg.pop()))
+        for (x, y) in reversed(tmp):
+            q = pyref.ec_add(x, y, curve)
+            ret_neg.append(line_ints(x, y))
+            pos.append(pyref.ec_neg(q, curve))
+        tmp = []
+    if len(pos) == 1 and len(neg) == 1:
+        closes = pos[0] == neg[0]
+    else:  # one point left on one side, or none
+        closes = (pos + neg + [None])[0] is None
+    if not closes:
+        raise AssertionError("points do not sum to the identity")
+    return Arrangement(ret_pos, ret_neg)
+
+
+def _line_pairs(curve: CurveSpec, E: EC, pa: JPoint, pb: JPoint, neg_q: JPoint):
+    """Canonical lines through the pairs (pa[j], pb[j]) with the host
+    replica's semantics: the cross product on affine coordinates, and where
+    it vanishes (pa == pb) the line through pa and c = -(pa + pb) = neg_q.
+    The three batches are normalized by one batch inversion."""
+    k = ff(curve.field)
+    (ax, ay, aid), (bx, by, bid), (cx, cy, cid) = _multi_affine(E, [pa, pb, neg_q])
+    lx, ly, lz = linefunc_affine(curve, ax, ay, aid, bx, by, bid)
+    deg = k.is_zero(lx) & k.is_zero(ly) & k.is_zero(lz)
+    lx2, ly2, lz2 = linefunc_affine(curve, ax, ay, aid, cx, cy, cid)
+    return k.select(deg, lx2, lx), k.select(deg, ly2, ly), k.select(deg, lz2, lz)
+
+
+def _pop_roles(is_id):
+    """The reference's pop loop over one stack, vectorized: walking from the
+    TOP, an identity in the inc1 slot is dropped, any other element pairs
+    with the next one below (an identity partner is consumed too), and the
+    walk stops with one element left (the bottom one is never an inc1).
+
+    The walk is a two-state machine (expecting inc1 = 0, expecting a
+    partner = 1): an identity sets the state to 0, any other element flips
+    it.  So the state before element i of the top-down stream is the parity
+    of the elements since the last identity before i: one running maximum of
+    identity positions, no sequential loop.
+
+    is_id: (cnt,) bool in BOTTOM-up stack order.  Returns (inc1, partner,
+    kept) bool masks in stack order; kept marks the bottom element when the
+    walk leaves it."""
+    cnt = is_id.shape[0]
+    dev = is_id.device
+    id_r = is_id.flip(0)                                  # top-down stream
+    idx = torch.arange(cnt, device=dev)
+    last_id = torch.cummax(torch.where(id_r, idx, -1), dim=0).values
+    before = torch.cat([torch.full((1,), -1, dtype=idx.dtype, device=dev), last_id[:-1]])
+    state = (idx - 1 - before) % 2                        # before element i
+    bottom = idx == cnt - 1
+    inc1 = (state == 0) & ~id_r & ~bottom
+    partner = state == 1
+    kept = bottom & (state == 0)
+    return inc1.flip(0), partner.flip(0), kept.flip(0)
+
+
+def _naive_round(curve: CurveSpec, stack: JPoint):
+    """One pairing round over ONE side's stack (bottom at index 0), with the
+    reference's pop semantics: returns (kept stack (0 or 1 points), -q sums
+    in emission order, lines (lx, ly, lz, npair)).  The reference drains its
+    pairs in reverse pop order, which is the inc1s in ascending stack order;
+    each inc1's partner is the element below it."""
+    E = ec(curve)
+    empty = _take_pts(stack, slice(0, 0))
+    if stack.x.shape[0] <= 1:
+        return stack, empty, (*empty, 0)
+    inc1, _, kept = _pop_roles(E.is_identity(stack))
+    ia = inc1.nonzero().flatten()
+    npair = int(ia.shape[0])
+    rest = _take_pts(stack, kept.nonzero().flatten())
+    if npair == 0:
+        return rest, empty, (*empty, 0)
+    pa, pb = _take_pts(stack, ia), _take_pts(stack, ia - 1)
+    neg_q = E.neg(E.add(pa, pb))
+    return rest, neg_q, (*_line_pairs(curve, E, pa, pb, neg_q), npair)
+
+
+def compute_divisor_witness_naive_device(curve: CurveSpec, pts: JPoint):
+    """The reference's compute_divisor_witness_naive on the device: rounds of
+    pairwise addition over pos/neg stacks, one canonical line per pair; the
+    production-size second oracle the host replica cannot reach.  Pop order,
+    identity drops and the reversed drain are those of the reference, so the
+    lines equal compute_divisor_witness_naive_host's at any size.  Each round
+    works on the live stack only and the loop stops once both stacks hold at
+    most one point.
+
+    pts: (N,) JPoint.  Returns (pos_lines, neg_lines): per processing round
+    (lx, ly, lz, count) with (count, 16) line tensors; flatten with
+    naive_device_lines_to_ints."""
+    pos = pts
+    neg = _take_pts(pts, slice(0, 0))
+    pos_lines, neg_lines = [], []
+
+    def push(side: JPoint, sums: JPoint) -> JPoint:
+        return JPoint(*(torch.cat([c, q]) for c, q in zip(side, sums)))
+
+    while pos.x.shape[0] > 1 or neg.x.shape[0] > 1:
+        pos, sums, lines = _naive_round(curve, pos)
+        neg = push(neg, sums)
+        pos_lines.append(lines)
+        neg, sums, lines = _naive_round(curve, neg)
+        pos = push(pos, sums)
+        neg_lines.append(lines)
+    return pos_lines, neg_lines
+
+
+def naive_device_lines_to_ints(curve: CurveSpec, lines):
+    """Flatten per-round line tensors to host int triples in the host
+    replica's emission order."""
+    out = []
+    for lx, ly, lz, cnt in lines:
+        if cnt == 0:
+            continue
+        xs, ys, zs = (mont_limbs_to_ints(limbs_to_numpy(v), curve.field) for v in (lx, ly, lz))
+        out.extend(zip(xs, ys, zs))
+    return out
+
+
+def lines_product(curve: CurveSpec, lines, x, y):
+    """The product over the lines of a naive arrangement side (per-round
+    (lx, ly, lz, count) tensors) of lx*x + ly*y + lz at the affine points
+    (x, y) (k, 16): a (k, 16) tensor, by a tree of products (no inversion).
+    pos over neg is the arrangement's rational function."""
+    k = ff(curve.field)
+    lx, ly, lz = (torch.cat([ln[i] for ln in lines]) for i in range(3))
+    v = k.add(k.add(k.mul(lx[:, None], x[None]), k.mul(ly[:, None], y[None])),
+              lz[:, None].expand(-1, x.shape[0], -1))
+    one = k.one(x.device).expand(1, *x.shape)
+    if v.shape[0] == 0:
+        return one[0]
+    while v.shape[0] > 1:
+        if v.shape[0] % 2:
+            v = torch.cat([v, one])
+        v = k.mul(v[0::2], v[1::2])
+    return v[0]

@@ -1,9 +1,9 @@
 // Curve formulas for the CUDA kernels, on short-Weierstrass curves with
 // a = 0 (every supported curve): the device-side counterpart of the curve
 // formulas of the JAX package (ops/pallas_ff.py: k_ec_double, k_ec_add,
-// k_ec_add_fast, k_ec_add_mixed, k_ec_madd_xyzz_fast).  Each follows the same
-// formula and the same select order, so the Jacobian representative is the
-// same limb for limb.
+// k_ec_add_fast, k_ec_add_mixed, k_ec_madd_fast, k_ec_madd_xyzz_fast).  Each
+// follows the same formula and the same select order, so the Jacobian
+// representative is the same limb for limb.
 //
 // Identity is Z == 0 (Jacobian) / ZZ == 0 (XYZZ); the affine identity is
 // y == 0 (no point of a prime-order curve has y = 0).
@@ -92,14 +92,15 @@ __device__ __forceinline__ Jac ec_add_complete(const Jac& p, const Jac& q,
   return o;
 }
 
-// Complete Jacobian + affine add (madd-2007-bl, Z2 = 1): 11 products for the
-// generic sum and 7 for the doubling of p, then the selects in the order of
-// the JAX package's k_ec_add_mixed (doubling, inverse, q identity, p
-// identity, both).  q_ident marks the affine identity; with p the identity
-// the result is (qx, qy, 1).
-__device__ __forceinline__ Jac ec_add_mixed_complete(const Jac& p, const Fe& qx,
-                                                     const Fe& qy, bool q_ident,
-                                                     const FieldParams& P) {
+// The generic madd-2007-bl body (Z2 = 1) shared by the complete and the fast
+// mixed add: 3 squarings and 8 products.
+struct MaddCore {
+  Jac sum;
+  bool h0, r0;
+};
+
+__device__ __forceinline__ MaddCore ec_madd_core(const Jac& p, const Fe& qx, const Fe& qy,
+                                                 const FieldParams& P) {
   Fe z1z1 = fe_sqr(p.z, P);
   Fe u2 = fe_mul(qx, z1z1, P);
   Fe s2 = fe_mul(qy, fe_mul(p.z, z1z1, P), P);
@@ -108,13 +109,24 @@ __device__ __forceinline__ Jac ec_add_mixed_complete(const Jac& p, const Fe& qx,
   Fe hh = fe_sqr(h, P);
   Fe hhh = fe_mul(h, hh, P);
   Fe v = fe_mul(p.x, hh, P);
-  Jac o;
-  o.x = fe_sub(fe_sub(fe_sqr(r, P), hhh, P), fe_double(v, P), P);
-  o.y = fe_sub(fe_mul(r, fe_sub(v, o.x, P), P), fe_mul(p.y, hhh, P), P);
-  o.z = fe_mul(p.z, h, P);
+  MaddCore o;
+  o.sum.x = fe_sub(fe_sub(fe_sqr(r, P), hhh, P), fe_double(v, P), P);
+  o.sum.y = fe_sub(fe_mul(r, fe_sub(v, o.sum.x, P), P), fe_mul(p.y, hhh, P), P);
+  o.sum.z = fe_mul(p.z, h, P);
+  o.h0 = fe_is_zero(h);
+  o.r0 = fe_is_zero(r);
+  return o;
+}
+
+// Complete Jacobian + affine add: the generic sum (11 products) and the
+// doubling of p (7), then the selects in the order of the JAX package's
+// k_ec_add_mixed (doubling, inverse, q identity, p identity, both).  q_ident
+// marks the affine identity; with p the identity the result is (qx, qy, 1).
+__device__ __forceinline__ Jac ec_add_mixed_complete(const Jac& p, const Fe& qx,
+                                                     const Fe& qy, bool q_ident,
+                                                     const FieldParams& P) {
+  MaddCore c = ec_madd_core(p, qx, qy, P);
   bool id1 = fe_is_zero(p.z);
-  bool h0 = fe_is_zero(h);
-  bool r0 = fe_is_zero(r);
   Jac dbl = ec_double(p, P);
   Jac ident;
   ident.x = fe_one(P);
@@ -124,12 +136,27 @@ __device__ __forceinline__ Jac ec_add_mixed_complete(const Jac& p, const Fe& qx,
   q.x = qx;
   q.y = qy;
   q.z = fe_one(P);
-  o = jac_select(h0 && r0, dbl, o);
-  o = jac_select(h0 && !r0, ident, o);
+  Jac o = c.sum;
+  o = jac_select(c.h0 && c.r0, dbl, o);
+  o = jac_select(c.h0 && !c.r0, ident, o);
   o = jac_select(q_ident && !id1, p, o);
   o = jac_select(id1 && !q_ident, q, o);
   o = jac_select(id1 && q_ident, ident, o);
   return o;
+}
+
+// Jacobian + affine add with no exceptional path (the JAX package's
+// k_ec_madd_fast): the generic sum alone.  The affine identity (qy == 0)
+// passes p through unflagged; an identity p or p == +-Q (h == 0) sets *exc,
+// and such a lane keeps the generic formula's values, as the reference's
+// does.
+__device__ __forceinline__ Jac ec_add_mixed_fast(const Jac& p, const Fe& qx, const Fe& qy,
+                                                 const FieldParams& P, bool* exc) {
+  MaddCore c = ec_madd_core(p, qx, qy, P);
+  bool id1 = fe_is_zero(p.z);
+  bool id2 = fe_is_zero(qy);
+  *exc = !id2 && (id1 || c.h0);
+  return jac_select(id2, p, c.sum);
 }
 
 // Generic Jacobian add with no doubling path.  Identity operands pass through

@@ -1,4 +1,4 @@
-// The eight kernels of the MSM and carry-stage slices and their C launchers
+// The nine kernels of the field and curve layers and their C launchers
 // (the five of the divisor merge tree are in ntt.cuh, the four of the MSM's
 // radix reorder in radix.cuh, both included below).  Each kernel is one
 // thread per element (per lane for the scan): it reads its (16,) rows, does
@@ -209,6 +209,27 @@ ec_add_mixed_kernel(FieldParams P, const uint32_t* x1, const uint32_t* y1,
   jac_store(ox, oy, oz, i, r);
 }
 
+// ---- 9. ec_add_mixed_fast: replaces pallas_ff.ec_add_mixed_fast -----------------
+//
+// Jacobian + affine add with no exceptional path, the entry point
+// EC.add_mixed_fast: 3 squarings and 8 products on 5 rows in, 3 rows and a
+// flag byte out.  Bound by bytes (513 bytes against 11 products an element).
+// The JAX package streams the flag as a (B, 16) row block; here it is one
+// byte an element.
+
+__global__ void __launch_bounds__(BLOCK)
+ec_add_mixed_fast_kernel(FieldParams P, const uint32_t* x1, const uint32_t* y1,
+                         const uint32_t* z1, const uint32_t* qx, const uint32_t* qy,
+                         uint32_t* ox, uint32_t* oy, uint32_t* oz, uint8_t* exc, int64_t n) {
+  int64_t i = global_index();
+  if (i >= n) return;
+  bool e;
+  Jac r = ec_add_mixed_fast(jac_load(x1, y1, z1, i), fe_load(qx + i * ELEMS_PER_ROW),
+                            fe_load(qy + i * ELEMS_PER_ROW), P, &e);
+  jac_store(ox, oy, oz, i, r);
+  exc[i] = e ? 1 : 0;
+}
+
 // ---- C launchers ------------------------------------------------------------
 
 extern "C" {
@@ -304,6 +325,18 @@ int ec_add_mixed_launch(const FieldParams* P, const void* x1, const void* y1,
         *P, (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)z1,
         (const uint32_t*)qx, (const uint32_t*)qy, (const uint8_t*)q_ident,
         (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, n);
+  return (int)cudaGetLastError();
+}
+
+int ec_add_mixed_fast_launch(const FieldParams* P, const void* x1, const void* y1,
+                             const void* z1, const void* qx, const void* qy,
+                             void* ox, void* oy, void* oz, void* exc, int64_t n,
+                             void* stream) {
+  if (n > 0)
+    ec_add_mixed_fast_kernel<<<grid_for(n, BLOCK), BLOCK, 0, (cudaStream_t)stream>>>(
+        *P, (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)z1,
+        (const uint32_t*)qx, (const uint32_t*)qy,
+        (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, (uint8_t*)exc, n);
   return (int)cudaGetLastError();
 }
 

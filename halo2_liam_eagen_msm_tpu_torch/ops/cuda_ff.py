@@ -1,8 +1,8 @@
 """CUDA kernels for field and curve arithmetic, with their plain versions.
 
-The counterpart of the JAX package's ops/pallas_ff.py.  Eight kernels carry the
-MSM and the argument's carry stage (sources under ops/csrc/, CUDA C++ for
-sm_90a):
+The counterpart of the JAX package's ops/pallas_ff.py.  Nine kernels carry the
+field and curve layers: the MSM, the argument's carry stage and the curve
+layer's entry points (sources under ops/csrc/, CUDA C++ for sm_90a):
 
   kernel                  replaces (ops/pallas_ff.py)   what it computes
   mont_mul                mont_mul                      a*b*R^-1 mod p
@@ -16,6 +16,8 @@ sm_90a):
                                                         with a flag
   ec_add_mixed            ec_add_mixed                  complete Jacobian +
                                                         affine add
+  ec_add_mixed_fast       ec_add_mixed_fast             Jacobian + affine add
+                                                        with a flag
 
 On this card mont_mul and mont_addsub are bound by bytes (192 bytes moved for
 at most 136 multiply-adds of 32 bits), and the curve kernels sit at the
@@ -56,6 +58,7 @@ from ..fields import CurveSpec, FieldSpec, LIMB_BITS, LIMB_MASK, N_LIMBS, R
 
 KERNELS = ("mont_mul", "mont_addsub", "ec_add", "ec_add_fast", "ec_double",
            "fused_madd_scan_xyzz", "ec_madd_xyzz_fast", "ec_add_mixed",
+           "ec_add_mixed_fast",
            # the divisor merge tree's five, in csrc/ntt.cuh (ops/cuda_ntt.py)
            "lm_mul", "lm_addsub", "lm_mul_const", "stage_big", "stages_small",
            # the radix reorder's four, in csrc/radix.cuh (ops/cuda_radix.py)
@@ -155,6 +158,7 @@ def _lib():
                 [fpp, u32p, u32p, vp, ci, i64] + [vp] * 9 + [vp],
             "ec_madd_xyzz_fast_launch": [fpp] + [vp] * 11 + [i64, vp],
             "ec_add_mixed_launch": [fpp] + [vp] * 9 + [i64, vp],
+            "ec_add_mixed_fast_launch": [fpp] + [vp] * 9 + [i64, vp],
             "lm_mul_launch": [fpp, vp, vp, vp, i64, vp],
             "lm_addsub_launch": [fpp, ci, vp, vp, vp, i64, vp],
             "lm_mul_const_launch": [fpp, u32p, vp, vp, i64, vp],
@@ -319,6 +323,22 @@ def ec_add_mixed(curve: CurveSpec, x1, y1, z1, qx, qy, q_is_identity):
     _launch("ec_add_mixed", flat[0].device, ctypes.byref(_field_params(curve.field)),
             *_ptrs(flat), mask.data_ptr(), *_ptrs(outs), flat[0].shape[0])
     return tuple(o.reshape(lead + (N_LIMBS,)) for o in outs)
+
+
+def ec_add_mixed_fast(curve: CurveSpec, x1, y1, z1, qx, qy):
+    """Batched Jacobian + affine addition without exceptional paths, one
+    kernel launch: returns (x3, y3, z3, exc) with exc a (...,) bool tensor
+    (identity carry or carry == +-Q; the affine identity qy == 0 passes the
+    carry through unflagged).  A flagged lane holds the generic formula's
+    values, as the reference's does."""
+    _check_cuda("ec_add_mixed_fast", x1, y1, z1, qx, qy)
+    lead, flat = _flatten(x1, y1, z1, qx, qy)
+    outs = tuple(torch.empty_like(flat[0]) for _ in range(3))
+    exc = torch.empty(flat[0].shape[0], dtype=torch.uint8, device=flat[0].device)
+    _launch("ec_add_mixed_fast", flat[0].device, ctypes.byref(_field_params(curve.field)),
+            *_ptrs(flat + outs), exc.data_ptr(), flat[0].shape[0])
+    return tuple(o.reshape(lead + (N_LIMBS,)) for o in outs) + \
+        (exc.reshape(lead) != 0,)
 
 
 def _limbs_to_int(limbs) -> int:
@@ -617,11 +637,9 @@ def ec_add_fast_plain(curve: CurveSpec, x1, y1, z1, x2, y2, z2):
     return out + (exc,)
 
 
-def ec_add_mixed_plain(curve: CurveSpec, x1, y1, z1, qx, qy, q_is_identity):
-    """Plain version of ec_add_mixed: complete Jacobian + affine addition
-    (madd-2007-bl with mask dispatch); q_is_identity: (...,) bool."""
-    f = _PlainField(curve.field)
-    x1, y1, z1, qx, qy = _broadcast_rows(x1, y1, z1, qx, qy)
+def _madd_core_plain(f: _PlainField, x1, y1, z1, qx, qy):
+    """madd-2007-bl body (Z2 = 1) shared by the complete and the fast mixed
+    add: returns (x3, y3, z3, h == 0, r == 0)."""
     z1z1 = f.sqr(z1)
     u2 = f.mul(qx, z1z1)
     s2 = f.mul(qy, f.mul(z1, z1z1))
@@ -633,11 +651,32 @@ def ec_add_mixed_plain(curve: CurveSpec, x1, y1, z1, qx, qy, q_is_identity):
     x3 = f.sub(f.sub(f.sqr(r), hhh), f.double(v))
     y3 = f.sub(f.mul(r, f.sub(v, x3)), f.mul(y1, hhh))
     z3 = f.mul(z1, h)
+    return x3, y3, z3, _is_zero(h), _is_zero(r)
+
+
+def ec_add_mixed_plain(curve: CurveSpec, x1, y1, z1, qx, qy, q_is_identity):
+    """Plain version of ec_add_mixed: complete Jacobian + affine addition
+    (madd-2007-bl with mask dispatch); q_is_identity: (...,) bool."""
+    f = _PlainField(curve.field)
+    x1, y1, z1, qx, qy = _broadcast_rows(x1, y1, z1, qx, qy)
+    x3, y3, z3, h0, r0 = _madd_core_plain(f, x1, y1, z1, qx, qy)
     dbl = ec_double_plain(curve, x1, y1, z1)
     id2 = q_is_identity.expand(x1.shape[:-1])
     return _dispatch_complete(f, (x3, y3, z3), dbl, (x1, y1, z1),
-                              (qx, qy, f.one(qx)), _is_zero(h), _is_zero(r),
-                              _is_zero(z1), id2)
+                              (qx, qy, f.one(qx)), h0, r0, _is_zero(z1), id2)
+
+
+def ec_add_mixed_fast_plain(curve: CurveSpec, x1, y1, z1, qx, qy):
+    """Plain version of ec_add_mixed_fast: the generic madd-2007-bl sum with
+    no exceptional path; returns (x3, y3, z3, exc).  The affine identity
+    (qy == 0) passes the carry through unflagged; an identity carry or
+    carry == +-Q (h == 0) is flagged and keeps the generic values."""
+    f = _PlainField(curve.field)
+    x1, y1, z1, qx, qy = _broadcast_rows(x1, y1, z1, qx, qy)
+    x3, y3, z3, h0, _ = _madd_core_plain(f, x1, y1, z1, qx, qy)
+    id1, id2 = _is_zero(z1), _is_zero(qy)
+    exc = ~id2 & (id1 | h0)
+    return _sel(id2, x1, x3), _sel(id2, y1, y3), _sel(id2, z1, z3), exc
 
 
 def ec_madd_xyzz_fast_plain(curve: CurveSpec, x1, y1, zz1, zzz1, qx, qy):

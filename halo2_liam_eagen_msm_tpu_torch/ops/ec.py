@@ -1,7 +1,6 @@
 """Batched Jacobian-coordinate elliptic curve ops.
 
-Counterpart of the JAX package's ops/ec.py, as far as the MSM and the
-argument's carry stage need it.
+Counterpart of the JAX package's ops/ec.py.
 
   * points are structure-of-arrays (X, Y, Z) limb tensors, batched over
     leading axes
@@ -10,9 +9,8 @@ argument's carry stage need it.
   * identity is encoded as Z == 0
 
 Routing is by the tensor: on a CUDA tensor `double`, `add`, `add_fast`,
-`add_mixed` and `madd_xyzz_fast` launch their kernels (ops/cuda_ff.py); on a
-CPU tensor they run the kernels' plain versions.  projective_coords and
-add_mixed_fast are not ported yet.
+`add_mixed`, `add_mixed_fast` and `madd_xyzz_fast` launch their kernels
+(ops/cuda_ff.py); on a CPU tensor they run the kernels' plain versions.
 
 All supported curves (Pallas, Vesta, Grumpkin) have a = 0.
 """
@@ -108,6 +106,18 @@ class EC:
         fn = cuda_ff.ec_add_mixed if p.x.is_cuda else cuda_ff.ec_add_mixed_plain
         return JPoint(*fn(self.curve, p.x, p.y, p.z, qx, qy, q_is_identity))
 
+    def add_mixed_fast(self, p: JPoint, qx, qy):
+        """Generic mixed add with NO doubling / identity-carry handling:
+        returns (JPoint, exc) where exc (bool (...,)) flags slots whose exact
+        result needed an exceptional path (identity carry, or carry == +-Q);
+        the caller recomputes flagged work with `add_mixed`.  The affine
+        identity is encoded as qy == 0 (to_affine's convention; no point of
+        these prime-order curves has y = 0): such slots pass the carry
+        through exactly and are not flagged.  3 squarings + 8 products."""
+        fn = cuda_ff.ec_add_mixed_fast if p.x.is_cuda else cuda_ff.ec_add_mixed_fast_plain
+        x, y, z, exc = fn(self.curve, p.x, p.y, p.z, qx, qy)
+        return JPoint(x, y, z), exc
+
     # ------------------------------------------------------------- XYZZ form
     # x = X/ZZ, y = Y/ZZZ with ZZ^3 = ZZZ^2; identity encoded ZZ = ZZZ = 0.
     # Carried by the MSM's blinded prefix scan: the cached ZZ/ZZZ make the
@@ -176,6 +186,12 @@ class EC:
         if is_ident is not None:
             z = self.f.select(is_ident, torch.zeros_like(z), z)
         return JPoint(x, y, z)
+
+    def projective_coords(self, p: JPoint):
+        """Jacobian -> homogeneous projective (X*Z, Y, Z^3): the coordinate
+        change of the reference's linefunc."""
+        f = self.f
+        return f.mul(p.x, p.z), p.y, f.mul(p.z, f.sqr(p.z))
 
     # ------------------------------------------------------------ arithmetic
     def scalar_mul_small(self, p: JPoint, k: int) -> JPoint:

@@ -16,7 +16,7 @@ from halo2_liam_eagen_msm_tpu.ops.ec import ec as jax_ec
 from halo2_liam_eagen_msm_tpu_torch.convert import (
     JPoint, jpoint_from_numpy, jpoint_to_numpy, limbs_from_numpy, limbs_to_numpy)
 from halo2_liam_eagen_msm_tpu_torch.fields import GRUMPKIN, PALLAS
-from halo2_liam_eagen_msm_tpu_torch.limbs import ints_to_mont_limbs
+from halo2_liam_eagen_msm_tpu_torch.limbs import ints_to_mont_limbs, mont_limbs_to_ints
 from halo2_liam_eagen_msm_tpu_torch.ops import cuda_ff as CF
 from halo2_liam_eagen_msm_tpu_torch.ops.ec import ec
 from halo2_liam_eagen_msm_tpu_torch.utils import pyref
@@ -126,6 +126,38 @@ def test_mixed_adds_vs_jax_and_pyref(curve, rng):
     back = E.points_to_ints(E.xyzz_to_jacobian(*g4))
     assert [b for i, b in enumerate(back) if i not in (0, 3, 4)] == \
         [w for i, w in enumerate(want) if i not in (0, 3, 4)]
+
+
+@pytest.mark.parametrize("curve", CURVES, ids=lambda c: c.name)
+def test_add_mixed_fast_and_projective_coords_vs_jax_and_pyref(curve, rng):
+    """B = 37 lanes, the planted ones first: identity carry (flagged), qy == 0
+    with an ordinary and with an identity carry (passed through, unflagged),
+    carry == Q and carry == -Q in a Jacobian representative with Z != 1
+    (flagged); random carries with Z != 1 elsewhere.  Flagged lanes hold the
+    generic formula's values, limb for limb those of the JAX package."""
+    E, JE = ec(curve), jax_ec(JF.CURVES[curve.name])
+    p1, p2 = _edge_pairs(rng, curve, 37)
+    (ta, ja) = _both(_jacobian_numpy(rng, curve, p1))
+    qx, qy, _ = E.to_affine(E.points_from_ints(p2, "cpu"))
+    jqx, jqy = jnp.asarray(limbs_to_numpy(qx)), jnp.asarray(limbs_to_numpy(qy))
+
+    got, exc = E.add_mixed_fast(JPoint(*ta), qx, qy)
+    jgot, jexc = JE.add_mixed_fast(JaxPoint(*ja), jqx, jqy)
+    _same(list(got) + [exc], list(jgot) + [jexc])
+    assert exc.tolist() == [i in (0, 3, 4) for i in range(len(p1))]
+    want = [pyref.ec_add(a, b, curve) for a, b in zip(p1, p2)]
+    fast = E.points_to_ints(got)
+    assert [f for i, f in enumerate(fast) if i not in (0, 3, 4)] == \
+        [w for i, w in enumerate(want) if i not in (0, 3, 4)]
+    for i in (1, 2):  # qy == 0: the carry itself, limb for limb
+        assert all(torch.equal(g[i], t[i]) for g, t in zip(got, ta))
+
+    proj = E.projective_coords(JPoint(*ta))
+    _same(proj, JE.projective_coords(JaxPoint(*ja)))
+    pp = curve.field.p
+    X, Y, Z = (list(mont_limbs_to_ints(limbs_to_numpy(c), curve.field)) for c in ta)
+    assert [list(mont_limbs_to_ints(limbs_to_numpy(c), curve.field)) for c in proj] == \
+        [[x * z % pp for x, z in zip(X, Z)], Y, [z ** 3 % pp for z in Z]]
 
 
 @pytest.mark.parametrize("k", [0, 1, 2, 5, 7])

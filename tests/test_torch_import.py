@@ -24,6 +24,10 @@ import {PKG}.ops.poly
 import {PKG}.ops.cuda_ntt
 import {PKG}.ops.radix
 import {PKG}.ops.cuda_radix
+import {PKG}.models.eagen_msm
+import {PKG}.entry
+import {PKG}.utils.checks
+import {PKG}.utils.profiling
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "{JAX_PKG}" or m.startswith("{JAX_PKG}."))

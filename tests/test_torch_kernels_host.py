@@ -295,6 +295,9 @@ def _case(name, rng, nprng):
     if name == "ec_add_mixed":
         return (lambda *a: CF.ec_add_mixed(CURVE, *a),
                 lambda *a: CF.ec_add_mixed_plain(CURVE, *a), (*p, qx, qy, qid))
+    if name == "ec_add_mixed_fast":
+        return (lambda *a: CF.ec_add_mixed_fast(CURVE, *a),
+                lambda *a: CF.ec_add_mixed_fast_plain(CURVE, *a), (*p, qx, qy))
     if name == "ec_madd_xyzz_fast":
         zz = CF.mont_mul_plain(SPEC, p.z, p.z)
         args = (p.x, p.y, zz, CF.mont_mul_plain(SPEC, zz, p.z), qx, qy)
@@ -332,9 +335,9 @@ def test_kernel_source_on_host_equals_plain(name, host_kernels, rng, nprng):
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == w.dtype
         assert torch.equal(g, w)
-    if name == "ec_madd_xyzz_fast":
+    if name in ("ec_madd_xyzz_fast", "ec_add_mixed_fast"):
         # identity carry, carry == Q, carry == -Q; qy == 0 passes unflagged
-        assert got[4].nonzero().flatten().tolist() == [0, 3, 4]
+        assert got[-1].nonzero().flatten().tolist() == [0, 3, 4]
     if name == "fused_madd_scan_xyzz":
         assert got[8].nonzero().flatten().tolist() == [5]
 

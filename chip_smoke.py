@@ -43,6 +43,14 @@ without a card, and on any failed build, failed launch or mismatch.  It
      the card, and at two of them by Python-int Horner on the host), no level
      may take the coefficient fallback, and each of the five kernels must
      have been launched,
+  9b. tallies ec_add's launches by B (points a launch) over one MSM, one carry
+     stage and one round, then holds the two redesigned kernels against their
+     first versions, ec_add_v1 and stages_small_v1 (launched by this phase
+     only), and their plain versions, bit for bit, and times old and new in
+     turns (v1, new, new, v1): ec_add at every B that carries a tenth of the
+     tallied launches, at 2048 and at the widest, with the edge lanes;
+     stages_small forward and inverse at (n, E) = (2^7, 2^20), (2^9, 2^20),
+     (2^10, 2^20) and (2^21, 2^21), the fused levels' shapes,
  10. drives one round of the witness at a cut width, 2^10 points, on the card
      and on the CPU (plain versions): the carries' final carry equal to the
      Python-int oracle, round 28 closing on both and equal limb for limb,
@@ -93,8 +101,9 @@ without a card, and on any failed build, failed launch or mismatch.  It
      slots summing to the identity, the first and last round's witness equal
      to a single-round computation), and entry()'s fn on the card against the
      same fn on the CPU,
- 20. prints one JSON line describing the kernels and, last, one JSON line
-     {"ok": true, "device": {...}}.
+ 20. prints one JSON line describing the kernels (ec_add and stages_small
+     with their first versions' ms and phase 9b's shapes) and, last, one
+     JSON line {"ok": true, "device": {...}}.
 
 Phases 16-19 run last, on the round's (phase 9) slots and witness and the
 carry stage's inputs, which are kept alive until then.
@@ -115,6 +124,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import random
 import subprocess
 import sys
@@ -974,7 +984,8 @@ def check_ntt_kernels(dev, ragged: int, reps: int, top_logn: int):
     for kernel, sizes, extra, stages in (
             ("stage_big", [(1 << 11, 1024, 3 << 11), (top, 1024, top), (top, top // 2, top)],
              lambda size: size[1] * ROW_BYTES, None),
-            ("stages_small", [(128, 128, 3 * 128), (128, 128, top // 2), (top, 1024, top)],
+            ("stages_small", [(2, 2, 3 * 128), (128, 128, 3 * 128), (128, 128, top // 2),
+                              (top, 1024, top)],
              lambda size: (size[1] - 1) * ROW_BYTES,
              lambda size: size[1].bit_length() - 1)):
         rec = check_kernel(
@@ -1118,6 +1129,135 @@ def round_path(dev, pts: JPoint, carry_state, profile: bool):
     return {"n": n, "slots": slots, "levels": levels, "fused": len(logns), "runs": runs,
             "seconds": min(runs), "setup_s": setup_s, "peak": peak, "busy_ms": busy,
             "counts": counts, "rp": rp, "w": w, "carry_state": carry_state}
+
+
+# ---------------------------------------------------------------------------
+# phase 9b: ec_add's launches by width, and the two redesigned kernels
+# against their first versions
+# ---------------------------------------------------------------------------
+
+def ec_add_tally(dev, base_pts, logn: int, pts: JPoint, rnd):
+    """ec_add's launches by B (points a launch) over one MSM (the main path's
+    inputs), one carry stage and one round (the round phase's), counted by
+    wrapping cuda_ff.ec_add for these runs only.  Returns {phase: {B:
+    launches}}."""
+    _, scalars, _ = msm_inputs(dev, base_pts, logn)
+    digits, carry_prev, carry_new = rnd["carry_state"]
+    precomp = A.precompute_multiplicities(ec(CURVE), pts, BASE)
+    k = ROUND_K
+
+    def one_round():
+        rp = A._one_round_slots(CURVE, BASE, digits[k], precomp,
+                                A._at(carry_prev, k), A._at(carry_new, k))
+        D.compute_divisor_witness_partial(CURVE, rp)
+
+    real, tally, out = CF.ec_add, {}, {}
+
+    def counting(curve, *rows):
+        b = math.prod(torch.broadcast_shapes(*(r.shape[:-1] for r in rows)))
+        tally[b] = tally.get(b, 0) + 1
+        return real(curve, *rows)
+
+    CF.ec_add = counting
+    try:
+        for phase, fn in (("msm", lambda: M.best_multiexp(CURVE, scalars, pts)),
+                          ("carry stage", lambda: A._carries_only(CURVE, BASE, digits, pts)),
+                          ("round", one_round)):
+            tally.clear()
+            fn()
+            sync(dev)
+            out[phase] = dict(sorted(tally.items()))
+    finally:
+        CF.ec_add = real
+    print("ec_add launches by B: " + "; ".join(
+        f"{phase}: " + ", ".join(f"B = {b}: {c}" for b, c in t.items())
+        for phase, t in out.items()), flush=True)
+    return out
+
+
+def ab_times(dev, fns: dict, reps: int):
+    """Device ms of the "v1" and the "new" call, timed in turns v1, new, new,
+    v1; the mean of each one's two turns."""
+    got = {key: [] for key in fns}
+    for key in ("v1", "new", "new", "v1"):
+        got[key].append(time_ms(dev, fns[key], reps)[0])
+    return {key: sum(v) / len(v) for key, v in got.items()}
+
+
+def ab_ec_add(dev, base_pts, widths, reps: int):
+    """ec_add (four lanes a point) against ec_add_v1 (one thread a point) and
+    the plain version at each width, with the edge lanes of curve_inputs (p
+    identity, q identity, both, P + P, P + (-P)) and the first 64 lanes
+    against the Python-int oracle; both timed in turns."""
+    nprng = np.random.default_rng(0xAB0)
+    E = ec(CURVE)
+    out = []
+    for b in widths:
+        p, q, hp, hq = curve_inputs(nprng, base_pts, b, dev)
+        args = (*p, *q)
+        new, old = CF.ec_add(CURVE, *args), CF.ec_add_v1(CURVE, *args)
+        plain = CF.ec_add_plain(CURVE, *args)
+        k = len(hp)
+        pts = E.points_to_ints(JPoint(*(c[:k] for c in new)))
+        require(all(torch.equal(a, v) and torch.equal(a, w) for a, v, w in zip(new, old, plain))
+                and pts == [pyref.ec_add(u, v, CURVE) for u, v in zip(hp, hq)],
+                f"ec_add == ec_add_v1 == ec_add_plain at B = {b}, the first {k} lanes (edge "
+                f"lanes among them) equal to the Python-int oracle")
+        t = ab_times(dev, {"v1": lambda: CF.ec_add_v1(CURVE, *args),
+                           "new": lambda: CF.ec_add(CURVE, *args)}, reps)
+        b_ms, b_by = bound_ms("ec_add", b)
+        out.append({"shape": f"B = {b}", "ms": t["new"], "v1_ms": t["v1"], "bound_ms": b_ms,
+                    "bound_by": b_by})
+        print(f"  A/B ec_add at B = {b}: {t['new']:.4f} ms, v1 {t['v1']:.4f} ms on the "
+              f"device ({t['v1'] / t['new']:.2f}x), bound {b_ms:.5f} ms ({b_by})", flush=True)
+    return out
+
+
+def ab_stages_small(dev, reps: int):
+    """stages_small (register-blocked) against stages_small_v1 (a butterfly a
+    thread a stage) and the plain version, forward and inverse, at the
+    (n, E) the fused levels of a 2^20 round give it; both timed in turns."""
+    nprng = np.random.default_rng(0xAB1)
+    out = []
+    for logn, e in ((7, 1 << 20), (9, 1 << 20), (10, 1 << 20), (21, 1 << 21)):
+        tile = min(1 << logn, CN.BLOCK)
+        x = lm_inputs(nprng, e, dev, EDGES_A)
+        for inverse in (False, True):
+            tw = CN.tables(SPEC, logn, inverse, dev)
+            new = CN.stages_small(SPEC, x, tile, inverse, tw)
+            old = CN.stages_small_v1(SPEC, x, tile, inverse, tw)
+            plain = CN.stages_small_plain(SPEC, x, tile, inverse, tw)
+            shape = (f"n = {1 << logn}, tile = {tile}, E = {e}, "
+                     f"{'inverse' if inverse else 'forward'}")
+            require(torch.equal(new, old) and torch.equal(new, plain),
+                    f"stages_small == stages_small_v1 == stages_small_plain at {shape}")
+            t = ab_times(dev, {
+                "v1": lambda: CN.stages_small_v1(SPEC, x, tile, inverse, tw),
+                "new": lambda: CN.stages_small(SPEC, x, tile, inverse, tw)}, reps)
+            b_ms, b_by = bound_ms("stages_small", e, (tile - 1) * ROW_BYTES,
+                                  tile.bit_length() - 1)
+            out.append({"shape": shape, "ms": t["new"], "v1_ms": t["v1"], "bound_ms": b_ms,
+                        "bound_by": b_by})
+            print(f"  A/B stages_small at {shape}: {t['new']:.4f} ms, v1 {t['v1']:.4f} ms on "
+                  f"the device ({t['v1'] / t['new']:.2f}x), bound {b_ms:.5f} ms ({b_by})",
+                  flush=True)
+    return out
+
+
+def ab_phase(dev, base_pts, tally, reps: int):
+    """The A/B phase: ec_add at every width that carries at least a tenth of
+    the tallied launches, at 2048 and at the widest; stages_small at the
+    shapes of ab_stages_small.  Returns {kernel: per-shape records}."""
+    launches = {}
+    for t in tally.values():
+        for b, c in t.items():
+            launches[b] = launches.get(b, 0) + c
+    total = sum(launches.values())
+    widths = sorted({b for b, c in launches.items() if 10 * c >= total} | {2048, max(launches)})
+    print(f"A/B: ec_add at B = {widths} (of {total} tallied launches), stages_small at the "
+          f"fused levels' shapes", flush=True)
+    return {"ec_add": ab_ec_add(dev, base_pts, widths, reps),
+            "stages_small": ab_stages_small(dev, max(1, reps // 5))}
 
 
 # ---------------------------------------------------------------------------
@@ -1875,6 +2015,8 @@ def main() -> int:
         dev, base_pts, pts, args.logn, args.profile)
     rnd = round_path(dev, pts, carry_state, args.profile)
     del carry_state
+    tally = ec_add_tally(dev, base_pts, args.logn, pts, rnd)
+    ab = ab_phase(dev, base_pts, tally, reps=50)
     # at 2^14 the fused scan flags and the safe flavor redoes the round at a
     # real width; at half of FUSED_SCAN_MIN_ROWS the stepwise scan runs
     fallback_counts = {name: 0 for name in CF.KERNELS}
@@ -1905,6 +2047,13 @@ def main() -> int:
 
     for rec in recs:
         name = rec["name"]
+        if name in ab:
+            # the first kernel's ms at the row's own shape (stages_small: the
+            # mean of forward and inverse, as the row's ms), and every shape
+            at_row = [r["v1_ms"] for r in ab[name] if r["shape"] == f"B = {shapes['ec_add']}"
+                      or r["shape"].startswith(f"n = {2 * n}, tile = 1024, E = {2 * n},")]
+            rec["v1_ms"] = sum(at_row) / len(at_row) if at_row else None
+            rec["ab"] = ab[name]
         rec["launches"] = (fallback_counts if name in FALLBACK_KERNELS else
                            rnd["counts"] if name in ROUND_KERNELS else
                            radix_counts if name in RADIX_KERNELS else

@@ -1,8 +1,9 @@
 // The nine kernels of the field and curve layers and their C launchers
 // (the five of the divisor merge tree are in ntt.cuh, the four of the MSM's
-// radix reorder in radix.cuh, both included below).  Each kernel is one
-// thread per element (per lane for the scan): it reads its (16,) rows, does
-// the whole formula in registers (ff.cuh, ec.cuh) and writes its rows back.
+// radix reorder in radix.cuh, both included below).  Each kernel but ec_add
+// is one thread per element (per lane for the scan): it reads its (16,)
+// rows, does the whole formula in registers (ff.cuh, ec.cuh) and writes its
+// rows back; ec_add spreads one point over four lanes (see there).
 // No kernel allocates or synchronises; a launcher enqueues on the stream it
 // is given and returns cudaGetLastError().
 //
@@ -72,14 +73,172 @@ __device__ __forceinline__ void jac_store(uint32_t* x, uint32_t* y, uint32_t* z,
   fe_store(z + i * ELEMS_PER_ROW, p.z);
 }
 
+// The first design of ec_add, kept for the A/B comparison of chip_smoke.py
+// only: one thread computes one point (23 field products in 184 registers).
 __global__ void __launch_bounds__(BLOCK)
-ec_add_kernel(FieldParams P, const uint32_t* x1, const uint32_t* y1, const uint32_t* z1,
-              const uint32_t* x2, const uint32_t* y2, const uint32_t* z2,
-              uint32_t* ox, uint32_t* oy, uint32_t* oz, int64_t n) {
+ec_add_v1_kernel(FieldParams P, const uint32_t* x1, const uint32_t* y1, const uint32_t* z1,
+                 const uint32_t* x2, const uint32_t* y2, const uint32_t* z2,
+                 uint32_t* ox, uint32_t* oy, uint32_t* oz, int64_t n) {
   int64_t i = global_index();
   if (i >= n) return;
   Jac r = ec_add_complete(jac_load(x1, y1, z1, i), jac_load(x2, y2, z2, i), P);
   jac_store(ox, oy, oz, i, r);
+}
+
+// The kernel of the path: ADD_LANES = 4 neighbouring lanes share one point.
+// The paths call it at a few thousand points (B = 2048 in every MSM window),
+// where one thread a point leaves the card one warp an SM sub-partition and a
+// chain of 23 dependent products, so latency bounds it, not the operations
+// (0.034 ms against a 0.0004 ms bound).  Here the formula of ec_add_complete
+// is cut into six rounds of up to four independent products, one a lane, and
+// eight rounds of up to four field adds or subtractions.  Every value lives
+// in a slot of the point's scratch in shared memory; a round reads its
+// operands from slots, writes its result to a fresh slot and ends in
+// __syncwarp().  A lane picks its slots by its lane index from constants (no
+// branch), so the four lanes of a group run the same instructions and the
+// warp does not diverge; an idle lane repeats a product into a sink slot of
+// its own.  The values are those of ec_add_complete, each fully reduced, and
+// the selects keep its order, so the result is the same limb for limb.  A
+// ragged last block loads point n - 1 into its spare groups and stores
+// nothing from them.  The product is fe_mul's C: one by PTX carry chains ran
+// slower on the H100.
+
+#define ADD_LANES 4
+#define ADD_BLOCK 64
+#define ADD_PTS (ADD_BLOCK / ADD_LANES)
+
+enum AddSlot {
+  S_X1, S_Y1, S_Z1, S_X2, S_Y2, S_Z2,
+  // the generic sum (add-2007-bl)
+  S_Z1Z1, S_Z2Z2, S_U1, S_U2, S_Z1C, S_Z2C, S_S1, S_S2, S_H, S_R, S_HH, S_HHH, S_V,
+  S_RR, S_T1, S_V2, S_X3, S_VX, S_RY, S_SH, S_Y3, S_Z1Z2, S_Z3,
+  // the doubling of p (dbl-2009-l)
+  S_A, S_B, S_XB, S_A2, S_T, S_E, S_TA, S_C, S_TAC, S_C2, S_D, S_C4, S_D2, S_C8, S_F,
+  S_X3D, S_DX, S_EDX, S_Y3D, S_YZ, S_Z3D,
+  S_SINK1, S_SINK2, S_SINK3,  // where an idle lane writes
+  ADD_SLOTS
+};
+// A point's scratch: two uint4 a slot, one more so that the points of a warp
+// start on different banks.
+#define ADD_STRIDE (2 * ADD_SLOTS + 1)
+
+// Four slot numbers, one a lane, in one word.
+#define LANES4(a, b, c, d) \
+  ((uint32_t)(a) | ((uint32_t)(b) << 8) | ((uint32_t)(c) << 16) | ((uint32_t)(d) << 24))
+
+__device__ __forceinline__ int lane_slot(uint32_t four, int lane) {
+  return (int)((four >> (8 * lane)) & 0xFFu);
+}
+
+__device__ __forceinline__ Fe slot_load(const uint4* sc, int s) {
+  uint4 lo = sc[2 * s], hi = sc[2 * s + 1];
+  Fe a;
+  a.v[0] = lo.x; a.v[1] = lo.y; a.v[2] = lo.z; a.v[3] = lo.w;
+  a.v[4] = hi.x; a.v[5] = hi.y; a.v[6] = hi.z; a.v[7] = hi.w;
+  return a;
+}
+
+__device__ __forceinline__ void slot_store(uint4* sc, int s, const Fe& a) {
+  uint4 lo, hi;
+  lo.x = a.v[0]; lo.y = a.v[1]; lo.z = a.v[2]; lo.w = a.v[3];
+  hi.x = a.v[4]; hi.y = a.v[5]; hi.z = a.v[6]; hi.w = a.v[7];
+  sc[2 * s] = lo;
+  sc[2 * s + 1] = hi;
+}
+
+// (a + b) or (a - b) mod p by one branch-free body: a + (p - b) < 2p reduces
+// to a - b (b = 0 gives a + p, which reduces to a).
+__device__ __forceinline__ Fe fe_add_or_sub(const Fe& a, const Fe& b, bool sub,
+                                            const FieldParams& P) {
+  Fe nb;
+  uint64_t borrow = 0;
+#pragma unroll
+  for (int k = 0; k < FE_WORDS; k++) {
+    uint64_t s = (uint64_t)P.p[k] - (uint64_t)b.v[k] - borrow;
+    nb.v[k] = (uint32_t)s;
+    borrow = s >> 63;
+  }
+  return fe_add(a, fe_select(sub, nb, b), P);
+}
+
+// One round of products: slot out = slot a * slot b, each picked by lane.
+__device__ __forceinline__ void add_mul_round(uint4* sc, int lane, uint32_t a, uint32_t b,
+                                              uint32_t out, const FieldParams& P) {
+  Fe r = fe_mul(slot_load(sc, lane_slot(a, lane)), slot_load(sc, lane_slot(b, lane)), P);
+  slot_store(sc, lane_slot(out, lane), r);
+  __syncwarp();
+}
+
+// One round of adds: slot out = slot a +- slot b; bit `lane` of sub_mask
+// asks for the difference.
+__device__ __forceinline__ void add_lin_round(uint4* sc, int lane, uint32_t a, uint32_t b,
+                                              uint32_t out, unsigned sub_mask,
+                                              const FieldParams& P) {
+  Fe r = fe_add_or_sub(slot_load(sc, lane_slot(a, lane)), slot_load(sc, lane_slot(b, lane)),
+                       (sub_mask >> lane) & 1u, P);
+  slot_store(sc, lane_slot(out, lane), r);
+  __syncwarp();
+}
+
+__global__ void __launch_bounds__(ADD_BLOCK)
+ec_add_kernel(FieldParams P, const uint32_t* x1, const uint32_t* y1, const uint32_t* z1,
+              const uint32_t* x2, const uint32_t* y2, const uint32_t* z2,
+              uint32_t* ox, uint32_t* oy, uint32_t* oz, int64_t n) {
+  __shared__ uint4 add_sm[ADD_PTS * ADD_STRIDE];
+  const int lane = threadIdx.x % ADD_LANES;
+  const int pt = threadIdx.x / ADD_LANES;
+  const int64_t i = (int64_t)blockIdx.x * ADD_PTS + pt;
+  const int64_t src = i < n ? i : n - 1;
+  uint4* sc = add_sm + pt * ADD_STRIDE;
+  for (int r = lane; r < 6; r += ADD_LANES) {
+    const uint32_t* row = r == 0 ? x1 : r == 1 ? y1 : r == 2 ? z1 : r == 3 ? x2 : r == 4 ? y2 : z2;
+    slot_store(sc, r, fe_load(row + src * ELEMS_PER_ROW));
+  }
+  __syncwarp();
+  // Lane:              0                    1                    2                 3
+  add_mul_round(sc, lane, LANES4(S_Z1, S_Z2, S_X1, S_Y1), LANES4(S_Z1, S_Z2, S_X1, S_Y1),
+                LANES4(S_Z1Z1, S_Z2Z2, S_A, S_B), P);
+  add_mul_round(sc, lane, LANES4(S_X1, S_X2, S_Z2, S_Z1), LANES4(S_Z2Z2, S_Z1Z1, S_Z2Z2, S_Z1Z1),
+                LANES4(S_U1, S_U2, S_Z2C, S_Z1C), P);
+  add_lin_round(sc, lane, LANES4(S_U2, S_X1, S_A, S_X1), LANES4(S_U1, S_B, S_A, S_X1),
+                LANES4(S_H, S_XB, S_A2, S_SINK3), 0x1u, P);
+  add_mul_round(sc, lane, LANES4(S_Y1, S_Y2, S_H, S_XB), LANES4(S_Z2C, S_Z1C, S_H, S_XB),
+                LANES4(S_S1, S_S2, S_HH, S_T), P);
+  add_lin_round(sc, lane, LANES4(S_S2, S_A2, S_T, S_X1), LANES4(S_S1, S_A, S_A, S_X1),
+                LANES4(S_R, S_E, S_TA, S_SINK3), 0x5u, P);
+  add_mul_round(sc, lane, LANES4(S_H, S_U1, S_R, S_B), LANES4(S_HH, S_HH, S_R, S_B),
+                LANES4(S_HHH, S_V, S_RR, S_C), P);
+  add_lin_round(sc, lane, LANES4(S_RR, S_V, S_TA, S_C), LANES4(S_HHH, S_V, S_C, S_C),
+                LANES4(S_T1, S_V2, S_TAC, S_C2), 0x5u, P);
+  add_lin_round(sc, lane, LANES4(S_T1, S_TAC, S_C2, S_X1), LANES4(S_V2, S_TAC, S_C2, S_X1),
+                LANES4(S_X3, S_D, S_C4, S_SINK3), 0x1u, P);
+  add_lin_round(sc, lane, LANES4(S_V, S_D, S_C4, S_X1), LANES4(S_X3, S_D, S_C4, S_X1),
+                LANES4(S_VX, S_D2, S_C8, S_SINK3), 0x1u, P);
+  add_mul_round(sc, lane, LANES4(S_R, S_S1, S_E, S_Z1), LANES4(S_VX, S_HHH, S_E, S_Z2),
+                LANES4(S_RY, S_SH, S_F, S_Z1Z2), P);
+  add_lin_round(sc, lane, LANES4(S_RY, S_F, S_X1, S_X1), LANES4(S_SH, S_D2, S_X1, S_X1),
+                LANES4(S_Y3, S_X3D, S_SINK2, S_SINK3), 0x3u, P);
+  add_lin_round(sc, lane, LANES4(S_D, S_X1, S_X1, S_X1), LANES4(S_X3D, S_X1, S_X1, S_X1),
+                LANES4(S_DX, S_SINK1, S_SINK2, S_SINK3), 0x1u, P);
+  add_mul_round(sc, lane, LANES4(S_E, S_Z1Z2, S_Y1, S_X1), LANES4(S_DX, S_H, S_Z1, S_X1),
+                LANES4(S_EDX, S_Z3, S_YZ, S_SINK3), P);
+  add_lin_round(sc, lane, LANES4(S_EDX, S_YZ, S_X1, S_X1), LANES4(S_C8, S_YZ, S_X1, S_X1),
+                LANES4(S_Y3D, S_Z3D, S_SINK2, S_SINK3), 0x1u, P);
+  if (lane < 3 && i < n) {
+    // lane k writes coordinate k, through the selects of ec_add_complete
+    const bool h0 = fe_is_zero(slot_load(sc, S_H));
+    const bool r0 = fe_is_zero(slot_load(sc, S_R));
+    const bool id1 = fe_is_zero(slot_load(sc, S_Z1));
+    const bool id2 = fe_is_zero(slot_load(sc, S_Z2));
+    const Fe ident = lane < 2 ? fe_one(P) : fe_zero();
+    Fe o = slot_load(sc, lane_slot(LANES4(S_X3, S_Y3, S_Z3, 0), lane));
+    o = fe_select(h0 && r0, slot_load(sc, lane_slot(LANES4(S_X3D, S_Y3D, S_Z3D, 0), lane)), o);
+    o = fe_select(h0 && !r0, ident, o);
+    o = fe_select(id2 && !id1, slot_load(sc, lane), o);
+    o = fe_select(id1 && !id2, slot_load(sc, 3 + lane), o);
+    o = fe_select(id1 && id2, ident, o);
+    fe_store((lane == 0 ? ox : lane == 1 ? oy : oz) + i * ELEMS_PER_ROW, o);
+  }
 }
 
 // ---- 4. ec_add_fast: replaces pallas_ff.ec_add_fast ----------------------------
@@ -254,7 +413,18 @@ int ec_add_launch(const FieldParams* P, const void* x1, const void* y1, const vo
                   const void* x2, const void* y2, const void* z2,
                   void* ox, void* oy, void* oz, int64_t n, void* stream) {
   if (n > 0)
-    ec_add_kernel<<<grid_for(n, BLOCK), BLOCK, 0, (cudaStream_t)stream>>>(
+    ec_add_kernel<<<grid_for(n, ADD_PTS), ADD_BLOCK, 0, (cudaStream_t)stream>>>(
+        *P, (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)z1,
+        (const uint32_t*)x2, (const uint32_t*)y2, (const uint32_t*)z2,
+        (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, n);
+  return (int)cudaGetLastError();
+}
+
+int ec_add_v1_launch(const FieldParams* P, const void* x1, const void* y1, const void* z1,
+                  const void* x2, const void* y2, const void* z2,
+                  void* ox, void* oy, void* oz, int64_t n, void* stream) {
+  if (n > 0)
+    ec_add_v1_kernel<<<grid_for(n, BLOCK), BLOCK, 0, (cudaStream_t)stream>>>(
         *P, (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)z1,
         (const uint32_t*)x2, (const uint32_t*)y2, (const uint32_t*)z2,
         (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, n);

@@ -22,7 +22,7 @@
 #pragma once
 #include "ff.cuh"
 
-#define SMALL_TILE 1024  // elements of one stages_small tile (32 KB of shared memory)
+#define SMALL_TILE 1024  // elements of one stages_small_v1 tile (32 KB of shared memory)
 
 // Twiddles: the flat stage-major table of ops/ntt._twiddle_flat_host, kept
 // limb-major (16, n - 1) with row stride tw_stride: the stage of half-size s
@@ -108,6 +108,8 @@ stage_big_kernel(FieldParams P, int inverse, const uint32_t* __restrict__ x,
 
 // ---- 14. stages_small: replaces pallas_ntt._stages_small --------------------------
 //
+// stages_small_v1 is the first design of stages_small, kept for the A/B
+// comparison of chip_smoke.py only.
 // Every stage with s <= tile / 2 in one launch: forward s = tile/2 ... 1,
 // inverse 1 ... tile/2, where tile = min(n, 1024) and tile divides e.  A
 // block owns one aligned tile (every partner e ^ s, s < tile, lies in it;
@@ -120,7 +122,7 @@ stage_big_kernel(FieldParams P, int inverse, const uint32_t* __restrict__ x,
 // input on this path is fully reduced, so this kernel skips the product.
 
 __global__ void __launch_bounds__(SMALL_TILE / 2)
-stages_small_kernel(FieldParams P, int inverse, const uint32_t* __restrict__ x,
+stages_small_v1_kernel(FieldParams P, int inverse, const uint32_t* __restrict__ x,
                     uint32_t* __restrict__ out, const uint32_t* __restrict__ tw,
                     int64_t tw_stride, int tile, int64_t e) {
   __shared__ uint32_t sm[FE_WORDS][SMALL_TILE];
@@ -160,7 +162,162 @@ stages_small_kernel(FieldParams P, int inverse, const uint32_t* __restrict__ x,
   }
 }
 
+// stages_small, the kernel of the path.  Operations bound it (half a product
+// and an add an element a stage), so its design keeps the multiplier busy:
+//  - register blocking: a thread owns 2^R = 4 elements and runs R = 2 stages
+//    on them in registers between exchanges through shared memory, with two
+//    independent products a stage; the stages are cut into windows of R bits
+//    from the bottom (the top window, where log2(tile) is odd, runs only its
+//    upper stage), so ceil(log2(tile) / 2) barriers a launch.  R = 2 is what
+//    measured fastest on the H100: 80 registers a thread, three blocks of 256
+//    threads an SM (the launch bound asks for three).  R = 3 needs 146-187
+//    registers, which leaves 12 warps an SM, and ran slower than the first
+//    kernel; a product by PTX carry chains (mad.lo.cc / madc.hi.cc) ran
+//    slower than fe_mul's C, its chains being serial; a 1-bit window (R = 1)
+//    ran at a tile of 2 but hung on the card from a tile of 8 up, so it is
+//    kept for the tile of 2 alone (one window; tests and chip_smoke.py hold
+//    it there);
+//  - twiddles staged once a block: the tile - 1 columns of the limb-major
+//    table, read coalesced and packed to 8 words in shared memory (reading
+//    them from the table in each stage ran slower);
+//  - no product by one: in the bottom window a butterfly's twiddle index j is
+//    known when the kernel is compiled, and where j = 0 (ω^0, the Montgomery
+//    one) the product is dropped, fe_mul(one, d) == d for a reduced d: every
+//    butterfly of the s = 1 stage and half of s = 2, 768 of a 1024-tile's
+//    5,120 products;
+//  - a block holds SMALL_BLOCK_ELEMS elements, one tile or several small
+//    ones, so the lowest levels (tiles of 128 to 512) run full blocks too; a
+//    ragged last block computes its spare tiles on zeros and stores nothing.
+// Shared memory (67,584 bytes a block, dynamic) is word-major (row w holds
+// word w of every element) with one padding word every 32, so that the
+// strided reads of the bottom window fall on distinct banks.
+
+#define SMALL_BLOCK_ELEMS 1024
+#define SMALL_ROW (SMALL_BLOCK_ELEMS + SMALL_BLOCK_ELEMS / 32)  // padded words a row
+#define SMALL_R 2  // stages a thread runs in registers
+
+__device__ __forceinline__ int small_pad(int i) { return i + (i >> 5); }
+
+__device__ __forceinline__ Fe small_load(const uint32_t* rows, int i) {
+  Fe a;
+  const int k = small_pad(i);
+#pragma unroll
+  for (int w = 0; w < FE_WORDS; w++) a.v[w] = rows[w * SMALL_ROW + k];
+  return a;
+}
+
+__device__ __forceinline__ void small_store(uint32_t* rows, int i, const Fe& a) {
+  const int k = small_pad(i);
+#pragma unroll
+  for (int w = 0; w < FE_WORDS; w++) rows[w * SMALL_ROW + k] = a.v[w];
+}
+
+// One window of R stage bits at bit b: the thread's elements are
+// i0 + (k << b), k < 2^R; stages of bit b + m, m >= m_lo, run in registers.
+template <int R, bool INV, bool BOTTOM>
+__device__ __forceinline__ void small_window(const FieldParams& P, uint32_t* data,
+                                             const uint32_t* twid, int t, int b, int m_lo) {
+  const int bb = BOTTOM ? 0 : b;
+  const int i0 = ((t >> bb) << (bb + R)) | (t & ((1 << bb) - 1));
+  Fe v[1 << R];
+#pragma unroll
+  for (int k = 0; k < (1 << R); k++) v[k] = small_load(data, i0 + (k << bb));
+#pragma unroll
+  for (int mm = 0; mm < R; mm++) {
+    const int m = INV ? mm : R - 1 - mm;
+    if (m < m_lo) continue;
+    const int s = 1 << (bb + m);
+#pragma unroll
+    for (int k = 0; k < (1 << R); k++) {
+      if (k & (1 << m)) continue;
+      const int j = BOTTOM ? (k & ((1 << m) - 1)) : ((i0 + (k << bb)) & (s - 1));
+      if (BOTTOM && j == 0) {
+        Fe d = fe_sub(v[k], v[k | (1 << m)], P);
+        v[k] = fe_add(v[k], v[k | (1 << m)], P);
+        v[k | (1 << m)] = d;
+      } else {
+        butterfly(INV, v[k], v[k | (1 << m)], small_load(twid, s - 1 + j), P);
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < (1 << R); k++) small_store(data, i0 + (k << bb), v[k]);
+}
+
+template <int R, bool INV>
+__device__ __forceinline__ void small_stages(const FieldParams& P, uint32_t* data,
+                                             const uint32_t* twid, int t, int log_tile) {
+  const int full = log_tile / R;
+  const int top_m_lo = log_tile % R ? R - log_tile % R : R;  // R: no top window
+  if (!INV && top_m_lo < R) {
+    small_window<R, INV, false>(P, data, twid, t, log_tile - R, top_m_lo);
+    __syncthreads();
+  }
+  for (int c = INV ? 0 : full - 1; c >= 0 && c < full; c += INV ? 1 : -1) {
+    if (c == 0)
+      small_window<R, INV, true>(P, data, twid, t, 0, 0);
+    else
+      small_window<R, INV, false>(P, data, twid, t, c * R, 0);
+    __syncthreads();
+  }
+  if (INV && top_m_lo < R) {
+    small_window<R, INV, false>(P, data, twid, t, log_tile - R, top_m_lo);
+    __syncthreads();
+  }
+}
+
+// R = min(SMALL_R, log2(tile)); SMALL_BLOCK_ELEMS >> R threads a block;
+// dynamic shared memory: 8 rows of SMALL_ROW words of data, then 8 rows of
+// SMALL_ROW words of twiddles.
+template <int R>
+__global__ void __launch_bounds__(SMALL_BLOCK_ELEMS >> R, R == SMALL_R ? 3 : 1)
+stages_small_kernel(FieldParams P, int inverse, const uint32_t* __restrict__ x,
+                    uint32_t* __restrict__ out, const uint32_t* __restrict__ tw,
+                    int64_t tw_stride, int log_tile, int64_t e) {
+  extern __shared__ uint32_t small_sm[];
+  uint32_t* data = small_sm;
+  uint32_t* twid = small_sm + FE_WORDS * SMALL_ROW;
+  const int threads = SMALL_BLOCK_ELEMS >> R;
+  const int t = threadIdx.x;
+  const int64_t base = (int64_t)blockIdx.x * SMALL_BLOCK_ELEMS;
+  const int tile = 1 << log_tile;
+  for (int c = t; c < tile - 1; c += threads) {
+    Fe w;
+#pragma unroll
+    for (int k = 0; k < FE_WORDS; k++)
+      w.v[k] = (tw[(2 * k) * tw_stride + c] & 0xFFFFu) | (tw[(2 * k + 1) * tw_stride + c] << 16);
+    small_store(twid, c, w);
+  }
+  for (int i = t; i < SMALL_BLOCK_ELEMS; i += threads) {
+    Fe a = base + i < e ? fe_load_limb_major(x + base + i, e) : fe_zero();
+    small_store(data, i, a);
+  }
+  __syncthreads();
+  if (inverse)
+    small_stages<R, true>(P, data, twid, t, log_tile);
+  else
+    small_stages<R, false>(P, data, twid, t, log_tile);
+  for (int i = t; i < SMALL_BLOCK_ELEMS; i += threads)
+    if (base + i < e) fe_store_limb_major(out + base + i, e, small_load(data, i));
+}
+
 // ---- C launchers ------------------------------------------------------------
+
+template <int R>
+static int stages_small_launch_r(const FieldParams* P, int inverse, const void* x, void* out,
+                                 const void* tw, int64_t tw_stride, int log_tile, int64_t e,
+                                 void* stream) {
+  const int smem = 2 * FE_WORDS * SMALL_ROW * (int)sizeof(uint32_t);
+  int rc = (int)cudaFuncSetAttribute(stages_small_kernel<R>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != 0) return rc;
+  stages_small_kernel<R><<<(unsigned int)((e + SMALL_BLOCK_ELEMS - 1) / SMALL_BLOCK_ELEMS),
+                           SMALL_BLOCK_ELEMS >> R, smem, (cudaStream_t)stream>>>(
+      *P, inverse, (const uint32_t*)x, (uint32_t*)out, (const uint32_t*)tw, tw_stride, log_tile,
+      e);
+  return (int)cudaGetLastError();
+}
+
 
 extern "C" {
 
@@ -205,13 +362,24 @@ int stage_big_launch(const FieldParams* P, int inverse, const void* x, void* out
 }
 
 // tile: min(n, 1024), a power of two >= 2 dividing e.
-int stages_small_launch(const FieldParams* P, int inverse, const void* x, void* out,
+int stages_small_v1_launch(const FieldParams* P, int inverse, const void* x, void* out,
                         const void* tw, int64_t tw_stride, int tile, int64_t e, void* stream) {
   if (e > 0)
-    stages_small_kernel<<<(unsigned int)(e / tile), tile / 2, 0, (cudaStream_t)stream>>>(
+    stages_small_v1_kernel<<<(unsigned int)(e / tile), tile / 2, 0, (cudaStream_t)stream>>>(
         *P, inverse, (const uint32_t*)x, (uint32_t*)out, (const uint32_t*)tw, tw_stride, tile,
         e);
   return (int)cudaGetLastError();
+}
+
+// tile: min(n, 1024), a power of two >= 2 dividing e.
+int stages_small_launch(const FieldParams* P, int inverse, const void* x, void* out,
+                        const void* tw, int64_t tw_stride, int tile, int64_t e, void* stream) {
+  int log_tile = 0;
+  while ((1 << log_tile) < tile) log_tile++;
+  if (e <= 0) return (int)cudaGetLastError();
+  if (log_tile == 1)
+    return stages_small_launch_r<1>(P, inverse, x, out, tw, tw_stride, log_tile, e, stream);
+  return stages_small_launch_r<SMALL_R>(P, inverse, x, out, tw, tw_stride, log_tile, e, stream);
 }
 
 }  // extern "C"

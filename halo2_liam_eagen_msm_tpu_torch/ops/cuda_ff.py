@@ -35,6 +35,10 @@ function on the same tensors, device-agnostic, in int64 arithmetic.  The
 callers (ops/ff.py, ops/ec.py, ops/msm.py) take the kernel for a CUDA tensor
 and the plain version for a CPU tensor.
 
+ec_add_v1 is the first design of ec_add (one thread a point; ec_add spreads a
+point over four lanes), kept with its own launcher and wrapper for
+chip_smoke.py's comparison of the two; no path calls it.
+
 LAUNCHES counts kernel launches by name: a wrapper adds one exactly where it
 launches its kernel.  The same library, counters and launcher carry the five
 kernels of the divisor merge tree (csrc/ntt.cuh), whose wrappers and plain
@@ -62,7 +66,10 @@ KERNELS = ("mont_mul", "mont_addsub", "ec_add", "ec_add_fast", "ec_double",
            # the divisor merge tree's five, in csrc/ntt.cuh (ops/cuda_ntt.py)
            "lm_mul", "lm_addsub", "lm_mul_const", "stage_big", "stages_small",
            # the radix reorder's four, in csrc/radix.cuh (ops/cuda_radix.py)
-           "radix_rank", "radix_shuffle", "radix_pass_b", "radix_compact")
+           "radix_rank", "radix_shuffle", "radix_pass_b", "radix_compact",
+           # the first designs of ec_add and stages_small, launched only by
+           # chip_smoke.py's comparison of old and new
+           "ec_add_v1", "stages_small_v1")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 SCAN_W = 64  # sequential madd steps per lane of the fused scan
@@ -152,6 +159,7 @@ def _lib():
             "mont_mul_launch": [fpp, vp, vp, vp, i64, vp],
             "mont_addsub_launch": [fpp, ci, vp, vp, vp, i64, vp],
             "ec_add_launch": [fpp] + [vp] * 9 + [i64, vp],
+            "ec_add_v1_launch": [fpp] + [vp] * 9 + [i64, vp],
             "ec_add_fast_launch": [fpp] + [vp] * 10 + [i64, vp],
             "ec_double_launch": [fpp] + [vp] * 6 + [i64, vp],
             "fused_madd_scan_xyzz_launch":
@@ -164,6 +172,7 @@ def _lib():
             "lm_mul_const_launch": [fpp, u32p, vp, vp, i64, vp],
             "stage_big_launch": [fpp, ci, vp, vp, vp, i64, i64, i64, vp],
             "stages_small_launch": [fpp, ci, vp, vp, vp, i64, ci, i64, vp],
+            "stages_small_v1_launch": [fpp, ci, vp, vp, vp, i64, ci, i64, vp],
             "radix_rank_launch": [vp, vp, vp, vp, i64] + [ci] * 6 + [vp],
             "radix_shuffle_launch": [vp, vp, vp, vp, i64, ci, ci, vp],
             "radix_pass_b_launch": [vp, vp, vp, ci, i64, i64, ci, vp],
@@ -257,15 +266,25 @@ def _require_a_zero(curve: CurveSpec) -> None:
             f"{curve.name}: the curve kernels implement a = 0 only")
 
 
-def ec_add(curve: CurveSpec, x1, y1, z1, x2, y2, z2):
-    """Batched complete Jacobian addition, one kernel launch."""
+def _ec_add(kernel: str, curve: CurveSpec, x1, y1, z1, x2, y2, z2):
     _require_a_zero(curve)
-    _check_cuda("ec_add", x1, y1, z1, x2, y2, z2)
+    _check_cuda(kernel, x1, y1, z1, x2, y2, z2)
     lead, flat = _flatten(x1, y1, z1, x2, y2, z2)
     outs = tuple(torch.empty_like(flat[0]) for _ in range(3))
-    _launch("ec_add", flat[0].device, ctypes.byref(_field_params(curve.field)),
+    _launch(kernel, flat[0].device, ctypes.byref(_field_params(curve.field)),
             *_ptrs(flat + outs), flat[0].shape[0])
     return tuple(o.reshape(lead + (N_LIMBS,)) for o in outs)
+
+
+def ec_add(curve: CurveSpec, x1, y1, z1, x2, y2, z2):
+    """Batched complete Jacobian addition, one kernel launch (four lanes a
+    point)."""
+    return _ec_add("ec_add", curve, x1, y1, z1, x2, y2, z2)
+
+
+def ec_add_v1(curve: CurveSpec, x1, y1, z1, x2, y2, z2):
+    """ec_add by its first kernel (one thread a point), for comparison."""
+    return _ec_add("ec_add_v1", curve, x1, y1, z1, x2, y2, z2)
 
 
 def ec_add_fast(curve: CurveSpec, x1, y1, z1, x2, y2, z2):

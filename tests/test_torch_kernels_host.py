@@ -4,11 +4,14 @@ a small shim, the
 result is loaded in place of the nvcc library, and every kernel's wrapper is
 held against its plain PyTorch version on CPU tensors.
 
-The shim rewrites `kernel<<<grid, block, 0, stream>>>(...)` into a call of
+The shim rewrites `kernel<<<grid, block, smem, stream>>>(...)` into a call of
 host_launch, which runs the blocks one after another and each thread of a
-block as a std::thread, with __syncthreads() a C++20 std::barrier over the
-block's threads, __shared__ arrays static (one block is alive at a time) and
-atomicAdd an atomic fetch-and-add.
+block as a std::thread, with __syncthreads() and __syncwarp() a C++20
+std::barrier over the block's threads (every kernel reaches each
+__syncwarp() with all its lanes, so a block-wide barrier is a stricter one),
+__shared__ arrays and the extern __shared__ dynamic array static (one block
+is alive at a time; the launch's dynamic size is ignored),
+cudaFuncSetAttribute a stub and atomicAdd an atomic fetch-and-add.
 
 This checks the arithmetic of the device functions, the C interface and the
 wrappers' pointer plumbing; that the sources compile with nvcc and run on
@@ -48,7 +51,7 @@ _SHIM = """
 #define __global__
 #define __forceinline__ inline
 #define __restrict__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __shared__ static
 struct uint4 { uint32_t x, y, z, w; };
 struct idx3 { unsigned int x; };
@@ -56,6 +59,10 @@ static thread_local idx3 blockIdx, threadIdx;
 static idx3 blockDim, gridDim;
 static thread_local std::barrier<>* block_barrier;
 static inline void __syncthreads() { block_barrier->arrive_and_wait(); }
+static inline void __syncwarp() { block_barrier->arrive_and_wait(); }
+enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <class F>
+static inline int cudaFuncSetAttribute(F, int, int) { return 0; }
 static inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
 typedef void* cudaStream_t;
 static inline int cudaGetLastError() { return 0; }
@@ -77,12 +84,15 @@ static void host_launch(unsigned int grid, unsigned int block, F body) {
   }
 }
 """
-_LAUNCH = re.compile(r"(\w+)<<<(.*?),\s*([^,]+?),\s*0,\s*\(cudaStream_t\)\s*stream>>>\(", re.S)
+_LAUNCH = re.compile(r"(\w+(?:<\w+>)?)<<<(.*?),\s*([^,]+?),\s*([^,]+?),\s*\(cudaStream_t\)\s*stream>>>\(",
+                     re.S)
+_DYN_SHARED = re.compile(r"extern __shared__ (\w+) (\w+)\[\];")
 
 
 def _rewrite_launches(src: str):
-    """kernel<<<grid, block, 0, (cudaStream_t)stream>>>(args); ->
-    host_launch(grid, block, [&]() { kernel(args); });"""
+    """kernel<<<grid, block, smem, (cudaStream_t)stream>>>(args); ->
+    host_launch(grid, block, [&]() { kernel(args); }); and the dynamic
+    shared array a static one of 128 KB."""
     out, pos, count = [], 0, 0
     for m in _LAUNCH.finditer(src):
         depth, i = 1, m.end()
@@ -96,7 +106,7 @@ def _rewrite_launches(src: str):
         pos = i
         count += 1
     out.append(src[pos:])
-    return "".join(out), count
+    return _DYN_SHARED.sub(r"static \1 \2[1 << 15];", "".join(out)), count
 
 
 @pytest.fixture(scope="module")
@@ -178,8 +188,9 @@ def _lm(nprng, e):
 def _lm_case(name, nprng):
     """The five kernels of csrc/ntt.cuh.  The stages run at small sizes:
     stage_big at n = 16 (s = 8, 4), at n = 32 with E = 3 * 32 (s = 16, 8)
-    and at s = 1024 (n = 2048); stages_small at n = 8, at n = 64 with
-    E = 3 * 64 and at n = 1024 (the full tile, one block of 512 threads)."""
+    and at s = 1024 (n = 2048); stages_small (and its first kernel) at
+    tiles 2, 4, 8, 128 and 1024 over two tiles (the full tile: two blocks),
+    and at n = 64 with E = 3 * 64."""
     if name == "lm_mul":
         return (lambda a, b: (CN.lm_mul(SPEC, a, b),),
                 lambda a, b: (CN.lm_mul_plain(SPEC, a, b),), (_lm(nprng, B), _lm(nprng, B)))
@@ -201,11 +212,14 @@ def _lm_case(name, nprng):
                 cases += [(s, inverse, tw, e) for s in stages]
         fn, plain = CN.stage_big, CN.stage_big_plain
     else:
-        assert name == "stages_small"
-        for logn, e in ((3, 16), (6, 192), (10, 1024)):
+        assert name in ("stages_small", "stages_small_v1")
+        # tiles 2, 4, 8, 128 and 1024 at E = two tiles, and 64 at E = three
+        # (a ragged block for the kernel of the path): one window of 1 bit,
+        # one of 2 bits, windows with a top window of 1 bit, 5 windows
+        for logn, e in ((1, 4), (2, 8), (3, 16), (6, 192), (7, 256), (10, 2048)):
             for inverse in (False, True):
                 cases.append((1 << logn, inverse, CN.tables(SPEC, logn, inverse, "cpu"), e))
-        fn, plain = CN.stages_small, CN.stages_small_plain
+        fn, plain = getattr(CN, name), CN.stages_small_plain
     xs = [_lm(nprng, e) for *_, e in cases]
     return (lambda *x: tuple(fn(SPEC, xi, w, inv, tw) for xi, (w, inv, tw, _) in zip(x, cases)),
             lambda *x: tuple(plain(SPEC, xi, w, inv, tw) for xi, (w, inv, tw, _) in zip(x, cases)),
@@ -287,9 +301,10 @@ def _case(name, rng, nprng):
             (_field(nprng, B), _field(nprng, B))
     hp, hq = _edge_points(rng)
     p = _jacobian(rng, nprng, hp)
-    if name in ("ec_add", "ec_add_fast", "ec_double"):
+    if name in ("ec_add", "ec_add_v1", "ec_add_fast", "ec_double"):
         args = tuple(p) if name == "ec_double" else (*p, *_jacobian(rng, nprng, hq))
-        kernel, plain = getattr(CF, name), getattr(CF, name + "_plain")
+        kernel = getattr(CF, name)
+        plain = getattr(CF, name.removesuffix("_v1") + "_plain")
         return (lambda *a: kernel(CURVE, *a)), (lambda *a: plain(CURVE, *a)), args
     qx, qy, qid = E.to_affine(E.points_from_ints(hq, "cpu"))
     if name == "ec_add_mixed":

@@ -8,12 +8,14 @@ without a card, and on any failed build, failed launch or mismatch.  It
 
   1. prints the card's name and power limit (nvidia-smi),
   2. builds the kernel library from halo2_liam_eagen_msm_tpu_torch/ops/csrc/,
-  3. holds each of the nine field and curve kernels against its plain
+  3. holds each of the ten field and curve kernels against its plain
      PyTorch version on the card: torch.equal on every output (integer
      arithmetic, tolerance zero), on seeded inputs with edge lanes, at a
      ragged size and at the shape its path gives it, and times both there
      (ec_madd_xyzz_fast at the lanes of the stepwise scan's widest window,
-     the only shape a card path launches it with),
+     the only shape a card path launches it with; batch_inv at 2^21 rows,
+     the lm tail's width at the top level, and at the ragged size against
+     FF._inv_host too),
   4. drives the MSM path: best_multiexp on the Pallas curve at 2^20 points
      with full-width scalars (64 random base points tiled, as the headline
      benchmark makes them), checks the result against the exact Python-int
@@ -43,14 +45,21 @@ without a card, and on any failed build, failed launch or mismatch.  It
      the card, and at two of them by Python-int Horner on the host), no level
      may take the coefficient fallback, and each of the five kernels must
      have been launched,
-  9b. tallies ec_add's launches by B (points a launch) over one MSM, one carry
-     stage and one round, then holds the two redesigned kernels against their
-     first versions, ec_add_v1 and stages_small_v1 (launched by this phase
-     only), and their plain versions, bit for bit, and times old and new in
-     turns (v1, new, new, v1): ec_add at every B that carries a tenth of the
-     tallied launches, at 2048 and at the widest, with the edge lanes;
-     stages_small forward and inverse at (n, E) = (2^7, 2^20), (2^9, 2^20),
-     (2^10, 2^20) and (2^21, 2^21), the fused levels' shapes,
+  9b. tallies ec_add's launches by B (points a launch) and batch_inv's by
+     (rows, chain length) over one MSM, one carry stage and one round; holds
+     the redesigned ec_add and stages_small against their plain versions bit
+     for bit and times them at the path's shapes: ec_add at every B that
+     carries a tenth of the tallied launches, at 2048 and at the widest, with
+     the edge lanes; stages_small forward and inverse at (n, E) = (2^7, 2^20),
+     (2^9, 2^20), (2^10, 2^20) and (2^21, 2^21), the fused levels' shapes;
+     then holds batch_inv and the fused scan against their first versions
+     (FF._batch_inv_v1, the chains of mont_mul launches, and
+     fused_madd_scan_xyzz_v1, launched by this phase only) and their plain
+     versions, bit for bit, and times old and new in turns (v1, new, new,
+     v1): batch_inv at n = 33, 512, 700, 2^16 and 2^21 rows with zeros, each
+     against FF._inv_host too, then by chain length at 2^21, 2^20 and 2^16;
+     the fused scan at g = 256, 4096 and 16,384 carries of 64 rows, the
+     windows FUSED_SCAN_MIN_ROWS lets through,
  10. drives one round of the witness at a cut width, 2^10 points, on the card
      and on the CPU (plain versions): the carries' final carry equal to the
      Python-int oracle, round 28 closing on both and equal limb for limb,
@@ -101,9 +110,9 @@ without a card, and on any failed build, failed launch or mismatch.  It
      slots summing to the identity, the first and last round's witness equal
      to a single-round computation), and entry()'s fn on the card against the
      same fn on the CPU,
- 20. prints one JSON line describing the kernels (ec_add and stages_small
-     with their first versions' ms and phase 9b's shapes) and, last, one
-     JSON line {"ok": true, "device": {...}}.
+ 20. prints one JSON line describing the kernels (the redesigned ones with
+     phase 9b's shapes, batch_inv and the fused scan with their first
+     versions' ms, and a line for each first version) and, last, one JSON line {"ok": true, "device": {...}}.
 
 Phases 16-19 run last, on the round's (phase 9) slots and witness and the
 carry stage's inputs, which are kept alive until then.
@@ -116,7 +125,10 @@ float32 lanes, so the rate is taken as half the 67 TFLOP/s float32 figure
 (one multiply-add = 2 operations).  A field product counts 136 multiply-adds
 (8x8 for a*b, 8x8 for m*p, 8 for m), a field add/sub 8 word additions.
 A butterfly stage counts half a product and one add/sub an element, and its
-twiddles (s rows for a stage of half-size s) once.  The radix kernels move
+twiddles (s rows for a stage of half-size s) once.  batch_inv counts what
+any batch inversion of this run's n rows needs, whatever the kernel's chain
+length: the Montgomery trick's 3 (n - 1) products and one power of p - 2
+(cuda_ff.pow_products), one row read and one written.  The radix kernels move
 data and count: their bound is their bytes alone, from this run's inputs.
 """
 
@@ -151,6 +163,7 @@ from halo2_liam_eagen_msm_tpu_torch.ops import msm as M
 from halo2_liam_eagen_msm_tpu_torch.ops import ntt as NTT
 from halo2_liam_eagen_msm_tpu_torch.ops import radix as RX
 from halo2_liam_eagen_msm_tpu_torch.ops.ec import ec
+from halo2_liam_eagen_msm_tpu_torch.ops.ff import ff
 from halo2_liam_eagen_msm_tpu_torch.utils import pyref
 
 HBM_BYTES_PER_S = 3.35e12
@@ -169,6 +182,7 @@ RADIX_PY = "halo2_liam_eagen_msm_tpu/ops/radix.py"
 #            stages_small; the radix kernels' bytes come as extra bytes)
 KERNEL_TABLE = {
     "mont_mul": ("kernels.cu", PALLAS_FF, 515, 1, 0, 3),
+    "batch_inv": ("kernels.cu", PALLAS_FF, 515, None, 0, 2),  # products: from the run
     "mont_addsub": ("kernels.cu", PALLAS_FF, 541, 0, 1, 3),
     "ec_add": ("kernels.cu", PALLAS_FF, 568, 23, 21, 9),
     "ec_add_fast": ("kernels.cu", PALLAS_FF, 630, 16, 7, 9),
@@ -187,8 +201,11 @@ KERNEL_TABLE = {
     "radix_pass_b": ("radix.cuh", RADIX_PY, 363, 0, 0, 0),
     "radix_compact": ("radix.cuh", RADIX_PY, 421, 0, 0, 0),
 }
-MSM_KERNELS = ("mont_mul", "mont_addsub", "ec_add", "ec_add_fast", "ec_double",
-               "fused_madd_scan_xyzz")
+MSM_KERNELS = ("mont_mul", "batch_inv", "mont_addsub", "ec_add", "ec_add_fast",
+               "ec_double", "fused_madd_scan_xyzz")
+# the first designs kept for phase 9b: name -> the kernel of the path
+V1_OF = {"fused_madd_scan_xyzz_v1": "fused_madd_scan_xyzz", "batch_inv_v1": "batch_inv"}
+PR6_ROUND_MONT_MUL = 16154  # a round's mont_mul launches before batch_inv
 FALLBACK_KERNELS = ("ec_madd_xyzz_fast", "ec_add_mixed")
 ROUND_KERNELS = ("lm_mul", "lm_addsub", "lm_mul_const", "stage_big", "stages_small")
 RADIX_KERNELS = ("radix_rank", "radix_shuffle", "radix_pass_b", "radix_compact")
@@ -241,11 +258,18 @@ def time_ms(dev, fn, reps: int):
     return start.elapsed_time(end) / reps, call_ms
 
 
-def bound_ms(name: str, elems: int, extra_bytes: int = 0, stages: int = 1):
-    *_, muls, adds, rows = KERNEL_TABLE[name]
+def bound_ms(name: str, elems: int, extra_bytes: int = 0, stages: int = 1, muls=None):
+    *_, table_muls, adds, rows = KERNEL_TABLE[name]
+    muls = table_muls if muls is None else muls
     t_bytes = (elems * rows * ROW_BYTES + extra_bytes) / HBM_BYTES_PER_S
     t_ops = stages * elems * (muls * MUL_OPS + adds * ADD_OPS) / INT32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def inv_muls(n: int) -> float:
+    """Field products a row that inverting n rows needs, whatever the
+    grouping: the Montgomery trick's 3 (n - 1) and one power of p - 2."""
+    return (3 * (n - 1) + CF.pow_products(SPEC.p - 2)) / n
 
 
 # ---------------------------------------------------------------------------
@@ -257,6 +281,13 @@ def random_field(nprng, b: int, dev):
     a = nprng.integers(0, 1 << 16, size=(b, N_LIMBS), dtype=np.uint32)
     a[:, 15] &= 0x3FFF
     return limbs_from_numpy(a, dev)
+
+
+def zero_laced(nprng, b: int, dev):
+    """b random reduced field elements, zero at rows 0, b // 2 and b - 1."""
+    a = random_field(nprng, b, dev)
+    a[[0, b // 2, b - 1]] = 0
+    return a
 
 
 def field_inputs(nprng, b: int, dev):
@@ -351,6 +382,12 @@ def mixed_inputs(nprng, base_pts, b: int, dev):
     return p, qx, qy, mask_t, hp, hq
 
 
+def scan_t_limbs():
+    """The blinding point T's Montgomery limbs, as the fused scan takes them."""
+    return tuple(tuple(int(v) for v in ints_to_mont_limbs([c], SPEC)[0])
+                 for c in ec(CURVE).offset_point_ints())
+
+
 def scan_rows(nprng, base_pts, g: int, w: int, dev):
     """g*w packed affine rows: tiled base points with zero rows (affine
     identities) in the stream, and lane 5 starting with -T, which must flag
@@ -390,7 +427,8 @@ def flatten_outs(out):
 
 
 def check_kernel(dev, name, kernel, plain, make_inputs, sizes, reps, elems_of=None,
-                 extra_bytes_of=None, host_check=None, stages_of=None, shape_of=str):
+                 extra_bytes_of=None, host_check=None, stages_of=None, shape_of=str,
+                 muls_of=None):
     """Compare kernel and plain version at every size; time both at the last
     (the main-path shape).  Returns the kernel's record for the JSON line."""
     print(f"kernel {name}", flush=True)
@@ -414,7 +452,8 @@ def check_kernel(dev, name, kernel, plain, make_inputs, sizes, reps, elems_of=No
     ms, call_ms = time_ms(dev, lambda: kernel(*args), reps)
     elems = elems_of(size) if elems_of else size
     extra = extra_bytes_of(size) if extra_bytes_of else 0
-    b_ms, b_by = bound_ms(name, elems, extra, stages_of(size) if stages_of else 1)
+    b_ms, b_by = bound_ms(name, elems, extra, stages_of(size) if stages_of else 1,
+                          muls_of(size) if muls_of else None)
     src, tpu_file, line = KERNEL_TABLE[name][:3]
     rec = {"name": name, "route": "cuda", "source": CSRC + src,
            "replaces": f"{tpu_file}:{line}", "launches": 0, "max_abs_err": worst,
@@ -436,6 +475,19 @@ def check_kernels(dev, base_pts, ragged: int, shapes: dict, scan_small_g: int, r
         lambda a, b: (CF.mont_mul(SPEC, a, b),),
         lambda a, b: (CF.mont_mul_plain(SPEC, a, b),),
         lambda b: field_inputs(nprng, b, dev), [ragged, shapes["mont_mul"]], reps))
+
+    def inv_vs_host(size, args, got):
+        if size == ragged:
+            require(torch.equal(got[0].cpu(), ff(SPEC)._inv_host(args[0].cpu())),
+                    f"batch_inv equals FF._inv_host (Python-int powers) at size {size}")
+
+    recs.append(check_kernel(
+        dev, "batch_inv", lambda a: (CF.batch_inv(SPEC, a),),
+        lambda a: (CF.batch_inv_plain(SPEC, a),),
+        lambda b: (zero_laced(nprng, b, dev),), [ragged, shapes["batch_inv"]], max(1, reps // 5),
+        host_check=inv_vs_host,
+        muls_of=inv_muls,
+        shape_of=lambda b: f"n = {b}, L = {CF.batch_inv_chain(b)}"))
 
     def addsub(fn):
         return lambda a, b: (fn(SPEC, False, a, b), fn(SPEC, True, a, b))
@@ -557,8 +609,7 @@ def check_kernels(dev, base_pts, ragged: int, shapes: dict, scan_small_g: int, r
         extra_bytes_of=lambda b: b, host_check=xyzz_flags))
 
     w = CF.SCAN_W
-    xi, yi = E.offset_point_ints()
-    t_limbs = tuple(tuple(int(v) for v in ints_to_mont_limbs([c], SPEC)[0]) for c in (xi, yi))
+    t_limbs = scan_t_limbs()
 
     def scan_flags(g, args, got):
         flags = got[8].nonzero().flatten().tolist()
@@ -1099,6 +1150,10 @@ def round_path(dev, pts: JPoint, carry_state, profile: bool):
     for name in ROUND_KERNELS:
         require(counts[name] == want[name] > 0,
                 f"{name} was launched {counts[name]} times in the round, as counted")
+    require(counts["batch_inv"] > 0 and counts["mont_mul"] < PR6_ROUND_MONT_MUL,
+            f"the round's inversions went through batch_inv ({counts['batch_inv']} launches): "
+            f"mont_mul {counts['mont_mul']} launches, below the {PR6_ROUND_MONT_MUL} of the "
+            f"chains of launches")
 
     require(bool(E.is_identity(JPoint(*(c[None] for c in out)))[0]),
             "the round's output is the identity (its slots sum to zero)")
@@ -1136,11 +1191,12 @@ def round_path(dev, pts: JPoint, carry_state, profile: bool):
 # against their first versions
 # ---------------------------------------------------------------------------
 
-def ec_add_tally(dev, base_pts, logn: int, pts: JPoint, rnd):
-    """ec_add's launches by B (points a launch) over one MSM (the main path's
-    inputs), one carry stage and one round (the round phase's), counted by
-    wrapping cuda_ff.ec_add for these runs only.  Returns {phase: {B:
-    launches}}."""
+def launch_tally(dev, base_pts, logn: int, pts: JPoint, rnd):
+    """ec_add's launches by B (points a launch) and batch_inv's by (rows,
+    chain length) over one MSM (the main path's inputs), one carry stage and
+    one round (the round phase's), counted by wrapping cuda_ff.ec_add and
+    cuda_ff.batch_inv for these runs only.  Returns {kernel: {phase: {width:
+    launches}}}."""
     _, scalars, _ = msm_inputs(dev, base_pts, logn)
     digits, carry_prev, carry_new = rnd["carry_state"]
     precomp = A.precompute_multiplicities(ec(CURVE), pts, BASE)
@@ -1151,72 +1207,85 @@ def ec_add_tally(dev, base_pts, logn: int, pts: JPoint, rnd):
                                 A._at(carry_prev, k), A._at(carry_new, k))
         D.compute_divisor_witness_partial(CURVE, rp)
 
-    real, tally, out = CF.ec_add, {}, {}
+    real_add, real_inv = CF.ec_add, CF.batch_inv
+    tally = {"ec_add": {}, "batch_inv": {}}
+    out = {"ec_add": {}, "batch_inv": {}}
 
-    def counting(curve, *rows):
+    def counting_add(curve, *rows):
         b = math.prod(torch.broadcast_shapes(*(r.shape[:-1] for r in rows)))
-        tally[b] = tally.get(b, 0) + 1
-        return real(curve, *rows)
+        tally["ec_add"][b] = tally["ec_add"].get(b, 0) + 1
+        return real_add(curve, *rows)
 
-    CF.ec_add = counting
+    def counting_inv(spec, a, chain=None):
+        n = math.prod(a.shape[:-1])
+        key = (n, chain or CF.batch_inv_chain(n))
+        tally["batch_inv"][key] = tally["batch_inv"].get(key, 0) + 1
+        return real_inv(spec, a, chain)
+
+    CF.ec_add, CF.batch_inv = counting_add, counting_inv
     try:
         for phase, fn in (("msm", lambda: M.best_multiexp(CURVE, scalars, pts)),
                           ("carry stage", lambda: A._carries_only(CURVE, BASE, digits, pts)),
                           ("round", one_round)):
-            tally.clear()
+            for t in tally.values():
+                t.clear()
             fn()
             sync(dev)
-            out[phase] = dict(sorted(tally.items()))
+            for name, t in tally.items():
+                out[name][phase] = dict(sorted(t.items()))
     finally:
-        CF.ec_add = real
+        CF.ec_add, CF.batch_inv = real_add, real_inv
     print("ec_add launches by B: " + "; ".join(
         f"{phase}: " + ", ".join(f"B = {b}: {c}" for b, c in t.items())
-        for phase, t in out.items()), flush=True)
+        for phase, t in out["ec_add"].items()), flush=True)
+    print("batch_inv launches by (rows, L): " + "; ".join(
+        f"{phase}: " + ", ".join(f"({n}, {L}): {c}" for (n, L), c in t.items())
+        for phase, t in out["batch_inv"].items()), flush=True)
     return out
 
 
-def ab_times(dev, fns: dict, reps: int):
+def ab_times(dev, fns: dict, reps: int, v1_reps=None):
     """Device ms of the "v1" and the "new" call, timed in turns v1, new, new,
-    v1; the mean of each one's two turns."""
+    v1; the mean of each one's two turns.  v1_reps (default reps) for a v1
+    call of many launches: the card queues about a thousand launches behind
+    time_ms's spin kernel, and the host waits for the rest, so more would
+    time the host's pace."""
     got = {key: [] for key in fns}
     for key in ("v1", "new", "new", "v1"):
-        got[key].append(time_ms(dev, fns[key], reps)[0])
+        got[key].append(time_ms(dev, fns[key], reps if key == "new" else v1_reps or reps)[0])
     return {key: sum(v) / len(v) for key, v in got.items()}
 
 
-def ab_ec_add(dev, base_pts, widths, reps: int):
-    """ec_add (four lanes a point) against ec_add_v1 (one thread a point) and
-    the plain version at each width, with the edge lanes of curve_inputs (p
-    identity, q identity, both, P + P, P + (-P)) and the first 64 lanes
-    against the Python-int oracle; both timed in turns."""
+def ec_add_by_width(dev, base_pts, widths, reps: int):
+    """ec_add (four lanes a point) against its plain version at each width,
+    with the edge lanes of curve_inputs (p identity, q identity, both,
+    P + P, P + (-P)) and the first 64 lanes against the Python-int oracle;
+    device ms at each width."""
     nprng = np.random.default_rng(0xAB0)
     E = ec(CURVE)
     out = []
     for b in widths:
         p, q, hp, hq = curve_inputs(nprng, base_pts, b, dev)
         args = (*p, *q)
-        new, old = CF.ec_add(CURVE, *args), CF.ec_add_v1(CURVE, *args)
-        plain = CF.ec_add_plain(CURVE, *args)
+        new = CF.ec_add(CURVE, *args)
         k = len(hp)
         pts = E.points_to_ints(JPoint(*(c[:k] for c in new)))
-        require(all(torch.equal(a, v) and torch.equal(a, w) for a, v, w in zip(new, old, plain))
+        require(outputs_equal(new, CF.ec_add_plain(CURVE, *args)) == 0
                 and pts == [pyref.ec_add(u, v, CURVE) for u, v in zip(hp, hq)],
-                f"ec_add == ec_add_v1 == ec_add_plain at B = {b}, the first {k} lanes (edge "
-                f"lanes among them) equal to the Python-int oracle")
-        t = ab_times(dev, {"v1": lambda: CF.ec_add_v1(CURVE, *args),
-                           "new": lambda: CF.ec_add(CURVE, *args)}, reps)
+                f"ec_add == ec_add_plain at B = {b}, the first {k} lanes (edge lanes among "
+                f"them) equal to the Python-int oracle")
+        ms = time_ms(dev, lambda: CF.ec_add(CURVE, *args), reps)[0]
         b_ms, b_by = bound_ms("ec_add", b)
-        out.append({"shape": f"B = {b}", "ms": t["new"], "v1_ms": t["v1"], "bound_ms": b_ms,
-                    "bound_by": b_by})
-        print(f"  A/B ec_add at B = {b}: {t['new']:.4f} ms, v1 {t['v1']:.4f} ms on the "
-              f"device ({t['v1'] / t['new']:.2f}x), bound {b_ms:.5f} ms ({b_by})", flush=True)
+        out.append({"shape": f"B = {b}", "ms": ms, "bound_ms": b_ms, "bound_by": b_by})
+        print(f"  ec_add at B = {b}: {ms:.4f} ms on the device, bound {b_ms:.5f} ms ({b_by})",
+              flush=True)
     return out
 
 
-def ab_stages_small(dev, reps: int):
-    """stages_small (register-blocked) against stages_small_v1 (a butterfly a
-    thread a stage) and the plain version, forward and inverse, at the
-    (n, E) the fused levels of a 2^20 round give it; both timed in turns."""
+def stages_small_by_shape(dev, reps: int):
+    """stages_small (register-blocked) against its plain version, forward and
+    inverse, at the (n, E) the fused levels of a 2^20 round give it; device
+    ms at each."""
     nprng = np.random.default_rng(0xAB1)
     out = []
     for logn, e in ((7, 1 << 20), (9, 1 << 20), (10, 1 << 20), (21, 1 << 21)):
@@ -1224,40 +1293,138 @@ def ab_stages_small(dev, reps: int):
         x = lm_inputs(nprng, e, dev, EDGES_A)
         for inverse in (False, True):
             tw = CN.tables(SPEC, logn, inverse, dev)
-            new = CN.stages_small(SPEC, x, tile, inverse, tw)
-            old = CN.stages_small_v1(SPEC, x, tile, inverse, tw)
-            plain = CN.stages_small_plain(SPEC, x, tile, inverse, tw)
             shape = (f"n = {1 << logn}, tile = {tile}, E = {e}, "
                      f"{'inverse' if inverse else 'forward'}")
-            require(torch.equal(new, old) and torch.equal(new, plain),
-                    f"stages_small == stages_small_v1 == stages_small_plain at {shape}")
-            t = ab_times(dev, {
-                "v1": lambda: CN.stages_small_v1(SPEC, x, tile, inverse, tw),
-                "new": lambda: CN.stages_small(SPEC, x, tile, inverse, tw)}, reps)
+            require(torch.equal(CN.stages_small(SPEC, x, tile, inverse, tw),
+                                CN.stages_small_plain(SPEC, x, tile, inverse, tw)),
+                    f"stages_small == stages_small_plain at {shape}")
+            ms = time_ms(dev, lambda: CN.stages_small(SPEC, x, tile, inverse, tw), reps)[0]
             b_ms, b_by = bound_ms("stages_small", e, (tile - 1) * ROW_BYTES,
                                   tile.bit_length() - 1)
-            out.append({"shape": shape, "ms": t["new"], "v1_ms": t["v1"], "bound_ms": b_ms,
-                        "bound_by": b_by})
-            print(f"  A/B stages_small at {shape}: {t['new']:.4f} ms, v1 {t['v1']:.4f} ms on "
-                  f"the device ({t['v1'] / t['new']:.2f}x), bound {b_ms:.5f} ms ({b_by})",
-                  flush=True)
+            out.append({"shape": shape, "ms": ms, "bound_ms": b_ms, "bound_by": b_by})
+            print(f"  stages_small at {shape}: {ms:.4f} ms on the device, bound {b_ms:.5f} ms "
+                  f"({b_by})", flush=True)
     return out
 
 
-def ab_phase(dev, base_pts, tally, reps: int):
-    """The A/B phase: ec_add at every width that carries at least a tenth of
-    the tallied launches, at 2048 and at the widest; stages_small at the
-    shapes of ab_stages_small.  Returns {kernel: per-shape records}."""
+def ab_batch_inv(dev, sizes, sweeps, row_n: int, reps: int):
+    """batch_inv (one launch) against its first design (FF._batch_inv_v1: the
+    64-step chains of mont_mul launches and the Fermat chain for their
+    totals) and the plain version at each size, zeros at rows 0, n // 2 and
+    n - 1, and every output against FF._inv_host (above 2^16 rows on every
+    32nd row and the last: the host takes some 120 us a row); both timed in
+    turns, v1 one call at a time (some 460 launches).  Then
+    the chain length: device ms of batch_inv by L at the sizes of `sweeps`
+    ({n: [L, ...]}), each equal to the default's output."""
+    nprng = np.random.default_rng(0xAB2)
+    k = ff(SPEC)
+    e = SPEC.p - 2
+    out, sweep = [], []
+    for n in sizes:
+        a = zero_laced(nprng, n, dev)
+        L = CF.batch_inv_chain(n)
+        new = CF.batch_inv(SPEC, a)
+        before = CF.LAUNCHES["mont_mul"]
+        old = k._batch_inv_v1(a)
+        v1_launches = CF.LAUNCHES["mont_mul"] - before
+        plain = CF.batch_inv_plain(SPEC, a)
+        rows = torch.arange(n, device=dev)
+        if n > 1 << 16:
+            rows = torch.cat([rows[::32], rows[-1:]])
+        sync(dev)
+        t0 = time.perf_counter()
+        host = k._inv_host(a[rows].cpu())
+        host_s = time.perf_counter() - t0
+        v1_err = outputs_equal([old], [plain])
+        require(v1_err == 0 and torch.equal(new, plain) and torch.equal(new[rows].cpu(), host),
+                f"batch_inv (L = {L}) == FF._batch_inv_v1 ({v1_launches} mont_mul launches) == "
+                f"batch_inv_plain at n = {n}, zeros at rows 0, {n // 2} and {n - 1}; == "
+                f"FF._inv_host at {rows.numel()} rows ({host_s:.1f} s on the host)")
+        t = ab_times(dev, {"v1": lambda: k._batch_inv_v1(a),
+                           "new": lambda: CF.batch_inv(SPEC, a)}, reps, v1_reps=1)
+        prods = CF.batch_inv_products(n, L, e)
+        b_ms, b_by = bound_ms("batch_inv", n, muls=inv_muls(n))
+        out.append({"shape": f"n = {n}, L = {L}", "ms": t["new"], "v1_ms": t["v1"],
+                    "v1_max_abs_err": v1_err, "v1_launches": v1_launches,
+                    "kernel_products": prods, "bound_ms": b_ms, "bound_by": b_by,
+                    "at_row": n == row_n})
+        print(f"  A/B batch_inv at n = {n} (L = {L}, the kernel's {prods} products): "
+              f"{t['new']:.4f} ms, v1 {t['v1']:.4f} ms on the device ({t['v1'] / t['new']:.2f}x; "
+              f"{v1_launches} launches), bound {b_ms:.5f} ms ({b_by})", flush=True)
+    for n, chains in sweeps.items():
+        a = zero_laced(nprng, n, dev)
+        want = CF.batch_inv(SPEC, a)
+        b_ms, _ = bound_ms("batch_inv", n, muls=inv_muls(n))  # the function's, for every L
+        for L in chains:
+            require(torch.equal(CF.batch_inv(SPEC, a, chain=L), want),
+                    f"batch_inv with L = {L} equals L = {CF.batch_inv_chain(n)} at n = {n}")
+            ms = time_ms(dev, lambda: CF.batch_inv(SPEC, a, chain=L), reps)[0]
+            prods = CF.batch_inv_products(n, L, e)
+            sweep.append({"n": n, "L": L, "ms": ms, "kernel_products": prods, "bound_ms": b_ms})
+            print(f"  batch_inv by chain length: n = {n}, L = {L} ({-(-n // L)} chains, the "
+                  f"kernel's {prods} products): {ms:.4f} ms on the device, bound {b_ms:.5f} ms",
+                  flush=True)
+    return out, sweep
+
+
+def ab_fused_scan(dev, base_pts, gs, row_g: int, reps: int):
+    """fused_madd_scan_xyzz (two lanes a carry) against its first kernel (one
+    thread a carry) and the plain version at g carries of 64 rows, with zero
+    rows and lane 5 opening with -T (the only flagged lane); both timed in
+    turns."""
+    nprng = np.random.default_rng(0xAB3)
+    w = CF.SCAN_W
+    t_limbs = scan_t_limbs()
+    out = []
+    for g in gs:
+        rows = scan_rows(nprng, base_pts, g, w, dev)
+        new = flatten_outs(CF.fused_madd_scan_xyzz(CURVE, t_limbs, rows, w))
+        old = flatten_outs(CF.fused_madd_scan_xyzz_v1(CURVE, t_limbs, rows, w))
+        plain = flatten_outs(CF.fused_madd_scan_xyzz_plain(CURVE, t_limbs, rows, w))
+        v1_err = outputs_equal(old, plain)
+        require(v1_err == 0 and outputs_equal(new, plain) == 0
+                and new[8].nonzero().flatten().tolist() == [5],
+                f"fused_madd_scan_xyzz == fused_madd_scan_xyzz_v1 == fused_madd_scan_xyzz_plain "
+                f"at W = {w}, g = {g} (9 outputs), lane 5 flagged and no other")
+        t = ab_times(dev, {"v1": lambda: CF.fused_madd_scan_xyzz_v1(CURVE, t_limbs, rows, w),
+                           "new": lambda: CF.fused_madd_scan_xyzz(CURVE, t_limbs, rows, w)},
+                     reps)
+        b_ms, b_by = bound_ms("fused_madd_scan_xyzz", g * w, g * (4 * ROW_BYTES + 1))
+        out.append({"shape": f"W = {w}, g = {g}", "ms": t["new"], "v1_ms": t["v1"],
+                    "v1_max_abs_err": v1_err, "bound_ms": b_ms, "bound_by": b_by,
+                    "at_row": g == row_g})
+        print(f"  A/B fused_madd_scan_xyzz at W = {w}, g = {g}: {t['new']:.4f} ms, v1 "
+              f"{t['v1']:.4f} ms on the device ({t['v1'] / t['new']:.2f}x), bound {b_ms:.5f} ms "
+              f"({b_by})", flush=True)
+    return out
+
+
+def ab_phase(dev, base_pts, tally, logn: int, reps: int):
+    """Phase 9b: ec_add at every width that carries at least a tenth of the
+    tallied launches, at 2048 and at the widest; stages_small at the shapes
+    of stages_small_by_shape; then old against new: batch_inv at n = 33, 512,
+    700, 2^16 and 2^(logn + 1), then by chain length; the fused scan at
+    g = 256, 4096 and 2^logn / 64.  Returns ({kernel: per-shape records},
+    batch_inv's records by chain length)."""
     launches = {}
-    for t in tally.values():
+    for t in tally["ec_add"].values():
         for b, c in t.items():
             launches[b] = launches.get(b, 0) + c
     total = sum(launches.values())
     widths = sorted({b for b, c in launches.items() if 10 * c >= total} | {2048, max(launches)})
+    top = 1 << (logn + 1)
+    g = max(1, (1 << logn) // CF.SCAN_W)
     print(f"A/B: ec_add at B = {widths} (of {total} tallied launches), stages_small at the "
-          f"fused levels' shapes", flush=True)
-    return {"ec_add": ab_ec_add(dev, base_pts, widths, reps),
-            "stages_small": ab_stages_small(dev, max(1, reps // 5))}
+          f"fused levels' shapes, batch_inv, the fused scan", flush=True)
+    inv, sweep = ab_batch_inv(dev, sorted({33, 512, 700, 1 << 16, top}),
+                              {top: (16, 32, 64, 128), top // 2: (16, 32, 64, 128),
+                               1 << 16: (1, 2, 4, 8)}, top,
+                              max(1, reps // 5))
+    return {"ec_add": ec_add_by_width(dev, base_pts, widths, reps),
+            "stages_small": stages_small_by_shape(dev, max(1, reps // 5)),
+            "batch_inv": inv,
+            "fused_madd_scan_xyzz": ab_fused_scan(dev, base_pts, sorted({256, 4096, g}), g,
+                                                  max(1, reps // 10))}, sweep
 
 
 # ---------------------------------------------------------------------------
@@ -1999,7 +2166,7 @@ def main() -> int:
     # fallback phase drives.  ec_add_mixed: one step of a safe window at n.
     step_logn = (M.FUSED_SCAN_MIN_ROWS // 2).bit_length() - 1
     step_lanes = (1 << step_logn) // M._pick_block_width(1 << step_logn, True)
-    shapes = {"mont_mul": n, "mont_addsub": nb, "ec_add": min(g, 2048),
+    shapes = {"mont_mul": n, "batch_inv": 2 * n, "mont_addsub": nb, "ec_add": min(g, 2048),
               "ec_add_fast": nb, "ec_double": 1, "fused_madd_scan_xyzz": g,
               "ec_madd_xyzz_fast": step_lanes, "ec_add_mixed": g, "ec_add_mixed_fast": n}
     recs = check_kernels(dev, base_pts, ragged=5000, shapes=shapes,
@@ -2015,8 +2182,8 @@ def main() -> int:
         dev, base_pts, pts, args.logn, args.profile)
     rnd = round_path(dev, pts, carry_state, args.profile)
     del carry_state
-    tally = ec_add_tally(dev, base_pts, args.logn, pts, rnd)
-    ab = ab_phase(dev, base_pts, tally, reps=50)
+    tally = launch_tally(dev, base_pts, args.logn, pts, rnd)
+    ab, inv_sweep = ab_phase(dev, base_pts, tally, args.logn, reps=50)
     # at 2^14 the fused scan flags and the safe flavor redoes the round at a
     # real width; at half of FUSED_SCAN_MIN_ROWS the stepwise scan runs
     fallback_counts = {name: 0 for name in CF.KERNELS}
@@ -2045,36 +2212,46 @@ def main() -> int:
     del pts, rnd["w"], rnd["carry_state"]
     model = model_path(dev, base_pts, min(16, args.logn))
 
+    by_name = {rec["name"]: rec for rec in recs}
+    for name in ab:
+        by_name[name]["ab"] = ab[name]  # every shape of phase 9b
+    by_name["batch_inv"]["by_chain_length"] = inv_sweep
+    for v1, name in V1_OF.items():
+        # a line for each first design, at its kernel's row shape: its ms and
+        # its difference from the plain version from phase 9b, the plain
+        # version and bound of the same function
+        rec = by_name[name]
+        rec["v1_ms"] = next(r["v1_ms"] for r in ab[name] if r["at_row"])
+        rec = dict(rec, name=v1, ms=rec["v1_ms"], call_ms=None, ab=None, path="phase 9b only",
+                   max_abs_err=max(r["v1_max_abs_err"] for r in ab[name]))
+        rec.pop("by_chain_length", None)
+        if v1 == "batch_inv_v1":
+            rec.update(source="halo2_liam_eagen_msm_tpu_torch/ops/ff.py",
+                       note="FF._batch_inv_v1: 64-step chains of mont_mul launches and the "
+                            "Fermat chain of the totals, no kernel of its own")
+        recs.append(rec)
+    by_phase = {"launches_msm": msm_counts, "launches_carry": carry_counts,
+                "launches_fallback": fallback_counts, "launches_round": rnd["counts"],
+                "launches_radix_msm": radix_counts, "launches_add_mixed_fast": amf_counts,
+                "launches_naive": naive["counts"], "launches_model": model["counts"],
+                "launches_config4": cfg4["counts"]}
     for rec in recs:
         name = rec["name"]
-        if name in ab:
-            # the first kernel's ms at the row's own shape (stages_small: the
-            # mean of forward and inverse, as the row's ms), and every shape
-            at_row = [r["v1_ms"] for r in ab[name] if r["shape"] == f"B = {shapes['ec_add']}"
-                      or r["shape"].startswith(f"n = {2 * n}, tile = 1024, E = {2 * n},")]
-            rec["v1_ms"] = sum(at_row) / len(at_row) if at_row else None
-            rec["ab"] = ab[name]
         rec["launches"] = (fallback_counts if name in FALLBACK_KERNELS else
                            rnd["counts"] if name in ROUND_KERNELS else
                            radix_counts if name in RADIX_KERNELS else
-                           amf_counts if name == "ec_add_mixed_fast" else msm_counts)[name]
-        rec["launches_msm"] = msm_counts[name]
-        rec["launches_carry"] = carry_counts[name]
-        rec["launches_fallback"] = fallback_counts[name]
-        rec["launches_round"] = rnd["counts"][name]
-        rec["launches_radix_msm"] = radix_counts[name]
-        rec["launches_add_mixed_fast"] = amf_counts[name]
-        rec["launches_naive"] = naive["counts"][name]
-        rec["launches_model"] = model["counts"][name]
-        rec["launches_config4"] = cfg4["counts"][name]
+                           amf_counts if name == "ec_add_mixed_fast" else msm_counts).get(name, 0)
+        for key, counts in by_phase.items():
+            rec[key] = counts.get(name, 0)
         print(f"  {name}: launches {rec['launches_msm']} (MSM), {rec['launches_carry']} "
               f"(carry stage), {rec['launches_fallback']} (fallback round_sums), "
               f"{rec['launches_round']} (one round), {rec['launches_radix_msm']} (radix-route "
               f"MSM), {rec['launches_add_mixed_fast']} (EC.add_mixed_fast), "
               f"{rec['launches_naive']} (naive arrangement), {rec['launches_model']} (model "
-              f"forward), {rec['launches_config4']} (config 4); {rec['ms']:.4f} ms each on "
+              f"forward), {rec['launches_config4']} (config 4); {rec['ms']} ms each on "
               f"the device at shape {rec['shape']}", flush=True)
-        require(rec["launches"] > 0, f"{name} was launched on the path that runs it")
+        if name not in V1_OF:
+            require(rec["launches"] > 0, f"{name} was launched on the path that runs it")
 
     print(f"msm: n = {n}, seconds = {seconds}, points_per_s = {n / seconds}, card = {card}",
           flush=True)

@@ -71,27 +71,6 @@ __device__ __forceinline__ Jac jac_select(bool m, const Jac& a, const Jac& b) {
   return r;
 }
 
-// Complete Jacobian add: the doubling, inverse and identity cases are all
-// computed and selected, in the order of the JAX package's k_ec_add.
-__device__ __forceinline__ Jac ec_add_complete(const Jac& p, const Jac& q,
-                                               const FieldParams& P) {
-  AddCore c = ec_add_core(p, q, P);
-  bool id1 = fe_is_zero(p.z);
-  bool id2 = fe_is_zero(q.z);
-  Jac dbl = ec_double(p, P);
-  Jac ident;
-  ident.x = fe_one(P);
-  ident.y = fe_one(P);
-  ident.z = fe_zero();
-  Jac o = c.sum;
-  o = jac_select(c.h0 && c.r0, dbl, o);
-  o = jac_select(c.h0 && !c.r0, ident, o);
-  o = jac_select(id2 && !id1, p, o);
-  o = jac_select(id1 && !id2, q, o);
-  o = jac_select(id1 && id2, ident, o);
-  return o;
-}
-
 // The generic madd-2007-bl body (Z2 = 1) shared by the complete and the fast
 // mixed add: 3 squarings and 8 products.
 struct MaddCore {

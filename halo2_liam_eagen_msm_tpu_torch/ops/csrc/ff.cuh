@@ -68,6 +68,16 @@ __device__ __forceinline__ Fe fe_load_packed(const uint32_t* __restrict__ half_r
   return a;
 }
 
+// The twin of fe_load_packed: eight words, two 16-byte stores.
+__device__ __forceinline__ void fe_store_packed(uint32_t* __restrict__ half_row, const Fe& a) {
+  uint4* r4 = reinterpret_cast<uint4*>(half_row);
+  uint4 lo, hi;
+  lo.x = a.v[0]; lo.y = a.v[1]; lo.z = a.v[2]; lo.w = a.v[3];
+  hi.x = a.v[4]; hi.y = a.v[5]; hi.z = a.v[6]; hi.w = a.v[7];
+  r4[0] = lo;
+  r4[1] = hi;
+}
+
 // Limb-major store: limb j of this element goes to base[j * stride], so that
 // neighbouring threads (stride = number of lanes) write neighbouring words.
 __device__ __forceinline__ void fe_store_limb_major(uint32_t* __restrict__ base,
@@ -215,4 +225,58 @@ __device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b, const FieldParams
 
 __device__ __forceinline__ Fe fe_sqr(const Fe& a, const FieldParams& P) {
   return fe_mul(a, a, P);
+}
+
+// ---- fixed-exponent power ------------------------------------------------------
+
+// A fixed exponent by value, 8 words of 32 bits, little-endian.
+struct PowExp {
+  uint32_t w[FE_WORDS];
+};
+
+#define POW_WINDOW 4
+#define POW_ODD (1 << (POW_WINDOW - 1))  // a, a^3, ..., a^15
+
+__device__ __forceinline__ uint32_t exp_bit(const PowExp& e, int i) {
+  return (e.w[i >> 5] >> (i & 31)) & 1u;
+}
+
+// a^e for e > 0: left-to-right sliding windows of up to POW_WINDOW bits over
+// the odd powers of a (ops/cuda_ff.pow_schedule is the same walk, and counts
+// its products).  Every thread of a launch takes the same exponent, so the
+// walk is the same for all of them and the warp does not diverge; only the
+// table lookup is indexed at run time (local memory).
+__device__ Fe fe_pow(const Fe& a, const PowExp& e, const FieldParams& P) {
+  Fe odd[POW_ODD];
+  odd[0] = a;
+  const Fe a2 = fe_sqr(a, P);
+#pragma unroll 1
+  for (int k = 1; k < POW_ODD; k++) odd[k] = fe_mul(odd[k - 1], a2, P);
+  int i = 32 * FE_WORDS - 1;
+  while (i > 0 && !exp_bit(e, i)) i--;
+  Fe acc = a;
+  bool started = false;
+#pragma unroll 1
+  while (i >= 0) {
+    if (!exp_bit(e, i)) {
+      acc = fe_sqr(acc, P);
+      i--;
+      continue;
+    }
+    int j = i - (POW_WINDOW - 1);
+    if (j < 0) j = 0;
+    while (!exp_bit(e, j)) j++;
+    uint32_t v = 0;
+    for (int b = i; b >= j; b--) v = (v << 1) | exp_bit(e, b);
+    if (started) {
+#pragma unroll 1
+      for (int b = i; b >= j; b--) acc = fe_sqr(acc, P);
+      acc = fe_mul(acc, odd[v >> 1], P);
+    } else {
+      acc = odd[v >> 1];
+      started = true;
+    }
+    i = j - 1;
+  }
+  return acc;
 }

@@ -1,9 +1,10 @@
-// The nine kernels of the field and curve layers and their C launchers
-// (the five of the divisor merge tree are in ntt.cuh, the four of the MSM's
-// radix reorder in radix.cuh, both included below).  Each kernel but ec_add
-// is one thread per element (per lane for the scan): it reads its (16,)
-// rows, does the whole formula in registers (ff.cuh, ec.cuh) and writes its
-// rows back; ec_add spreads one point over four lanes (see there).
+// The ten kernels of the field and curve layers, the first design of the
+// fused scan, and their C launchers (the five of the divisor merge tree are in
+// ntt.cuh, the four of the MSM's radix reorder in radix.cuh, both included
+// below).  Most are one thread per element: it reads its (16,) rows, does
+// the whole formula in registers (ff.cuh, ec.cuh) and writes its rows back;
+// ec_add spreads one point over four lanes and fused_madd_scan_xyzz one carry
+// over two, and batch_inv gives a thread a chain of rows (see there).
 // No kernel allocates or synchronises; a launcher enqueues on the stream it
 // is given and returns cudaGetLastError().
 //
@@ -18,7 +19,7 @@
 
 #define ELEMS_PER_ROW 16
 #define BLOCK 128
-#define SCAN_BLOCK 32
+#define SCAN_V1_BLOCK 32
 
 static inline unsigned int grid_for(int64_t n, int block) {
   return (unsigned int)((n + block - 1) / block);
@@ -40,6 +41,65 @@ mont_mul_kernel(FieldParams P, const uint32_t* __restrict__ a,
   if (i >= n) return;
   Fe r = fe_mul(fe_load(a + i * ELEMS_PER_ROW), fe_load(b + i * ELEMS_PER_ROW), P);
   fe_store(out + i * ELEMS_PER_ROW, r);
+}
+
+// ---- 1b. batch_inv: mont_mul at the shape of the batch inversions -------------
+//
+// Almost every mont_mul launch of the paths was one product of a batch
+// inversion (FF.batch_inv, FF.inv): 64-step prefix and suffix chains and a
+// Fermat chain of 330-379 products, each product a launch on a few thousand
+// to 32,768 rows, about 460 launches an inversion.  Each paid the launch and
+// sent the chain's working set through device memory again.  Here a whole
+// Montgomery-trick inversion is one launch: thread c owns the chain of rows
+// c, c + C, c + 2C, ... below n (C = ceil(n / L) chains of at most L rows, so
+// neighbouring threads read neighbouring rows).  It walks its chain forward
+// with the running product in registers, writing each exclusive prefix into
+// the first half of the row's output (packed, 32 bytes); inverts the total by
+// fe_pow with the exponent p - 2 by value; walks back, writing out[i] =
+// prefix[i] * (running inverse) and stepping the running inverse by row i.
+// A zero row counts as one in the products and its output is zero.  Every
+// output is the unique a^-1 R mod p, fully reduced, so any L gives the same
+// limbs as the plain version and the chains of launches; L = 1 is a plain
+// Fermat inversion, one element a thread.
+//
+// What bounds it: each thread runs 3 (L - 1) products and one power (about
+// 290-320 products) one after another, so a launch has a latency floor of a
+// few hundred products whatever its width; the wrapper picks L = n / 16,384
+// (at most 64) so that a wide batch still gives the card at least 16,384
+// chains.  Device memory sees
+// each row five times (read, prefix out, read, prefix in, write: 256 bytes).
+
+#define INV_BLOCK 64
+
+__global__ void __launch_bounds__(INV_BLOCK)
+batch_inv_kernel(FieldParams P, PowExp e, const uint32_t* __restrict__ a,
+                 uint32_t* __restrict__ out, int64_t n, int64_t chains, int chain_len) {
+  const int64_t c = global_index();
+  if (c >= chains) return;
+  const int64_t left = (n - 1 - c) / chains + 1;
+  const int m = left < chain_len ? (int)left : chain_len;
+  const Fe one = fe_one(P);
+  Fe x = fe_load(a + c * ELEMS_PER_ROW);
+  Fe acc = fe_select(fe_is_zero(x), one, x);
+#pragma unroll 1
+  for (int i = 1; i < m; i++) {
+    const int64_t row = c + (int64_t)i * chains;
+    fe_store_packed(out + row * ELEMS_PER_ROW, acc);
+    x = fe_load(a + row * ELEMS_PER_ROW);
+    acc = fe_mul(acc, fe_select(fe_is_zero(x), one, x), P);
+  }
+  Fe inv = fe_pow(acc, e, P);
+#pragma unroll 1
+  for (int i = m - 1; i > 0; i--) {
+    const int64_t row = c + (int64_t)i * chains;
+    x = fe_load(a + row * ELEMS_PER_ROW);
+    const bool z = fe_is_zero(x);
+    const Fe r = fe_mul(fe_load_packed(out + row * ELEMS_PER_ROW), inv, P);
+    fe_store(out + row * ELEMS_PER_ROW, fe_select(z, fe_zero(), r));
+    inv = fe_mul(inv, fe_select(z, one, x), P);
+  }
+  x = fe_load(a + c * ELEMS_PER_ROW);
+  fe_store(out + c * ELEMS_PER_ROW, fe_select(fe_is_zero(x), fe_zero(), inv));
 }
 
 // ---- 2. mont_addsub: replaces pallas_ff.mont_addsub ----------------------------
@@ -73,32 +133,21 @@ __device__ __forceinline__ void jac_store(uint32_t* x, uint32_t* y, uint32_t* z,
   fe_store(z + i * ELEMS_PER_ROW, p.z);
 }
 
-// The first design of ec_add, kept for the A/B comparison of chip_smoke.py
-// only: one thread computes one point (23 field products in 184 registers).
-__global__ void __launch_bounds__(BLOCK)
-ec_add_v1_kernel(FieldParams P, const uint32_t* x1, const uint32_t* y1, const uint32_t* z1,
-                 const uint32_t* x2, const uint32_t* y2, const uint32_t* z2,
-                 uint32_t* ox, uint32_t* oy, uint32_t* oz, int64_t n) {
-  int64_t i = global_index();
-  if (i >= n) return;
-  Jac r = ec_add_complete(jac_load(x1, y1, z1, i), jac_load(x2, y2, z2, i), P);
-  jac_store(ox, oy, oz, i, r);
-}
-
-// The kernel of the path: ADD_LANES = 4 neighbouring lanes share one point.
-// The paths call it at a few thousand points (B = 2048 in every MSM window),
-// where one thread a point leaves the card one warp an SM sub-partition and a
-// chain of 23 dependent products, so latency bounds it, not the operations
-// (0.034 ms against a 0.0004 ms bound).  Here the formula of ec_add_complete
-// is cut into six rounds of up to four independent products, one a lane, and
+// ADD_LANES = 4 neighbouring lanes share one point.  The paths call it at a
+// few thousand points (B = 2048 in every MSM window), where one thread a
+// point (the first design) leaves the card one warp an SM sub-partition and
+// a chain of 23 dependent products, so latency bounds it, not the
+// operations (0.034 ms against a 0.0004 ms bound).  Here the complete add
+// (add-2007-bl, the doubling of p by dbl-2009-l, and the selects of the JAX
+// package's k_ec_add, as in cuda_ff.ec_add_plain) is cut into six rounds of up to four independent products, one a lane, and
 // eight rounds of up to four field adds or subtractions.  Every value lives
 // in a slot of the point's scratch in shared memory; a round reads its
 // operands from slots, writes its result to a fresh slot and ends in
 // __syncwarp().  A lane picks its slots by its lane index from constants (no
 // branch), so the four lanes of a group run the same instructions and the
 // warp does not diverge; an idle lane repeats a product into a sink slot of
-// its own.  The values are those of ec_add_complete, each fully reduced, and
-// the selects keep its order, so the result is the same limb for limb.  A
+// its own.  The values are those of the plain version, each fully reduced,
+// and the selects keep its order, so the result is the same limb for limb.  A
 // ragged last block loads point n - 1 into its spare groups and stores
 // nothing from them.  The product is fe_mul's C: one by PTX carry chains ran
 // slower on the H100.
@@ -162,7 +211,7 @@ __device__ __forceinline__ Fe fe_add_or_sub(const Fe& a, const Fe& b, bool sub,
 }
 
 // One round of products: slot out = slot a * slot b, each picked by lane.
-__device__ __forceinline__ void add_mul_round(uint4* sc, int lane, uint32_t a, uint32_t b,
+__device__ __forceinline__ void slot_mul_round(uint4* sc, int lane, uint32_t a, uint32_t b,
                                               uint32_t out, const FieldParams& P) {
   Fe r = fe_mul(slot_load(sc, lane_slot(a, lane)), slot_load(sc, lane_slot(b, lane)), P);
   slot_store(sc, lane_slot(out, lane), r);
@@ -171,7 +220,7 @@ __device__ __forceinline__ void add_mul_round(uint4* sc, int lane, uint32_t a, u
 
 // One round of adds: slot out = slot a +- slot b; bit `lane` of sub_mask
 // asks for the difference.
-__device__ __forceinline__ void add_lin_round(uint4* sc, int lane, uint32_t a, uint32_t b,
+__device__ __forceinline__ void slot_lin_round(uint4* sc, int lane, uint32_t a, uint32_t b,
                                               uint32_t out, unsigned sub_mask,
                                               const FieldParams& P) {
   Fe r = fe_add_or_sub(slot_load(sc, lane_slot(a, lane)), slot_load(sc, lane_slot(b, lane)),
@@ -196,36 +245,36 @@ ec_add_kernel(FieldParams P, const uint32_t* x1, const uint32_t* y1, const uint3
   }
   __syncwarp();
   // Lane:              0                    1                    2                 3
-  add_mul_round(sc, lane, LANES4(S_Z1, S_Z2, S_X1, S_Y1), LANES4(S_Z1, S_Z2, S_X1, S_Y1),
+  slot_mul_round(sc, lane, LANES4(S_Z1, S_Z2, S_X1, S_Y1), LANES4(S_Z1, S_Z2, S_X1, S_Y1),
                 LANES4(S_Z1Z1, S_Z2Z2, S_A, S_B), P);
-  add_mul_round(sc, lane, LANES4(S_X1, S_X2, S_Z2, S_Z1), LANES4(S_Z2Z2, S_Z1Z1, S_Z2Z2, S_Z1Z1),
+  slot_mul_round(sc, lane, LANES4(S_X1, S_X2, S_Z2, S_Z1), LANES4(S_Z2Z2, S_Z1Z1, S_Z2Z2, S_Z1Z1),
                 LANES4(S_U1, S_U2, S_Z2C, S_Z1C), P);
-  add_lin_round(sc, lane, LANES4(S_U2, S_X1, S_A, S_X1), LANES4(S_U1, S_B, S_A, S_X1),
+  slot_lin_round(sc, lane, LANES4(S_U2, S_X1, S_A, S_X1), LANES4(S_U1, S_B, S_A, S_X1),
                 LANES4(S_H, S_XB, S_A2, S_SINK3), 0x1u, P);
-  add_mul_round(sc, lane, LANES4(S_Y1, S_Y2, S_H, S_XB), LANES4(S_Z2C, S_Z1C, S_H, S_XB),
+  slot_mul_round(sc, lane, LANES4(S_Y1, S_Y2, S_H, S_XB), LANES4(S_Z2C, S_Z1C, S_H, S_XB),
                 LANES4(S_S1, S_S2, S_HH, S_T), P);
-  add_lin_round(sc, lane, LANES4(S_S2, S_A2, S_T, S_X1), LANES4(S_S1, S_A, S_A, S_X1),
+  slot_lin_round(sc, lane, LANES4(S_S2, S_A2, S_T, S_X1), LANES4(S_S1, S_A, S_A, S_X1),
                 LANES4(S_R, S_E, S_TA, S_SINK3), 0x5u, P);
-  add_mul_round(sc, lane, LANES4(S_H, S_U1, S_R, S_B), LANES4(S_HH, S_HH, S_R, S_B),
+  slot_mul_round(sc, lane, LANES4(S_H, S_U1, S_R, S_B), LANES4(S_HH, S_HH, S_R, S_B),
                 LANES4(S_HHH, S_V, S_RR, S_C), P);
-  add_lin_round(sc, lane, LANES4(S_RR, S_V, S_TA, S_C), LANES4(S_HHH, S_V, S_C, S_C),
+  slot_lin_round(sc, lane, LANES4(S_RR, S_V, S_TA, S_C), LANES4(S_HHH, S_V, S_C, S_C),
                 LANES4(S_T1, S_V2, S_TAC, S_C2), 0x5u, P);
-  add_lin_round(sc, lane, LANES4(S_T1, S_TAC, S_C2, S_X1), LANES4(S_V2, S_TAC, S_C2, S_X1),
+  slot_lin_round(sc, lane, LANES4(S_T1, S_TAC, S_C2, S_X1), LANES4(S_V2, S_TAC, S_C2, S_X1),
                 LANES4(S_X3, S_D, S_C4, S_SINK3), 0x1u, P);
-  add_lin_round(sc, lane, LANES4(S_V, S_D, S_C4, S_X1), LANES4(S_X3, S_D, S_C4, S_X1),
+  slot_lin_round(sc, lane, LANES4(S_V, S_D, S_C4, S_X1), LANES4(S_X3, S_D, S_C4, S_X1),
                 LANES4(S_VX, S_D2, S_C8, S_SINK3), 0x1u, P);
-  add_mul_round(sc, lane, LANES4(S_R, S_S1, S_E, S_Z1), LANES4(S_VX, S_HHH, S_E, S_Z2),
+  slot_mul_round(sc, lane, LANES4(S_R, S_S1, S_E, S_Z1), LANES4(S_VX, S_HHH, S_E, S_Z2),
                 LANES4(S_RY, S_SH, S_F, S_Z1Z2), P);
-  add_lin_round(sc, lane, LANES4(S_RY, S_F, S_X1, S_X1), LANES4(S_SH, S_D2, S_X1, S_X1),
+  slot_lin_round(sc, lane, LANES4(S_RY, S_F, S_X1, S_X1), LANES4(S_SH, S_D2, S_X1, S_X1),
                 LANES4(S_Y3, S_X3D, S_SINK2, S_SINK3), 0x3u, P);
-  add_lin_round(sc, lane, LANES4(S_D, S_X1, S_X1, S_X1), LANES4(S_X3D, S_X1, S_X1, S_X1),
+  slot_lin_round(sc, lane, LANES4(S_D, S_X1, S_X1, S_X1), LANES4(S_X3D, S_X1, S_X1, S_X1),
                 LANES4(S_DX, S_SINK1, S_SINK2, S_SINK3), 0x1u, P);
-  add_mul_round(sc, lane, LANES4(S_E, S_Z1Z2, S_Y1, S_X1), LANES4(S_DX, S_H, S_Z1, S_X1),
+  slot_mul_round(sc, lane, LANES4(S_E, S_Z1Z2, S_Y1, S_X1), LANES4(S_DX, S_H, S_Z1, S_X1),
                 LANES4(S_EDX, S_Z3, S_YZ, S_SINK3), P);
-  add_lin_round(sc, lane, LANES4(S_EDX, S_YZ, S_X1, S_X1), LANES4(S_C8, S_YZ, S_X1, S_X1),
+  slot_lin_round(sc, lane, LANES4(S_EDX, S_YZ, S_X1, S_X1), LANES4(S_C8, S_YZ, S_X1, S_X1),
                 LANES4(S_Y3D, S_Z3D, S_SINK2, S_SINK3), 0x1u, P);
   if (lane < 3 && i < n) {
-    // lane k writes coordinate k, through the selects of ec_add_complete
+    // lane k writes coordinate k, through k_ec_add's selects in its order
     const bool h0 = fe_is_zero(slot_load(sc, S_H));
     const bool r0 = fe_is_zero(slot_load(sc, S_R));
     const bool id1 = fe_is_zero(slot_load(sc, S_Z1));
@@ -267,14 +316,53 @@ ec_double_kernel(FieldParams P, const uint32_t* x1, const uint32_t* y1, const ui
 
 // ---- 6. fused_madd_scan_xyzz: replaces pallas_ff.fused_madd_scan_xyzz ------------
 //
-// The whole blinded prefix scan of one Pippenger window in one launch.  One
-// thread owns one lane: it seeds its XYZZ carry at the blinding point T,
-// walks its w consecutive packed rows (lane l owns rows l*w .. l*w + w - 1 of
-// the sorted (g*w, 16) array, read in place: no transpose is materialised),
-// and keeps the carry in registers for all w steps.  After each step it
-// writes the carry as the inner prefix of that row, limb-major (w, 16, g) so
-// that neighbouring lanes write neighbouring words.  At the end it writes its
-// total as a (16,) row and its exception flag as one byte.
+// The whole blinded prefix scan of one Pippenger window in one launch.  Carry
+// l seeds its XYZZ sum at the blinding point T, walks its w consecutive
+// packed rows (rows l*w .. l*w + w - 1 of the sorted (g*w, 16) array, read in
+// place: no transpose is materialised) by ec_madd_xyzz_fast's formula, and
+// after each step writes the carry as the inner prefix of that row,
+// limb-major (w, 16, g) so that neighbouring carries write neighbouring
+// words.  At the end it writes its total as a (16,) row and its exception
+// flag as one byte.
+//
+// The first kernel (fused_madd_scan_xyzz_v1, kept for chip_smoke.py's
+// comparison of old and new) gives a carry one thread: w = 64 steps of 10
+// dependent products in a chain, with g = 16,384 carries about four warps an
+// SM, so latency bounds it (0.622 ms against a 0.101 ms bound).  Here
+// SCAN_LANES = 2 neighbouring lanes share a carry, as ec_add's four do a
+// point: a step is five rounds of two independent products, a lane each,
+//   {u2, s2} -> {pp^2, r^2} -> {ppp, q} -> {r (q - x3), y ppp} -> {zz3, zzz3},
+// with rounds of adds and subtractions between them, every value in a slot
+// of the carry's scratch in shared memory, slots picked by lane index from
+// constants (no branch), __syncwarp() after each round.  Two lanes and not
+// four: a warp issues a round once for all its lanes, so four lanes (ten
+// products in four rounds of four slots) cost 1.6 times the products' issue
+// of one thread a carry and ran slower than it at g = 16,384 on the H100,
+// where two fill every slot and still halve the chain.  In the last round of
+// a step lane 0 takes coordinates x and y of the new carry, lane 1 zz and
+// zzz, through the affine identity's select, and writes them back to their
+// slots and to the inner prefixes.  The values are those of
+// ec_madd_xyzz_fast, each fully reduced, in its select order, so every output
+// is the first kernel's limb for limb.  The next row is loaded into
+// registers while the step runs.  Spare carries of a ragged last block walk
+// carry g - 1 and store nothing.
+
+#define SCAN_LANES 2
+#define SCAN_BLOCK 64
+#define SCAN_CARRIES (SCAN_BLOCK / SCAN_LANES)
+
+enum ScanSlot {
+  C_X, C_Y, C_ZZ, C_ZZZ,  // the carry: lane k owns slots 2k and 2k + 1 at the end of a step
+  C_QX, C_QY,             // the step's affine row
+  C_U2, C_S2, C_PP, C_R, C_PPSQ, C_RR, C_PPP, C_Q, C_X3, C_D, C_RD, C_YPPP, C_ZZ3, C_ZZZ3,
+  C_ZERO,                 // zero: zzz3 - 0 = zzz3 in the last round
+  C_SINK,                 // where an idle lane writes
+  SCAN_SLOTS
+};
+#define SCAN_STRIDE (2 * SCAN_SLOTS + 1)
+
+// Two slot numbers, one a lane, in the word of LANES4.
+#define LANES2(a, b) LANES4(a, b, 0, 0)
 
 __global__ void __launch_bounds__(SCAN_BLOCK)
 fused_madd_scan_xyzz_kernel(FieldParams P, Fe tx, Fe ty,
@@ -284,6 +372,78 @@ fused_madd_scan_xyzz_kernel(FieldParams P, Fe tx, Fe ty,
                             uint32_t* __restrict__ totx, uint32_t* __restrict__ toty,
                             uint32_t* __restrict__ totzz, uint32_t* __restrict__ totzzz,
                             uint8_t* __restrict__ exc) {
+  __shared__ uint4 scan_sm[SCAN_CARRIES * SCAN_STRIDE];
+  const int lane = threadIdx.x % SCAN_LANES;
+  const int64_t carry = (int64_t)blockIdx.x * SCAN_CARRIES + threadIdx.x / SCAN_LANES;
+  const int64_t src = carry < g ? carry : g - 1;
+  uint4* sc = scan_sm + (threadIdx.x / SCAN_LANES) * SCAN_STRIDE;
+  // lane 0 writes x and y, lane 1 zz and zzz
+  uint32_t* inner1 = lane == 0 ? ix : izz;
+  uint32_t* inner2 = lane == 0 ? iy : izzz;
+  // lane 0 reads a row's x, lane 1 its y
+  const uint32_t* r = rows + src * w * ELEMS_PER_ROW + lane * FE_WORDS;
+  slot_store(sc, 2 * lane, lane == 0 ? tx : fe_one(P));
+  slot_store(sc, 2 * lane + 1, lane == 0 ? ty : fe_one(P));
+  slot_store(sc, lane_slot(LANES2(C_ZERO, C_SINK), lane), fe_zero());
+  Fe q = fe_load_packed(r);
+  Fe o1, o2;
+  bool any = false;
+#pragma unroll 1
+  for (int t = 0; t < w; t++) {
+    // the barrier after this store also ends the last round of the step before
+    slot_store(sc, lane_slot(LANES2(C_QX, C_QY), lane), q);
+    __syncwarp();
+    if (t + 1 < w) q = fe_load_packed(r + (int64_t)(t + 1) * ELEMS_PER_ROW);
+    // Lane:                        0       1
+    slot_mul_round(sc, lane, LANES2(C_QX, C_QY), LANES2(C_ZZ, C_ZZZ), LANES2(C_U2, C_S2), P);
+    slot_lin_round(sc, lane, LANES2(C_U2, C_S2), LANES2(C_X, C_Y), LANES2(C_PP, C_R), 0x3u, P);
+    // the affine identity (qy == 0) keeps the carry; an identity carry or
+    // carry == +-Q (pp == 0) flags the carry
+    const bool id2 = fe_is_zero(slot_load(sc, C_QY));
+    any = any || (!id2 && (fe_is_zero(slot_load(sc, C_ZZ)) || fe_is_zero(slot_load(sc, C_PP))));
+    slot_mul_round(sc, lane, LANES2(C_PP, C_R), LANES2(C_PP, C_R), LANES2(C_PPSQ, C_RR), P);
+    slot_mul_round(sc, lane, LANES2(C_PP, C_X), LANES2(C_PPSQ, C_PPSQ), LANES2(C_PPP, C_Q), P);
+    {
+      // x3 = (r^2 - ppp) - 2q and d = q - x3 in one round; lane 1 repeats
+      // them into its sink.  No barrier: only lane 0 reads what it wrote.
+      const Fe qq = slot_load(sc, C_Q);
+      const Fe x3 = fe_sub(fe_sub(slot_load(sc, C_RR), slot_load(sc, C_PPP), P),
+                           fe_double(qq, P), P);
+      slot_store(sc, lane_slot(LANES2(C_X3, C_SINK), lane), x3);
+      slot_store(sc, lane_slot(LANES2(C_D, C_SINK), lane), fe_sub(qq, x3, P));
+    }
+    slot_mul_round(sc, lane, LANES2(C_R, C_Y), LANES2(C_D, C_PPP), LANES2(C_RD, C_YPPP), P);
+    slot_mul_round(sc, lane, LANES2(C_ZZ, C_ZZZ), LANES2(C_PPSQ, C_PPP), LANES2(C_ZZ3, C_ZZZ3),
+                   P);
+    // lane 0: x, y = r d - y ppp; lane 1: zz, zzz = zzz3 - 0
+    o1 = fe_select(id2, slot_load(sc, 2 * lane), slot_load(sc, lane_slot(LANES2(C_X3, C_ZZ3), lane)));
+    o2 = fe_select(id2, slot_load(sc, 2 * lane + 1),
+                   fe_sub(slot_load(sc, lane_slot(LANES2(C_RD, C_ZZZ3), lane)),
+                          slot_load(sc, lane_slot(LANES2(C_YPPP, C_ZERO), lane)), P));
+    slot_store(sc, 2 * lane, o1);
+    slot_store(sc, 2 * lane + 1, o2);
+    if (carry < g) {
+      const int64_t off = (int64_t)t * ELEMS_PER_ROW * g + carry;
+      fe_store_limb_major(inner1 + off, g, o1);
+      fe_store_limb_major(inner2 + off, g, o2);
+    }
+  }
+  if (carry < g) {
+    fe_store((lane == 0 ? totx : totzz) + carry * ELEMS_PER_ROW, o1);
+    fe_store((lane == 0 ? toty : totzzz) + carry * ELEMS_PER_ROW, o2);
+    if (lane == 0) exc[carry] = any ? 1 : 0;
+  }
+}
+
+// The first design, one thread a carry (see above).
+__global__ void __launch_bounds__(SCAN_V1_BLOCK)
+fused_madd_scan_xyzz_v1_kernel(FieldParams P, Fe tx, Fe ty,
+                               const uint32_t* __restrict__ rows, int w, int64_t g,
+                               uint32_t* __restrict__ ix, uint32_t* __restrict__ iy,
+                               uint32_t* __restrict__ izz, uint32_t* __restrict__ izzz,
+                               uint32_t* __restrict__ totx, uint32_t* __restrict__ toty,
+                               uint32_t* __restrict__ totzz, uint32_t* __restrict__ totzzz,
+                               uint8_t* __restrict__ exc) {
   int64_t lane = global_index();
   if (lane >= g) return;
   Xyzz c;
@@ -401,6 +561,20 @@ int mont_mul_launch(const FieldParams* P, const void* a, const void* b, void* ou
   return (int)cudaGetLastError();
 }
 
+// e: the exponent p - 2 as 8 words of 32 bits; chain_len: L, the rows a
+// chain at most (chains = ceil(n / L)).
+int batch_inv_launch(const FieldParams* P, const uint32_t* e, const void* a, void* out,
+                     int64_t n, int chain_len, void* stream) {
+  if (n > 0 && chain_len > 0) {
+    PowExp pe;
+    for (int k = 0; k < FE_WORDS; k++) pe.w[k] = e[k];
+    const int64_t chains = (n + chain_len - 1) / chain_len;
+    batch_inv_kernel<<<grid_for(chains, INV_BLOCK), INV_BLOCK, 0, (cudaStream_t)stream>>>(
+        *P, pe, (const uint32_t*)a, (uint32_t*)out, n, chains, chain_len);
+  }
+  return (int)cudaGetLastError();
+}
+
 int mont_addsub_launch(const FieldParams* P, int is_sub, const void* a, const void* b,
                        void* out, int64_t n, void* stream) {
   if (n > 0)
@@ -414,17 +588,6 @@ int ec_add_launch(const FieldParams* P, const void* x1, const void* y1, const vo
                   void* ox, void* oy, void* oz, int64_t n, void* stream) {
   if (n > 0)
     ec_add_kernel<<<grid_for(n, ADD_PTS), ADD_BLOCK, 0, (cudaStream_t)stream>>>(
-        *P, (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)z1,
-        (const uint32_t*)x2, (const uint32_t*)y2, (const uint32_t*)z2,
-        (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, n);
-  return (int)cudaGetLastError();
-}
-
-int ec_add_v1_launch(const FieldParams* P, const void* x1, const void* y1, const void* z1,
-                  const void* x2, const void* y2, const void* z2,
-                  void* ox, void* oy, void* oz, int64_t n, void* stream) {
-  if (n > 0)
-    ec_add_v1_kernel<<<grid_for(n, BLOCK), BLOCK, 0, (cudaStream_t)stream>>>(
         *P, (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)z1,
         (const uint32_t*)x2, (const uint32_t*)y2, (const uint32_t*)z2,
         (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, n);
@@ -452,6 +615,10 @@ int ec_double_launch(const FieldParams* P, const void* x1, const void* y1, const
 }
 
 // tx, ty: the blinding point's Montgomery coordinates as 8 words of 32 bits.
+static inline void words_to_fe(const uint32_t* words, Fe* f) {
+  for (int k = 0; k < FE_WORDS; k++) f->v[k] = words[k];
+}
+
 int fused_madd_scan_xyzz_launch(const FieldParams* P, const uint32_t* tx, const uint32_t* ty,
                                 const void* rows, int w, int64_t g,
                                 void* ix, void* iy, void* izz, void* izzz,
@@ -459,12 +626,29 @@ int fused_madd_scan_xyzz_launch(const FieldParams* P, const uint32_t* tx, const 
                                 void* exc, void* stream) {
   if (g > 0 && w > 0) {
     Fe fx, fy;
-    for (int k = 0; k < FE_WORDS; k++) {
-      fx.v[k] = tx[k];
-      fy.v[k] = ty[k];
-    }
-    fused_madd_scan_xyzz_kernel<<<grid_for(g, SCAN_BLOCK), SCAN_BLOCK, 0,
+    words_to_fe(tx, &fx);
+    words_to_fe(ty, &fy);
+    fused_madd_scan_xyzz_kernel<<<grid_for(g, SCAN_CARRIES), SCAN_BLOCK, 0,
                                   (cudaStream_t)stream>>>(
+        *P, fx, fy, (const uint32_t*)rows, w, g,
+        (uint32_t*)ix, (uint32_t*)iy, (uint32_t*)izz, (uint32_t*)izzz,
+        (uint32_t*)totx, (uint32_t*)toty, (uint32_t*)totzz, (uint32_t*)totzzz,
+        (uint8_t*)exc);
+  }
+  return (int)cudaGetLastError();
+}
+
+int fused_madd_scan_xyzz_v1_launch(const FieldParams* P, const uint32_t* tx,
+                                   const uint32_t* ty, const void* rows, int w, int64_t g,
+                                   void* ix, void* iy, void* izz, void* izzz,
+                                   void* totx, void* toty, void* totzz, void* totzzz,
+                                   void* exc, void* stream) {
+  if (g > 0 && w > 0) {
+    Fe fx, fy;
+    words_to_fe(tx, &fx);
+    words_to_fe(ty, &fy);
+    fused_madd_scan_xyzz_v1_kernel<<<grid_for(g, SCAN_V1_BLOCK), SCAN_V1_BLOCK, 0,
+                                     (cudaStream_t)stream>>>(
         *P, fx, fy, (const uint32_t*)rows, w, g,
         (uint32_t*)ix, (uint32_t*)iy, (uint32_t*)izz, (uint32_t*)izzz,
         (uint32_t*)totx, (uint32_t*)toty, (uint32_t*)totzz, (uint32_t*)totzzz,

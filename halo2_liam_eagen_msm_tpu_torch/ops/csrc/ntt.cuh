@@ -22,8 +22,6 @@
 #pragma once
 #include "ff.cuh"
 
-#define SMALL_TILE 1024  // elements of one stages_small_v1 tile (32 KB of shared memory)
-
 // Twiddles: the flat stage-major table of ops/ntt._twiddle_flat_host, kept
 // limb-major (16, n - 1) with row stride tw_stride: the stage of half-size s
 // (m = 2s) occupies columns [s - 1, 2s - 1), and pair element j uses column
@@ -108,62 +106,17 @@ stage_big_kernel(FieldParams P, int inverse, const uint32_t* __restrict__ x,
 
 // ---- 14. stages_small: replaces pallas_ntt._stages_small --------------------------
 //
-// stages_small_v1 is the first design of stages_small, kept for the A/B
-// comparison of chip_smoke.py only.
 // Every stage with s <= tile / 2 in one launch: forward s = tile/2 ... 1,
-// inverse 1 ... tile/2, where tile = min(n, 1024) and tile divides e.  A
-// block owns one aligned tile (every partner e ^ s, s < tile, lies in it;
-// for n < 1024 the tile is one whole transform) and keeps it in shared memory
-// as 8 words of 32 bits an element, word-major so that neighbouring threads
-// touch neighbouring banks: 32 KB, under the 48 KB of static shared memory.
-// One thread per pair, tile / 2 threads, __syncthreads() between stages.
-// The TPU kernel multiplies the forward x0 lanes by the Montgomery one to
-// stay branch-free; that leaves a fully reduced value unchanged, and every
-// input on this path is fully reduced, so this kernel skips the product.
-
-__global__ void __launch_bounds__(SMALL_TILE / 2)
-stages_small_v1_kernel(FieldParams P, int inverse, const uint32_t* __restrict__ x,
-                    uint32_t* __restrict__ out, const uint32_t* __restrict__ tw,
-                    int64_t tw_stride, int tile, int64_t e) {
-  __shared__ uint32_t sm[FE_WORDS][SMALL_TILE];
-  const int half = tile / 2;
-  const int t = threadIdx.x;
-  const int64_t base = (int64_t)blockIdx.x * tile;
-  for (int r = 0; r < 2; r++) {
-    int i = t + r * half;
-    Fe a = fe_load_limb_major(x + base + i, e);
-#pragma unroll
-    for (int k = 0; k < FE_WORDS; k++) sm[k][i] = a.v[k];
-  }
-  __syncthreads();
-  for (int s = inverse ? 1 : half; s >= 1 && s <= half; s = inverse ? 2 * s : s / 2) {
-    int j = t & (s - 1);
-    int i0 = ((t - j) << 1) + j;
-    Fe x0, x1;
-#pragma unroll
-    for (int k = 0; k < FE_WORDS; k++) {
-      x0.v[k] = sm[k][i0];
-      x1.v[k] = sm[k][i0 + s];
-    }
-    butterfly(inverse, x0, x1, stage_twiddle(tw, tw_stride, s, j), P);
-#pragma unroll
-    for (int k = 0; k < FE_WORDS; k++) {
-      sm[k][i0] = x0.v[k];
-      sm[k][i0 + s] = x1.v[k];
-    }
-    __syncthreads();
-  }
-  for (int r = 0; r < 2; r++) {
-    int i = t + r * half;
-    Fe a;
-#pragma unroll
-    for (int k = 0; k < FE_WORDS; k++) a.v[k] = sm[k][i];
-    fe_store_limb_major(out + base + i, e, a);
-  }
-}
-
-// stages_small, the kernel of the path.  Operations bound it (half a product
-// and an add an element a stage), so its design keeps the multiplier busy:
+// inverse 1 ... tile/2, where tile = min(n, 1024) and tile divides e.  Every
+// partner e ^ s, s < tile, lies in the element's aligned tile (for n < 1024
+// the tile is one whole transform), so a block keeps its tiles in shared
+// memory for all the stages.  The TPU kernel multiplies the forward x0 lanes
+// by the Montgomery one to stay branch-free; that leaves a fully reduced
+// value unchanged, and every input on this path is fully reduced, so this
+// kernel skips the product.
+//
+// Operations bound it (half a product and an add an element a stage), so its
+// design keeps the multiplier busy:
 //  - register blocking: a thread owns 2^R = 4 elements and runs R = 2 stages
 //    on them in registers between exchanges through shared memory, with two
 //    independent products a stage; the stages are cut into windows of R bits
@@ -172,8 +125,9 @@ stages_small_v1_kernel(FieldParams P, int inverse, const uint32_t* __restrict__ 
 //    measured fastest on the H100: 80 registers a thread, three blocks of 256
 //    threads an SM (the launch bound asks for three).  R = 3 needs 146-187
 //    registers, which leaves 12 warps an SM, and ran slower than the first
-//    kernel; a product by PTX carry chains (mad.lo.cc / madc.hi.cc) ran
-//    slower than fe_mul's C, its chains being serial; a 1-bit window (R = 1)
+//    design (a butterfly a thread, __syncthreads() between stages); a
+//    product by PTX carry chains (mad.lo.cc / madc.hi.cc) ran slower than
+//    fe_mul's C, its chains being serial; a 1-bit window (R = 1)
 //    ran at a tile of 2 but hung on the card from a tile of 8 up, so it is
 //    kept for the tile of 2 alone (one window; tests and chip_smoke.py hold
 //    it there);
@@ -358,16 +312,6 @@ int stage_big_launch(const FieldParams* P, int inverse, const void* x, void* out
     stage_big_kernel<<<grid_for(e / 2, BLOCK), BLOCK, 0, (cudaStream_t)stream>>>(
         *P, inverse, (const uint32_t*)x, (uint32_t*)out, (const uint32_t*)tw, tw_stride, s,
         log_s, e);
-  return (int)cudaGetLastError();
-}
-
-// tile: min(n, 1024), a power of two >= 2 dividing e.
-int stages_small_v1_launch(const FieldParams* P, int inverse, const void* x, void* out,
-                        const void* tw, int64_t tw_stride, int tile, int64_t e, void* stream) {
-  if (e > 0)
-    stages_small_v1_kernel<<<(unsigned int)(e / tile), tile / 2, 0, (cudaStream_t)stream>>>(
-        *P, inverse, (const uint32_t*)x, (uint32_t*)out, (const uint32_t*)tw, tw_stride, tile,
-        e);
   return (int)cudaGetLastError();
 }
 

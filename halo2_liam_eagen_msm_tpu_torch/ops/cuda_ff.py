@@ -1,11 +1,14 @@
 """CUDA kernels for field and curve arithmetic, with their plain versions.
 
-The counterpart of the JAX package's ops/pallas_ff.py.  Nine kernels carry the
+The counterpart of the JAX package's ops/pallas_ff.py.  Ten kernels carry the
 field and curve layers: the MSM, the argument's carry stage and the curve
 layer's entry points (sources under ops/csrc/, CUDA C++ for sm_90a):
 
   kernel                  replaces (ops/pallas_ff.py)   what it computes
   mont_mul                mont_mul                      a*b*R^-1 mod p
+  batch_inv               mont_mul, at the shape of     a^-1 R mod p (0 -> 0):
+                          the batch inversions          a whole Montgomery-
+                          (ops/ff.py batch_inv, inv)    trick inversion
   mont_addsub             mont_addsub                   (a +- b) mod p
   ec_add                  ec_add                        complete Jacobian add
   ec_add_fast             ec_add_fast                   generic add + flag
@@ -23,7 +26,9 @@ On this card mont_mul and mont_addsub are bound by bytes (192 bytes moved for
 at most 136 multiply-adds of 32 bits), and the curve kernels sit at the
 crossover of bytes and integer operations; so each does its whole formula in
 registers on 8 limbs of 32 bits and touches device memory once per input and
-output.  See ops/csrc/ff.cuh for the limb repacking.
+output.  See ops/csrc/ff.cuh for the limb repacking.  batch_inv runs a chain
+of products a thread and is bound by the latency of its power (see
+csrc/kernels.cu).
 
 Tensors are (..., 16) int32, little-endian 16-bit limbs in Montgomery form
 (R = 2^256), fully reduced to [0, p); a kernel reads the same buffer as
@@ -35,9 +40,10 @@ function on the same tensors, device-agnostic, in int64 arithmetic.  The
 callers (ops/ff.py, ops/ec.py, ops/msm.py) take the kernel for a CUDA tensor
 and the plain version for a CPU tensor.
 
-ec_add_v1 is the first design of ec_add (one thread a point; ec_add spreads a
-point over four lanes), kept with its own launcher and wrapper for
-chip_smoke.py's comparison of the two; no path calls it.
+fused_madd_scan_xyzz_v1 is the first design of fused_madd_scan_xyzz (one
+thread a carry; the kernel of the path spreads a carry over two lanes), kept
+with its own launcher and wrapper for chip_smoke.py's comparison of old and
+new; no path calls it.
 
 LAUNCHES counts kernel launches by name: a wrapper adds one exactly where it
 launches its kernel.  The same library, counters and launcher carry the five
@@ -60,19 +66,27 @@ import torch
 
 from ..fields import CurveSpec, FieldSpec, LIMB_BITS, LIMB_MASK, N_LIMBS, R
 
-KERNELS = ("mont_mul", "mont_addsub", "ec_add", "ec_add_fast", "ec_double",
-           "fused_madd_scan_xyzz", "ec_madd_xyzz_fast", "ec_add_mixed",
+KERNELS = ("mont_mul", "batch_inv", "mont_addsub", "ec_add", "ec_add_fast",
+           "ec_double", "fused_madd_scan_xyzz", "ec_madd_xyzz_fast", "ec_add_mixed",
            "ec_add_mixed_fast",
            # the divisor merge tree's five, in csrc/ntt.cuh (ops/cuda_ntt.py)
            "lm_mul", "lm_addsub", "lm_mul_const", "stage_big", "stages_small",
            # the radix reorder's four, in csrc/radix.cuh (ops/cuda_radix.py)
            "radix_rank", "radix_shuffle", "radix_pass_b", "radix_compact",
-           # the first designs of ec_add and stages_small, launched only by
+           # the first design of the fused scan, launched only by
            # chip_smoke.py's comparison of old and new
-           "ec_add_v1", "stages_small_v1")
+           "fused_madd_scan_xyzz_v1")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 SCAN_W = 64  # sequential madd steps per lane of the fused scan
+# batch_inv gives a thread a chain of L rows, L = n // BATCH_INV_CHAINS between
+# 1 and BATCH_INV_MAX_L: at least 16,384 chains where the batch has them (about
+# four warps an SM sub-partition, enough to keep it issuing: 4 rows a chain
+# ran faster than 2 at 2^16 rows on the H100, 64 faster than 128 at 2^21) and
+# a narrow batch is one row a thread
+BATCH_INV_CHAINS = 16384
+BATCH_INV_MAX_L = 64
+POW_WINDOW = 4  # bits of a window of the power (csrc/ff.cuh fe_pow)
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -157,12 +171,14 @@ def _lib():
         u32p = ctypes.POINTER(ctypes.c_uint32)
         sigs = {
             "mont_mul_launch": [fpp, vp, vp, vp, i64, vp],
+            "batch_inv_launch": [fpp, u32p, vp, vp, i64, ci, vp],
             "mont_addsub_launch": [fpp, ci, vp, vp, vp, i64, vp],
             "ec_add_launch": [fpp] + [vp] * 9 + [i64, vp],
-            "ec_add_v1_launch": [fpp] + [vp] * 9 + [i64, vp],
             "ec_add_fast_launch": [fpp] + [vp] * 10 + [i64, vp],
             "ec_double_launch": [fpp] + [vp] * 6 + [i64, vp],
             "fused_madd_scan_xyzz_launch":
+                [fpp, u32p, u32p, vp, ci, i64] + [vp] * 9 + [vp],
+            "fused_madd_scan_xyzz_v1_launch":
                 [fpp, u32p, u32p, vp, ci, i64] + [vp] * 9 + [vp],
             "ec_madd_xyzz_fast_launch": [fpp] + [vp] * 11 + [i64, vp],
             "ec_add_mixed_launch": [fpp] + [vp] * 9 + [i64, vp],
@@ -172,7 +188,6 @@ def _lib():
             "lm_mul_const_launch": [fpp, u32p, vp, vp, i64, vp],
             "stage_big_launch": [fpp, ci, vp, vp, vp, i64, i64, i64, vp],
             "stages_small_launch": [fpp, ci, vp, vp, vp, i64, ci, i64, vp],
-            "stages_small_v1_launch": [fpp, ci, vp, vp, vp, i64, ci, i64, vp],
             "radix_rank_launch": [vp, vp, vp, vp, i64] + [ci] * 6 + [vp],
             "radix_shuffle_launch": [vp, vp, vp, vp, i64, ci, ci, vp],
             "radix_pass_b_launch": [vp, vp, vp, ci, i64, i64, ci, vp],
@@ -250,6 +265,27 @@ def mont_mul(spec: FieldSpec, a, b):
     return out.reshape(lead + (N_LIMBS,))
 
 
+def batch_inv_chain(n: int) -> int:
+    """The chain length L that batch_inv takes for n rows."""
+    return max(1, min(BATCH_INV_MAX_L, n // BATCH_INV_CHAINS))
+
+
+def batch_inv(spec: FieldSpec, a, chain: int | None = None):
+    """(..., 16) -> a^-1 R mod p element by element (zeros map to zeros), one
+    kernel launch: a thread runs the Montgomery trick over a chain of
+    `chain` rows (default batch_inv_chain(n)); chain = 1 is one Fermat
+    inversion a thread.  Every output is the unique inverse, so the chain
+    length does not change a limb."""
+    _check_cuda("batch_inv", a)
+    lead, (af,) = _flatten(a)
+    n = af.shape[0]
+    chain = chain or batch_inv_chain(n)
+    out = torch.empty_like(af)
+    _launch("batch_inv", af.device, ctypes.byref(_field_params(spec)), _words32(spec.p - 2),
+            af.data_ptr(), out.data_ptr(), n, chain)
+    return out.reshape(lead + (N_LIMBS,))
+
+
 def mont_addsub(spec: FieldSpec, is_sub: bool, a, b):
     """(..., 16) +/- (..., 16) mod p, one kernel launch."""
     _check_cuda("mont_addsub", a, b)
@@ -266,25 +302,16 @@ def _require_a_zero(curve: CurveSpec) -> None:
             f"{curve.name}: the curve kernels implement a = 0 only")
 
 
-def _ec_add(kernel: str, curve: CurveSpec, x1, y1, z1, x2, y2, z2):
-    _require_a_zero(curve)
-    _check_cuda(kernel, x1, y1, z1, x2, y2, z2)
-    lead, flat = _flatten(x1, y1, z1, x2, y2, z2)
-    outs = tuple(torch.empty_like(flat[0]) for _ in range(3))
-    _launch(kernel, flat[0].device, ctypes.byref(_field_params(curve.field)),
-            *_ptrs(flat + outs), flat[0].shape[0])
-    return tuple(o.reshape(lead + (N_LIMBS,)) for o in outs)
-
-
 def ec_add(curve: CurveSpec, x1, y1, z1, x2, y2, z2):
     """Batched complete Jacobian addition, one kernel launch (four lanes a
     point)."""
-    return _ec_add("ec_add", curve, x1, y1, z1, x2, y2, z2)
-
-
-def ec_add_v1(curve: CurveSpec, x1, y1, z1, x2, y2, z2):
-    """ec_add by its first kernel (one thread a point), for comparison."""
-    return _ec_add("ec_add_v1", curve, x1, y1, z1, x2, y2, z2)
+    _require_a_zero(curve)
+    _check_cuda("ec_add", x1, y1, z1, x2, y2, z2)
+    lead, flat = _flatten(x1, y1, z1, x2, y2, z2)
+    outs = tuple(torch.empty_like(flat[0]) for _ in range(3))
+    _launch("ec_add", flat[0].device, ctypes.byref(_field_params(curve.field)),
+            *_ptrs(flat + outs), flat[0].shape[0])
+    return tuple(o.reshape(lead + (N_LIMBS,)) for o in outs)
 
 
 def ec_add_fast(curve: CurveSpec, x1, y1, z1, x2, y2, z2):
@@ -364,8 +391,30 @@ def _limbs_to_int(limbs) -> int:
     return sum(int(v) << (LIMB_BITS * i) for i, v in enumerate(limbs))
 
 
+def _fused_scan(kernel: str, curve: CurveSpec, t_limbs, rows, w: int):
+    _check_cuda(kernel, rows)
+    if rows.dim() != 2 or not rows.is_contiguous() or rows.data_ptr() % 16:
+        raise ValueError(f"{kernel}: rows must be a contiguous, 16-byte aligned "
+                         "(N, 16) tensor")
+    n = rows.shape[0]
+    if w <= 0 or n % w:
+        raise ValueError(f"{kernel}: {n} rows are no multiple of w = {w}")
+    g = n // w
+    dev = rows.device
+    inner = tuple(torch.empty((w, N_LIMBS, g), dtype=torch.int32, device=dev)
+                  for _ in range(4))
+    totals = tuple(torch.empty((g, N_LIMBS), dtype=torch.int32, device=dev)
+                   for _ in range(4))
+    exc = torch.empty(g, dtype=torch.uint8, device=dev)
+    tx, ty = (_words32(_limbs_to_int(c)) for c in t_limbs)
+    _launch(kernel, dev, ctypes.byref(_field_params(curve.field)),
+            tx, ty, rows.data_ptr(), w, g, *_ptrs(inner + totals), exc.data_ptr())
+    return inner, totals, exc != 0
+
+
 def fused_madd_scan_xyzz(curve: CurveSpec, t_limbs, rows, w: int = SCAN_W):
-    """One window's whole blinded prefix scan in one kernel launch.
+    """One window's whole blinded prefix scan in one kernel launch (two
+    lanes a carry).
 
     rows: (g*w, 16) int32 packed affine rows in sorted order (ops/msm.
     _pack_pair: x in words 0..7, y in words 8..15, two 16-bit limbs a word;
@@ -377,24 +426,13 @@ def fused_madd_scan_xyzz(curve: CurveSpec, t_limbs, rows, w: int = SCAN_W):
     step t; totals the 4-tuple of (g, 16) final lane carries (still blinded);
     exc a (g,) bool tensor of per-lane exception flags (identity carry or
     carry == +-Q at some step; an affine identity passes unflagged)."""
-    _check_cuda("fused_madd_scan_xyzz", rows)
-    if rows.dim() != 2 or not rows.is_contiguous() or rows.data_ptr() % 16:
-        raise ValueError("fused_madd_scan_xyzz: rows must be a contiguous, "
-                         "16-byte aligned (N, 16) tensor")
-    n = rows.shape[0]
-    if w <= 0 or n % w:
-        raise ValueError(f"fused_madd_scan_xyzz: {n} rows are no multiple of w = {w}")
-    g = n // w
-    dev = rows.device
-    inner = tuple(torch.empty((w, N_LIMBS, g), dtype=torch.int32, device=dev)
-                  for _ in range(4))
-    totals = tuple(torch.empty((g, N_LIMBS), dtype=torch.int32, device=dev)
-                   for _ in range(4))
-    exc = torch.empty(g, dtype=torch.uint8, device=dev)
-    tx, ty = (_words32(_limbs_to_int(c)) for c in t_limbs)
-    _launch("fused_madd_scan_xyzz", dev, ctypes.byref(_field_params(curve.field)),
-            tx, ty, rows.data_ptr(), w, g, *_ptrs(inner + totals), exc.data_ptr())
-    return inner, totals, exc != 0
+    return _fused_scan("fused_madd_scan_xyzz", curve, t_limbs, rows, w)
+
+
+def fused_madd_scan_xyzz_v1(curve: CurveSpec, t_limbs, rows, w: int = SCAN_W):
+    """fused_madd_scan_xyzz by its first kernel (one thread a carry), for
+    comparison."""
+    return _fused_scan("fused_madd_scan_xyzz_v1", curve, t_limbs, rows, w)
 
 
 # ---------------------------------------------------------------------------
@@ -544,6 +582,90 @@ def mont_addsub_plain(spec: FieldSpec, is_sub: bool, a, b):
     norm, carry = _normalize(C, torch.stack([lane0, lane0 + C.p], dim=-2), folds=1)
     a_ge_b = carry[..., 0] == 1
     return torch.where(a_ge_b[..., None], norm[..., 0, :], norm[..., 1, :]).to(torch.int32)
+
+
+def pow_schedule(e: int):
+    """The walk of csrc/ff.cuh fe_pow for the exponent e > 0: left-to-right
+    sliding windows of up to POW_WINDOW bits over the odd powers a, a^3, ...
+    Returns ([(squarings before the window, odd-power index)], squarings
+    after the last window); the first window takes no squarings (it starts
+    the power)."""
+    steps, pending, i = [], 0, e.bit_length() - 1
+    while i >= 0:
+        if not (e >> i) & 1:
+            pending += 1
+            i -= 1
+            continue
+        j = max(i - (POW_WINDOW - 1), 0)
+        while not (e >> j) & 1:
+            j += 1
+        v = (e >> j) & ((1 << (i - j + 1)) - 1)
+        steps.append((pending + i - j + 1 if steps else 0, v >> 1))
+        pending, i = 0, j - 1
+    return steps, pending
+
+
+def pow_products(e: int) -> int:
+    """Field products of fe_pow for the exponent e: the table of odd powers
+    (a^2 and 2^(POW_WINDOW-1) - 1 more), the squarings and one product a
+    window after the first."""
+    steps, tail = pow_schedule(e)
+    return (1 << (POW_WINDOW - 1)) + sum(s for s, _ in steps) + len(steps) - 1 + tail
+
+
+def _pow_plain(spec: FieldSpec, a, e: int):
+    """a^e by the walk of pow_schedule on plain products."""
+    odd = [a]
+    a2 = mont_mul_plain(spec, a, a)
+    for _ in range(1, 1 << (POW_WINDOW - 1)):
+        odd.append(mont_mul_plain(spec, odd[-1], a2))
+    steps, tail = pow_schedule(e)
+    acc = None
+    for squarings, k in steps:
+        for _ in range(squarings):
+            acc = mont_mul_plain(spec, acc, acc)
+        acc = odd[k] if acc is None else mont_mul_plain(spec, acc, odd[k])
+    for _ in range(tail):
+        acc = mont_mul_plain(spec, acc, acc)
+    return acc
+
+
+def batch_inv_products(n: int, chain: int, e: int) -> int:
+    """Field products batch_inv does on n rows in chains of `chain`: three
+    a row but the first of each chain, and one power a chain."""
+    chains = -(-n // chain)
+    return 3 * (n - chains) + chains * pow_products(e)
+
+
+def batch_inv_plain(spec: FieldSpec, a, chain: int | None = None):
+    """Plain version of batch_inv, the kernel's algorithm on plain products
+    in its order: chain c holds rows c, c + C, ... (C = ceil(n / L) chains,
+    the ragged ones padded with ones); the exclusive prefixes forward, the
+    total's power p - 2, then back: out[i] = prefix[i] * inverse, inverse *=
+    row i.  A zero row counts as one and gives zero."""
+    lead = a.shape[:-1]
+    flat = a.reshape(-1, N_LIMBS)
+    n = flat.shape[0]
+    if n == 0:
+        return a.clone()
+    chain = chain or batch_inv_chain(n)
+    chains = -(-n // chain)
+    one = _plain_consts(spec, a.device).one
+    zero = _is_zero(flat)
+    rows = torch.cat([_sel(zero, one.expand(flat.shape), flat),
+                      one.expand(chain * chains - n, N_LIMBS)]).reshape(chain, chains, N_LIMBS)
+    acc, prefix = rows[0], [None]
+    for i in range(1, chain):
+        prefix.append(acc)
+        acc = mont_mul_plain(spec, acc, rows[i])
+    inv = _pow_plain(spec, acc, spec.p - 2)
+    out = [None] * chain
+    for i in range(chain - 1, 0, -1):
+        out[i] = mont_mul_plain(spec, prefix[i], inv)
+        inv = mont_mul_plain(spec, inv, rows[i])
+    out[0] = inv
+    res = torch.stack(out).reshape(chain * chains, N_LIMBS)[:n]
+    return _sel(zero, torch.zeros_like(res), res).reshape(lead + (N_LIMBS,))
 
 
 class _PlainField:

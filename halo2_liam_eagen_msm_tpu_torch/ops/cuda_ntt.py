@@ -13,8 +13,6 @@ divisor.merge_pairs:
   stage_big      _stage_big                     one radix-2 stage, s >= 1024
   stages_small   _stages_small                  every stage with s <= 512
                                                 in one launch
-  (stages_small_v1, the first design of stages_small, is launched only by
-  chip_smoke.py's comparison of old and new)
 
 Layout: an array of E field elements is a (16, E) int32 tensor, limb i of
 element e at [i, e] (structure of arrays; to_lm / from_lm convert from and
@@ -200,32 +198,22 @@ def stage_big(spec: FieldSpec, x, s: int, inverse: bool, tw):
     return out
 
 
-def _stages_small(kernel: str, spec: FieldSpec, x, tile: int, inverse: bool, tw):
-    _check_stage(kernel, x, tile, tw)
-    if tile > BLOCK:
-        raise ValueError(f"{kernel}: tile {tile} above {BLOCK}")
-    if not CF._use_kernel(x):
-        return stages_small_plain(spec, x, tile, inverse, tw)
-    _check_lm(kernel, x)
-    _check_lm(kernel, tw)
-    out = torch.empty_like(x)
-    CF._launch(kernel, x.device, ctypes.byref(CF._field_params(spec)),
-               int(bool(inverse)), x.data_ptr(), out.data_ptr(), tw.data_ptr(),
-               tw.shape[1], tile, x.shape[1])
-    return out
-
-
 def stages_small(spec: FieldSpec, x, tile: int, inverse: bool, tw):
     """Every stage of half-size s < tile in one launch (forward tile/2 ... 1,
     inverse 1 ... tile/2) over (16, E), E a multiple of tile, tile = min(n,
     1024) a power of two.  tw: the transform's (16, n - 1) table."""
-    return _stages_small("stages_small", spec, x, tile, inverse, tw)
-
-
-def stages_small_v1(spec: FieldSpec, x, tile: int, inverse: bool, tw):
-    """stages_small by its first kernel (one butterfly a thread a stage), for
-    comparison."""
-    return _stages_small("stages_small_v1", spec, x, tile, inverse, tw)
+    _check_stage("stages_small", x, tile, tw)
+    if tile > BLOCK:
+        raise ValueError(f"stages_small: tile {tile} above {BLOCK}")
+    if not CF._use_kernel(x):
+        return stages_small_plain(spec, x, tile, inverse, tw)
+    _check_lm("stages_small", x)
+    _check_lm("stages_small", tw)
+    out = torch.empty_like(x)
+    CF._launch("stages_small", x.device, ctypes.byref(CF._field_params(spec)),
+               int(bool(inverse)), x.data_ptr(), out.data_ptr(), tw.data_ptr(),
+               tw.shape[1], tile, x.shape[1])
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -182,11 +182,14 @@ class FF:
         return acc
 
     def inv(self, a):
-        """a^(p-2): Fermat inversion, inv(0) = 0.  On the card a chain of
-        about 380 product launches (_inv_fermat); on the CPU, where each of
-        those products costs tens of small tensor ops, the same power is
-        taken exactly with Python ints (_inv_host)."""
-        return self._inv_fermat(a) if a.is_cuda else self._inv_host(a)
+        """a^(p-2): Fermat inversion, inv(0) = 0.  On the card one launch of
+        the batch_inv kernel, as batch_inv takes (every output is the unique
+        inverse, so the kernel's chains change no limb); on the CPU, where
+        each product costs tens of small tensor ops, the same power is taken
+        exactly with Python ints (_inv_host)."""
+        if a.is_cuda:
+            return cuda_ff.batch_inv(self.spec, a)
+        return self._inv_host(a)
 
     def _inv_host(self, a):
         """inv on the host: (a R)^-1 R^2 = a^-1 R mod p, element by element."""
@@ -196,14 +199,34 @@ class FF:
         return limbs_from_numpy(out.reshape(tuple(a.shape)), a.device)
 
     def _inv_fermat(self, a):
+        """The first design of inv on the card: a chain of about 330-380
+        product launches."""
         return self.pow_fixed(a, self.spec.p - 2)
 
     def batch_inv(self, a, axis: int = 0):
         """Montgomery-trick batch inversion along `axis`; zeros map to zeros.
 
-        The batch is folded into `groups` = 64 steps of W parallel product
+        On the card one launch of the batch_inv kernel, whose threads each
+        run the trick over a chain of rows (every output is the unique
+        inverse, so the grouping, and `axis`, change no limb).  On the CPU
+        the product chains of _batch_inv_chains with the totals inverted on
+        the host."""
+        if a.is_cuda:
+            return cuda_ff.batch_inv(self.spec, a)
+        return self._batch_inv_chains(a, axis, self._inv_host)
+
+    def _batch_inv_v1(self, a, axis: int = 0):
+        """The first design of batch_inv on the card, kept for chip_smoke.py's
+        comparison of old and new: the chains of _batch_inv_chains, a product
+        launch a step, and the Fermat chain (_inv_fermat) for the totals,
+        about 460 launches."""
+        return self._batch_inv_chains(a, axis, self._inv_fermat)
+
+    def _batch_inv_chains(self, a, axis: int, inv):
+        """The batch is folded into `groups` = 64 steps of W parallel product
         chains (each step one full-width product), and the W chain totals are
-        Fermat-inverted in parallel.  Batches of up to 512 skip the chains."""
+        inverted in parallel by `inv`.  Batches of up to 512 skip the
+        chains."""
         a = a.movedim(axis, 0)
         zmask = self.is_zero(a)
         one = self.one(a.device)
@@ -213,7 +236,7 @@ class FF:
         n = flat.shape[0]
 
         if n <= 512:
-            out = self.inv(safe)
+            out = inv(safe)
         else:
             groups = 64
             w = -(-n // groups)
@@ -230,7 +253,7 @@ class FF:
             for i in reversed(range(groups)):  # exclusive suffix products
                 suf_ex[i] = carry
                 carry = self.mul(carry, m[i])
-            tot_inv = self.inv(totals)
+            tot_inv = inv(totals)
             inv_flat = self.mul(self.mul(torch.stack(pre_ex), torch.stack(suf_ex)),
                                 tot_inv[None])
             out = inv_flat.reshape(groups * w, N_LIMBS)[:n].reshape(lead + (N_LIMBS,))

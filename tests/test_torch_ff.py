@@ -4,6 +4,10 @@ Everything is integer arithmetic: the tolerance is exact equality, limb for
 limb.  Inputs come from a seeded `random.Random` and reach both packages as
 the same numpy limb arrays (convert.py)."""
 
+import functools
+import random
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -137,3 +141,91 @@ def test_batch_inv(n, rng):
     a = limbs_from_numpy(ints_to_mont_limbs(xs, spec), "cpu")
     got = mont_limbs_to_ints(limbs_to_numpy(k.batch_inv(a)), spec)
     assert got == [pow(x, spec.p - 2, spec.p) if x else 0 for x in xs]
+
+
+# batch_inv_plain, the plain version of the batch_inv kernel, at the sizes of
+# test_batch_inv and a ragged 130 (zeros at both ends of each), chains of one
+# row and of 64 (33 rows: one chain; 700: eleven, four of them a row short;
+# 130: three, the last two rows long)
+_INV_SIZES = (33, 700, 130)
+
+
+@functools.lru_cache(maxsize=None)
+def _inv_rows(spec):
+    """The rows of every size, in one (sum of sizes, 16) numpy array, and the
+    JAX package's FF.batch_inv of all of them in one call (every output is
+    the unique inverse, so one call serves every size)."""
+    rng = random.Random(0x1D5 + len(spec.name))
+    parts = []
+    for n in _INV_SIZES:
+        xs = [rng.randrange(spec.p) for _ in range(n)]
+        xs[0] = xs[n // 2] = xs[n - 1] = 0
+        parts.append(ints_to_mont_limbs(xs, spec))
+    rows = np.concatenate(parts)
+    return rows, np.asarray(jax.jit(jax_ff(_jax_spec(spec)).batch_inv)(jnp.asarray(rows)))
+
+
+@pytest.mark.parametrize("spec", [TF.PALLAS_FP, TF.BN254_FR], ids=lambda s: s.name)
+@pytest.mark.parametrize("n", _INV_SIZES)
+@pytest.mark.parametrize("chain", [1, 64])
+def test_batch_inv_plain_vs_host_and_jax(spec, n, chain):
+    rows, want = _inv_rows(spec)
+    off = sum(_INV_SIZES[:_INV_SIZES.index(n)])
+    a = limbs_from_numpy(rows[off:off + n], "cpu")
+    got = CF.batch_inv_plain(spec, a, chain=chain)
+    assert torch.equal(got, ff(spec)._inv_host(a))
+    assert np.array_equal(limbs_to_numpy(got), want[off:off + n])
+
+
+@pytest.mark.parametrize("spec", [TF.PALLAS_FP, TF.BN254_FR], ids=lambda s: s.name)
+def test_pow_schedule(spec, rng):
+    """The walk of the kernel's power: a^e by its windows equals the exact
+    power, and p - 2 takes fewer products than square-and-multiply."""
+    xs = [rng.randrange(spec.p) for _ in range(5)] + [0, 1]
+    a = limbs_from_numpy(ints_to_mont_limbs(xs, spec), "cpu")
+    for e in (1, 2, 3, 16, 0xF1, 0x8000_0001, spec.p - 2):
+        got = mont_limbs_to_ints(limbs_to_numpy(CF._pow_plain(spec, a, e)), spec)
+        assert got == [pow(x, e, spec.p) for x in xs], hex(e)
+    e = spec.p - 2
+    square_and_multiply = e.bit_length() - 1 + bin(e).count("1") - 1
+    assert CF.pow_products(e) < square_and_multiply
+    steps, tail = CF.pow_schedule(16)
+    assert steps == [(0, 0)] and tail == 4
+
+
+def test_batch_inv_chain_lengths():
+    assert [CF.batch_inv_chain(n) for n in (1, 16383, 1 << 16, 1 << 20, 1 << 21, 1 << 23)] == \
+        [1, 1, 4, 64, 64, 64]
+    assert CF.batch_inv_products(33, 64, 3) == 3 * 32 + CF.pow_products(3)
+
+
+@pytest.mark.parametrize("n", [33, 1 << 16, 1 << 21])
+def test_batch_inv_bound_counts_the_function(n):
+    """chip_smoke.py's bound for batch_inv counts what inverting n rows needs
+    (the Montgomery trick's 3 (n - 1) products and one power, one row read
+    and one written), not the products of the kernel's chains, so it is the
+    same for every chain length."""
+    import chip_smoke
+
+    spec = chip_smoke.SPEC
+    assert chip_smoke.inv_muls(n) * n == 3 * (n - 1) + CF.pow_products(spec.p - 2)
+    assert CF.batch_inv_products(n, CF.batch_inv_chain(n), spec.p - 2) >= \
+        chip_smoke.inv_muls(n) * n
+    b_ms, by = chip_smoke.bound_ms("batch_inv", n, muls=chip_smoke.inv_muls(n))
+    t_bytes = 2 * n * 4 * TF.N_LIMBS / chip_smoke.HBM_BYTES_PER_S * 1e3
+    t_ops = chip_smoke.inv_muls(n) * n * chip_smoke.MUL_OPS / chip_smoke.INT32_OPS_PER_S * 1e3
+    assert b_ms == pytest.approx(max(t_bytes, t_ops), rel=1e-12)
+    assert by == ("bytes" if t_bytes >= t_ops else "operations")
+    if n == 1 << 21:
+        assert by == "bytes" and b_ms == pytest.approx(0.0801, abs=1e-4)
+
+
+def test_batch_inv_v1_on_the_host(rng):
+    """The first design's chains (here with the Fermat power on plain
+    products, as the card runs them) equal the CPU route."""
+    spec = TF.PALLAS_FP
+    k = ff(spec)
+    xs = [rng.randrange(spec.p) for _ in range(600)]
+    xs[0] = xs[599] = 0
+    a = limbs_from_numpy(ints_to_mont_limbs(xs, spec), "cpu").reshape(2, 300, TF.N_LIMBS)
+    assert torch.equal(k._batch_inv_v1(a, axis=1), k.batch_inv(a, axis=1))

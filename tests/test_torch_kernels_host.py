@@ -34,6 +34,7 @@ from halo2_liam_eagen_msm_tpu_torch.ops import cuda_radix as CR
 from halo2_liam_eagen_msm_tpu_torch.ops import msm as M
 from halo2_liam_eagen_msm_tpu_torch.ops import radix as RX
 from halo2_liam_eagen_msm_tpu_torch.ops.ec import ec
+from halo2_liam_eagen_msm_tpu_torch.ops.ff import ff
 from halo2_liam_eagen_msm_tpu_torch.utils import pyref
 
 torch.set_num_threads(1)
@@ -212,14 +213,14 @@ def _lm_case(name, nprng):
                 cases += [(s, inverse, tw, e) for s in stages]
         fn, plain = CN.stage_big, CN.stage_big_plain
     else:
-        assert name in ("stages_small", "stages_small_v1")
+        assert name == "stages_small"
         # tiles 2, 4, 8, 128 and 1024 at E = two tiles, and 64 at E = three
         # (a ragged block for the kernel of the path): one window of 1 bit,
         # one of 2 bits, windows with a top window of 1 bit, 5 windows
         for logn, e in ((1, 4), (2, 8), (3, 16), (6, 192), (7, 256), (10, 2048)):
             for inverse in (False, True):
                 cases.append((1 << logn, inverse, CN.tables(SPEC, logn, inverse, "cpu"), e))
-        fn, plain = getattr(CN, name), CN.stages_small_plain
+        fn, plain = CN.stages_small, CN.stages_small_plain
     xs = [_lm(nprng, e) for *_, e in cases]
     return (lambda *x: tuple(fn(SPEC, xi, w, inv, tw) for xi, (w, inv, tw, _) in zip(x, cases)),
             lambda *x: tuple(plain(SPEC, xi, w, inv, tw) for xi, (w, inv, tw, _) in zip(x, cases)),
@@ -294,6 +295,14 @@ def _case(name, rng, nprng):
         return (lambda a, b: (CF.mont_mul(SPEC, a, b),),
                 lambda a, b: (CF.mont_mul_plain(SPEC, a, b),),
                 (_field(nprng, B), _field(nprng, B)))
+    if name == "batch_inv":
+        # zeros at rows 0, 3, 20 and the last; chains of 1 (a power a row),
+        # 4 (ten chains, the last three a row short) and 64 (one chain)
+        a = _field(nprng, B)
+        a[[20, B - 1]] = 0
+        chains = (1, 4, 64)
+        return (lambda a: tuple(CF.batch_inv(SPEC, a, chain=c) for c in chains),
+                lambda a: tuple(CF.batch_inv_plain(SPEC, a, chain=c) for c in chains), (a,))
     if name == "mont_addsub":
         def both(fn):
             return lambda a, b: (fn(SPEC, False, a, b), fn(SPEC, True, a, b))
@@ -301,10 +310,10 @@ def _case(name, rng, nprng):
             (_field(nprng, B), _field(nprng, B))
     hp, hq = _edge_points(rng)
     p = _jacobian(rng, nprng, hp)
-    if name in ("ec_add", "ec_add_v1", "ec_add_fast", "ec_double"):
+    if name in ("ec_add", "ec_add_fast", "ec_double"):
         args = tuple(p) if name == "ec_double" else (*p, *_jacobian(rng, nprng, hq))
         kernel = getattr(CF, name)
-        plain = getattr(CF, name.removesuffix("_v1") + "_plain")
+        plain = getattr(CF, name + "_plain")
         return (lambda *a: kernel(CURVE, *a)), (lambda *a: plain(CURVE, *a)), args
     qx, qy, qid = E.to_affine(E.points_from_ints(hq, "cpu"))
     if name == "ec_add_mixed":
@@ -318,8 +327,8 @@ def _case(name, rng, nprng):
         args = (p.x, p.y, zz, CF.mont_mul_plain(SPEC, zz, p.z), qx, qy)
         return (lambda *a: CF.ec_madd_xyzz_fast(CURVE, *a),
                 lambda *a: CF.ec_madd_xyzz_fast_plain(CURVE, *a), args)
-    assert name == "fused_madd_scan_xyzz"
-    w, g = 4, 9
+    assert name in ("fused_madd_scan_xyzz", "fused_madd_scan_xyzz_v1")
+    w, g = 4, 9  # nine carries of two lanes each: one ragged block of 32 carries
     pts = pyref.random_points(rng, CURVE, 8) * 5
     pts = pts[:w * g]
     pts[2] = pts[7] = None                                 # zero rows
@@ -327,7 +336,8 @@ def _case(name, rng, nprng):
     ax, ay, _ = E.to_affine(E.points_from_ints(pts, "cpu"))
     t_limbs = tuple(tuple(int(v) for v in ints_to_mont_limbs([c], SPEC)[0])
                     for c in E.offset_point_ints())
-    return (lambda rows: CF.fused_madd_scan_xyzz(CURVE, t_limbs, rows, w),
+    kernel = getattr(CF, name)
+    return (lambda rows: kernel(CURVE, t_limbs, rows, w),
             lambda rows: CF.fused_madd_scan_xyzz_plain(CURVE, t_limbs, rows, w),
             (M._pack_pair(ax, ay).contiguous(),))
 
@@ -353,8 +363,10 @@ def test_kernel_source_on_host_equals_plain(name, host_kernels, rng, nprng):
     if name in ("ec_madd_xyzz_fast", "ec_add_mixed_fast"):
         # identity carry, carry == Q, carry == -Q; qy == 0 passes unflagged
         assert got[-1].nonzero().flatten().tolist() == [0, 3, 4]
-    if name == "fused_madd_scan_xyzz":
+    if name.startswith("fused_madd_scan_xyzz"):
         assert got[8].nonzero().flatten().tolist() == [5]
+    if name == "batch_inv":
+        assert all(torch.equal(g, ff(SPEC)._inv_host(args[0])) for g in got)
 
 
 def test_fused_merge_level_on_host_kernels(host_kernels, rng):

@@ -45,21 +45,26 @@ without a card, and on any failed build, failed launch or mismatch.  It
      the card, and at two of them by Python-int Horner on the host), no level
      may take the coefficient fallback, and each of the five kernels must
      have been launched,
-  9b. tallies ec_add's launches by B (points a launch) and batch_inv's by
-     (rows, chain length) over one MSM, one carry stage and one round; holds
-     the redesigned ec_add and stages_small against their plain versions bit
-     for bit and times them at the path's shapes: ec_add at every B that
-     carries a tenth of the tallied launches, at 2048 and at the widest, with
-     the edge lanes; stages_small forward and inverse at (n, E) = (2^7, 2^20),
-     (2^9, 2^20), (2^10, 2^20) and (2^21, 2^21), the fused levels' shapes;
-     then holds batch_inv and the fused scan against their first versions
-     (FF._batch_inv_v1, the chains of mont_mul launches, and
-     fused_madd_scan_xyzz_v1, launched by this phase only) and their plain
-     versions, bit for bit, and times old and new in turns (v1, new, new,
-     v1): batch_inv at n = 33, 512, 700, 2^16 and 2^21 rows with zeros, each
-     against FF._inv_host too, then by chain length at 2^21, 2^20 and 2^16;
-     the fused scan at g = 256, 4096 and 16,384 carries of 64 rows, the
-     windows FUSED_SCAN_MIN_ROWS lets through,
+  9b. tallies the launches of mont_addsub, ec_add, ec_add_fast and
+     ec_double by B (rows or points a launch) and batch_inv's by (rows,
+     chain length) over one MSM, one carry stage and one round, and reads
+     the device's busy time of one MSM and one carry stage; holds
+     mont_addsub and ec_add_fast against their first designs
+     (mont_addsub_v1, ec_add_fast_v1, launched by this phase only) and
+     their plain versions bit for bit, with edge lanes (the carry edges of a
+     row; identities, P + P, P + (-P)), at every B the tally gives them, at
+     the kernel phase's shape and at the ragged size, and times old and new
+     in turns (v1, new, new, v1); times ec_double at every B the tally gives
+     it; ranks the three by launches x (device ms - bound) over the main
+     path (one MSM, one carry stage and 56 rounds like the tallied one);
+     then holds the kernels redesigned before against their plain versions
+     bit for bit and times them at the path's shapes: ec_add at every B that
+     carries a tenth of its tallied launches, at 2048 and at the widest;
+     stages_small forward and inverse at (n, E) = (2^7, 2^20), (2^9, 2^20),
+     (2^10, 2^20) and (2^21, 2^21), the fused levels' shapes; batch_inv at
+     n = 33, 512, 700, 2^16 and 2^21 rows with zeros, each against
+     FF._inv_host too; the fused scan at g = 256, 4096 and 16,384 carries of
+     64 rows, the windows FUSED_SCAN_MIN_ROWS lets through,
  10. drives one round of the witness at a cut width, 2^10 points, on the card
      and on the CPU (plain versions): the carries' final carry equal to the
      Python-int oracle, round 28 closing on both and equal limb for limb,
@@ -111,8 +116,9 @@ without a card, and on any failed build, failed launch or mismatch.  It
      to a single-round computation), and entry()'s fn on the card against the
      same fn on the CPU,
  20. prints one JSON line describing the kernels (the redesigned ones with
-     phase 9b's shapes, batch_inv and the fused scan with their first
-     versions' ms, and a line for each first version) and, last, one JSON line {"ok": true, "device": {...}}.
+     phase 9b's shapes, mont_addsub and ec_add_fast with their first
+     versions' ms and the rule-2 ranking, and a line for each first version)
+     and, last, one JSON line {"ok": true, "device": {...}}.
 
 Phases 16-19 run last, on the round's (phase 9) slots and witness and the
 carry stage's inputs, which are kept alive until then.
@@ -204,7 +210,7 @@ KERNEL_TABLE = {
 MSM_KERNELS = ("mont_mul", "batch_inv", "mont_addsub", "ec_add", "ec_add_fast",
                "ec_double", "fused_madd_scan_xyzz")
 # the first designs kept for phase 9b: name -> the kernel of the path
-V1_OF = {"fused_madd_scan_xyzz_v1": "fused_madd_scan_xyzz", "batch_inv_v1": "batch_inv"}
+V1_OF = {"mont_addsub_v1": "mont_addsub", "ec_add_fast_v1": "ec_add_fast"}
 PR6_ROUND_MONT_MUL = 16154  # a round's mont_mul launches before batch_inv
 FALLBACK_KERNELS = ("ec_madd_xyzz_fast", "ec_add_mixed")
 ROUND_KERNELS = ("lm_mul", "lm_addsub", "lm_mul_const", "stage_big", "stages_small")
@@ -506,14 +512,12 @@ def check_kernels(dev, base_pts, ragged: int, shapes: dict, scan_small_g: int, r
         return (*p, *q)
 
     def vs_pyref_add(size, args, got):
+        if len(got) == 4:
+            add_fast_oracle(got, host["p"], host["q"], f"ec_add_fast at size {size}")
+            return
         k = len(host["p"])
         pts = E.points_to_ints(JPoint(*(c[:k] for c in got[:3])))
         want = [pyref.ec_add(a, b, CURVE) for a, b in zip(host["p"], host["q"])]
-        if len(got) == 4:  # fast add: doubling lanes are flagged, not computed
-            doubling = [a is not None and a == b for a, b in zip(host["p"], host["q"])]
-            require(got[3][:k].tolist() == doubling and doubling[3],
-                    f"ec_add_fast flags exactly the doubling lanes at size {size}")
-            pts = [w if d else g for g, w, d in zip(pts, want, doubling)]
         require(pts == want, f"first {k} lanes equal the Python-int oracle at size {size}")
 
     recs.append(check_kernel(
@@ -1187,16 +1191,33 @@ def round_path(dev, pts: JPoint, carry_state, profile: bool):
 
 
 # ---------------------------------------------------------------------------
-# phase 9b: ec_add's launches by width, and the two redesigned kernels
-# against their first versions
+# phase 9b: launches by width over the main path, the redesigned kernels at
+# the path's shapes, and mont_addsub and ec_add_fast against their first
+# designs
 # ---------------------------------------------------------------------------
 
+def width_of(*rows) -> int:
+    """Rows a wrapper's launch takes: the broadcast leading shape's size."""
+    return math.prod(torch.broadcast_shapes(*(r.shape[:-1] for r in rows)))
+
+
+# kernel wrapper -> its tally key from the wrapper's arguments
+TALLY_KEYS = {
+    "mont_addsub": lambda spec, is_sub, a, b: width_of(a, b),
+    "ec_add": lambda curve, *rows: width_of(*rows),
+    "ec_add_fast": lambda curve, *rows: width_of(*rows),
+    "ec_double": lambda curve, *rows: width_of(*rows),
+    "batch_inv": lambda spec, a, chain=None: (width_of(a), chain or CF.batch_inv_chain(width_of(a))),
+}
+
+
 def launch_tally(dev, base_pts, logn: int, pts: JPoint, rnd):
-    """ec_add's launches by B (points a launch) and batch_inv's by (rows,
-    chain length) over one MSM (the main path's inputs), one carry stage and
-    one round (the round phase's), counted by wrapping cuda_ff.ec_add and
-    cuda_ff.batch_inv for these runs only.  Returns {kernel: {phase: {width:
-    launches}}}."""
+    """The launches of mont_addsub, ec_add, ec_add_fast and ec_double by B
+    (rows or points a launch) and of batch_inv by (rows, chain length) over
+    one MSM (the main path's inputs), one carry stage and one round (the
+    round phase's), counted by wrapping the cuda_ff wrappers for these runs
+    only; then the device's busy time of one MSM and one carry stage.
+    Returns ({kernel: {phase: {key: launches}}}, {phase: busy ms})."""
     _, scalars, _ = msm_inputs(dev, base_pts, logn)
     digits, carry_prev, carry_new = rnd["carry_state"]
     precomp = A.precompute_multiplicities(ec(CURVE), pts, BASE)
@@ -1207,26 +1228,24 @@ def launch_tally(dev, base_pts, logn: int, pts: JPoint, rnd):
                                 A._at(carry_prev, k), A._at(carry_new, k))
         D.compute_divisor_witness_partial(CURVE, rp)
 
-    real_add, real_inv = CF.ec_add, CF.batch_inv
-    tally = {"ec_add": {}, "batch_inv": {}}
-    out = {"ec_add": {}, "batch_inv": {}}
+    phases = (("msm", lambda: M.best_multiexp(CURVE, scalars, pts)),
+              ("carry stage", lambda: A._carries_only(CURVE, BASE, digits, pts)),
+              ("round", one_round))
+    real = {name: getattr(CF, name) for name in TALLY_KEYS}
+    tally = {name: {} for name in TALLY_KEYS}
+    out = {name: {} for name in TALLY_KEYS}
 
-    def counting_add(curve, *rows):
-        b = math.prod(torch.broadcast_shapes(*(r.shape[:-1] for r in rows)))
-        tally["ec_add"][b] = tally["ec_add"].get(b, 0) + 1
-        return real_add(curve, *rows)
+    def counting(name):
+        def fn(*args, **kwargs):
+            key = TALLY_KEYS[name](*args, **kwargs)
+            tally[name][key] = tally[name].get(key, 0) + 1
+            return real[name](*args, **kwargs)
+        return fn
 
-    def counting_inv(spec, a, chain=None):
-        n = math.prod(a.shape[:-1])
-        key = (n, chain or CF.batch_inv_chain(n))
-        tally["batch_inv"][key] = tally["batch_inv"].get(key, 0) + 1
-        return real_inv(spec, a, chain)
-
-    CF.ec_add, CF.batch_inv = counting_add, counting_inv
+    for name in TALLY_KEYS:
+        setattr(CF, name, counting(name))
     try:
-        for phase, fn in (("msm", lambda: M.best_multiexp(CURVE, scalars, pts)),
-                          ("carry stage", lambda: A._carries_only(CURVE, BASE, digits, pts)),
-                          ("round", one_round)):
+        for phase, fn in phases:
             for t in tally.values():
                 t.clear()
             fn()
@@ -1234,51 +1253,160 @@ def launch_tally(dev, base_pts, logn: int, pts: JPoint, rnd):
             for name, t in tally.items():
                 out[name][phase] = dict(sorted(t.items()))
     finally:
-        CF.ec_add, CF.batch_inv = real_add, real_inv
-    print("ec_add launches by B: " + "; ".join(
-        f"{phase}: " + ", ".join(f"B = {b}: {c}" for b, c in t.items())
-        for phase, t in out["ec_add"].items()), flush=True)
-    print("batch_inv launches by (rows, L): " + "; ".join(
-        f"{phase}: " + ", ".join(f"({n}, {L}): {c}" for (n, L), c in t.items())
-        for phase, t in out["batch_inv"].items()), flush=True)
-    return out
+        for name, fn in real.items():
+            setattr(CF, name, fn)
+    for name, by_phase in out.items():
+        fmt = (lambda key: f"({key[0]}, {key[1]})") if name == "batch_inv" else \
+            (lambda key: f"B = {key}")
+        print(f"{name} launches by {'(rows, L)' if name == 'batch_inv' else 'B'}: " + "; ".join(
+            f"{phase}: " + ", ".join(f"{fmt(key)}: {c}" for key, c in t.items())
+            for phase, t in by_phase.items()), flush=True)
+    busy = {phase: device_busy_ms(dev, fn) for phase, fn in phases[:2]}
+    print(f"device busy: one MSM {busy['msm']:.3f} ms, one carry stage "
+          f"{busy['carry stage']:.3f} ms", flush=True)
+    return out, busy
 
 
-def ab_times(dev, fns: dict, reps: int, v1_reps=None):
+def path_launches(tally_of: dict, rounds: int) -> dict:
+    """Launches by width on the main path, one MSM + one carry stage +
+    `rounds` rounds like the tallied one (config 4 is the carry stage and its
+    rounds), widths of no rows left out."""
+    out = {}
+    for phase, t in tally_of.items():
+        for b, c in t.items():
+            if b:  # an empty launch enqueues nothing
+                out[b] = out.get(b, 0) + c * (rounds if phase == "round" else 1)
+    return dict(sorted(out.items()))
+
+
+def ab_times(dev, fns: dict, reps: int):
     """Device ms of the "v1" and the "new" call, timed in turns v1, new, new,
-    v1; the mean of each one's two turns.  v1_reps (default reps) for a v1
-    call of many launches: the card queues about a thousand launches behind
-    time_ms's spin kernel, and the host waits for the rest, so more would
-    time the host's pace."""
+    v1; the mean of each one's two turns."""
     got = {key: [] for key in fns}
     for key in ("v1", "new", "new", "v1"):
-        got[key].append(time_ms(dev, fns[key], reps if key == "new" else v1_reps or reps)[0])
+        got[key].append(time_ms(dev, fns[key], reps)[0])
     return {key: sum(v) / len(v) for key, v in got.items()}
 
 
-def ec_add_by_width(dev, base_pts, widths, reps: int):
-    """ec_add (four lanes a point) against its plain version at each width,
-    with the edge lanes of curve_inputs (p identity, q identity, both,
-    P + P, P + (-P)) and the first 64 lanes against the Python-int oracle;
-    device ms at each width."""
-    nprng = np.random.default_rng(0xAB0)
-    E = ec(CURVE)
+def addsub_edges():
+    """Pairs (a, b) of reduced ints at the carry edges of a row: 0, 1 and
+    p - 1 on both sides; a + b = p exactly; a - b = 0; a < b; words of all
+    ones up to each 64-bit boundary, so that a carry or a borrow crosses every
+    quarter of the row."""
+    p = SPEC.p
+    pairs = [(0, 0), (0, 1), (1, 0), (1, 1), (p - 1, p - 1), (p - 1, 1), (1, p - 1),
+             (0, p - 1), (p - 1, 0)]
+    pairs += [(x, p - x) for x in (1 << 64, 1 << 128, 1 << 192, 12345)]
+    pairs += [(x, x) for x in (7, 1 << 64, (1 << 192) - 1)]
+    pairs += [(5, 7), (1 << 64, (1 << 64) + 1)]
+    for k in (1, 2, 3):
+        pairs += [((1 << 64 * k) - 1, 1), (1 << 64 * k, 1), (1, (1 << 64 * k) - 1)]
+    return pairs + [(p - 1, (1 << 192) - 1)]
+
+
+def ab_mont_addsub(dev, widths, launches: dict, row_b: int, reps: int):
+    """mont_addsub (four lanes a row) against its first design (one thread a
+    row) and the plain version, add and subtract, at each width: random rows
+    with the carry edges of addsub_edges in the first lanes, bit for bit,
+    and the edge lanes against exact ints; both timed in turns (a call adds
+    and subtracts, so half of it is one launch)."""
+    nprng = np.random.default_rng(0xAB4)
+    edges = addsub_edges()
+    ea = limbs_from_numpy(ints_to_limbs([x for x, _ in edges]), dev)
+    eb = limbs_from_numpy(ints_to_limbs([y for _, y in edges]), dev)
+    out = []
+    for b in widths:
+        a, c = random_field(nprng, b, dev), random_field(nprng, b, dev)
+        k = min(b, len(edges))
+        a[:k], c[:k] = ea[:k], eb[:k]
+        both = lambda fn: (fn(SPEC, False, a, c), fn(SPEC, True, a, c))
+        new, old, plain = both(CF.mont_addsub), both(CF.mont_addsub_v1), \
+            both(CF.mont_addsub_plain)
+        want = [limbs_to_ints(limbs_to_numpy(v[:k])) for v in new]
+        v1_err = outputs_equal(old, plain)
+        exact = want == [[(x + y) % SPEC.p for x, y in edges[:k]],
+                         [(x - y) % SPEC.p for x, y in edges[:k]]]
+        require(v1_err == 0 and outputs_equal(new, plain) == 0 and exact,
+                f"mont_addsub == mont_addsub_v1 == mont_addsub_plain at B = {b}, add and "
+                f"subtract; the first {k} lanes (the carry edges) equal exact ints")
+        t = ab_times(dev, {"v1": lambda: both(CF.mont_addsub_v1),
+                           "new": lambda: both(CF.mont_addsub)}, reps)
+        t = {key: ms / 2 for key, ms in t.items()}
+        b_ms, b_by = bound_ms("mont_addsub", b)
+        out.append({"shape": f"B = {b}", "b": b, "ms": t["new"], "v1_ms": t["v1"],
+                    "v1_max_abs_err": v1_err, "bound_ms": b_ms, "bound_by": b_by,
+                    "launches": launches.get(b, 0), "at_row": b == row_b})
+        print(f"  A/B mont_addsub at B = {b} ({launches.get(b, 0)} launches on the path): "
+              f"{t['new']:.4f} ms, v1 {t['v1']:.4f} ms on the device ({t['v1'] / t['new']:.2f}x), "
+              f"bound {b_ms:.6f} ms ({b_by})", flush=True)
+    return out
+
+
+def add_fast_oracle(got, hp, hq, what: str) -> None:
+    """ec_add_fast's first lanes (those of curve_inputs' host lists) against
+    the Python-int oracle: the doubling lanes flagged and nothing else (lane 3
+    is one where there are five lanes), every other lane the sum."""
+    k = len(hp)
+    pts = ec(CURVE).points_to_ints(JPoint(*(c[:k] for c in got[:3])))
+    want = [pyref.ec_add(a, b, CURVE) for a, b in zip(hp, hq)]
+    doubling = [a is not None and a == b for a, b in zip(hp, hq)]
+    require(got[3][:k].tolist() == doubling and (k < 5 or doubling[3]) and all(
+        g == w for g, w, d in zip(pts, want, doubling) if not d),
+        f"{what}: the first {k} lanes (p identity, q identity, both, P + P flagged, "
+        f"P + (-P) among them) equal the Python-int oracle")
+
+
+def ab_ec_add_fast(dev, base_pts, widths, launches: dict, row_b: int, reps: int):
+    """ec_add_fast (four lanes a point) against its first design (one thread
+    a point) and the plain version at each width, with the edge lanes of
+    curve_inputs and the first 64 lanes against the Python-int oracle; both
+    timed in turns."""
+    nprng = np.random.default_rng(0xAB5)
     out = []
     for b in widths:
         p, q, hp, hq = curve_inputs(nprng, base_pts, b, dev)
         args = (*p, *q)
-        new = CF.ec_add(CURVE, *args)
+        new, old = CF.ec_add_fast(CURVE, *args), CF.ec_add_fast_v1(CURVE, *args)
+        plain = CF.ec_add_fast_plain(CURVE, *args)
+        v1_err = outputs_equal(old, plain)
+        require(v1_err == 0 and outputs_equal(new, plain) == 0,
+                f"ec_add_fast == ec_add_fast_v1 == ec_add_fast_plain at B = {b} (4 outputs)")
+        add_fast_oracle(new, hp, hq, f"ec_add_fast at B = {b}")
+        t = ab_times(dev, {"v1": lambda: CF.ec_add_fast_v1(CURVE, *args),
+                           "new": lambda: CF.ec_add_fast(CURVE, *args)}, reps)
+        b_ms, b_by = bound_ms("ec_add_fast", b, b)
+        out.append({"shape": f"B = {b}", "b": b, "ms": t["new"], "v1_ms": t["v1"],
+                    "v1_max_abs_err": v1_err, "bound_ms": b_ms, "bound_by": b_by,
+                    "launches": launches.get(b, 0), "at_row": b == row_b})
+        print(f"  A/B ec_add_fast at B = {b} ({launches.get(b, 0)} launches on the path): "
+              f"{t['new']:.4f} ms, v1 {t['v1']:.4f} ms on the device ({t['v1'] / t['new']:.2f}x), "
+              f"bound {b_ms:.6f} ms ({b_by})", flush=True)
+    return out
+
+
+def by_width(dev, base_pts, name: str, widths, launches: dict, reps: int):
+    """ec_add or ec_double against its plain version at each width, with the
+    edge lanes of curve_inputs and the first 64 lanes against the Python-int
+    oracle; device ms at each width."""
+    nprng = np.random.default_rng(0xAB0)
+    kernel, plain = getattr(CF, name), getattr(CF, name + "_plain")
+    out = []
+    for b in widths:
+        p, q, hp, hq = curve_inputs(nprng, base_pts, b, dev)
+        args = tuple(p) if name == "ec_double" else (*p, *q)
+        got = kernel(CURVE, *args)
         k = len(hp)
-        pts = E.points_to_ints(JPoint(*(c[:k] for c in new)))
-        require(outputs_equal(new, CF.ec_add_plain(CURVE, *args)) == 0
-                and pts == [pyref.ec_add(u, v, CURVE) for u, v in zip(hp, hq)],
-                f"ec_add == ec_add_plain at B = {b}, the first {k} lanes (edge lanes among "
+        pts = ec(CURVE).points_to_ints(JPoint(*(c[:k] for c in got)))
+        want = [pyref.ec_add(u, u if name == "ec_double" else v, CURVE) for u, v in zip(hp, hq)]
+        require(outputs_equal(got, plain(CURVE, *args)) == 0 and pts == want,
+                f"{name} == {name}_plain at B = {b}, the first {k} lanes (edge lanes among "
                 f"them) equal to the Python-int oracle")
-        ms = time_ms(dev, lambda: CF.ec_add(CURVE, *args), reps)[0]
-        b_ms, b_by = bound_ms("ec_add", b)
-        out.append({"shape": f"B = {b}", "ms": ms, "bound_ms": b_ms, "bound_by": b_by})
-        print(f"  ec_add at B = {b}: {ms:.4f} ms on the device, bound {b_ms:.5f} ms ({b_by})",
-              flush=True)
+        ms = time_ms(dev, lambda: kernel(CURVE, *args), reps)[0]
+        b_ms, b_by = bound_ms(name, b)
+        out.append({"shape": f"B = {b}", "b": b, "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "launches": launches.get(b, 0)})
+        print(f"  {name} at B = {b} ({launches.get(b, 0)} launches on the path): {ms:.4f} ms on "
+              f"the device, bound {b_ms:.6f} ms ({b_by})", flush=True)
     return out
 
 
@@ -1307,71 +1435,37 @@ def stages_small_by_shape(dev, reps: int):
     return out
 
 
-def ab_batch_inv(dev, sizes, sweeps, row_n: int, reps: int):
-    """batch_inv (one launch) against its first design (FF._batch_inv_v1: the
-    64-step chains of mont_mul launches and the Fermat chain for their
-    totals) and the plain version at each size, zeros at rows 0, n // 2 and
-    n - 1, and every output against FF._inv_host (above 2^16 rows on every
-    32nd row and the last: the host takes some 120 us a row); both timed in
-    turns, v1 one call at a time (some 460 launches).  Then
-    the chain length: device ms of batch_inv by L at the sizes of `sweeps`
-    ({n: [L, ...]}), each equal to the default's output."""
+def batch_inv_by_size(dev, sizes, reps: int):
+    """batch_inv (one launch an inversion) against its plain version at each
+    size, zeros at rows 0, n // 2 and n - 1, and against FF._inv_host (above
+    2^16 rows on every 32nd row and the last: the host takes some 120 us a
+    row); device ms at each."""
     nprng = np.random.default_rng(0xAB2)
-    k = ff(SPEC)
-    e = SPEC.p - 2
-    out, sweep = [], []
+    out = []
     for n in sizes:
         a = zero_laced(nprng, n, dev)
         L = CF.batch_inv_chain(n)
         new = CF.batch_inv(SPEC, a)
-        before = CF.LAUNCHES["mont_mul"]
-        old = k._batch_inv_v1(a)
-        v1_launches = CF.LAUNCHES["mont_mul"] - before
-        plain = CF.batch_inv_plain(SPEC, a)
         rows = torch.arange(n, device=dev)
         if n > 1 << 16:
             rows = torch.cat([rows[::32], rows[-1:]])
-        sync(dev)
-        t0 = time.perf_counter()
-        host = k._inv_host(a[rows].cpu())
-        host_s = time.perf_counter() - t0
-        v1_err = outputs_equal([old], [plain])
-        require(v1_err == 0 and torch.equal(new, plain) and torch.equal(new[rows].cpu(), host),
-                f"batch_inv (L = {L}) == FF._batch_inv_v1 ({v1_launches} mont_mul launches) == "
-                f"batch_inv_plain at n = {n}, zeros at rows 0, {n // 2} and {n - 1}; == "
-                f"FF._inv_host at {rows.numel()} rows ({host_s:.1f} s on the host)")
-        t = ab_times(dev, {"v1": lambda: k._batch_inv_v1(a),
-                           "new": lambda: CF.batch_inv(SPEC, a)}, reps, v1_reps=1)
-        prods = CF.batch_inv_products(n, L, e)
+        host = ff(SPEC)._inv_host(a[rows].cpu())
+        require(torch.equal(new, CF.batch_inv_plain(SPEC, a))
+                and torch.equal(new[rows].cpu(), host),
+                f"batch_inv (L = {L}) == batch_inv_plain at n = {n}, zeros at rows 0, "
+                f"{n // 2} and {n - 1}; == FF._inv_host at {rows.numel()} rows")
+        ms = time_ms(dev, lambda: CF.batch_inv(SPEC, a), reps)[0]
         b_ms, b_by = bound_ms("batch_inv", n, muls=inv_muls(n))
-        out.append({"shape": f"n = {n}, L = {L}", "ms": t["new"], "v1_ms": t["v1"],
-                    "v1_max_abs_err": v1_err, "v1_launches": v1_launches,
-                    "kernel_products": prods, "bound_ms": b_ms, "bound_by": b_by,
-                    "at_row": n == row_n})
-        print(f"  A/B batch_inv at n = {n} (L = {L}, the kernel's {prods} products): "
-              f"{t['new']:.4f} ms, v1 {t['v1']:.4f} ms on the device ({t['v1'] / t['new']:.2f}x; "
-              f"{v1_launches} launches), bound {b_ms:.5f} ms ({b_by})", flush=True)
-    for n, chains in sweeps.items():
-        a = zero_laced(nprng, n, dev)
-        want = CF.batch_inv(SPEC, a)
-        b_ms, _ = bound_ms("batch_inv", n, muls=inv_muls(n))  # the function's, for every L
-        for L in chains:
-            require(torch.equal(CF.batch_inv(SPEC, a, chain=L), want),
-                    f"batch_inv with L = {L} equals L = {CF.batch_inv_chain(n)} at n = {n}")
-            ms = time_ms(dev, lambda: CF.batch_inv(SPEC, a, chain=L), reps)[0]
-            prods = CF.batch_inv_products(n, L, e)
-            sweep.append({"n": n, "L": L, "ms": ms, "kernel_products": prods, "bound_ms": b_ms})
-            print(f"  batch_inv by chain length: n = {n}, L = {L} ({-(-n // L)} chains, the "
-                  f"kernel's {prods} products): {ms:.4f} ms on the device, bound {b_ms:.5f} ms",
-                  flush=True)
-    return out, sweep
+        out.append({"shape": f"n = {n}, L = {L}", "ms": ms, "bound_ms": b_ms, "bound_by": b_by})
+        print(f"  batch_inv at n = {n} (L = {L}): {ms:.4f} ms on the device, bound "
+              f"{b_ms:.5f} ms ({b_by})", flush=True)
+    return out
 
 
-def ab_fused_scan(dev, base_pts, gs, row_g: int, reps: int):
-    """fused_madd_scan_xyzz (two lanes a carry) against its first kernel (one
-    thread a carry) and the plain version at g carries of 64 rows, with zero
-    rows and lane 5 opening with -T (the only flagged lane); both timed in
-    turns."""
+def fused_scan_by_g(dev, base_pts, gs, reps: int):
+    """fused_madd_scan_xyzz (two lanes a carry) against its plain version at
+    g carries of 64 rows, with zero rows and lane 5 opening with -T (the only
+    flagged lane); device ms at each."""
     nprng = np.random.default_rng(0xAB3)
     w = CF.SCAN_W
     t_limbs = scan_t_limbs()
@@ -1379,52 +1473,92 @@ def ab_fused_scan(dev, base_pts, gs, row_g: int, reps: int):
     for g in gs:
         rows = scan_rows(nprng, base_pts, g, w, dev)
         new = flatten_outs(CF.fused_madd_scan_xyzz(CURVE, t_limbs, rows, w))
-        old = flatten_outs(CF.fused_madd_scan_xyzz_v1(CURVE, t_limbs, rows, w))
         plain = flatten_outs(CF.fused_madd_scan_xyzz_plain(CURVE, t_limbs, rows, w))
-        v1_err = outputs_equal(old, plain)
-        require(v1_err == 0 and outputs_equal(new, plain) == 0
-                and new[8].nonzero().flatten().tolist() == [5],
-                f"fused_madd_scan_xyzz == fused_madd_scan_xyzz_v1 == fused_madd_scan_xyzz_plain "
-                f"at W = {w}, g = {g} (9 outputs), lane 5 flagged and no other")
-        t = ab_times(dev, {"v1": lambda: CF.fused_madd_scan_xyzz_v1(CURVE, t_limbs, rows, w),
-                           "new": lambda: CF.fused_madd_scan_xyzz(CURVE, t_limbs, rows, w)},
-                     reps)
+        require(outputs_equal(new, plain) == 0 and new[8].nonzero().flatten().tolist() == [5],
+                f"fused_madd_scan_xyzz == fused_madd_scan_xyzz_plain at W = {w}, g = {g} "
+                f"(9 outputs), lane 5 flagged and no other")
+        ms = time_ms(dev, lambda: CF.fused_madd_scan_xyzz(CURVE, t_limbs, rows, w), reps)[0]
         b_ms, b_by = bound_ms("fused_madd_scan_xyzz", g * w, g * (4 * ROW_BYTES + 1))
-        out.append({"shape": f"W = {w}, g = {g}", "ms": t["new"], "v1_ms": t["v1"],
-                    "v1_max_abs_err": v1_err, "bound_ms": b_ms, "bound_by": b_by,
-                    "at_row": g == row_g})
-        print(f"  A/B fused_madd_scan_xyzz at W = {w}, g = {g}: {t['new']:.4f} ms, v1 "
-              f"{t['v1']:.4f} ms on the device ({t['v1'] / t['new']:.2f}x), bound {b_ms:.5f} ms "
-              f"({b_by})", flush=True)
+        out.append({"shape": f"W = {w}, g = {g}", "ms": ms, "bound_ms": b_ms, "bound_by": b_by})
+        print(f"  fused_madd_scan_xyzz at W = {w}, g = {g}: {ms:.4f} ms on the device, bound "
+              f"{b_ms:.5f} ms ({b_by})", flush=True)
     return out
 
 
-def ab_phase(dev, base_pts, tally, logn: int, reps: int):
-    """Phase 9b: ec_add at every width that carries at least a tenth of the
-    tallied launches, at 2048 and at the widest; stages_small at the shapes
-    of stages_small_by_shape; then old against new: batch_inv at n = 33, 512,
-    700, 2^16 and 2^(logn + 1), then by chain length; the fused scan at
-    g = 256, 4096 and 2^logn / 64.  Returns ({kernel: per-shape records},
-    batch_inv's records by chain length)."""
-    launches = {}
-    for t in tally["ec_add"].values():
-        for b, c in t.items():
-            launches[b] = launches.get(b, 0) + c
-    total = sum(launches.values())
-    widths = sorted({b for b, c in launches.items() if 10 * c >= total} | {2048, max(launches)})
-    top = 1 << (logn + 1)
+def rule2_ranking(ab: dict) -> dict:
+    """Launches x (device ms - bound) over the main path, summed over the
+    widths timed, for mont_addsub, ec_add_fast and ec_double (and the first
+    designs of the first two), and two shares of the bound that the rule
+    (a kernel at half its bound or more is left alone) may read: by launch,
+    the mean over launches of bound / ms; by time, the sum of launches x
+    bound over the sum of launches x ms."""
+    out = {}
+    for name in ("mont_addsub", "ec_add_fast", "ec_double"):
+        for key in ("ms", "v1_ms"):
+            recs = [r for r in ab[name] if key in r]
+            if not recs:
+                continue
+            launches = sum(r["launches"] for r in recs)
+            out[name if key == "ms" else name + "_v1"] = {
+                "launches": launches,
+                "gap_ms": sum(r["launches"] * (r[key] - r["bound_ms"]) for r in recs),
+                "bound_share_by_launch":
+                    sum(r["launches"] * r["bound_ms"] / r[key] for r in recs) / max(launches, 1),
+                "bound_share_by_time": sum(r["launches"] * r["bound_ms"] for r in recs) /
+                    max(sum(r["launches"] * r[key] for r in recs), 1e-12)}
+    for name, r in sorted(out.items(), key=lambda kv: -kv[1]["gap_ms"]):
+        print(f"  rule-2 ranking: {name}: {r['launches']} launches on the main path, launches x "
+              f"(ms - bound) = {r['gap_ms']:.3f} ms, share of the bound by launch "
+              f"{r['bound_share_by_launch']:.3f}, by time {r['bound_share_by_time']:.3f}",
+              flush=True)
+    return out
+
+
+def ab_phase(dev, base_pts, tally, logn: int, ragged: int, row_shapes: dict, reps: int):
+    """Phase 9b.  mont_addsub and ec_add_fast against their first designs at
+    every width the tally gives them, at their kernel-phase shape and at the
+    ragged size; ec_double at every width the tally gives it; the rule-2
+    ranking of the three over the main path (one MSM, one carry stage and 56
+    rounds like the tallied one).  Then the kernels redesigned before against
+    their plain versions at the path's shapes: ec_add at every width that
+    carries a tenth of its tallied launches and at the widest, stages_small
+    at the fused levels' shapes, batch_inv at n = 33, 512, 700, 2^16 and
+    2^(logn + 1), the fused scan at g = 256, 4096 and 2^logn / 64.  Returns
+    ({kernel: per-shape records}, the ranking)."""
+    rounds = A.num_digits_for(CURVE, BASE)
+    on_path = {name: path_launches(tally[name], rounds) for name in TALLY_KEYS
+               if name != "batch_inv"}
+    for name in ("mont_addsub", "ec_add_fast", "ec_add"):
+        total = sum(on_path[name].values())
+        tenth = [b for b, c in on_path[name].items() if 10 * c >= total]
+        print(f"{name}: {total} launches on the main path at {len(on_path[name])} widths; a "
+              f"tenth or more at B = {tenth}, the widest B = {max(on_path[name])}", flush=True)
+    ec_add_launches = path_launches(tally["ec_add"], 1)
+    total = sum(ec_add_launches.values())
+    ec_add_widths = sorted({b for b, c in ec_add_launches.items() if 10 * c >= total}
+                           | {2048, max(ec_add_launches)})
+    out = {
+        "mont_addsub": ab_mont_addsub(
+            dev, sorted(set(on_path["mont_addsub"]) | {row_shapes["mont_addsub"], ragged}),
+            on_path["mont_addsub"], row_shapes["mont_addsub"], reps),
+        "ec_add_fast": ab_ec_add_fast(
+            dev, base_pts,
+            sorted(set(on_path["ec_add_fast"]) | {row_shapes["ec_add_fast"], ragged}),
+            on_path["ec_add_fast"], row_shapes["ec_add_fast"], reps),
+        "ec_double": by_width(dev, base_pts, "ec_double", sorted(on_path["ec_double"]),
+                              on_path["ec_double"], reps),
+    }
+    ranking = rule2_ranking(out)
     g = max(1, (1 << logn) // CF.SCAN_W)
-    print(f"A/B: ec_add at B = {widths} (of {total} tallied launches), stages_small at the "
-          f"fused levels' shapes, batch_inv, the fused scan", flush=True)
-    inv, sweep = ab_batch_inv(dev, sorted({33, 512, 700, 1 << 16, top}),
-                              {top: (16, 32, 64, 128), top // 2: (16, 32, 64, 128),
-                               1 << 16: (1, 2, 4, 8)}, top,
-                              max(1, reps // 5))
-    return {"ec_add": ec_add_by_width(dev, base_pts, widths, reps),
-            "stages_small": stages_small_by_shape(dev, max(1, reps // 5)),
-            "batch_inv": inv,
-            "fused_madd_scan_xyzz": ab_fused_scan(dev, base_pts, sorted({256, 4096, g}), g,
-                                                  max(1, reps // 10))}, sweep
+    out.update({
+        "ec_add": by_width(dev, base_pts, "ec_add", ec_add_widths, on_path["ec_add"], reps),
+        "stages_small": stages_small_by_shape(dev, max(1, reps // 5)),
+        "batch_inv": batch_inv_by_size(dev, sorted({33, 512, 700, 1 << 16, 1 << (logn + 1)}),
+                                       max(1, reps // 5)),
+        "fused_madd_scan_xyzz": fused_scan_by_g(dev, base_pts, sorted({256, 4096, g}),
+                                                max(1, reps // 10)),
+    })
+    return out, ranking
 
 
 # ---------------------------------------------------------------------------
@@ -2166,10 +2300,14 @@ def main() -> int:
     # fallback phase drives.  ec_add_mixed: one step of a safe window at n.
     step_logn = (M.FUSED_SCAN_MIN_ROWS // 2).bit_length() - 1
     step_lanes = (1 << step_logn) // M._pick_block_width(1 << step_logn, True)
+    # ec_add_fast: a step of a window's triangle scan, nb buckets in blocks
+    # of _pick_block_width steps (2048 lanes at c = 15)
     shapes = {"mont_mul": n, "batch_inv": 2 * n, "mont_addsub": nb, "ec_add": min(g, 2048),
-              "ec_add_fast": nb, "ec_double": 1, "fused_madd_scan_xyzz": g,
-              "ec_madd_xyzz_fast": step_lanes, "ec_add_mixed": g, "ec_add_mixed_fast": n}
-    recs = check_kernels(dev, base_pts, ragged=5000, shapes=shapes,
+              "ec_add_fast": nb // M._pick_block_width(nb, True), "ec_double": 1,
+              "fused_madd_scan_xyzz": g, "ec_madd_xyzz_fast": step_lanes, "ec_add_mixed": g,
+              "ec_add_mixed_fast": n}
+    ragged = 5000
+    recs = check_kernels(dev, base_pts, ragged=ragged, shapes=shapes,
                          scan_small_g=2050, reps=50)
     recs += check_ntt_kernels(dev, ragged=5000, reps=50, top_logn=args.logn + 1)
     recs += check_radix_kernels(dev, args.logn, reps=50)
@@ -2182,8 +2320,8 @@ def main() -> int:
         dev, base_pts, pts, args.logn, args.profile)
     rnd = round_path(dev, pts, carry_state, args.profile)
     del carry_state
-    tally = launch_tally(dev, base_pts, args.logn, pts, rnd)
-    ab, inv_sweep = ab_phase(dev, base_pts, tally, args.logn, reps=50)
+    tally, busy = launch_tally(dev, base_pts, args.logn, pts, rnd)
+    ab, ranking = ab_phase(dev, base_pts, tally, args.logn, ragged, shapes, reps=50)
     # at 2^14 the fused scan flags and the safe flavor redoes the round at a
     # real width; at half of FUSED_SCAN_MIN_ROWS the stepwise scan runs
     fallback_counts = {name: 0 for name in CF.KERNELS}
@@ -2215,7 +2353,8 @@ def main() -> int:
     by_name = {rec["name"]: rec for rec in recs}
     for name in ab:
         by_name[name]["ab"] = ab[name]  # every shape of phase 9b
-    by_name["batch_inv"]["by_chain_length"] = inv_sweep
+    for name in ("mont_addsub", "ec_add_fast", "ec_double"):
+        by_name[name]["rule2"] = ranking[name]
     for v1, name in V1_OF.items():
         # a line for each first design, at its kernel's row shape: its ms and
         # its difference from the plain version from phase 9b, the plain
@@ -2223,12 +2362,7 @@ def main() -> int:
         rec = by_name[name]
         rec["v1_ms"] = next(r["v1_ms"] for r in ab[name] if r["at_row"])
         rec = dict(rec, name=v1, ms=rec["v1_ms"], call_ms=None, ab=None, path="phase 9b only",
-                   max_abs_err=max(r["v1_max_abs_err"] for r in ab[name]))
-        rec.pop("by_chain_length", None)
-        if v1 == "batch_inv_v1":
-            rec.update(source="halo2_liam_eagen_msm_tpu_torch/ops/ff.py",
-                       note="FF._batch_inv_v1: 64-step chains of mont_mul launches and the "
-                            "Fermat chain of the totals, no kernel of its own")
+                   max_abs_err=max(r["v1_max_abs_err"] for r in ab[name]), rule2=ranking[v1])
         recs.append(rec)
     by_phase = {"launches_msm": msm_counts, "launches_carry": carry_counts,
                 "launches_fallback": fallback_counts, "launches_round": rnd["counts"],
@@ -2256,6 +2390,8 @@ def main() -> int:
     print(f"msm: n = {n}, seconds = {seconds}, points_per_s = {n / seconds}, card = {card}",
           flush=True)
     print(f"carries: n = {n}, base = {BASE}, rounds = {rounds}, seconds = {carry_s}, "
+          f"card = {card}", flush=True)
+    print(f"device busy: msm_ms = {busy['msm']}, carry_stage_ms = {busy['carry stage']}, "
           f"card = {card}", flush=True)
     for rn, fused_ms, step_ms, fused_dev, step_dev in routes:
         print(f"window routes: n = {rn}, fused_ms = {fused_ms}, stepwise_ms = {step_ms}, "

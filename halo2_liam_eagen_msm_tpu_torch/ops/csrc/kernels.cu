@@ -1,9 +1,10 @@
-// The ten kernels of the field and curve layers, the first design of the
-// fused scan, and their C launchers (the five of the divisor merge tree are in
-// ntt.cuh, the four of the MSM's radix reorder in radix.cuh, both included
-// below).  Most are one thread per element: it reads its (16,) rows, does
-// the whole formula in registers (ff.cuh, ec.cuh) and writes its rows back;
-// ec_add spreads one point over four lanes and fused_madd_scan_xyzz one carry
+// The eleven kernels of the field and curve layers, the first designs of
+// mont_addsub and ec_add_fast, and their C launchers (the five of the divisor
+// merge tree are in ntt.cuh, the four of the MSM's radix reorder in
+// radix.cuh, both included below).  Most are one thread per element: it
+// reads its (16,) rows, does the whole formula in registers (ff.cuh, ec.cuh)
+// and writes its rows back; mont_addsub spreads one row over four lanes,
+// ec_add and ec_add_fast one point over four, fused_madd_scan_xyzz one carry
 // over two, and batch_inv gives a thread a chain of rows (see there).
 // No kernel allocates or synchronises; a launcher enqueues on the stream it
 // is given and returns cudaGetLastError().
@@ -12,14 +13,13 @@
 // at most 136 multiply-adds of 32 bits and are bound by bytes; the curve
 // kernels do 7 to 23 field products on 5 to 10 rows and sit at the crossover
 // of bytes and integer operations.  So every kernel keeps all intermediates
-// of its formula in registers and touches device memory once per input and
-// output, in 16-byte accesses.
+// of its formula in registers or shared memory and touches device memory
+// once per input and output, in 16-byte accesses.
 #include <cuda_runtime.h>
 #include "ec.cuh"
 
 #define ELEMS_PER_ROW 16
 #define BLOCK 128
-#define SCAN_V1_BLOCK 32
 
 static inline unsigned int grid_for(int64_t n, int block) {
   return (unsigned int)((n + block - 1) / block);
@@ -103,10 +103,100 @@ batch_inv_kernel(FieldParams P, PowExp e, const uint32_t* __restrict__ a,
 }
 
 // ---- 2. mont_addsub: replaces pallas_ff.mont_addsub ----------------------------
+//
+// Replaces pallas_ff.py:541 mont_addsub (its body k_add / k_sub).  A field
+// add moves 192 bytes a row for 16 word additions, so bytes bound it where a
+// launch is wide; the main path calls it at every width from 1 row to 1.3 M
+// (the divisor's coefficient levels, Horner, the element-major butterflies):
+// a quarter of its launches at 8,192 rows or fewer, where the launch itself
+// bounds it, two fifths at 16,384 and 32,768 rows, where a launch holds fewer
+// threads than the card has slots, and a fifth from 2^18 rows up, where bytes
+// do (chip_smoke.py's tally).  The first design (mont_addsub_v1, one thread a
+// row) made four 16-byte loads 64 bytes apart, so a warp's load touched 32
+// separate pieces, and at B = 32,768 it put 32,768 threads on 132 SMs.  Here
+// ADDSUB_LANES = 4 neighbouring lanes share a row: lane k loads the row's
+// 16-byte quarter k of each input (limbs 4k .. 4k + 3, 64 bits), so a warp's
+// load covers 512 contiguous bytes and a launch has four times the threads.
+// Each lane adds or subtracts its 64 bits; the carries (borrows) between the
+// quarters come from a carry-lookahead over the group (group_carries: two
+// __shfl_sync exchanges gather the lanes' generate and propagate bits), and
+// once more for the conditional subtraction of p, or the addition of p after
+// a borrow, whose choice is the group's carry out, the same in every lane.
+// The result is fully reduced in [0, p), so it equals the plain version limb
+// for limb.  Spare groups of a ragged last block load row n - 1 and store
+// nothing.
+
+#define ADDSUB_LANES 4
+
+// One 64-bit quarter of a (16,) row: limbs 4k .. 4k + 3, one 16-byte access.
+__device__ __forceinline__ uint64_t quarter_load(const uint32_t* __restrict__ q4) {
+  const uint4 q = *reinterpret_cast<const uint4*>(q4);
+  return (uint64_t)((q.x & 0xFFFFu) | (q.y << 16)) |
+         ((uint64_t)((q.z & 0xFFFFu) | (q.w << 16)) << 32);
+}
+
+__device__ __forceinline__ void quarter_store(uint32_t* __restrict__ q4, uint64_t w) {
+  uint4 q;
+  q.x = (uint32_t)w & 0xFFFFu;
+  q.y = (uint32_t)(w >> 16) & 0xFFFFu;
+  q.z = (uint32_t)(w >> 32) & 0xFFFFu;
+  q.w = (uint32_t)(w >> 48);
+  *reinterpret_cast<uint4*>(q4) = q;
+}
+
+// The carries into the four quarters of a row from each lane's generate bit
+// g (its 64-bit sum carries out by itself) and propagate bit p (its sum is
+// all ones, so a carry in passes on; g and p never both hold).  Two exchanges
+// gather the group's bits into every lane (bit k: lane k's g, bit 4 + k: its
+// p); then bit k of ((G | P) + G) ^ P is the carry into quarter k, and bit 4
+// the carry out of the row.  Borrows work the same way.
+__device__ __forceinline__ uint32_t group_carries(bool g, bool p, int lane) {
+  uint32_t x = ((uint32_t)g << lane) | ((uint32_t)p << (4 + lane));
+  x |= __shfl_sync(0xFFFFFFFFu, x, lane ^ 1, ADDSUB_LANES);
+  x |= __shfl_sync(0xFFFFFFFFu, x, lane ^ 2, ADDSUB_LANES);
+  const uint32_t gen = x & 0xFu, prop = x >> 4;
+  return ((gen | prop) + gen) ^ prop;
+}
 
 __global__ void __launch_bounds__(BLOCK)
 mont_addsub_kernel(FieldParams P, int is_sub, const uint32_t* __restrict__ a,
                    const uint32_t* __restrict__ b, uint32_t* __restrict__ out, int64_t n) {
+  const int lane = threadIdx.x % ADDSUB_LANES;
+  const int64_t i = global_index() / ADDSUB_LANES;
+  const int64_t off = (i < n ? i : n - 1) * ELEMS_PER_ROW + 4 * lane;
+  const uint64_t x = quarter_load(a + off), y = quarter_load(b + off);
+  uint64_t pk = 0;  // quarter `lane` of p
+#pragma unroll
+  for (int k = 0; k < ADDSUB_LANES; k++)
+    if (k == lane) pk = (uint64_t)P.p[2 * k] | ((uint64_t)P.p[2 * k + 1] << 32);
+  uint64_t r;
+  if (is_sub) {
+    // a - b; on a borrow out of the row, + p (its carry out dropped)
+    uint64_t d = x - y;
+    uint32_t c = group_carries(x < y, x == y, lane);
+    d -= (c >> lane) & 1u;
+    const bool borrow = (c >> ADDSUB_LANES) & 1u;
+    uint64_t e = d + pk;
+    c = group_carries(e < d, e == ~0ull, lane);
+    e += (c >> lane) & 1u;
+    r = borrow ? e : d;
+  } else {
+    // a + b < 2p < 2^256; then s - p, kept unless it borrows out (s < p)
+    uint64_t s = x + y;
+    uint32_t c = group_carries(s < x, s == ~0ull, lane);
+    s += (c >> lane) & 1u;
+    uint64_t d = s - pk;
+    c = group_carries(s < pk, s == pk, lane);
+    d -= (c >> lane) & 1u;
+    r = ((c >> ADDSUB_LANES) & 1u) ? s : d;
+  }
+  if (i < n) quarter_store(out + off, r);
+}
+
+// The first design, one thread a row (see above).
+__global__ void __launch_bounds__(BLOCK)
+mont_addsub_v1_kernel(FieldParams P, int is_sub, const uint32_t* __restrict__ a,
+                      const uint32_t* __restrict__ b, uint32_t* __restrict__ out, int64_t n) {
   int64_t i = global_index();
   if (i >= n) return;
   Fe x = fe_load(a + i * ELEMS_PER_ROW);
@@ -291,11 +381,105 @@ ec_add_kernel(FieldParams P, const uint32_t* x1, const uint32_t* y1, const uint3
 }
 
 // ---- 4. ec_add_fast: replaces pallas_ff.ec_add_fast ----------------------------
+//
+// Replaces pallas_ff.py:630 ec_add_fast (its body k_ec_add_fast, :394-420).
+// The MSM calls it at a few thousand points: every step of a window's
+// blocked triangle scan is one launch at B = 2048 lanes (ops/msm.py
+// _pick_block_width keeps g = n / w at ops/ec.SUM_G), the rest near
+// B = 32,768.  At B = 2048 one thread a point (the first design,
+// ec_add_fast_v1, 126 registers) puts 16 blocks on 132 SMs, each thread a
+// chain of 16 dependent products, so latency bounds it, not the
+// operations.  Here ADD_LANES = 4 neighbouring lanes share a point, by
+// ec_add's slot machinery above: the 16 products of add-2007-bl (the generic
+// sum alone; no doubling path) in five rounds of up to four independent
+// products,
+//   {Z1^2, Z2^2, Z1 Z2} -> {u1, u2, Z2 Z2Z2, Z1 Z1Z1} -> {s1, s2, h^2, Z1Z2 h}
+//   -> {h hh, u1 hh, r^2} -> {r (v - x3), s1 hhh},
+// with the adds for h, r, x3 and v - x3 in rounds between them.  Lane k
+// writes coordinate k through k_ec_add_fast's selects in its order (q
+// identity passes p, p identity passes q), lane 3 the flag byte (a true
+// doubling, neither operand the identity).  Every value is fully reduced, so
+// the output equals the plain version and the first design limb for limb.
+// A ragged last block loads point n - 1 into its spare groups and stores
+// nothing from them.  Wide launches pay for the lanes: the product rounds
+// fill 16 of 20 lane slots and the add rounds one of four, so at B = 32,768,
+// where the card has the warps to be bound by issue, this runs about a tenth
+// slower than the first design (51 such launches an MSM against 272 at
+// B = 2048; PERF.md).
 
-__global__ void __launch_bounds__(BLOCK)
+enum FastAddSlot {
+  F_X1, F_Y1, F_Z1, F_X2, F_Y2, F_Z2,
+  F_Z1Z1, F_Z2Z2, F_Z1Z2, F_U1, F_U2, F_Z1C, F_Z2C, F_H, F_S1, F_S2, F_HH, F_Z3, F_R,
+  F_HHH, F_V, F_RR, F_X3, F_VX, F_RY, F_SH,
+  F_ZERO,                     // zero: x3 - 0 and z3 - 0 in the last round
+  F_SINK1, F_SINK2, F_SINK3,  // where an idle lane writes
+  FAST_SLOTS
+};
+#define FAST_STRIDE (2 * FAST_SLOTS + 1)
+
+__global__ void __launch_bounds__(ADD_BLOCK)
 ec_add_fast_kernel(FieldParams P, const uint32_t* x1, const uint32_t* y1, const uint32_t* z1,
                    const uint32_t* x2, const uint32_t* y2, const uint32_t* z2,
                    uint32_t* ox, uint32_t* oy, uint32_t* oz, uint8_t* exc, int64_t n) {
+  __shared__ uint4 fast_sm[ADD_PTS * FAST_STRIDE];
+  const int lane = threadIdx.x % ADD_LANES;
+  const int pt = threadIdx.x / ADD_LANES;
+  const int64_t i = (int64_t)blockIdx.x * ADD_PTS + pt;
+  const int64_t src = i < n ? i : n - 1;
+  uint4* sc = fast_sm + pt * FAST_STRIDE;
+  for (int r = lane; r < 6; r += ADD_LANES) {
+    const uint32_t* row = r == 0 ? x1 : r == 1 ? y1 : r == 2 ? z1 : r == 3 ? x2 : r == 4 ? y2 : z2;
+    slot_store(sc, r, fe_load(row + src * ELEMS_PER_ROW));
+  }
+  if (lane == 3) slot_store(sc, F_ZERO, fe_zero());
+  __syncwarp();
+  // Lane:              0                    1                    2                 3
+  slot_mul_round(sc, lane, LANES4(F_Z1, F_Z2, F_Z1, F_Z1), LANES4(F_Z1, F_Z2, F_Z2, F_Z1),
+                 LANES4(F_Z1Z1, F_Z2Z2, F_Z1Z2, F_SINK3), P);
+  slot_mul_round(sc, lane, LANES4(F_X1, F_X2, F_Z2, F_Z1), LANES4(F_Z2Z2, F_Z1Z1, F_Z2Z2, F_Z1Z1),
+                 LANES4(F_U1, F_U2, F_Z2C, F_Z1C), P);
+  slot_lin_round(sc, lane, LANES4(F_U2, F_X1, F_X1, F_X1), LANES4(F_U1, F_X1, F_X1, F_X1),
+                 LANES4(F_H, F_SINK1, F_SINK2, F_SINK3), 0x1u, P);
+  slot_mul_round(sc, lane, LANES4(F_Y1, F_Y2, F_H, F_Z1Z2), LANES4(F_Z2C, F_Z1C, F_H, F_H),
+                 LANES4(F_S1, F_S2, F_HH, F_Z3), P);
+  slot_lin_round(sc, lane, LANES4(F_S2, F_X1, F_X1, F_X1), LANES4(F_S1, F_X1, F_X1, F_X1),
+                 LANES4(F_R, F_SINK1, F_SINK2, F_SINK3), 0x1u, P);
+  slot_mul_round(sc, lane, LANES4(F_H, F_U1, F_R, F_X1), LANES4(F_HH, F_HH, F_R, F_X1),
+                 LANES4(F_HHH, F_V, F_RR, F_SINK3), P);
+  {
+    // x3 = (r^2 - hhh) - 2v and v - x3, the same body in every lane; lane 0
+    // keeps x3, lane 1 v - x3
+    const Fe v = slot_load(sc, F_V);
+    const Fe x3 = fe_sub(fe_sub(slot_load(sc, F_RR), slot_load(sc, F_HHH), P),
+                         fe_double(v, P), P);
+    slot_store(sc, lane_slot(LANES4(F_X3, F_VX, F_SINK2, F_SINK3), lane),
+               fe_select(lane == 0, x3, fe_sub(v, x3, P)));
+    __syncwarp();
+  }
+  slot_mul_round(sc, lane, LANES4(F_R, F_S1, F_X1, F_X1), LANES4(F_VX, F_HHH, F_X1, F_X1),
+                 LANES4(F_RY, F_SH, F_SINK2, F_SINK3), P);
+  // the generic sum's coordinate `lane`: x3 - 0, r (v - x3) - s1 hhh, z3 - 0
+  Fe o = fe_sub(slot_load(sc, lane_slot(LANES4(F_X3, F_RY, F_Z3, F_X1), lane)),
+                slot_load(sc, lane_slot(LANES4(F_ZERO, F_SH, F_ZERO, F_X1), lane)), P);
+  const bool id1 = fe_is_zero(slot_load(sc, F_Z1));
+  const bool id2 = fe_is_zero(slot_load(sc, F_Z2));
+  if (i < n) {
+    if (lane < 3) {
+      o = fe_select(id1, slot_load(sc, 3 + lane), o);
+      o = fe_select(id2, slot_load(sc, lane), o);
+      fe_store((lane == 0 ? ox : lane == 1 ? oy : oz) + i * ELEMS_PER_ROW, o);
+    } else {
+      const bool dbl = fe_is_zero(slot_load(sc, F_H)) && fe_is_zero(slot_load(sc, F_R));
+      exc[i] = (!id1 && !id2 && dbl) ? 1 : 0;
+    }
+  }
+}
+
+// The first design, one thread a point (see above).
+__global__ void __launch_bounds__(BLOCK)
+ec_add_fast_v1_kernel(FieldParams P, const uint32_t* x1, const uint32_t* y1, const uint32_t* z1,
+                      const uint32_t* x2, const uint32_t* y2, const uint32_t* z2,
+                      uint32_t* ox, uint32_t* oy, uint32_t* oz, uint8_t* exc, int64_t n) {
   int64_t i = global_index();
   if (i >= n) return;
   bool e;
@@ -325,12 +509,11 @@ ec_double_kernel(FieldParams P, const uint32_t* x1, const uint32_t* y1, const ui
 // words.  At the end it writes its total as a (16,) row and its exception
 // flag as one byte.
 //
-// The first kernel (fused_madd_scan_xyzz_v1, kept for chip_smoke.py's
-// comparison of old and new) gives a carry one thread: w = 64 steps of 10
-// dependent products in a chain, with g = 16,384 carries about four warps an
-// SM, so latency bounds it (0.622 ms against a 0.101 ms bound).  Here
-// SCAN_LANES = 2 neighbouring lanes share a carry, as ec_add's four do a
-// point: a step is five rounds of two independent products, a lane each,
+// One thread a carry (the first design, deleted after its comparison) walks
+// w = 64 steps of 10 dependent products in a chain, with g = 16,384 carries
+// about four warps an SM, so latency bounds it (0.622 ms against a 0.101 ms
+// bound).  Here SCAN_LANES = 2 neighbouring lanes share a carry, as ec_add's
+// four do a point: a step is five rounds of two independent products, a lane each,
 //   {u2, s2} -> {pp^2, r^2} -> {ppp, q} -> {r (q - x3), y ppp} -> {zz3, zzz3},
 // with rounds of adds and subtractions between them, every value in a slot
 // of the carry's scratch in shared memory, slots picked by lane index from
@@ -343,7 +526,7 @@ ec_double_kernel(FieldParams P, const uint32_t* x1, const uint32_t* y1, const ui
 // zzz, through the affine identity's select, and writes them back to their
 // slots and to the inner prefixes.  The values are those of
 // ec_madd_xyzz_fast, each fully reduced, in its select order, so every output
-// is the first kernel's limb for limb.  The next row is loaded into
+// is the plain version's limb for limb.  The next row is loaded into
 // registers while the step runs.  Spare carries of a ragged last block walk
 // carry g - 1 and store nothing.
 
@@ -433,44 +616,6 @@ fused_madd_scan_xyzz_kernel(FieldParams P, Fe tx, Fe ty,
     fe_store((lane == 0 ? toty : totzzz) + carry * ELEMS_PER_ROW, o2);
     if (lane == 0) exc[carry] = any ? 1 : 0;
   }
-}
-
-// The first design, one thread a carry (see above).
-__global__ void __launch_bounds__(SCAN_V1_BLOCK)
-fused_madd_scan_xyzz_v1_kernel(FieldParams P, Fe tx, Fe ty,
-                               const uint32_t* __restrict__ rows, int w, int64_t g,
-                               uint32_t* __restrict__ ix, uint32_t* __restrict__ iy,
-                               uint32_t* __restrict__ izz, uint32_t* __restrict__ izzz,
-                               uint32_t* __restrict__ totx, uint32_t* __restrict__ toty,
-                               uint32_t* __restrict__ totzz, uint32_t* __restrict__ totzzz,
-                               uint8_t* __restrict__ exc) {
-  int64_t lane = global_index();
-  if (lane >= g) return;
-  Xyzz c;
-  c.x = tx;
-  c.y = ty;
-  c.zz = fe_one(P);
-  c.zzz = fe_one(P);
-  bool any = false;
-  const uint32_t* r = rows + lane * w * ELEMS_PER_ROW;
-#pragma unroll 1
-  for (int t = 0; t < w; t++) {
-    Fe qx = fe_load_packed(r + (int64_t)t * ELEMS_PER_ROW);
-    Fe qy = fe_load_packed(r + (int64_t)t * ELEMS_PER_ROW + FE_WORDS);
-    bool e;
-    c = ec_madd_xyzz_fast(c, qx, qy, P, &e);
-    any = any || e;
-    int64_t off = (int64_t)t * ELEMS_PER_ROW * g + lane;
-    fe_store_limb_major(ix + off, g, c.x);
-    fe_store_limb_major(iy + off, g, c.y);
-    fe_store_limb_major(izz + off, g, c.zz);
-    fe_store_limb_major(izzz + off, g, c.zzz);
-  }
-  fe_store(totx + lane * ELEMS_PER_ROW, c.x);
-  fe_store(toty + lane * ELEMS_PER_ROW, c.y);
-  fe_store(totzz + lane * ELEMS_PER_ROW, c.zz);
-  fe_store(totzzz + lane * ELEMS_PER_ROW, c.zzz);
-  exc[lane] = any ? 1 : 0;
 }
 
 // ---- 7. ec_madd_xyzz_fast: replaces pallas_ff.ec_madd_xyzz_fast -----------------
@@ -578,7 +723,15 @@ int batch_inv_launch(const FieldParams* P, const uint32_t* e, const void* a, voi
 int mont_addsub_launch(const FieldParams* P, int is_sub, const void* a, const void* b,
                        void* out, int64_t n, void* stream) {
   if (n > 0)
-    mont_addsub_kernel<<<grid_for(n, BLOCK), BLOCK, 0, (cudaStream_t)stream>>>(
+    mont_addsub_kernel<<<grid_for(n, BLOCK / ADDSUB_LANES), BLOCK, 0, (cudaStream_t)stream>>>(
+        *P, is_sub, (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, n);
+  return (int)cudaGetLastError();
+}
+
+int mont_addsub_v1_launch(const FieldParams* P, int is_sub, const void* a, const void* b,
+                          void* out, int64_t n, void* stream) {
+  if (n > 0)
+    mont_addsub_v1_kernel<<<grid_for(n, BLOCK), BLOCK, 0, (cudaStream_t)stream>>>(
         *P, is_sub, (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, n);
   return (int)cudaGetLastError();
 }
@@ -598,7 +751,18 @@ int ec_add_fast_launch(const FieldParams* P, const void* x1, const void* y1, con
                        const void* x2, const void* y2, const void* z2,
                        void* ox, void* oy, void* oz, void* exc, int64_t n, void* stream) {
   if (n > 0)
-    ec_add_fast_kernel<<<grid_for(n, BLOCK), BLOCK, 0, (cudaStream_t)stream>>>(
+    ec_add_fast_kernel<<<grid_for(n, ADD_PTS), ADD_BLOCK, 0, (cudaStream_t)stream>>>(
+        *P, (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)z1,
+        (const uint32_t*)x2, (const uint32_t*)y2, (const uint32_t*)z2,
+        (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, (uint8_t*)exc, n);
+  return (int)cudaGetLastError();
+}
+
+int ec_add_fast_v1_launch(const FieldParams* P, const void* x1, const void* y1,
+                          const void* z1, const void* x2, const void* y2, const void* z2,
+                          void* ox, void* oy, void* oz, void* exc, int64_t n, void* stream) {
+  if (n > 0)
+    ec_add_fast_v1_kernel<<<grid_for(n, BLOCK), BLOCK, 0, (cudaStream_t)stream>>>(
         *P, (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)z1,
         (const uint32_t*)x2, (const uint32_t*)y2, (const uint32_t*)z2,
         (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, (uint8_t*)exc, n);
@@ -630,25 +794,6 @@ int fused_madd_scan_xyzz_launch(const FieldParams* P, const uint32_t* tx, const 
     words_to_fe(ty, &fy);
     fused_madd_scan_xyzz_kernel<<<grid_for(g, SCAN_CARRIES), SCAN_BLOCK, 0,
                                   (cudaStream_t)stream>>>(
-        *P, fx, fy, (const uint32_t*)rows, w, g,
-        (uint32_t*)ix, (uint32_t*)iy, (uint32_t*)izz, (uint32_t*)izzz,
-        (uint32_t*)totx, (uint32_t*)toty, (uint32_t*)totzz, (uint32_t*)totzzz,
-        (uint8_t*)exc);
-  }
-  return (int)cudaGetLastError();
-}
-
-int fused_madd_scan_xyzz_v1_launch(const FieldParams* P, const uint32_t* tx,
-                                   const uint32_t* ty, const void* rows, int w, int64_t g,
-                                   void* ix, void* iy, void* izz, void* izzz,
-                                   void* totx, void* toty, void* totzz, void* totzzz,
-                                   void* exc, void* stream) {
-  if (g > 0 && w > 0) {
-    Fe fx, fy;
-    words_to_fe(tx, &fx);
-    words_to_fe(ty, &fy);
-    fused_madd_scan_xyzz_v1_kernel<<<grid_for(g, SCAN_V1_BLOCK), SCAN_V1_BLOCK, 0,
-                                     (cudaStream_t)stream>>>(
         *P, fx, fy, (const uint32_t*)rows, w, g,
         (uint32_t*)ix, (uint32_t*)iy, (uint32_t*)izz, (uint32_t*)izzz,
         (uint32_t*)totx, (uint32_t*)toty, (uint32_t*)totzz, (uint32_t*)totzzz,

@@ -26,9 +26,10 @@ On this card mont_mul and mont_addsub are bound by bytes (192 bytes moved for
 at most 136 multiply-adds of 32 bits), and the curve kernels sit at the
 crossover of bytes and integer operations; so each does its whole formula in
 registers on 8 limbs of 32 bits and touches device memory once per input and
-output.  See ops/csrc/ff.cuh for the limb repacking.  batch_inv runs a chain
-of products a thread and is bound by the latency of its power (see
-csrc/kernels.cu).
+output.  See ops/csrc/ff.cuh for the limb repacking.  mont_addsub spreads a
+row over four lanes, ec_add and ec_add_fast a point over four.  batch_inv
+runs a chain of products a thread and is bound by the latency of its power
+(see csrc/kernels.cu).
 
 Tensors are (..., 16) int32, little-endian 16-bit limbs in Montgomery form
 (R = 2^256), fully reduced to [0, p); a kernel reads the same buffer as
@@ -40,10 +41,10 @@ function on the same tensors, device-agnostic, in int64 arithmetic.  The
 callers (ops/ff.py, ops/ec.py, ops/msm.py) take the kernel for a CUDA tensor
 and the plain version for a CPU tensor.
 
-fused_madd_scan_xyzz_v1 is the first design of fused_madd_scan_xyzz (one
-thread a carry; the kernel of the path spreads a carry over two lanes), kept
-with its own launcher and wrapper for chip_smoke.py's comparison of old and
-new; no path calls it.
+mont_addsub_v1 and ec_add_fast_v1 are the first designs of mont_addsub and
+ec_add_fast (one thread a row, one thread a point), kept with their own
+launchers and wrappers for chip_smoke.py's comparison of old and new; no path
+calls them.
 
 LAUNCHES counts kernel launches by name: a wrapper adds one exactly where it
 launches its kernel.  The same library, counters and launcher carry the five
@@ -73,9 +74,9 @@ KERNELS = ("mont_mul", "batch_inv", "mont_addsub", "ec_add", "ec_add_fast",
            "lm_mul", "lm_addsub", "lm_mul_const", "stage_big", "stages_small",
            # the radix reorder's four, in csrc/radix.cuh (ops/cuda_radix.py)
            "radix_rank", "radix_shuffle", "radix_pass_b", "radix_compact",
-           # the first design of the fused scan, launched only by
-           # chip_smoke.py's comparison of old and new
-           "fused_madd_scan_xyzz_v1")
+           # the first designs of mont_addsub and ec_add_fast, launched only
+           # by chip_smoke.py's comparison of old and new
+           "mont_addsub_v1", "ec_add_fast_v1")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 SCAN_W = 64  # sequential madd steps per lane of the fused scan
@@ -173,12 +174,12 @@ def _lib():
             "mont_mul_launch": [fpp, vp, vp, vp, i64, vp],
             "batch_inv_launch": [fpp, u32p, vp, vp, i64, ci, vp],
             "mont_addsub_launch": [fpp, ci, vp, vp, vp, i64, vp],
+            "mont_addsub_v1_launch": [fpp, ci, vp, vp, vp, i64, vp],
             "ec_add_launch": [fpp] + [vp] * 9 + [i64, vp],
             "ec_add_fast_launch": [fpp] + [vp] * 10 + [i64, vp],
+            "ec_add_fast_v1_launch": [fpp] + [vp] * 10 + [i64, vp],
             "ec_double_launch": [fpp] + [vp] * 6 + [i64, vp],
             "fused_madd_scan_xyzz_launch":
-                [fpp, u32p, u32p, vp, ci, i64] + [vp] * 9 + [vp],
-            "fused_madd_scan_xyzz_v1_launch":
                 [fpp, u32p, u32p, vp, ci, i64] + [vp] * 9 + [vp],
             "ec_madd_xyzz_fast_launch": [fpp] + [vp] * 11 + [i64, vp],
             "ec_add_mixed_launch": [fpp] + [vp] * 9 + [i64, vp],
@@ -286,14 +287,23 @@ def batch_inv(spec: FieldSpec, a, chain: int | None = None):
     return out.reshape(lead + (N_LIMBS,))
 
 
-def mont_addsub(spec: FieldSpec, is_sub: bool, a, b):
-    """(..., 16) +/- (..., 16) mod p, one kernel launch."""
-    _check_cuda("mont_addsub", a, b)
+def _mont_addsub(kernel: str, spec: FieldSpec, is_sub: bool, a, b):
+    _check_cuda(kernel, a, b)
     lead, (af, bf) = _flatten(a, b)
     out = torch.empty_like(af)
-    _launch("mont_addsub", af.device, ctypes.byref(_field_params(spec)),
+    _launch(kernel, af.device, ctypes.byref(_field_params(spec)),
             int(bool(is_sub)), *_ptrs((af, bf, out)), af.shape[0])
     return out.reshape(lead + (N_LIMBS,))
+
+
+def mont_addsub(spec: FieldSpec, is_sub: bool, a, b):
+    """(..., 16) +/- (..., 16) mod p, one kernel launch (four lanes a row)."""
+    return _mont_addsub("mont_addsub", spec, is_sub, a, b)
+
+
+def mont_addsub_v1(spec: FieldSpec, is_sub: bool, a, b):
+    """mont_addsub by its first kernel (one thread a row), for comparison."""
+    return _mont_addsub("mont_addsub_v1", spec, is_sub, a, b)
 
 
 def _require_a_zero(curve: CurveSpec) -> None:
@@ -314,17 +324,28 @@ def ec_add(curve: CurveSpec, x1, y1, z1, x2, y2, z2):
     return tuple(o.reshape(lead + (N_LIMBS,)) for o in outs)
 
 
-def ec_add_fast(curve: CurveSpec, x1, y1, z1, x2, y2, z2):
-    """Batched generic Jacobian addition without a doubling path, one kernel
-    launch: returns (x3, y3, z3, exc) with exc a (...,) bool tensor."""
-    _check_cuda("ec_add_fast", x1, y1, z1, x2, y2, z2)
+def _ec_add_fast(kernel: str, curve: CurveSpec, x1, y1, z1, x2, y2, z2):
+    _check_cuda(kernel, x1, y1, z1, x2, y2, z2)
     lead, flat = _flatten(x1, y1, z1, x2, y2, z2)
     outs = tuple(torch.empty_like(flat[0]) for _ in range(3))
-    exc = torch.empty(flat[0].shape[0], dtype=torch.uint8, device=flat[0].device)
-    _launch("ec_add_fast", flat[0].device, ctypes.byref(_field_params(curve.field)),
+    # the kernel writes each flag as a byte 0 or 1, a bool's own storage, so
+    # no conversion launch follows it
+    exc = torch.empty(flat[0].shape[0], dtype=torch.bool, device=flat[0].device)
+    _launch(kernel, flat[0].device, ctypes.byref(_field_params(curve.field)),
             *_ptrs(flat + outs), exc.data_ptr(), flat[0].shape[0])
-    return tuple(o.reshape(lead + (N_LIMBS,)) for o in outs) + \
-        (exc.reshape(lead) != 0,)
+    return tuple(o.reshape(lead + (N_LIMBS,)) for o in outs) + (exc.reshape(lead),)
+
+
+def ec_add_fast(curve: CurveSpec, x1, y1, z1, x2, y2, z2):
+    """Batched generic Jacobian addition without a doubling path, one kernel
+    launch (four lanes a point): returns (x3, y3, z3, exc) with exc a (...,)
+    bool tensor."""
+    return _ec_add_fast("ec_add_fast", curve, x1, y1, z1, x2, y2, z2)
+
+
+def ec_add_fast_v1(curve: CurveSpec, x1, y1, z1, x2, y2, z2):
+    """ec_add_fast by its first kernel (one thread a point), for comparison."""
+    return _ec_add_fast("ec_add_fast_v1", curve, x1, y1, z1, x2, y2, z2)
 
 
 def ec_double(curve: CurveSpec, x1, y1, z1):
@@ -391,7 +412,21 @@ def _limbs_to_int(limbs) -> int:
     return sum(int(v) << (LIMB_BITS * i) for i, v in enumerate(limbs))
 
 
-def _fused_scan(kernel: str, curve: CurveSpec, t_limbs, rows, w: int):
+def fused_madd_scan_xyzz(curve: CurveSpec, t_limbs, rows, w: int = SCAN_W):
+    """One window's whole blinded prefix scan in one kernel launch (two
+    lanes a carry).
+
+    rows: (g*w, 16) int32 packed affine rows in sorted order (ops/msm.
+    _pack_pair: x in words 0..7, y in words 8..15, two 16-bit limbs a word;
+    an all-zero row is the affine identity).  Lane l owns rows l*w .. l*w+w-1.
+    t_limbs: ((x limbs), (y limbs)), the blinding point T's Montgomery limbs.
+
+    Returns (inner, totals, exc): inner is the XYZZ 4-tuple of (w, 16, g)
+    tensors with inner[t, :, l] = T + the inclusive prefix of lane l after
+    step t; totals the 4-tuple of (g, 16) final lane carries (still blinded);
+    exc a (g,) bool tensor of per-lane exception flags (identity carry or
+    carry == +-Q at some step; an affine identity passes unflagged)."""
+    kernel = "fused_madd_scan_xyzz"
     _check_cuda(kernel, rows)
     if rows.dim() != 2 or not rows.is_contiguous() or rows.data_ptr() % 16:
         raise ValueError(f"{kernel}: rows must be a contiguous, 16-byte aligned "
@@ -410,29 +445,6 @@ def _fused_scan(kernel: str, curve: CurveSpec, t_limbs, rows, w: int):
     _launch(kernel, dev, ctypes.byref(_field_params(curve.field)),
             tx, ty, rows.data_ptr(), w, g, *_ptrs(inner + totals), exc.data_ptr())
     return inner, totals, exc != 0
-
-
-def fused_madd_scan_xyzz(curve: CurveSpec, t_limbs, rows, w: int = SCAN_W):
-    """One window's whole blinded prefix scan in one kernel launch (two
-    lanes a carry).
-
-    rows: (g*w, 16) int32 packed affine rows in sorted order (ops/msm.
-    _pack_pair: x in words 0..7, y in words 8..15, two 16-bit limbs a word;
-    an all-zero row is the affine identity).  Lane l owns rows l*w .. l*w+w-1.
-    t_limbs: ((x limbs), (y limbs)), the blinding point T's Montgomery limbs.
-
-    Returns (inner, totals, exc): inner is the XYZZ 4-tuple of (w, 16, g)
-    tensors with inner[t, :, l] = T + the inclusive prefix of lane l after
-    step t; totals the 4-tuple of (g, 16) final lane carries (still blinded);
-    exc a (g,) bool tensor of per-lane exception flags (identity carry or
-    carry == +-Q at some step; an affine identity passes unflagged)."""
-    return _fused_scan("fused_madd_scan_xyzz", curve, t_limbs, rows, w)
-
-
-def fused_madd_scan_xyzz_v1(curve: CurveSpec, t_limbs, rows, w: int = SCAN_W):
-    """fused_madd_scan_xyzz by its first kernel (one thread a carry), for
-    comparison."""
-    return _fused_scan("fused_madd_scan_xyzz_v1", curve, t_limbs, rows, w)
 
 
 # ---------------------------------------------------------------------------

@@ -198,11 +198,6 @@ class FF:
         out = ints_to_limbs([pow(x, p - 2, p) * r2 % p for x in vals])
         return limbs_from_numpy(out.reshape(tuple(a.shape)), a.device)
 
-    def _inv_fermat(self, a):
-        """The first design of inv on the card: a chain of about 330-380
-        product launches."""
-        return self.pow_fixed(a, self.spec.p - 2)
-
     def batch_inv(self, a, axis: int = 0):
         """Montgomery-trick batch inversion along `axis`; zeros map to zeros.
 
@@ -213,19 +208,12 @@ class FF:
         the host."""
         if a.is_cuda:
             return cuda_ff.batch_inv(self.spec, a)
-        return self._batch_inv_chains(a, axis, self._inv_host)
+        return self._batch_inv_chains(a, axis)
 
-    def _batch_inv_v1(self, a, axis: int = 0):
-        """The first design of batch_inv on the card, kept for chip_smoke.py's
-        comparison of old and new: the chains of _batch_inv_chains, a product
-        launch a step, and the Fermat chain (_inv_fermat) for the totals,
-        about 460 launches."""
-        return self._batch_inv_chains(a, axis, self._inv_fermat)
-
-    def _batch_inv_chains(self, a, axis: int, inv):
+    def _batch_inv_chains(self, a, axis: int):
         """The batch is folded into `groups` = 64 steps of W parallel product
         chains (each step one full-width product), and the W chain totals are
-        inverted in parallel by `inv`.  Batches of up to 512 skip the
+        inverted on the host (_inv_host).  Batches of up to 512 skip the
         chains."""
         a = a.movedim(axis, 0)
         zmask = self.is_zero(a)
@@ -236,7 +224,7 @@ class FF:
         n = flat.shape[0]
 
         if n <= 512:
-            out = inv(safe)
+            out = self._inv_host(safe)
         else:
             groups = 64
             w = -(-n // groups)
@@ -253,7 +241,7 @@ class FF:
             for i in reversed(range(groups)):  # exclusive suffix products
                 suf_ex[i] = carry
                 carry = self.mul(carry, m[i])
-            tot_inv = inv(totals)
+            tot_inv = self._inv_host(totals)
             inv_flat = self.mul(self.mul(torch.stack(pre_ex), torch.stack(suf_ex)),
                                 tot_inv[None])
             out = inv_flat.reshape(groups * w, N_LIMBS)[:n].reshape(lead + (N_LIMBS,))

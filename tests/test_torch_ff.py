@@ -220,12 +220,15 @@ def test_batch_inv_bound_counts_the_function(n):
         assert by == "bytes" and b_ms == pytest.approx(0.0801, abs=1e-4)
 
 
-def test_batch_inv_v1_on_the_host(rng):
-    """The first design's chains (here with the Fermat power on plain
-    products, as the card runs them) equal the CPU route."""
+@pytest.mark.parametrize("chain", [1, 4, 64])
+def test_batch_inv_plain_chains_on_the_host(chain, rng):
+    """batch_inv_plain on a (2, 300) batch with zeros, at chain lengths 1 (a
+    power a row), 4 (150 chains) and 64 (ten chains, the last ragged), equals
+    the exact host inverse row for row."""
     spec = TF.PALLAS_FP
-    k = ff(spec)
     xs = [rng.randrange(spec.p) for _ in range(600)]
-    xs[0] = xs[599] = 0
+    xs[0] = xs[299] = xs[599] = 0
     a = limbs_from_numpy(ints_to_mont_limbs(xs, spec), "cpu").reshape(2, 300, TF.N_LIMBS)
-    assert torch.equal(k._batch_inv_v1(a, axis=1), k.batch_inv(a, axis=1))
+    got = CF.batch_inv_plain(spec, a, chain=chain)
+    assert got.shape == a.shape
+    assert torch.equal(got, ff(spec)._inv_host(a))

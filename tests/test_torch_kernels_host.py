@@ -6,17 +6,24 @@ held against its plain PyTorch version on CPU tensors.
 
 The shim rewrites `kernel<<<grid, block, smem, stream>>>(...)` into a call of
 host_launch, which runs the blocks one after another and each thread of a
-block as a std::thread, with __syncthreads() and __syncwarp() a C++20
-std::barrier over the block's threads (every kernel reaches each
-__syncwarp() with all its lanes, so a block-wide barrier is a stricter one),
-__shared__ arrays and the extern __shared__ dynamic array static (one block
-is alive at a time; the launch's dynamic size is ignored),
-cudaFuncSetAttribute a stub and atomicAdd an atomic fetch-and-add.
+block as a std::thread.  The threads of a block take turns: one runs at a
+time, in a fixed order (ascending thread index in even blocks, descending in
+odd ones), and hands on to the next at each __syncthreads() or __syncwarp()
+and when it returns; so a barrier is a whole round of the block (every
+kernel reaches each __syncwarp() with all its lanes, so a block-wide barrier
+is a stricter one), and a value read from another thread without a barrier
+between its write and the read is, deterministically, the stale one for
+half the pairs.  __shfl_sync and __shfl_up_sync go through a per-block
+exchange array between two barriers.  __shared__ arrays and the extern
+__shared__ dynamic array are static (one block is alive at a time; the
+launch's dynamic size is ignored), cudaFuncSetAttribute a stub and atomicAdd
+an atomic fetch-and-add.
 
 This checks the arithmetic of the device functions, the C interface and the
 wrappers' pointer plumbing; that the sources compile with nvcc and run on
 the card is chip_smoke.py's business.  Integer arithmetic: torch.equal."""
 
+import ctypes
 import re
 import shutil
 import subprocess
@@ -27,7 +34,7 @@ import torch
 
 from halo2_liam_eagen_msm_tpu_torch.convert import JPoint
 from halo2_liam_eagen_msm_tpu_torch.fields import PALLAS
-from halo2_liam_eagen_msm_tpu_torch.limbs import ints_to_mont_limbs
+from halo2_liam_eagen_msm_tpu_torch.limbs import ints_to_limbs, ints_to_mont_limbs
 from halo2_liam_eagen_msm_tpu_torch.ops import cuda_ff as CF
 from halo2_liam_eagen_msm_tpu_torch.ops import cuda_ntt as CN
 from halo2_liam_eagen_msm_tpu_torch.ops import cuda_radix as CR
@@ -42,10 +49,12 @@ torch.set_num_threads(1)
 CURVE = PALLAS
 SPEC = PALLAS.field
 B = 37  # ragged: not a multiple of the block of 128 threads
+_CSRC = Path(CF.__file__).resolve().parent / "csrc"
 
 _SHIM = """
 #include <stdint.h>
-#include <barrier>
+#include <memory>
+#include <semaphore>
 #include <thread>
 #include <vector>
 #define __device__
@@ -58,9 +67,48 @@ struct uint4 { uint32_t x, y, z, w; };
 struct idx3 { unsigned int x; };
 static thread_local idx3 blockIdx, threadIdx;
 static idx3 blockDim, gridDim;
-static thread_local std::barrier<>* block_barrier;
-static inline void __syncthreads() { block_barrier->arrive_and_wait(); }
-static inline void __syncwarp() { block_barrier->arrive_and_wait(); }
+// The threads of one block, taking turns: thread at place k of the order
+// runs while it holds turn[k] and hands on to the next live place.
+struct HostBlock {
+  std::vector<std::unique_ptr<std::binary_semaphore>> turn;
+  std::vector<char> done;
+};
+static thread_local HostBlock* host_block;
+static thread_local unsigned int host_place;
+static void host_hand_on(unsigned int place) {
+  const unsigned int n = (unsigned int)host_block->turn.size();
+  for (unsigned int k = 1; k <= n; k++) {
+    const unsigned int q = (place + k) % n;
+    if (!host_block->done[q]) {
+      host_block->turn[q]->release();
+      return;
+    }
+  }
+}
+static inline void __syncthreads() {
+  host_hand_on(host_place);
+  host_block->turn[host_place]->acquire();
+}
+static inline void __syncwarp() { __syncthreads(); }
+static uint64_t host_xchg[1024];
+template <class T>
+static inline T __shfl_sync(unsigned int, T v, int src, int width = 32) {
+  host_xchg[threadIdx.x] = (uint64_t)v;
+  __syncthreads();
+  const unsigned int w = (unsigned int)width;
+  const T r = (T)host_xchg[(threadIdx.x & ~(w - 1)) | ((unsigned int)src & (w - 1))];
+  __syncthreads();
+  return r;
+}
+template <class T>
+static inline T __shfl_up_sync(unsigned int, T v, unsigned int delta, int width = 32) {
+  host_xchg[threadIdx.x] = (uint64_t)v;
+  __syncthreads();
+  const T r = (threadIdx.x & (unsigned int)(width - 1)) >= delta
+      ? (T)host_xchg[threadIdx.x - delta] : v;
+  __syncthreads();
+  return r;
+}
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 template <class F>
 static inline int cudaFuncSetAttribute(F, int, int) { return 0; }
@@ -72,15 +120,23 @@ static void host_launch(unsigned int grid, unsigned int block, F body) {
   gridDim.x = grid;
   blockDim.x = block;
   for (unsigned int b = 0; b < grid; b++) {
-    std::barrier<> bar(block);
+    HostBlock hb;
+    hb.done.assign(block, 0);
+    for (unsigned int k = 0; k < block; k++)
+      hb.turn.emplace_back(std::make_unique<std::binary_semaphore>(0));
     std::vector<std::thread> threads;
-    for (unsigned int t = 0; t < block; t++)
-      threads.emplace_back([&, b, t]() {
+    for (unsigned int k = 0; k < block; k++)
+      threads.emplace_back([&, b, k]() {
         blockIdx.x = b;
-        threadIdx.x = t;
-        block_barrier = &bar;
+        threadIdx.x = b % 2 ? block - 1 - k : k;
+        host_block = &hb;
+        host_place = k;
+        hb.turn[k]->acquire();
         body();
+        hb.done[k] = 1;
+        host_hand_on(k);
       });
+    hb.turn[0]->release();
     for (auto& th : threads) th.join();
   }
 }
@@ -115,17 +171,16 @@ def host_library(tmp_path_factory):
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ to compile the CUDA sources for the host")
-    csrc = Path(CF.__file__).resolve().parent / "csrc"
     out = tmp_path_factory.mktemp("host_kernels")
     n = 0
     for name in ("kernels.cu", "ntt.cuh", "radix.cuh"):
-        src = (csrc / name).read_text().replace("#include <cuda_runtime.h>", _SHIM)
+        src = (_CSRC / name).read_text().replace("#include <cuda_runtime.h>", _SHIM)
         src, count = _rewrite_launches(src)
         n += count
         (out / (name.replace(".cu", ".cpp") if name.endswith(".cu") else name)).write_text(src)
     assert n == len(CF.KERNELS), "every launcher launches one kernel"
     for name in ("ff.cuh", "ec.cuh"):
-        shutil.copy(csrc / name, out / name)
+        shutil.copy(_CSRC / name, out / name)
     lib = out / "libkernels_host.so"
     subprocess.run([gxx, "-std=c++20", "-O1", "-pthread", "-shared", "-fPIC",
                     "-o", str(lib), str(out / "kernels.cpp")],
@@ -303,17 +358,17 @@ def _case(name, rng, nprng):
         chains = (1, 4, 64)
         return (lambda a: tuple(CF.batch_inv(SPEC, a, chain=c) for c in chains),
                 lambda a: tuple(CF.batch_inv_plain(SPEC, a, chain=c) for c in chains), (a,))
-    if name == "mont_addsub":
+    if name in ("mont_addsub", "mont_addsub_v1"):
         def both(fn):
             return lambda a, b: (fn(SPEC, False, a, b), fn(SPEC, True, a, b))
-        return both(CF.mont_addsub), both(CF.mont_addsub_plain), \
+        return both(getattr(CF, name)), both(CF.mont_addsub_plain), \
             (_field(nprng, B), _field(nprng, B))
     hp, hq = _edge_points(rng)
     p = _jacobian(rng, nprng, hp)
-    if name in ("ec_add", "ec_add_fast", "ec_double"):
+    if name in ("ec_add", "ec_add_fast", "ec_add_fast_v1", "ec_double"):
         args = tuple(p) if name == "ec_double" else (*p, *_jacobian(rng, nprng, hq))
         kernel = getattr(CF, name)
-        plain = getattr(CF, name + "_plain")
+        plain = getattr(CF, name.removesuffix("_v1") + "_plain")
         return (lambda *a: kernel(CURVE, *a)), (lambda *a: plain(CURVE, *a)), args
     qx, qy, qid = E.to_affine(E.points_from_ints(hq, "cpu"))
     if name == "ec_add_mixed":
@@ -327,7 +382,7 @@ def _case(name, rng, nprng):
         args = (p.x, p.y, zz, CF.mont_mul_plain(SPEC, zz, p.z), qx, qy)
         return (lambda *a: CF.ec_madd_xyzz_fast(CURVE, *a),
                 lambda *a: CF.ec_madd_xyzz_fast_plain(CURVE, *a), args)
-    assert name in ("fused_madd_scan_xyzz", "fused_madd_scan_xyzz_v1")
+    assert name == "fused_madd_scan_xyzz"
     w, g = 4, 9  # nine carries of two lanes each: one ragged block of 32 carries
     pts = pyref.random_points(rng, CURVE, 8) * 5
     pts = pts[:w * g]
@@ -336,8 +391,7 @@ def _case(name, rng, nprng):
     ax, ay, _ = E.to_affine(E.points_from_ints(pts, "cpu"))
     t_limbs = tuple(tuple(int(v) for v in ints_to_mont_limbs([c], SPEC)[0])
                     for c in E.offset_point_ints())
-    kernel = getattr(CF, name)
-    return (lambda rows: kernel(CURVE, t_limbs, rows, w),
+    return (lambda rows: CF.fused_madd_scan_xyzz(CURVE, t_limbs, rows, w),
             lambda rows: CF.fused_madd_scan_xyzz_plain(CURVE, t_limbs, rows, w),
             (M._pack_pair(ax, ay).contiguous(),))
 
@@ -363,7 +417,7 @@ def test_kernel_source_on_host_equals_plain(name, host_kernels, rng, nprng):
     if name in ("ec_madd_xyzz_fast", "ec_add_mixed_fast"):
         # identity carry, carry == Q, carry == -Q; qy == 0 passes unflagged
         assert got[-1].nonzero().flatten().tolist() == [0, 3, 4]
-    if name.startswith("fused_madd_scan_xyzz"):
+    if name == "fused_madd_scan_xyzz":
         assert got[8].nonzero().flatten().tolist() == [5]
     if name == "batch_inv":
         assert all(torch.equal(g, ff(SPEC)._inv_host(args[0])) for g in got)
@@ -391,3 +445,124 @@ def test_fused_merge_level_on_host_kernels(host_kernels, rng):
             mp.setattr(CF, "_use_kernel", lambda t: False)
             want = D.merge_pairs(CURVE, a, b)
         assert torch.equal(got.wtns.a, want.wtns.a) and torch.equal(got.wtns.b, want.wtns.b)
+
+
+def _addsub_edges(rng):
+    """B pairs (a, b) of reduced ints: 0, 1 and p - 1 on both sides; a + b = p
+    exactly; a - b = 0; a < b; words of all ones up to each 64-bit boundary,
+    so that a carry or a borrow crosses every lane of the row; the rest
+    random."""
+    p = SPEC.p
+    pairs = [(0, 0), (0, 1), (1, 0), (1, 1), (p - 1, p - 1), (p - 1, 1), (1, p - 1),
+             (0, p - 1), (p - 1, 0)]
+    pairs += [(x, p - x) for x in (1 << 64, 1 << 128, 1 << 192, 12345)]
+    pairs += [(x, x) for x in (7, 1 << 64, (1 << 192) - 1)]
+    pairs += [(5, 7), (1 << 64, (1 << 64) + 1)]
+    for k in (1, 2, 3):
+        pairs += [((1 << 64 * k) - 1, 1), (1 << 64 * k, 1), (1, (1 << 64 * k) - 1)]
+    pairs += [(p - 1, (1 << 192) - 1)]
+    pairs += [(rng.randrange(p), rng.randrange(p)) for _ in range(B - len(pairs))]
+    return pairs
+
+
+@pytest.mark.parametrize("name", ["mont_addsub", "mont_addsub_v1"])
+def test_mont_addsub_edges_on_host(name, host_kernels, rng):
+    """The four-lane mont_addsub and its first design at the carry edges, at
+    ragged B = 37: equal to the plain version and to exact ints, raw limbs."""
+    pairs = _addsub_edges(rng)
+    assert len(pairs) == B
+    limbs = lambda xs: torch.from_numpy(ints_to_limbs(xs).view("int32").copy())
+    a, b = limbs([x for x, _ in pairs]), limbs([y for _, y in pairs])
+    for is_sub in (False, True):
+        got = getattr(CF, name)(SPEC, is_sub, a, b)
+        assert torch.equal(got, CF.mont_addsub_plain(SPEC, is_sub, a, b))
+        want = [(x - y if is_sub else x + y) % SPEC.p for x, y in pairs]
+        assert torch.equal(got, limbs(want))
+
+
+@pytest.mark.parametrize("name", ["ec_add_fast", "ec_add_fast_v1"])
+def test_ec_add_fast_edges_on_host(name, host_kernels, rng, nprng):
+    """The four-lane ec_add_fast and its first design at ragged B = 37 with
+    the edge lanes: p identity (passes q), q identity (passes p), both
+    identities, P + P (flagged, the only flag), P + (-P) (z = 0, unflagged);
+    equal to the plain version limb for limb and to the Python-int oracle on
+    every unflagged lane.  The identities carry x and y of other lanes (any
+    x, y with z = 0 is the identity), so that lane 2 pins the selects' order:
+    a q identity passes p first."""
+    hp, hq = _edge_points(rng)
+    p, q = _jacobian(rng, nprng, hp), _jacobian(rng, nprng, hq)
+    for c, lane, src in ((p, 0, 5), (q, 1, 6), (p, 2, 7), (q, 2, 8)):
+        c.x[lane], c.y[lane] = c.x[src], c.y[src]
+    got = getattr(CF, name)(CURVE, *p, *q)
+    want = CF.ec_add_fast_plain(CURVE, *p, *q)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    *out, exc = got
+    assert exc.nonzero().flatten().tolist() == [3]
+    assert all(torch.equal(o[0], c[0]) for o, c in zip(out, q))
+    assert all(torch.equal(o[k], c[k]) for o, c in zip(out, p) for k in (1, 2))
+    assert int(out[2][4].abs().sum()) == 0
+    pts = ec(CURVE).points_to_ints(JPoint(*out))
+    assert [v for k, v in enumerate(pts) if k != 3] == \
+        [pyref.ec_add(u, v, CURVE) for k, (u, v) in enumerate(zip(hp, hq)) if k != 3]
+
+
+_NEIGHBOURS = """#include <cuda_runtime.h>
+// Thread t of a 64-thread block publishes its value and takes thread t ^ 1's:
+// through shared memory with or without a barrier between the write and the
+// read, or through __shfl_sync (groups of 4) and __shfl_up_sync (by 1).
+__global__ void neighbours_kernel(int how, uint32_t* out) {
+  __shared__ uint32_t v[64];
+  const unsigned int t = threadIdx.x;
+  const uint32_t x = 7 * t + 1 + 1000 * blockIdx.x;
+  uint32_t r;
+  if (how < 2) {
+    v[t] = x;
+    if (how == 1) __syncthreads();
+    r = v[t ^ 1];
+  } else if (how == 2) {
+    r = __shfl_sync(0xFFFFFFFFu, x, (int)(t & 3) ^ 1, 4);
+  } else {
+    r = __shfl_up_sync(0xFFFFFFFFu, x, 1, 4);
+  }
+  out[blockIdx.x * 64 + t] = r;
+}
+extern "C" int neighbours_launch(int how, void* out, void* stream) {
+  neighbours_kernel<<<2, 64, 0, (cudaStream_t)stream>>>(how, (uint32_t*)out);
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def neighbours_library(host_library, tmp_path_factory):
+    out = tmp_path_factory.mktemp("host_neighbours")
+    src, count = _rewrite_launches(_NEIGHBOURS.replace("#include <cuda_runtime.h>", _SHIM))
+    assert count == 1
+    (out / "neighbours.cpp").write_text(src)
+    lib = out / "libneighbours_host.so"
+    subprocess.run([shutil.which("g++"), "-std=c++20", "-O1", "-pthread", "-shared", "-fPIC",
+                    "-o", str(lib), str(out / "neighbours.cpp")],
+                   check=True, capture_output=True, text=True, timeout=300)
+    fn = ctypes.CDLL(str(lib)).neighbours_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    return fn
+
+
+@pytest.mark.parametrize("how", ["no barrier", "barrier", "shfl", "shfl_up"])
+def test_shim_exchanges_between_lanes(how, neighbours_library):
+    """The shim's barrier and shuffles hand a neighbour's value over; a read
+    of it without a barrier gets the stale value, for the lower thread of
+    each pair in the ascending block and the upper one in the descending
+    block, so a kernel that forgets its barrier fails the rehearsal."""
+    mode = ["no barrier", "barrier", "shfl", "shfl_up"].index(how)
+    got = torch.zeros(128, dtype=torch.int32)
+    neighbours_library(mode, got.data_ptr(), None)
+    t = torch.arange(64).repeat(2)
+    blk = torch.arange(2).repeat_interleave(64)
+    src = {"shfl_up": torch.where(t % 4 == 0, t, t - 1)}.get(how, t ^ 1)
+    want = (7 * src + 1 + 1000 * blk).to(torch.int32)
+    if how == "no barrier":
+        stale = (got != want).nonzero().flatten()
+        assert stale.tolist() == list(range(0, 64, 2)) + list(range(65, 128, 2))
+    else:
+        assert torch.equal(got, want)

@@ -43,28 +43,41 @@ without a card, and on any failed build, failed launch or mismatch.  It
      fused) through compute_divisor_witness_partial on the card; the output
      must be the identity, the witness must vanish at 64 sampled slots (on
      the card, and at two of them by Python-int Horner on the host), no level
-     may take the coefficient fallback, and each of the five kernels must
-     have been launched,
-  9b. tallies the launches of mont_addsub, ec_add, ec_add_fast and
-     ec_double by B (rows or points a launch) and batch_inv's by (rows,
-     chain length) over one MSM, one carry stage and one round, and reads
-     the device's busy time of one MSM and one carry stage; holds
-     mont_addsub and ec_add_fast against their first designs
-     (mont_addsub_v1, ec_add_fast_v1, launched by this phase only) and
+     may take the coefficient fallback, each of the five kernels must have
+     been launched as counted, poly_mul_naive ten times and kate_div four
+     times a coefficient level,
+  9b. tallies the launches of mont_mul and mont_addsub by B (rows a launch)
+     and caller (the nearest frame outside the field layer), of ec_add,
+     ec_add_fast and ec_double by B, of batch_inv by (rows, chain length)
+     and of poly_mul_naive and kate_div by shape over one MSM, one carry
+     stage and one round, and reads the device's busy time of one MSM and
+     one carry stage; holds mont_mul, mont_addsub and ec_add_fast against
      their plain versions bit for bit, with edge lanes (the carry edges of a
-     row; identities, P + P, P + (-P)), at every B the tally gives them, at
-     the kernel phase's shape and at the ragged size, and times old and new
-     in turns (v1, new, new, v1); times ec_double at every B the tally gives
-     it; ranks the three by launches x (device ms - bound) over the main
-     path (one MSM, one carry stage and 56 rounds like the tallied one);
-     then holds the kernels redesigned before against their plain versions
-     bit for bit and times them at the path's shapes: ec_add at every B that
-     carries a tenth of its tallied launches, at 2048 and at the widest;
-     stages_small forward and inverse at (n, E) = (2^7, 2^20), (2^9, 2^20),
-     (2^10, 2^20) and (2^21, 2^21), the fused levels' shapes; batch_inv at
-     n = 33, 512, 700, 2^16 and 2^21 rows with zeros, each against
-     FF._inv_host too; the fused scan at g = 256, 4096 and 16,384 carries of
-     64 rows, the windows FUSED_SCAN_MIN_ROWS lets through,
+     row; identities, P + P, P + (-P)), at every B the tally gives them
+     (mont_addsub and ec_add_fast at the kernel phase's shape and the ragged
+     size too) and times them there; times ec_double at every B the tally
+     gives it; holds poly_mul_naive and kate_div at every shape the tally
+     gives them against their plain versions, the routes they replaced
+     (ops/poly._mul_naive_outer, _kate_div_chain) and the Python-int Poly,
+     with edge pairs (raw p - 1 everywhere, zero terms, the root 0), and
+     times kernel and old route in turns (old, new, new, old), kate_div at
+     one pair too (one chain's latency); ranks the six by launches x (device
+     ms - bound) over the main path (one MSM, one carry stage and 56 rounds
+     like the tallied one); then holds the kernels redesigned before against
+     their plain versions bit for bit and times them at the path's shapes:
+     ec_add at every B that carries a tenth of its tallied launches, at 2048
+     and at the widest; stages_small forward and inverse at (n, E) = (2^7,
+     2^20), (2^9, 2^20), (2^10, 2^20) and (2^21, 2^21), the fused levels'
+     shapes; batch_inv at n = 33, 512, 700, 2^16 and 2^21 rows with zeros,
+     each against FF._inv_host too; the fused scan at g = 256, 4096 and
+     16,384 carries of 64 rows, the windows FUSED_SCAN_MIN_ROWS lets through,
+  9c. holds poly_mul_naive and kate_div against their plain versions at a
+     ragged shape and at the round's shape of the most products (the
+     records of the JSON line), then runs round 28 by the routes they
+     replaced and by the kernels: the same witness limb for limb, a kernel
+     launch for each schoolbook product and each Horner chain, mont_mul's
+     and mont_addsub's launches fewer by what the tally puts on the old
+     route's functions; the device's busy time in turns, peak, wall clock,
  10. drives one round of the witness at a cut width, 2^10 points, on the card
      and on the CPU (plain versions): the carries' final carry equal to the
      Python-int oracle, round 28 closing on both and equal limb for limb,
@@ -115,10 +128,9 @@ without a card, and on any failed build, failed launch or mismatch.  It
      slots summing to the identity, the first and last round's witness equal
      to a single-round computation), and entry()'s fn on the card against the
      same fn on the CPU,
- 20. prints one JSON line describing the kernels (the redesigned ones with
-     phase 9b's shapes, mont_addsub and ec_add_fast with their first
-     versions' ms and the rule-2 ranking, and a line for each first version)
-     and, last, one JSON line {"ok": true, "device": {...}}.
+ 20. prints one JSON line describing the kernels (with phase 9b's shapes,
+     the rule-2 ranking, and the round by both routes for the coefficient
+     levels' two) and, last, one JSON line {"ok": true, "device": {...}}.
 
 Phases 16-19 run last, on the round's (phase 9) slots and witness and the
 carry stage's inputs, which are kept alive until then.
@@ -134,13 +146,17 @@ A butterfly stage counts half a product and one add/sub an element, and its
 twiddles (s rows for a stage of half-size s) once.  batch_inv counts what
 any batch inversion of this run's n rows needs, whatever the kernel's chain
 length: the Montgomery trick's 3 (n - 1) products and one power of p - 2
-(cuda_ff.pow_products), one row read and one written.  The radix kernels move
-data and count: their bound is their bytes alone, from this run's inputs.
+(cuda_ff.pow_products), one row read and one written.  poly_mul_naive counts
+La Lb products and La Lb - (La + Lb - 1) adds a pair, kate_div n - 1 of each;
+both each input row once (a shared operand once for all pairs) and each
+output row once.  The radix kernels move data and count: their bound is
+their bytes alone, from this run's inputs.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import random
@@ -164,12 +180,15 @@ from halo2_liam_eagen_msm_tpu_torch.models.eagen_msm import EagenConfig, EagenMS
 from halo2_liam_eagen_msm_tpu_torch.negbase import negbase_decompose_batch
 from halo2_liam_eagen_msm_tpu_torch.ops import cuda_ff as CF
 from halo2_liam_eagen_msm_tpu_torch.ops import cuda_ntt as CN
+from halo2_liam_eagen_msm_tpu_torch.ops import cuda_poly as CP
 from halo2_liam_eagen_msm_tpu_torch.ops import cuda_radix as CR
 from halo2_liam_eagen_msm_tpu_torch.ops import msm as M
 from halo2_liam_eagen_msm_tpu_torch.ops import ntt as NTT
+from halo2_liam_eagen_msm_tpu_torch.ops import poly as P
 from halo2_liam_eagen_msm_tpu_torch.ops import radix as RX
 from halo2_liam_eagen_msm_tpu_torch.ops.ec import ec
 from halo2_liam_eagen_msm_tpu_torch.ops.ff import ff
+from halo2_liam_eagen_msm_tpu_torch.ops.poly import Poly as PolyInts
 from halo2_liam_eagen_msm_tpu_torch.utils import pyref
 
 HBM_BYTES_PER_S = 3.35e12
@@ -206,14 +225,22 @@ KERNEL_TABLE = {
     "radix_shuffle": ("radix.cuh", RADIX_PY, 270, 0, 0, 0),
     "radix_pass_b": ("radix.cuh", RADIX_PY, 363, 0, 0, 0),
     "radix_compact": ("radix.cuh", RADIX_PY, 421, 0, 0, 0),
+    # mont_mul (and mont_addsub) at the coefficient levels' shapes: products,
+    # adds and rows from the shape (mul_naive_bound, kate_div_bound)
+    "poly_mul_naive": ("poly.cuh", PALLAS_FF, 515, None, None, 0),
+    "kate_div": ("poly.cuh", PALLAS_FF, 515, None, None, 0),
 }
 MSM_KERNELS = ("mont_mul", "batch_inv", "mont_addsub", "ec_add", "ec_add_fast",
                "ec_double", "fused_madd_scan_xyzz")
-# the first designs kept for phase 9b: name -> the kernel of the path
-V1_OF = {"mont_addsub_v1": "mont_addsub", "ec_add_fast_v1": "ec_add_fast"}
 PR6_ROUND_MONT_MUL = 16154  # a round's mont_mul launches before batch_inv
 FALLBACK_KERNELS = ("ec_madd_xyzz_fast", "ec_add_mixed")
 ROUND_KERNELS = ("lm_mul", "lm_addsub", "lm_mul_const", "stage_big", "stages_small")
+# the coefficient levels' two, and their launches a coefficient level (rf_mul
+# twice: five schoolbook products each; kate_div twice for a, twice for b)
+POLY_KERNELS = ("poly_mul_naive", "kate_div")
+POLY_PER_LEVEL = {"poly_mul_naive": 10, "kate_div": 4}
+# the functions of the routes the two replaced, as caller_of names them
+OLD_ROUTE_CALLERS = ("ops/poly.py:_mul_naive_outer", "ops/poly.py:_kate_div_chain")
 RADIX_KERNELS = ("radix_rank", "radix_shuffle", "radix_pass_b", "radix_compact")
 ROUND_K = 28  # the round of the carry stage the round phase takes (= d // 2)
 BASE = 5  # radix of the argument's digit rounds
@@ -264,9 +291,11 @@ def time_ms(dev, fn, reps: int):
     return start.elapsed_time(end) / reps, call_ms
 
 
-def bound_ms(name: str, elems: int, extra_bytes: int = 0, stages: int = 1, muls=None):
-    *_, table_muls, adds, rows = KERNEL_TABLE[name]
+def bound_ms(name: str, elems: int, extra_bytes: int = 0, stages: int = 1, muls=None,
+             adds=None):
+    *_, table_muls, table_adds, rows = KERNEL_TABLE[name]
     muls = table_muls if muls is None else muls
+    adds = table_adds if adds is None else adds
     t_bytes = (elems * rows * ROW_BYTES + extra_bytes) / HBM_BYTES_PER_S
     t_ops = stages * elems * (muls * MUL_OPS + adds * ADD_OPS) / INT32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -434,9 +463,11 @@ def flatten_outs(out):
 
 def check_kernel(dev, name, kernel, plain, make_inputs, sizes, reps, elems_of=None,
                  extra_bytes_of=None, host_check=None, stages_of=None, shape_of=str,
-                 muls_of=None):
+                 muls_of=None, bound_of=None):
     """Compare kernel and plain version at every size; time both at the last
-    (the main-path shape).  Returns the kernel's record for the JSON line."""
+    (the main-path shape).  bound_of(size), where given, is the bound (ms,
+    by) in place of bound_ms's from the table.  Returns the kernel's record
+    for the JSON line."""
     print(f"kernel {name}", flush=True)
     worst = 0
     for size in sizes:
@@ -458,8 +489,8 @@ def check_kernel(dev, name, kernel, plain, make_inputs, sizes, reps, elems_of=No
     ms, call_ms = time_ms(dev, lambda: kernel(*args), reps)
     elems = elems_of(size) if elems_of else size
     extra = extra_bytes_of(size) if extra_bytes_of else 0
-    b_ms, b_by = bound_ms(name, elems, extra, stages_of(size) if stages_of else 1,
-                          muls_of(size) if muls_of else None)
+    b_ms, b_by = bound_of(size) if bound_of else bound_ms(
+        name, elems, extra, stages_of(size) if stages_of else 1, muls_of(size) if muls_of else None)
     src, tpu_file, line = KERNEL_TABLE[name][:3]
     rec = {"name": name, "route": "cuda", "source": CSRC + src,
            "replaces": f"{tpu_file}:{line}", "launches": 0, "max_abs_err": worst,
@@ -723,6 +754,81 @@ def profile_call(dev, what: str, fn) -> None:
         sync(dev)
     print(f"profile of {what}", flush=True)
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25), flush=True)
+
+
+# the functions whose device time a round's profile attributes: span -> (the
+# module that holds the function, the name its callers look it up by)
+ROUND_SPANS = {"mul_naive": (P, "mul_naive"), "kate_div": (P, "kate_div"),
+               "lm tail": (D, "_merge_tail_fused_lm")}
+
+
+def kernel_class(name: str) -> str:
+    """A device event's class for the round's split: the port's kernel by
+    name, else what PyTorch's kernel does (copy, reduce, fill, cat, other
+    elementwise), memcpy or memset."""
+    for k in sorted(CF.KERNELS, key=len, reverse=True):
+        if k + "_kernel" in name:
+            return k
+    low = name.lower()
+    for key, cls in (("memcpy", "memcpy"), ("memset", "memset"), ("copy", "copy"),
+                     ("reduce", "reduce"), ("fill", "fill"), ("catarray", "cat")):
+        if key in low:
+            return cls
+    return "other elementwise"
+
+
+def profile_round(dev, fn) -> dict:
+    """--profile of one round: the table of profile_call, with each function
+    of ROUND_SPANS wrapped in a torch.profiler.record_function span for this
+    call only; then every device event (kernel, copy, set) of the trace is
+    attributed to the span whose range on the device timeline holds it and
+    summed by kernel_class, so that the copies and the int64 sums are put
+    on the schoolbook products, the Horner divisions or the lm tail.
+    Returns {span or "rest": {class: device ms}} and prints it with each
+    span's timeline (the sum of its ranges, idle gaps included)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    real = {span: (mod, name, getattr(mod, name)) for span, (mod, name) in ROUND_SPANS.items()}
+
+    def spanned(span, f):
+        def g(*a, **kw):
+            with record_function(span):
+                return f(*a, **kw)
+        return g
+
+    for span, (mod, name, f) in real.items():
+        setattr(mod, name, spanned(span, f))
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync(dev)
+    finally:
+        for span, (mod, name, f) in real.items():
+            setattr(mod, name, f)
+    print("profile of one round", flush=True)
+    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25), flush=True)
+
+    on_device = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    ranges = sorted((ev.time_range.start, ev.time_range.end, ev.name)
+                    for ev in on_device if ev.name in real)
+    split = {span: {} for span in list(real) + ["rest"]}
+    timeline = {span: 0.0 for span in real}
+    for start, end, span in ranges:
+        timeline[span] += (end - start) / 1e3
+    for ev in on_device:
+        if ev.name in real or getattr(ev, "is_user_annotation", False):
+            continue
+        t0, t1 = ev.time_range.start, ev.time_range.end
+        span = next((s for start, end, s in ranges if start <= t0 and t1 <= end), "rest")
+        cls = kernel_class(ev.name)
+        split[span][cls] = split[span].get(cls, 0.0) + (t1 - t0) / 1e3
+    for span, acc in split.items():
+        top = sorted(acc.items(), key=lambda kv: -kv[1])
+        line = f"{timeline[span]:.3f} ms of timeline, " if span in timeline else ""
+        print(f"  round profile split: {span}: {line}{sum(acc.values()):.3f} ms of device "
+              f"time; " + ", ".join(f"{cls} {ms:.3f}" for cls, ms in top), flush=True)
+    return split
 
 
 def device_busy_ms(dev, fn) -> float:
@@ -1154,6 +1260,11 @@ def round_path(dev, pts: JPoint, carry_state, profile: bool):
     for name in ROUND_KERNELS:
         require(counts[name] == want[name] > 0,
                 f"{name} was launched {counts[name]} times in the round, as counted")
+    coefficient = levels - len(logns)
+    for name in POLY_KERNELS:
+        require(counts[name] == POLY_PER_LEVEL[name] * coefficient > 0,
+                f"{name} was launched {counts[name]} times in the round, "
+                f"{POLY_PER_LEVEL[name]} a coefficient level")
     require(counts["batch_inv"] > 0 and counts["mont_mul"] < PR6_ROUND_MONT_MUL,
             f"the round's inversions went through batch_inv ({counts['batch_inv']} launches): "
             f"mont_mul {counts['mont_mul']} launches, below the {PR6_ROUND_MONT_MUL} of the "
@@ -1184,7 +1295,7 @@ def round_path(dev, pts: JPoint, carry_state, profile: bool):
     busy = device_busy_ms(dev, one_round) if dev.type == "cuda" else 0.0
     print(f"  device busy in one round: {busy:.3f} ms", flush=True)
     if profile:
-        profile_call(dev, "one round", one_round)
+        profile_round(dev, one_round)
     return {"n": n, "slots": slots, "levels": levels, "fused": len(logns), "runs": runs,
             "seconds": min(runs), "setup_s": setup_s, "peak": peak, "busy_ms": busy,
             "counts": counts, "rp": rp, "w": w, "carry_state": carry_state}
@@ -1201,23 +1312,104 @@ def width_of(*rows) -> int:
     return math.prod(torch.broadcast_shapes(*(r.shape[:-1] for r in rows)))
 
 
-# kernel wrapper -> its tally key from the wrapper's arguments
+_FIELD_LAYER = ("/ops/ff.py", "/ops/cuda_ff.py", "/ops/cuda_poly.py", "/chip_smoke.py")
+
+
+def caller_of() -> str:
+    """The nearest frame outside the field layer (ops/ff.py, the wrappers,
+    the algorithms of ops/cuda_poly.py) and this script: "ops/poly.py:
+    _kate_div_chain" for the products of the Horner chain's old route,
+    "divisor.py:linefunc_affine" for those of a line."""
+    f = sys._getframe(1)
+    while f is not None:
+        path = f.f_code.co_filename.replace("\\", "/")
+        if not path.endswith(_FIELD_LAYER):
+            return f"{path.split('halo2_liam_eagen_msm_tpu_torch/', 1)[-1]}:{f.f_code.co_name}"
+        f = f.f_back
+    return "this script"
+
+
+def mul_naive_key(a, b):
+    """(pairs, La, Lb, a shared, b shared) of a poly_mul_naive launch (a
+    shared operand is read once for all pairs)."""
+    lead = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    return (math.prod(lead), a.shape[-2], b.shape[-2], CP.shared_operand(a, lead),
+            CP.shared_operand(b, lead))
+
+
+# the kernels whose launches are tallied: name -> (the module of its wrapper,
+# its tally key from the wrapper's arguments)
 TALLY_KEYS = {
-    "mont_addsub": lambda spec, is_sub, a, b: width_of(a, b),
-    "ec_add": lambda curve, *rows: width_of(*rows),
-    "ec_add_fast": lambda curve, *rows: width_of(*rows),
-    "ec_double": lambda curve, *rows: width_of(*rows),
-    "batch_inv": lambda spec, a, chain=None: (width_of(a), chain or CF.batch_inv_chain(width_of(a))),
+    "mont_mul": (CF, lambda spec, a, b: (width_of(a, b), caller_of())),
+    "mont_addsub": (CF, lambda spec, is_sub, a, b: (width_of(a, b), caller_of())),
+    "ec_add": (CF, lambda curve, *rows: width_of(*rows)),
+    "ec_add_fast": (CF, lambda curve, *rows: width_of(*rows)),
+    "ec_double": (CF, lambda curve, *rows: width_of(*rows)),
+    "batch_inv": (CF, lambda spec, a, chain=None:
+                  (width_of(a), chain or CF.batch_inv_chain(width_of(a)))),
+    "poly_mul_naive": (CP, lambda spec, a, b: mul_naive_key(a, b)),
+    "kate_div": (CP, lambda spec, c, b: (width_of(c[..., 0, :], b), c.shape[-2])),
 }
+BY_CALLER = ("mont_mul", "mont_addsub")
+TALLY_FORMAT = {"batch_inv": "(rows, L)", "poly_mul_naive": "(pairs, La, Lb, a shared, b shared)",
+                "kate_div": "(pairs, n)"}
+
+
+class Tally:
+    """Counts the launches of the TALLY_KEYS wrappers by key while it is
+    entered (the wrappers are wrapped for that time only): .counts[name] is
+    {key: launches}."""
+
+    def __enter__(self):
+        self.counts = {name: {} for name in TALLY_KEYS}
+        self.real = {name: getattr(mod, name) for name, (mod, _) in TALLY_KEYS.items()}
+        for name, (mod, key_of) in TALLY_KEYS.items():
+            setattr(mod, name, self._counting(name, key_of))
+        return self
+
+    def _counting(self, name, key_of):
+        def fn(*args, **kwargs):
+            key = key_of(*args, **kwargs)
+            self.counts[name][key] = self.counts[name].get(key, 0) + 1
+            return self.real[name](*args, **kwargs)
+        return fn
+
+    def __exit__(self, *exc):
+        for name, (mod, _) in TALLY_KEYS.items():
+            setattr(mod, name, self.real[name])
+        return False
+
+
+def by_caller(t: dict) -> dict:
+    """{(B, caller): launches} -> {caller: {B: launches}}, the busiest first."""
+    out = {}
+    for (b, c), n in sorted(t.items()):
+        out.setdefault(c, {})[b] = n
+    return dict(sorted(out.items(), key=lambda kv: -sum(kv[1].values())))
+
+
+def print_tally(name: str, by_phase: dict) -> None:
+    if name in BY_CALLER:
+        for phase, t in by_phase.items():
+            print(f"{name} launches by caller and B, {phase}: " + "; ".join(
+                f"{c} {sum(w.values())} (" + ", ".join(f"B = {b}: {n}" for b, n in w.items()) + ")"
+                for c, w in by_caller(t).items()), flush=True)
+        return
+    what = TALLY_FORMAT.get(name, "B")
+    fmt = (lambda key: f"B = {key}") if what == "B" else str
+    print(f"{name} launches by {what}: " + "; ".join(
+        f"{phase}: " + ", ".join(f"{fmt(key)}: {c}" for key, c in t.items())
+        for phase, t in by_phase.items()), flush=True)
 
 
 def launch_tally(dev, base_pts, logn: int, pts: JPoint, rnd):
-    """The launches of mont_addsub, ec_add, ec_add_fast and ec_double by B
-    (rows or points a launch) and of batch_inv by (rows, chain length) over
-    one MSM (the main path's inputs), one carry stage and one round (the
-    round phase's), counted by wrapping the cuda_ff wrappers for these runs
-    only; then the device's busy time of one MSM and one carry stage.
-    Returns ({kernel: {phase: {key: launches}}}, {phase: busy ms})."""
+    """The launches of the TALLY_KEYS kernels by key (mont_mul and
+    mont_addsub by B, rows a launch, and caller; the curve kernels by B;
+    batch_inv by (rows, chain length); the coefficient levels' two by shape)
+    over one MSM (the main path's inputs), one carry stage and one round
+    (the round phase's); then the device's busy time of one MSM and one
+    carry stage.  Returns ({kernel: {phase: {key: launches}}}, {phase: busy
+    ms})."""
     _, scalars, _ = msm_inputs(dev, base_pts, logn)
     digits, carry_prev, carry_new = rnd["carry_state"]
     precomp = A.precompute_multiplicities(ec(CURVE), pts, BASE)
@@ -1231,36 +1423,15 @@ def launch_tally(dev, base_pts, logn: int, pts: JPoint, rnd):
     phases = (("msm", lambda: M.best_multiexp(CURVE, scalars, pts)),
               ("carry stage", lambda: A._carries_only(CURVE, BASE, digits, pts)),
               ("round", one_round))
-    real = {name: getattr(CF, name) for name in TALLY_KEYS}
-    tally = {name: {} for name in TALLY_KEYS}
     out = {name: {} for name in TALLY_KEYS}
-
-    def counting(name):
-        def fn(*args, **kwargs):
-            key = TALLY_KEYS[name](*args, **kwargs)
-            tally[name][key] = tally[name].get(key, 0) + 1
-            return real[name](*args, **kwargs)
-        return fn
-
-    for name in TALLY_KEYS:
-        setattr(CF, name, counting(name))
-    try:
-        for phase, fn in phases:
-            for t in tally.values():
-                t.clear()
+    for phase, fn in phases:
+        with Tally() as tally:
             fn()
             sync(dev)
-            for name, t in tally.items():
-                out[name][phase] = dict(sorted(t.items()))
-    finally:
-        for name, fn in real.items():
-            setattr(CF, name, fn)
+        for name, t in tally.counts.items():
+            out[name][phase] = dict(sorted(t.items()))
     for name, by_phase in out.items():
-        fmt = (lambda key: f"({key[0]}, {key[1]})") if name == "batch_inv" else \
-            (lambda key: f"B = {key}")
-        print(f"{name} launches by {'(rows, L)' if name == 'batch_inv' else 'B'}: " + "; ".join(
-            f"{phase}: " + ", ".join(f"{fmt(key)}: {c}" for key, c in t.items())
-            for phase, t in by_phase.items()), flush=True)
+        print_tally(name, by_phase)
     busy = {phase: device_busy_ms(dev, fn) for phase, fn in phases[:2]}
     print(f"device busy: one MSM {busy['msm']:.3f} ms, one carry stage "
           f"{busy['carry stage']:.3f} ms", flush=True)
@@ -1270,20 +1441,21 @@ def launch_tally(dev, base_pts, logn: int, pts: JPoint, rnd):
 def path_launches(tally_of: dict, rounds: int) -> dict:
     """Launches by width on the main path, one MSM + one carry stage +
     `rounds` rounds like the tallied one (config 4 is the carry stage and its
-    rounds), widths of no rows left out."""
+    rounds), widths of no rows left out; mont_mul's callers summed."""
     out = {}
     for phase, t in tally_of.items():
         for b, c in t.items():
+            b = b[0] if isinstance(b, tuple) else b
             if b:  # an empty launch enqueues nothing
                 out[b] = out.get(b, 0) + c * (rounds if phase == "round" else 1)
     return dict(sorted(out.items()))
 
 
 def ab_times(dev, fns: dict, reps: int):
-    """Device ms of the "v1" and the "new" call, timed in turns v1, new, new,
-    v1; the mean of each one's two turns."""
+    """Device ms of the "old" and the "new" call, timed in turns old, new,
+    new, old; the mean of each one's two turns."""
     got = {key: [] for key in fns}
-    for key in ("v1", "new", "new", "v1"):
+    for key in ("old", "new", "new", "old"):
         got[key].append(time_ms(dev, fns[key], reps)[0])
     return {key: sum(v) / len(v) for key, v in got.items()}
 
@@ -1304,12 +1476,12 @@ def addsub_edges():
     return pairs + [(p - 1, (1 << 192) - 1)]
 
 
-def ab_mont_addsub(dev, widths, launches: dict, row_b: int, reps: int):
-    """mont_addsub (four lanes a row) against its first design (one thread a
-    row) and the plain version, add and subtract, at each width: random rows
-    with the carry edges of addsub_edges in the first lanes, bit for bit,
-    and the edge lanes against exact ints; both timed in turns (a call adds
-    and subtracts, so half of it is one launch)."""
+def mont_addsub_by_width(dev, widths, launches: dict, reps: int):
+    """mont_addsub (four lanes a row) against the plain version, add and
+    subtract, at each width: random rows with the carry edges of
+    addsub_edges in the first lanes, bit for bit, and the edge lanes against
+    exact ints; device ms at each (a call adds and subtracts, so half of it
+    is one launch)."""
     nprng = np.random.default_rng(0xAB4)
     edges = addsub_edges()
     ea = limbs_from_numpy(ints_to_limbs([x for x, _ in edges]), dev)
@@ -1320,25 +1492,37 @@ def ab_mont_addsub(dev, widths, launches: dict, row_b: int, reps: int):
         k = min(b, len(edges))
         a[:k], c[:k] = ea[:k], eb[:k]
         both = lambda fn: (fn(SPEC, False, a, c), fn(SPEC, True, a, c))
-        new, old, plain = both(CF.mont_addsub), both(CF.mont_addsub_v1), \
-            both(CF.mont_addsub_plain)
+        new, plain = both(CF.mont_addsub), both(CF.mont_addsub_plain)
         want = [limbs_to_ints(limbs_to_numpy(v[:k])) for v in new]
-        v1_err = outputs_equal(old, plain)
         exact = want == [[(x + y) % SPEC.p for x, y in edges[:k]],
                          [(x - y) % SPEC.p for x, y in edges[:k]]]
-        require(v1_err == 0 and outputs_equal(new, plain) == 0 and exact,
-                f"mont_addsub == mont_addsub_v1 == mont_addsub_plain at B = {b}, add and "
-                f"subtract; the first {k} lanes (the carry edges) equal exact ints")
-        t = ab_times(dev, {"v1": lambda: both(CF.mont_addsub_v1),
-                           "new": lambda: both(CF.mont_addsub)}, reps)
-        t = {key: ms / 2 for key, ms in t.items()}
+        require(outputs_equal(new, plain) == 0 and exact,
+                f"mont_addsub == mont_addsub_plain at B = {b}, add and subtract; the first "
+                f"{k} lanes (the carry edges) equal exact ints")
+        ms = time_ms(dev, lambda: both(CF.mont_addsub), reps)[0] / 2
         b_ms, b_by = bound_ms("mont_addsub", b)
-        out.append({"shape": f"B = {b}", "b": b, "ms": t["new"], "v1_ms": t["v1"],
-                    "v1_max_abs_err": v1_err, "bound_ms": b_ms, "bound_by": b_by,
-                    "launches": launches.get(b, 0), "at_row": b == row_b})
-        print(f"  A/B mont_addsub at B = {b} ({launches.get(b, 0)} launches on the path): "
-              f"{t['new']:.4f} ms, v1 {t['v1']:.4f} ms on the device ({t['v1'] / t['new']:.2f}x), "
-              f"bound {b_ms:.6f} ms ({b_by})", flush=True)
+        out.append({"shape": f"B = {b}", "b": b, "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "launches": launches.get(b, 0)})
+        print(f"  mont_addsub at B = {b} ({launches.get(b, 0)} launches on the path): {ms:.4f} "
+              f"ms on the device, bound {b_ms:.6f} ms ({b_by})", flush=True)
+    return out
+
+
+def mont_mul_by_width(dev, widths, launches: dict, reps: int):
+    """mont_mul against its plain version at each width (random rows with the
+    edge rows of field_inputs first), bit for bit; device ms at each."""
+    nprng = np.random.default_rng(0xAB6)
+    out = []
+    for b in widths:
+        a, c = field_inputs(nprng, b, dev)
+        require(torch.equal(CF.mont_mul(SPEC, a, c), CF.mont_mul_plain(SPEC, a, c)),
+                f"mont_mul == mont_mul_plain at B = {b}")
+        ms = time_ms(dev, lambda: CF.mont_mul(SPEC, a, c), reps)[0]
+        b_ms, b_by = bound_ms("mont_mul", b)
+        out.append({"shape": f"B = {b}", "b": b, "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "launches": launches.get(b, 0)})
+        print(f"  mont_mul at B = {b} ({launches.get(b, 0)} launches on the path): {ms:.4f} ms "
+              f"on the device, bound {b_ms:.6f} ms ({b_by})", flush=True)
     return out
 
 
@@ -1356,31 +1540,25 @@ def add_fast_oracle(got, hp, hq, what: str) -> None:
         f"P + (-P) among them) equal the Python-int oracle")
 
 
-def ab_ec_add_fast(dev, base_pts, widths, launches: dict, row_b: int, reps: int):
-    """ec_add_fast (four lanes a point) against its first design (one thread
-    a point) and the plain version at each width, with the edge lanes of
-    curve_inputs and the first 64 lanes against the Python-int oracle; both
-    timed in turns."""
+def ec_add_fast_by_width(dev, base_pts, widths, launches: dict, reps: int):
+    """ec_add_fast (four lanes a point) against the plain version at each
+    width, with the edge lanes of curve_inputs and the first 64 lanes
+    against the Python-int oracle; device ms at each."""
     nprng = np.random.default_rng(0xAB5)
     out = []
     for b in widths:
         p, q, hp, hq = curve_inputs(nprng, base_pts, b, dev)
         args = (*p, *q)
-        new, old = CF.ec_add_fast(CURVE, *args), CF.ec_add_fast_v1(CURVE, *args)
-        plain = CF.ec_add_fast_plain(CURVE, *args)
-        v1_err = outputs_equal(old, plain)
-        require(v1_err == 0 and outputs_equal(new, plain) == 0,
-                f"ec_add_fast == ec_add_fast_v1 == ec_add_fast_plain at B = {b} (4 outputs)")
+        new = CF.ec_add_fast(CURVE, *args)
+        require(outputs_equal(new, CF.ec_add_fast_plain(CURVE, *args)) == 0,
+                f"ec_add_fast == ec_add_fast_plain at B = {b} (4 outputs)")
         add_fast_oracle(new, hp, hq, f"ec_add_fast at B = {b}")
-        t = ab_times(dev, {"v1": lambda: CF.ec_add_fast_v1(CURVE, *args),
-                           "new": lambda: CF.ec_add_fast(CURVE, *args)}, reps)
+        ms = time_ms(dev, lambda: CF.ec_add_fast(CURVE, *args), reps)[0]
         b_ms, b_by = bound_ms("ec_add_fast", b, b)
-        out.append({"shape": f"B = {b}", "b": b, "ms": t["new"], "v1_ms": t["v1"],
-                    "v1_max_abs_err": v1_err, "bound_ms": b_ms, "bound_by": b_by,
-                    "launches": launches.get(b, 0), "at_row": b == row_b})
-        print(f"  A/B ec_add_fast at B = {b} ({launches.get(b, 0)} launches on the path): "
-              f"{t['new']:.4f} ms, v1 {t['v1']:.4f} ms on the device ({t['v1'] / t['new']:.2f}x), "
-              f"bound {b_ms:.6f} ms ({b_by})", flush=True)
+        out.append({"shape": f"B = {b}", "b": b, "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "launches": launches.get(b, 0)})
+        print(f"  ec_add_fast at B = {b} ({launches.get(b, 0)} launches on the path): {ms:.4f} "
+              f"ms on the device, bound {b_ms:.6f} ms ({b_by})", flush=True)
     return out
 
 
@@ -1485,27 +1663,27 @@ def fused_scan_by_g(dev, base_pts, gs, reps: int):
     return out
 
 
+RULE2_KERNELS = ("mont_mul", "mont_addsub", "ec_add_fast", "ec_double", "poly_mul_naive",
+                 "kate_div")
+
+
 def rule2_ranking(ab: dict) -> dict:
     """Launches x (device ms - bound) over the main path, summed over the
-    widths timed, for mont_addsub, ec_add_fast and ec_double (and the first
-    designs of the first two), and two shares of the bound that the rule
-    (a kernel at half its bound or more is left alone) may read: by launch,
-    the mean over launches of bound / ms; by time, the sum of launches x
-    bound over the sum of launches x ms."""
+    shapes timed, for the kernels of RULE2_KERNELS, and two shares of the
+    bound that the rule (a kernel at half its bound or more is left alone)
+    may read: by launch, the mean over launches of bound / ms; by time, the
+    sum of launches x bound over the sum of launches x ms."""
     out = {}
-    for name in ("mont_addsub", "ec_add_fast", "ec_double"):
-        for key in ("ms", "v1_ms"):
-            recs = [r for r in ab[name] if key in r]
-            if not recs:
-                continue
-            launches = sum(r["launches"] for r in recs)
-            out[name if key == "ms" else name + "_v1"] = {
-                "launches": launches,
-                "gap_ms": sum(r["launches"] * (r[key] - r["bound_ms"]) for r in recs),
-                "bound_share_by_launch":
-                    sum(r["launches"] * r["bound_ms"] / r[key] for r in recs) / max(launches, 1),
-                "bound_share_by_time": sum(r["launches"] * r["bound_ms"] for r in recs) /
-                    max(sum(r["launches"] * r[key] for r in recs), 1e-12)}
+    for name in RULE2_KERNELS:
+        recs = ab[name]
+        launches = sum(r["launches"] for r in recs)
+        out[name] = {
+            "launches": launches,
+            "gap_ms": sum(r["launches"] * (r["ms"] - r["bound_ms"]) for r in recs),
+            "bound_share_by_launch":
+                sum(r["launches"] * r["bound_ms"] / r["ms"] for r in recs) / max(launches, 1),
+            "bound_share_by_time": sum(r["launches"] * r["bound_ms"] for r in recs) /
+                max(sum(r["launches"] * r["ms"] for r in recs), 1e-12)}
     for name, r in sorted(out.items(), key=lambda kv: -kv[1]["gap_ms"]):
         print(f"  rule-2 ranking: {name}: {r['launches']} launches on the main path, launches x "
               f"(ms - bound) = {r['gap_ms']:.3f} ms, share of the bound by launch "
@@ -1515,20 +1693,23 @@ def rule2_ranking(ab: dict) -> dict:
 
 
 def ab_phase(dev, base_pts, tally, logn: int, ragged: int, row_shapes: dict, reps: int):
-    """Phase 9b.  mont_addsub and ec_add_fast against their first designs at
-    every width the tally gives them, at their kernel-phase shape and at the
-    ragged size; ec_double at every width the tally gives it; the rule-2
-    ranking of the three over the main path (one MSM, one carry stage and 56
-    rounds like the tallied one).  Then the kernels redesigned before against
-    their plain versions at the path's shapes: ec_add at every width that
-    carries a tenth of its tallied launches and at the widest, stages_small
-    at the fused levels' shapes, batch_inv at n = 33, 512, 700, 2^16 and
+    """Phase 9b.  mont_mul, mont_addsub and ec_add_fast against their plain
+    versions at every width the tally gives them (mont_addsub and
+    ec_add_fast at their kernel-phase shape and the ragged size too),
+    ec_double at every width the tally gives it; poly_mul_naive and kate_div
+    at every shape the tally gives them against their plain versions and
+    the routes they replaced (poly_by_shape); the rule-2 ranking of the six
+    over the main path (one MSM, one carry stage and 56 rounds like the
+    tallied one).  Then the kernels redesigned before against their plain
+    versions at the path's shapes: ec_add at every width that carries a
+    tenth of its tallied launches and at the widest, stages_small at the
+    fused levels' shapes, batch_inv at n = 33, 512, 700, 2^16 and
     2^(logn + 1), the fused scan at g = 256, 4096 and 2^logn / 64.  Returns
     ({kernel: per-shape records}, the ranking)."""
     rounds = A.num_digits_for(CURVE, BASE)
     on_path = {name: path_launches(tally[name], rounds) for name in TALLY_KEYS
-               if name != "batch_inv"}
-    for name in ("mont_addsub", "ec_add_fast", "ec_add"):
+               if name not in ("batch_inv",) + POLY_KERNELS}
+    for name in ("mont_mul", "mont_addsub", "ec_add_fast", "ec_add"):
         total = sum(on_path[name].values())
         tenth = [b for b, c in on_path[name].items() if 10 * c >= total]
         print(f"{name}: {total} launches on the main path at {len(on_path[name])} widths; a "
@@ -1538,16 +1719,19 @@ def ab_phase(dev, base_pts, tally, logn: int, ragged: int, row_shapes: dict, rep
     ec_add_widths = sorted({b for b, c in ec_add_launches.items() if 10 * c >= total}
                            | {2048, max(ec_add_launches)})
     out = {
-        "mont_addsub": ab_mont_addsub(
+        "mont_mul": mont_mul_by_width(dev, sorted(on_path["mont_mul"]), on_path["mont_mul"], reps),
+        "mont_addsub": mont_addsub_by_width(
             dev, sorted(set(on_path["mont_addsub"]) | {row_shapes["mont_addsub"], ragged}),
-            on_path["mont_addsub"], row_shapes["mont_addsub"], reps),
-        "ec_add_fast": ab_ec_add_fast(
+            on_path["mont_addsub"], reps),
+        "ec_add_fast": ec_add_fast_by_width(
             dev, base_pts,
             sorted(set(on_path["ec_add_fast"]) | {row_shapes["ec_add_fast"], ragged}),
-            on_path["ec_add_fast"], row_shapes["ec_add_fast"], reps),
+            on_path["ec_add_fast"], reps),
         "ec_double": by_width(dev, base_pts, "ec_double", sorted(on_path["ec_double"]),
                               on_path["ec_double"], reps),
     }
+    for name in POLY_KERNELS:
+        out[name] = poly_by_shape(dev, name, tally[name]["round"], rounds, reps)
     ranking = rule2_ranking(out)
     g = max(1, (1 << logn) // CF.SCAN_W)
     out.update({
@@ -1559,6 +1743,237 @@ def ab_phase(dev, base_pts, tally, logn: int, ragged: int, row_shapes: dict, rep
                                                 max(1, reps // 10)),
     })
     return out, ranking
+
+
+# ---------------------------------------------------------------------------
+# phase 9c: the coefficient levels' two kernels at every shape of the round,
+# against their plain versions and the routes they replaced
+# ---------------------------------------------------------------------------
+
+def mul_naive_bound(key):
+    """poly_mul_naive's bound at (pairs, La, Lb, a shared, b shared): La Lb
+    products and La Lb - (La + Lb - 1) adds a pair; each input row read once
+    (a shared operand once for all pairs), La + Lb - 1 rows written a pair."""
+    pairs, la, lb, sa, sb = key
+    nout = la + lb - 1
+    rows = (la if sa else pairs * la) + (lb if sb else pairs * lb) + pairs * nout
+    return bound_ms("poly_mul_naive", pairs, rows * ROW_BYTES, muls=la * lb,
+                    adds=la * lb - nout)
+
+
+def kate_div_bound(key):
+    """kate_div's bound at (pairs, n): n - 1 products and adds a pair; n
+    coefficient rows and one root read, n rows written a pair."""
+    pairs, n = key
+    return bound_ms("kate_div", pairs, pairs * (2 * n + 1) * ROW_BYTES, muls=n - 1, adds=n - 1)
+
+
+def raw_rows(vals, dev):
+    """Python ints -> (len, 16) limbs taken as they are (no Montgomery form)."""
+    return limbs_from_numpy(ints_to_limbs(vals), dev)
+
+
+def mul_naive_inputs(nprng, key, dev):
+    """Operands of a poly_mul_naive shape: random rows, a shared operand as
+    one row of terms expanded over the pairs (as rf_mul passes it); raw
+    limbs of p - 1 in every term of pair 0 (the longest anti-diagonal sums
+    min(La, Lb) such products) and zero terms in pair 1 of each operand of
+    its own."""
+    pairs, la, lb, sa, sb = key
+
+    def operand(length, shared):
+        if shared:
+            return random_field(nprng, length, dev)[None].expand(pairs, length, N_LIMBS)
+        t = random_field(nprng, pairs * length, dev).reshape(pairs, length, N_LIMBS)
+        t[0] = raw_rows([SPEC.p - 1], dev)
+        if pairs > 1:
+            t[1, ::2] = 0
+        return t
+    return operand(la, sa), operand(lb, sb)
+
+
+def kate_div_inputs(nprng, key, dev):
+    """(coefficients, roots) of a kate_div shape: random rows; pair 0 all raw
+    p - 1 (root too), pair 1 the root 0 (the shift), pair 2 zero
+    coefficients."""
+    pairs, n = key
+    c = random_field(nprng, pairs * n, dev).reshape(pairs, n, N_LIMBS)
+    b = random_field(nprng, pairs, dev)
+    c[0], b[0] = raw_rows([SPEC.p - 1], dev), raw_rows([SPEC.p - 1], dev)[0]
+    if pairs > 2:
+        b[1] = 0
+        c[2, ::3] = 0
+    return c, b
+
+
+POLY_CALLS = {
+    # name: (kernel, plain version, the route it replaced, inputs, bound)
+    "poly_mul_naive": (lambda a, b: CP.poly_mul_naive(SPEC, a, b),
+                       lambda a, b: CP.poly_mul_naive_plain(SPEC, a, b),
+                       lambda a, b: P._mul_naive_outer(SPEC, a, b),
+                       mul_naive_inputs, mul_naive_bound),
+    "kate_div": (lambda c, b: CP.kate_div(SPEC, c, b),
+                 lambda c, b: CP.kate_div_plain(SPEC, c, b),
+                 lambda c, b: P._kate_div_chain(SPEC, c, b),
+                 kate_div_inputs, kate_div_bound),
+}
+
+
+def poly_vs_ints(name: str, args, got, pairs: int = 3) -> bool:
+    """The first pairs of a poly kernel's output against Python-int Poly."""
+    def ints(t):
+        return mont_limbs_to_ints(limbs_to_numpy(t), SPEC)
+    for i in range(min(pairs, got.shape[0])):
+        if name == "poly_mul_naive":
+            want = PolyInts(SPEC, ints(args[0][i])).mul_naive(PolyInts(SPEC, ints(args[1][i])))
+            if ints(got[i]) != want.coeffs:
+                return False
+        else:
+            b = ints(args[1][i:i + 1])[0]
+            if ints(got[i]) != PolyInts(SPEC, ints(args[0][i])).kate_div(b).coeffs + [0]:
+                return False
+    return True
+
+
+def check_poly_kernels(dev, row_keys: dict, ragged_keys: dict, reps: int):
+    """poly_mul_naive and kate_div against their plain versions at a ragged
+    shape and at the shape of the most launches on the path, with the edge
+    pairs of their inputs, the first three pairs against Python-int Poly
+    too; timed at the latter.  Returns their records for the JSON line."""
+    nprng = np.random.default_rng(0xC0EF)
+    recs = []
+    for name in POLY_KERNELS:
+        kernel, plain, _, inputs, bound = POLY_CALLS[name]
+
+        def host(key, args, got, name=name):
+            require(poly_vs_ints(name, args, got[0]),
+                    f"{name}: the first three pairs (raw p - 1 everywhere, zero terms or the "
+                    f"root 0) equal the Python-int Poly at {key}")
+        recs.append(check_kernel(
+            dev, name, lambda *a, k=kernel: (k(*a),), lambda *a, p=plain: (p(*a),),
+            lambda key, f=inputs: f(nprng, key, dev), [ragged_keys[name], row_keys[name]],
+            reps, host_check=host, bound_of=bound))
+    return recs
+
+
+def poly_by_shape(dev, name: str, round_tally: dict, rounds: int, reps: int):
+    """`name` at every shape one round gives it: equal to its plain version
+    and to the route it replaced, limb for limb, the first three pairs to
+    Python-int Poly; device ms of the kernel and of the old route in turns
+    (old, new, new, old; the old route is tens to hundreds of launches a
+    call, so few calls a timing); kate_div's at one pair too (one chain's
+    latency).  Launches on the main path: a round's x `rounds`."""
+    nprng = np.random.default_rng(0xAB7)
+    kernel, plain, old, inputs, bound = POLY_CALLS[name]
+    out = []
+    for key, count in round_tally.items():
+        args = inputs(nprng, key, dev)
+        new = kernel(*args)
+        require(torch.equal(new, plain(*args)) and torch.equal(new, old(*args))
+                and poly_vs_ints(name, args, new),
+                f"{name} == {name}_plain == the old route at {key}; the first pairs equal "
+                f"the Python-int Poly")
+        t = ab_times(dev, {"old": lambda: old(*args), "new": lambda: kernel(*args)},
+                     max(1, reps // 10))
+        call_ms = time_ms(dev, lambda: kernel(*args), max(1, reps // 10))[1]
+        b_ms, b_by = bound(key)
+        rec = {"shape": str(key), "key": list(key), "ms": t["new"], "old_ms": t["old"],
+               "call_ms": call_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "launches": count * rounds}
+        if name == "kate_div":
+            one = tuple(a[:1] for a in args)
+            rec["chain_ms"] = time_ms(dev, lambda: kernel(*one), max(1, reps // 10))[0]
+        out.append(rec)
+        print(f"  {name} at {key} ({count} a round): {t['new']:.4f} ms on the device, the old "
+              f"route {t['old']:.4f} ms ({t['old'] / t['new']:.1f}x); {call_ms:.4f} ms a call "
+              f"on the host; bound {b_ms:.5f} ms ({b_by})"
+              + (f"; one chain {rec['chain_ms']:.4f} ms" if "chain_ms" in rec else ""),
+              flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def old_poly_route():
+    """The routes the two kernels replaced, for the calls inside: the
+    schoolbook products by P._mul_naive_outer, the Horner chains by
+    P._kate_div_chain (ops/poly.py calls CP's wrappers by name)."""
+    real = CP.poly_mul_naive, CP.kate_div
+    CP.poly_mul_naive = lambda spec, a, b: P._mul_naive_outer(spec, a, b)
+    CP.kate_div = lambda spec, c, b: P._kate_div_chain(spec, c, b)
+    try:
+        yield
+    finally:
+        CP.poly_mul_naive, CP.kate_div = real
+
+
+def round_routes(dev, pts: JPoint, rnd, profile: bool):
+    """Round ROUND_K by the routes the two kernels replaced and by the
+    kernels: the same witness limb for limb; launches by kernel and
+    mont_mul's and mont_addsub's by caller (Tally); the device's busy time
+    in turns old, new, new, old; peak and wall clock of one round each.
+    Requires that the kernels took exactly the old route's work: a
+    poly_mul_naive launch for each schoolbook product, a kate_div launch for
+    each Horner chain, and mont_mul's and mont_addsub's launches fewer by
+    what the tally puts on the old route's functions.  Returns a dict."""
+    digits, carry_prev, carry_new = rnd["carry_state"]
+    precomp = A.precompute_multiplicities(ec(CURVE), pts, BASE)
+    k = ROUND_K
+    print(f"round {k} by the old route and by the coefficient levels' kernels", flush=True)
+
+    def one_round():
+        rp = A._one_round_slots(CURVE, BASE, digits[k], precomp,
+                                A._at(carry_prev, k), A._at(carry_new, k))
+        return D.compute_divisor_witness_partial(CURVE, rp)[0]
+
+    res = {}
+    for route in ("old", "new"):
+        with old_poly_route() if route == "old" else contextlib.nullcontext():
+            one_round()
+            sync(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            CF.reset_launch_counts()
+            with Tally() as tally:
+                t0 = time.perf_counter()
+                w = one_round()
+                sync(dev)
+                seconds = time.perf_counter() - t0
+            res[route] = {"w": w, "seconds": seconds, "counts": dict(CF.LAUNCHES),
+                          "tally": tally.counts, "peak": torch.cuda.max_memory_allocated(dev)}
+    old, new = res["old"], res["new"]
+    require(torch.equal(old["w"].a, new["w"].a) and torch.equal(old["w"].b, new["w"].b),
+            "the round's witness by the kernels equals the old route's, limb for limb")
+    for route in ("old", "new", "new", "old"):
+        with old_poly_route() if route == "old" else contextlib.nullcontext():
+            res[route].setdefault("busy", []).append(device_busy_ms(dev, one_round))
+    calls = {name: sum(old["tally"][name].values()) for name in POLY_KERNELS}
+    gone = {name: sum(n for (_, c), n in old["tally"][name].items() if c in OLD_ROUTE_CALLERS)
+            for name in BY_CALLER}
+    for name in BY_CALLER:
+        print(f"  {name} launches by caller, old route: " + ", ".join(
+            f"{c} {sum(w.values())}" for c, w in by_caller(old["tally"][name]).items())
+            + "; new: " + ", ".join(f"{c} {sum(w.values())}"
+                                    for c, w in by_caller(new["tally"][name]).items()), flush=True)
+    for name in BY_CALLER + POLY_KERNELS:
+        print(f"  a round's {name} launches: old route {old['counts'][name]}, kernels "
+              f"{new['counts'][name]}", flush=True)
+    for route in ("old", "new"):
+        r = res[route]
+        print(f"  {route} route: one round {r['seconds']:.4f} s, device busy "
+              + ", ".join(f"{b:.3f}" for b in r["busy"]) + f" ms, peak "
+              f"{r['peak'] / 2**20:.0f} MiB", flush=True)
+    for name in POLY_KERNELS:
+        require(new["counts"][name] == calls[name] > 0 and old["counts"][name] == 0,
+                f"{name} was launched once for each of the old route's {calls[name]} calls")
+    for name in BY_CALLER:
+        require(new["counts"][name] == old["counts"][name] - gone[name] and gone[name] > 0,
+                f"a round's {name} launches fell by the old route's {gone[name]} "
+                f"({old['counts'][name]} -> {new['counts'][name]})")
+    if profile:
+        with old_poly_route():
+            print("old route:", flush=True)
+            profile_round(dev, one_round)
+    return {route: {key: res[route][key] for key in ("seconds", "counts", "peak", "busy")}
+            for route in res}
 
 
 # ---------------------------------------------------------------------------
@@ -2322,6 +2737,16 @@ def main() -> int:
     del carry_state
     tally, busy = launch_tally(dev, base_pts, args.logn, pts, rnd)
     ab, ranking = ab_phase(dev, base_pts, tally, args.logn, ragged, shapes, reps=50)
+    # the coefficient levels' two: their records at the shape of the most
+    # products in a round and at a ragged one, then the round by both routes
+    work = {"poly_mul_naive": lambda key: key[0] * key[1] * key[2],
+            "kate_div": lambda key: key[0] * (key[1] - 1)}
+    row_keys = {name: max(tally[name]["round"].items(),
+                          key=lambda kv, name=name: (kv[1] * work[name](kv[0]), kv[0]))[0]
+                for name in POLY_KERNELS}
+    recs += check_poly_kernels(dev, row_keys, {"poly_mul_naive": (5003, 9, 17, False, False),
+                                               "kate_div": (5003, 33)}, reps=50)
+    poly_routes = round_routes(dev, pts, rnd, args.profile)
     # at 2^14 the fused scan flags and the safe flavor redoes the round at a
     # real width; at half of FUSED_SCAN_MIN_ROWS the stepwise scan runs
     fallback_counts = {name: 0 for name in CF.KERNELS}
@@ -2353,17 +2778,14 @@ def main() -> int:
     by_name = {rec["name"]: rec for rec in recs}
     for name in ab:
         by_name[name]["ab"] = ab[name]  # every shape of phase 9b
-    for name in ("mont_addsub", "ec_add_fast", "ec_double"):
+    for name in RULE2_KERNELS:
         by_name[name]["rule2"] = ranking[name]
-    for v1, name in V1_OF.items():
-        # a line for each first design, at its kernel's row shape: its ms and
-        # its difference from the plain version from phase 9b, the plain
-        # version and bound of the same function
-        rec = by_name[name]
-        rec["v1_ms"] = next(r["v1_ms"] for r in ab[name] if r["at_row"])
-        rec = dict(rec, name=v1, ms=rec["v1_ms"], call_ms=None, ab=None, path="phase 9b only",
-                   max_abs_err=max(r["v1_max_abs_err"] for r in ab[name]), rule2=ranking[v1])
-        recs.append(rec)
+    for name in POLY_KERNELS:
+        # the round by the route this kernel replaced and by the kernels
+        by_name[name]["round_by_route"] = {
+            route: {"seconds": r["seconds"], "busy_ms": r["busy"], "peak_mib": r["peak"] / 2**20,
+                    "launches": {k: r["counts"][k] for k in BY_CALLER + POLY_KERNELS}}
+            for route, r in poly_routes.items()}
     by_phase = {"launches_msm": msm_counts, "launches_carry": carry_counts,
                 "launches_fallback": fallback_counts, "launches_round": rnd["counts"],
                 "launches_radix_msm": radix_counts, "launches_add_mixed_fast": amf_counts,
@@ -2372,7 +2794,7 @@ def main() -> int:
     for rec in recs:
         name = rec["name"]
         rec["launches"] = (fallback_counts if name in FALLBACK_KERNELS else
-                           rnd["counts"] if name in ROUND_KERNELS else
+                           rnd["counts"] if name in ROUND_KERNELS + POLY_KERNELS else
                            radix_counts if name in RADIX_KERNELS else
                            amf_counts if name == "ec_add_mixed_fast" else msm_counts).get(name, 0)
         for key, counts in by_phase.items():
@@ -2384,8 +2806,7 @@ def main() -> int:
               f"{rec['launches_naive']} (naive arrangement), {rec['launches_model']} (model "
               f"forward), {rec['launches_config4']} (config 4); {rec['ms']} ms each on "
               f"the device at shape {rec['shape']}", flush=True)
-        if name not in V1_OF:
-            require(rec["launches"] > 0, f"{name} was launched on the path that runs it")
+        require(rec["launches"] > 0, f"{name} was launched on the path that runs it")
 
     print(f"msm: n = {n}, seconds = {seconds}, points_per_s = {n / seconds}, card = {card}",
           flush=True)
@@ -2402,6 +2823,11 @@ def main() -> int:
           f"runs = {rnd['runs']}, device_busy_ms = {rnd['busy_ms']}, "
           f"peak_mib = {rnd['peak'] / 2**20}, setup_s = {rnd['setup_s']}, card = {card}",
           flush=True)
+    for route, r in poly_routes.items():
+        print(f"round by route: route = {route}, seconds = {r['seconds']}, device_busy_ms = "
+              f"{r['busy']}, peak_mib = {r['peak'] / 2**20}, launches = "
+              f"{ {k: r['counts'][k] for k in BY_CALLER + POLY_KERNELS} }, card = {card}",
+              flush=True)
     print(f"add_mixed_fast: n = {n}, seconds = {amf_s}, card = {card}", flush=True)
     print(f"naive: slots = {rnd['slots']}, seconds = {naive['seconds']}, pos_lines = "
           f"{naive['n_pos']}, neg_lines = {naive['n_neg']}, ratio_check_s = {naive['ratio_s']}, "

@@ -1,7 +1,8 @@
-// The eleven kernels of the field and curve layers, the first designs of
-// mont_addsub and ec_add_fast, and their C launchers (the five of the divisor
-// merge tree are in ntt.cuh, the four of the MSM's radix reorder in
-// radix.cuh, both included below).  Most are one thread per element: it
+// The eleven kernels of the field and curve layers and their C launchers,
+// with those of the kernels included below: the divisor merge tree's five in
+// ntt.cuh, the MSM's radix reorder's four in radix.cuh and the coefficient
+// levels' two (poly_mul_naive, kate_div) in poly.cuh.  Most are one thread
+// per element: it
 // reads its (16,) rows, does the whole formula in registers (ff.cuh, ec.cuh)
 // and writes its rows back; mont_addsub spreads one row over four lanes,
 // ec_add and ec_add_fast one point over four, fused_madd_scan_xyzz one carry
@@ -31,6 +32,7 @@ __device__ __forceinline__ int64_t global_index() {
 
 #include "ntt.cuh"
 #include "radix.cuh"
+#include "poly.cuh"
 
 // ---- 1. mont_mul: replaces pallas_ff.mont_mul ---------------------------------
 
@@ -111,9 +113,10 @@ batch_inv_kernel(FieldParams P, PowExp e, const uint32_t* __restrict__ a,
 // a quarter of its launches at 8,192 rows or fewer, where the launch itself
 // bounds it, two fifths at 16,384 and 32,768 rows, where a launch holds fewer
 // threads than the card has slots, and a fifth from 2^18 rows up, where bytes
-// do (chip_smoke.py's tally).  The first design (mont_addsub_v1, one thread a
-// row) made four 16-byte loads 64 bytes apart, so a warp's load touched 32
-// separate pieces, and at B = 32,768 it put 32,768 threads on 132 SMs.  Here
+// do (chip_smoke.py's tally).  The first design (one thread a row, deleted
+// after its comparison) made four 16-byte loads 64 bytes apart, so a warp's
+// load touched 32 separate pieces, and at B = 32,768 it put 32,768 threads
+// on 132 SMs.  Here
 // ADDSUB_LANES = 4 neighbouring lanes share a row: lane k loads the row's
 // 16-byte quarter k of each input (limbs 4k .. 4k + 3, 64 bits), so a warp's
 // load covers 512 contiguous bytes and a launch has four times the threads.
@@ -191,18 +194,6 @@ mont_addsub_kernel(FieldParams P, int is_sub, const uint32_t* __restrict__ a,
     r = ((c >> ADDSUB_LANES) & 1u) ? s : d;
   }
   if (i < n) quarter_store(out + off, r);
-}
-
-// The first design, one thread a row (see above).
-__global__ void __launch_bounds__(BLOCK)
-mont_addsub_v1_kernel(FieldParams P, int is_sub, const uint32_t* __restrict__ a,
-                      const uint32_t* __restrict__ b, uint32_t* __restrict__ out, int64_t n) {
-  int64_t i = global_index();
-  if (i >= n) return;
-  Fe x = fe_load(a + i * ELEMS_PER_ROW);
-  Fe y = fe_load(b + i * ELEMS_PER_ROW);
-  Fe r = is_sub ? fe_sub(x, y, P) : fe_add(x, y, P);
-  fe_store(out + i * ELEMS_PER_ROW, r);
 }
 
 // ---- 3. ec_add: replaces pallas_ff.ec_add -------------------------------------
@@ -386,8 +377,9 @@ ec_add_kernel(FieldParams P, const uint32_t* x1, const uint32_t* y1, const uint3
 // The MSM calls it at a few thousand points: every step of a window's
 // blocked triangle scan is one launch at B = 2048 lanes (ops/msm.py
 // _pick_block_width keeps g = n / w at ops/ec.SUM_G), the rest near
-// B = 32,768.  At B = 2048 one thread a point (the first design,
-// ec_add_fast_v1, 126 registers) puts 16 blocks on 132 SMs, each thread a
+// B = 32,768.  At B = 2048 one thread a point (the first design, 126
+// registers, deleted after its comparison) puts 16 blocks on 132 SMs, each
+// thread a
 // chain of 16 dependent products, so latency bounds it, not the
 // operations.  Here ADD_LANES = 4 neighbouring lanes share a point, by
 // ec_add's slot machinery above: the 16 products of add-2007-bl (the generic
@@ -399,7 +391,7 @@ ec_add_kernel(FieldParams P, const uint32_t* x1, const uint32_t* y1, const uint3
 // writes coordinate k through k_ec_add_fast's selects in its order (q
 // identity passes p, p identity passes q), lane 3 the flag byte (a true
 // doubling, neither operand the identity).  Every value is fully reduced, so
-// the output equals the plain version and the first design limb for limb.
+// the output equals the plain version limb for limb.
 // A ragged last block loads point n - 1 into its spare groups and stores
 // nothing from them.  Wide launches pay for the lanes: the product rounds
 // fill 16 of 20 lane slots and the add rounds one of four, so at B = 32,768,
@@ -473,19 +465,6 @@ ec_add_fast_kernel(FieldParams P, const uint32_t* x1, const uint32_t* y1, const 
       exc[i] = (!id1 && !id2 && dbl) ? 1 : 0;
     }
   }
-}
-
-// The first design, one thread a point (see above).
-__global__ void __launch_bounds__(BLOCK)
-ec_add_fast_v1_kernel(FieldParams P, const uint32_t* x1, const uint32_t* y1, const uint32_t* z1,
-                      const uint32_t* x2, const uint32_t* y2, const uint32_t* z2,
-                      uint32_t* ox, uint32_t* oy, uint32_t* oz, uint8_t* exc, int64_t n) {
-  int64_t i = global_index();
-  if (i >= n) return;
-  bool e;
-  Jac r = ec_add_fast(jac_load(x1, y1, z1, i), jac_load(x2, y2, z2, i), P, &e);
-  jac_store(ox, oy, oz, i, r);
-  exc[i] = e ? 1 : 0;
 }
 
 // ---- 5. ec_double: replaces pallas_ff.ec_double ---------------------------------
@@ -728,14 +707,6 @@ int mont_addsub_launch(const FieldParams* P, int is_sub, const void* a, const vo
   return (int)cudaGetLastError();
 }
 
-int mont_addsub_v1_launch(const FieldParams* P, int is_sub, const void* a, const void* b,
-                          void* out, int64_t n, void* stream) {
-  if (n > 0)
-    mont_addsub_v1_kernel<<<grid_for(n, BLOCK), BLOCK, 0, (cudaStream_t)stream>>>(
-        *P, is_sub, (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, n);
-  return (int)cudaGetLastError();
-}
-
 int ec_add_launch(const FieldParams* P, const void* x1, const void* y1, const void* z1,
                   const void* x2, const void* y2, const void* z2,
                   void* ox, void* oy, void* oz, int64_t n, void* stream) {
@@ -752,17 +723,6 @@ int ec_add_fast_launch(const FieldParams* P, const void* x1, const void* y1, con
                        void* ox, void* oy, void* oz, void* exc, int64_t n, void* stream) {
   if (n > 0)
     ec_add_fast_kernel<<<grid_for(n, ADD_PTS), ADD_BLOCK, 0, (cudaStream_t)stream>>>(
-        *P, (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)z1,
-        (const uint32_t*)x2, (const uint32_t*)y2, (const uint32_t*)z2,
-        (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, (uint8_t*)exc, n);
-  return (int)cudaGetLastError();
-}
-
-int ec_add_fast_v1_launch(const FieldParams* P, const void* x1, const void* y1,
-                          const void* z1, const void* x2, const void* y2, const void* z2,
-                          void* ox, void* oy, void* oz, void* exc, int64_t n, void* stream) {
-  if (n > 0)
-    ec_add_fast_v1_kernel<<<grid_for(n, BLOCK), BLOCK, 0, (cudaStream_t)stream>>>(
         *P, (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)z1,
         (const uint32_t*)x2, (const uint32_t*)y2, (const uint32_t*)z2,
         (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, (uint8_t*)exc, n);
@@ -836,6 +796,32 @@ int ec_add_mixed_fast_launch(const FieldParams* P, const void* x1, const void* y
         *P, (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)z1,
         (const uint32_t*)qx, (const uint32_t*)qy,
         (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, (uint8_t*)exc, n);
+  return (int)cudaGetLastError();
+}
+
+// a_stride, b_stride: rows from one pair's operand to the next's (0: one
+// operand for all pairs); group: pairs a block of `threads` (at most
+// PMUL_MAX_THREADS); staged: 0 reads the rows from device memory (the
+// wrapper's choice where a pair's rows exceed the block's shared memory).
+int poly_mul_naive_launch(const FieldParams* P, const void* a, const void* b, void* out,
+                          int64_t pairs, int la, int lb, int64_t a_stride, int64_t b_stride,
+                          int group, int threads, int staged, void* stream) {
+  if (pairs > 0 && la > 0 && lb > 0 && group > 0) {
+    const size_t smem = staged ? (size_t)8 * sizeof(uint32_t) *
+        ((a_stride ? group * la : la) + (b_stride ? group * lb : lb)) : 0;
+    poly_mul_naive_kernel<<<grid_for(pairs, group), threads, smem, (cudaStream_t)stream>>>(
+        *P, (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, pairs, la, lb,
+        a_stride, b_stride, group, staged);
+  }
+  return (int)cudaGetLastError();
+}
+
+// b_stride: rows from one pair's b to the next's (0: one b for all pairs).
+int kate_div_launch(const FieldParams* P, const void* c, const void* b, void* out,
+                    int64_t pairs, int n, int64_t b_stride, void* stream) {
+  if (pairs > 0 && n > 0)
+    kate_div_kernel<<<grid_for(pairs, KDIV_PAIRS), KDIV_PAIRS, 0, (cudaStream_t)stream>>>(
+        *P, (const uint32_t*)c, (const uint32_t*)b, (uint32_t*)out, pairs, n, b_stride);
   return (int)cudaGetLastError();
 }
 

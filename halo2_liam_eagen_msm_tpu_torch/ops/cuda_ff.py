@@ -41,16 +41,14 @@ function on the same tensors, device-agnostic, in int64 arithmetic.  The
 callers (ops/ff.py, ops/ec.py, ops/msm.py) take the kernel for a CUDA tensor
 and the plain version for a CPU tensor.
 
-mont_addsub_v1 and ec_add_fast_v1 are the first designs of mont_addsub and
-ec_add_fast (one thread a row, one thread a point), kept with their own
-launchers and wrappers for chip_smoke.py's comparison of old and new; no path
-calls them.
-
 LAUNCHES counts kernel launches by name: a wrapper adds one exactly where it
 launches its kernel.  The same library, counters and launcher carry the five
 kernels of the divisor merge tree (csrc/ntt.cuh), whose wrappers and plain
-versions are in ops/cuda_ntt.py, and the four of the MSM's radix reorder
-(csrc/radix.cuh), whose wrappers and plain versions are in ops/cuda_radix.py.
+versions are in ops/cuda_ntt.py, the four of the MSM's radix reorder
+(csrc/radix.cuh), whose wrappers and plain versions are in ops/cuda_radix.py,
+and the coefficient levels' two (csrc/poly.cuh: mont_mul's work at the
+schoolbook product and the Horner division), whose wrappers and plain
+versions are in ops/cuda_poly.py.
 """
 
 from __future__ import annotations
@@ -74,9 +72,8 @@ KERNELS = ("mont_mul", "batch_inv", "mont_addsub", "ec_add", "ec_add_fast",
            "lm_mul", "lm_addsub", "lm_mul_const", "stage_big", "stages_small",
            # the radix reorder's four, in csrc/radix.cuh (ops/cuda_radix.py)
            "radix_rank", "radix_shuffle", "radix_pass_b", "radix_compact",
-           # the first designs of mont_addsub and ec_add_fast, launched only
-           # by chip_smoke.py's comparison of old and new
-           "mont_addsub_v1", "ec_add_fast_v1")
+           # the coefficient levels' two, in csrc/poly.cuh (ops/cuda_poly.py)
+           "poly_mul_naive", "kate_div")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 SCAN_W = 64  # sequential madd steps per lane of the fused scan
@@ -174,10 +171,8 @@ def _lib():
             "mont_mul_launch": [fpp, vp, vp, vp, i64, vp],
             "batch_inv_launch": [fpp, u32p, vp, vp, i64, ci, vp],
             "mont_addsub_launch": [fpp, ci, vp, vp, vp, i64, vp],
-            "mont_addsub_v1_launch": [fpp, ci, vp, vp, vp, i64, vp],
             "ec_add_launch": [fpp] + [vp] * 9 + [i64, vp],
             "ec_add_fast_launch": [fpp] + [vp] * 10 + [i64, vp],
-            "ec_add_fast_v1_launch": [fpp] + [vp] * 10 + [i64, vp],
             "ec_double_launch": [fpp] + [vp] * 6 + [i64, vp],
             "fused_madd_scan_xyzz_launch":
                 [fpp, u32p, u32p, vp, ci, i64] + [vp] * 9 + [vp],
@@ -193,6 +188,8 @@ def _lib():
             "radix_shuffle_launch": [vp, vp, vp, vp, i64, ci, ci, vp],
             "radix_pass_b_launch": [vp, vp, vp, ci, i64, i64, ci, vp],
             "radix_compact_launch": [vp, vp, vp, ci, i64, i64, vp],
+            "poly_mul_naive_launch": [fpp, vp, vp, vp, i64, ci, ci, i64, i64, ci, ci, ci, vp],
+            "kate_div_launch": [fpp, vp, vp, vp, i64, ci, i64, vp],
         }
         for name, argtypes in sigs.items():
             fn = getattr(lib, name)
@@ -287,23 +284,14 @@ def batch_inv(spec: FieldSpec, a, chain: int | None = None):
     return out.reshape(lead + (N_LIMBS,))
 
 
-def _mont_addsub(kernel: str, spec: FieldSpec, is_sub: bool, a, b):
-    _check_cuda(kernel, a, b)
-    lead, (af, bf) = _flatten(a, b)
-    out = torch.empty_like(af)
-    _launch(kernel, af.device, ctypes.byref(_field_params(spec)),
-            int(bool(is_sub)), *_ptrs((af, bf, out)), af.shape[0])
-    return out.reshape(lead + (N_LIMBS,))
-
-
 def mont_addsub(spec: FieldSpec, is_sub: bool, a, b):
     """(..., 16) +/- (..., 16) mod p, one kernel launch (four lanes a row)."""
-    return _mont_addsub("mont_addsub", spec, is_sub, a, b)
-
-
-def mont_addsub_v1(spec: FieldSpec, is_sub: bool, a, b):
-    """mont_addsub by its first kernel (one thread a row), for comparison."""
-    return _mont_addsub("mont_addsub_v1", spec, is_sub, a, b)
+    _check_cuda("mont_addsub", a, b)
+    lead, (af, bf) = _flatten(a, b)
+    out = torch.empty_like(af)
+    _launch("mont_addsub", af.device, ctypes.byref(_field_params(spec)),
+            int(bool(is_sub)), *_ptrs((af, bf, out)), af.shape[0])
+    return out.reshape(lead + (N_LIMBS,))
 
 
 def _require_a_zero(curve: CurveSpec) -> None:
@@ -324,28 +312,19 @@ def ec_add(curve: CurveSpec, x1, y1, z1, x2, y2, z2):
     return tuple(o.reshape(lead + (N_LIMBS,)) for o in outs)
 
 
-def _ec_add_fast(kernel: str, curve: CurveSpec, x1, y1, z1, x2, y2, z2):
-    _check_cuda(kernel, x1, y1, z1, x2, y2, z2)
+def ec_add_fast(curve: CurveSpec, x1, y1, z1, x2, y2, z2):
+    """Batched generic Jacobian addition without a doubling path, one kernel
+    launch (four lanes a point): returns (x3, y3, z3, exc) with exc a (...,)
+    bool tensor."""
+    _check_cuda("ec_add_fast", x1, y1, z1, x2, y2, z2)
     lead, flat = _flatten(x1, y1, z1, x2, y2, z2)
     outs = tuple(torch.empty_like(flat[0]) for _ in range(3))
     # the kernel writes each flag as a byte 0 or 1, a bool's own storage, so
     # no conversion launch follows it
     exc = torch.empty(flat[0].shape[0], dtype=torch.bool, device=flat[0].device)
-    _launch(kernel, flat[0].device, ctypes.byref(_field_params(curve.field)),
+    _launch("ec_add_fast", flat[0].device, ctypes.byref(_field_params(curve.field)),
             *_ptrs(flat + outs), exc.data_ptr(), flat[0].shape[0])
     return tuple(o.reshape(lead + (N_LIMBS,)) for o in outs) + (exc.reshape(lead),)
-
-
-def ec_add_fast(curve: CurveSpec, x1, y1, z1, x2, y2, z2):
-    """Batched generic Jacobian addition without a doubling path, one kernel
-    launch (four lanes a point): returns (x3, y3, z3, exc) with exc a (...,)
-    bool tensor."""
-    return _ec_add_fast("ec_add_fast", curve, x1, y1, z1, x2, y2, z2)
-
-
-def ec_add_fast_v1(curve: CurveSpec, x1, y1, z1, x2, y2, z2):
-    """ec_add_fast by its first kernel (one thread a point), for comparison."""
-    return _ec_add_fast("ec_add_fast_v1", curve, x1, y1, z1, x2, y2, z2)
 
 
 def ec_double(curve: CurveSpec, x1, y1, z1):
@@ -481,6 +460,9 @@ class _PlainConsts:
         self.p_full = i64([[p[k - i] if 0 <= k - i < n else 0 for k in range(2 * n)]
                            for i in range(n)])
         self.weights = i64([1 << k for k in range(2 * n + 1)])  # bit k of a carry word
+        # (2^256 R) mod p: the Montgomery factor of reduce_columns' top limb
+        self.c256 = torch.tensor(limbs((R * spec.r_mod_p) % spec.p), dtype=torch.int32,
+                                 device=device)
 
 
 def _plain_consts(spec: FieldSpec, device) -> _PlainConsts:
@@ -594,6 +576,32 @@ def mont_addsub_plain(spec: FieldSpec, is_sub: bool, a, b):
     norm, carry = _normalize(C, torch.stack([lane0, lane0 + C.p], dim=-2), folds=1)
     a_ge_b = carry[..., 0] == 1
     return torch.where(a_ge_b[..., None], norm[..., 0, :], norm[..., 1, :]).to(torch.int32)
+
+
+def reduce_columns_with(spec: FieldSpec, cols, mul, add):
+    """Reduce lazy column sums of Montgomery residues to a fully reduced
+    element with the field ops `mul` and `add` (the kernels' wrappers or the
+    plain versions): cols (..., K <= 17) integer tensor, every column below
+    2^46 and the total value below 2^271 (both exact in int64).  The columns
+    are carried into 17 limbs; the low 16 are reduced by a Montgomery product
+    with R mod p (lo * R * R^-1 = lo), the top limb by one with (2^256 * R)
+    mod p (top * 2^256), and the two are added."""
+    k = cols.shape[-1]
+    if k > N_LIMBS + 1:
+        raise ValueError(f"reduce_columns: at most {N_LIMBS + 1} columns, got {k}")
+    cols = torch.nn.functional.pad(cols.to(torch.int64), (0, N_LIMBS + 1 - k))
+    C = _plain_consts(spec, cols.device)
+    limbs, _ = _normalize(C, cols, folds=3)
+    limbs = limbs.to(torch.int32)
+    lo = mul(limbs[..., :N_LIMBS], C.one.expand(limbs.shape[:-1] + (N_LIMBS,)))
+    top = torch.nn.functional.pad(limbs[..., N_LIMBS:], (0, N_LIMBS - 1))
+    return add(lo, mul(top, C.c256.expand(top.shape)))
+
+
+def reduce_columns_plain(spec: FieldSpec, cols):
+    """reduce_columns on the plain versions of mont_mul and mont_addsub."""
+    return reduce_columns_with(spec, cols, lambda a, b: mont_mul_plain(spec, a, b),
+                               lambda a, b: mont_addsub_plain(spec, False, a, b))
 
 
 def pow_schedule(e: int):

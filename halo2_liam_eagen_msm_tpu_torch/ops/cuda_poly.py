@@ -1,0 +1,168 @@
+"""The coefficient levels' two CUDA kernels, with their plain versions.
+
+mont_mul's work at the two heaviest shapes of the divisor merge tree's
+coefficient levels (divisor.merge_pairs below FUSE_MIN_LA), each in one
+launch (sources in csrc/poly.cuh, CUDA C++ for sm_90a, built into the one
+library of ops/cuda_ff.py):
+
+  kernel           replaces (at this shape)            what it computes
+  poly_mul_naive   pallas_ff.mont_mul (:515), at the   the schoolbook product of
+                   JAX ops/poly.mul_naive's outer      (..., La, 16) x (..., Lb,
+                   product and column sums             16), La + Lb - 1 terms
+  kate_div         pallas_ff.mont_mul and mont_addsub  synthetic division by
+                   (:515, :541), at the JAX ops/poly   (x - b), remainder
+                   .kate_div scan's body (n <= 64)     dropped, same length n
+
+ops/poly.py takes them for a CUDA tensor and the plain versions for a CPU
+one.  The plain versions are today's algorithms on the plain products and
+adds of ops/cuda_ff.py, device-agnostic: the outer product, its int64
+anti-diagonal sums and one reduction a coefficient; the Horner chain of
+n - 1 products and adds.  Every result is fully reduced, so kernel and plain
+version agree limb for limb.  _schoolbook and _horner take the field ops as
+arguments, so that ops/poly.py can run the same algorithms on the kernels'
+wrappers (the route the two kernels replaced).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from ..fields import FieldSpec, N_LIMBS
+from . import cuda_ff as CF
+
+PMUL_MAX_THREADS = 256        # threads a block of poly_mul_naive at most (csrc/poly.cuh)
+PMUL_SMEM = 48 * 1024         # shared memory a block may stage (the default cap)
+STAGED_ROW_BYTES = 32         # a row repacked to 8 words of 32 bits
+MAX_SHORT_TERMS = 1 << 13     # the shorter operand of a schoolbook product
+
+
+def shared_operand(t, lead) -> bool:
+    """Whether operand t (..., L, 16) is one for all pairs of the leading
+    shape `lead`: every leading dim broadcast (stride 0) or of size 1."""
+    full = t.expand(lead + tuple(t.shape[-2:]))
+    return all(s == 0 or d == 1 for s, d in zip(full.stride()[:-2], lead))
+
+
+def _pair_rows(t, lead):
+    """An operand as (contiguous rows, rows from one pair's operand to the
+    next's): one shared by all pairs is passed once with stride 0 (not
+    copied per pair)."""
+    length = t.shape[-2]
+    full = t.expand(lead + (length, N_LIMBS))
+    if shared_operand(t, lead):
+        rows, stride = full[(0,) * len(lead)].contiguous(), 0
+    else:
+        rows, stride = full.contiguous(), length
+    if rows.data_ptr() % 16:
+        raise ValueError("limb rows must be 16-byte aligned")
+    return rows, stride
+
+
+def _mul_naive_group(pairs: int, la: int, lb: int, a_stride: int, b_stride: int):
+    """(pairs a block, threads a block, staged) of poly_mul_naive: as many
+    pairs as give every thread of PMUL_MAX_THREADS an output coefficient and
+    the block's shared memory stages, the block their outputs rounded up to
+    whole warps; where one pair's rows do not fit, one pair a block with the
+    rows read from device memory."""
+    nout = la + lb - 1
+    group = max(1, min(pairs, PMUL_MAX_THREADS // nout))
+
+    def staged_bytes(g):
+        return STAGED_ROW_BYTES * ((g * la if a_stride else la) + (g * lb if b_stride else lb))
+
+    while group > 1 and staged_bytes(group) > PMUL_SMEM:
+        group -= 1
+    threads = min(PMUL_MAX_THREADS, -(-group * nout // 32) * 32)
+    return group, threads, staged_bytes(group) <= PMUL_SMEM
+
+
+def poly_mul_naive(spec: FieldSpec, a, b):
+    """(..., La, 16) x (..., Lb, 16) -> (..., La + Lb - 1, 16) schoolbook
+    product, one kernel launch; leading dims broadcast, an operand shared by
+    all pairs is read once.  Requires min(La, Lb) <= 2^13, as mul_naive."""
+    CF._check_cuda("poly_mul_naive", a, b)
+    la, lb = a.shape[-2], b.shape[-2]
+    if min(la, lb) > MAX_SHORT_TERMS or min(la, lb) < 1:
+        raise ValueError("poly_mul_naive: the shorter operand must have 1 to 2^13 terms")
+    lead = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    pairs = math.prod(lead)
+    out = torch.empty(lead + (la + lb - 1, N_LIMBS), dtype=torch.int32, device=a.device)
+    if pairs == 0:
+        return out
+    af, a_stride = _pair_rows(a, lead)
+    bf, b_stride = _pair_rows(b, lead)
+    group, threads, staged = _mul_naive_group(pairs, la, lb, a_stride, b_stride)
+    CF._launch("poly_mul_naive", a.device, ctypes.byref(CF._field_params(spec)),
+               af.data_ptr(), bf.data_ptr(), out.data_ptr(), pairs, la, lb,
+               a_stride, b_stride, group, threads, int(staged))
+    return out
+
+
+def kate_div(spec: FieldSpec, coeffs, b):
+    """Synthetic division of (..., n, 16) coefficients by (x - b), b (..., 16),
+    the remainder dropped, one kernel launch (a thread a pair's chain):
+    returns (..., n, 16) with the last row zero."""
+    CF._check_cuda("kate_div", coeffs, b)
+    n = coeffs.shape[-2]
+    lead = torch.broadcast_shapes(coeffs.shape[:-2], b.shape[:-1])
+    pairs = math.prod(lead)
+    cf = coeffs.expand(lead + (n, N_LIMBS)).contiguous()
+    if cf.data_ptr() % 16:
+        raise ValueError("limb rows must be 16-byte aligned")
+    bf, b_stride = _pair_rows(b[..., None, :], lead)
+    out = torch.empty_like(cf)
+    if pairs and n:
+        CF._launch("kate_div", coeffs.device, ctypes.byref(CF._field_params(spec)),
+                   cf.data_ptr(), bf.data_ptr(), out.data_ptr(), pairs, n, b_stride)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the algorithms, on any field ops; the plain versions
+# ---------------------------------------------------------------------------
+
+def _schoolbook(a, b, mul, reduce_columns):
+    """The schoolbook product by one batched product of all La x Lb
+    coefficient pairs, then exact int64 anti-diagonal sums and one reduction
+    an output coefficient (min(La, Lb) <= 2^13 keeps each column below 2^29)."""
+    if a.shape[-2] > b.shape[-2]:
+        a, b = b, a  # keep the anti-diagonal row axis (and sum count) short
+    la, lb = a.shape[-2], b.shape[-2]
+    outer = mul(a[..., :, None, :], b[..., None, :, :])    # (..., La, Lb, 16)
+    # pad the j axis to la + lb and re-view rows at width la + lb - 1: element
+    # (i, j) lands at (i, i + j); the spill hits only zero padding
+    lead = outer.shape[:-3]
+    nout = la + lb - 1
+    padded = torch.nn.functional.pad(outer, (0, 0, 0, la))
+    flat = padded.reshape(lead + (la * (lb + la), N_LIMBS))[..., : la * nout, :]
+    cols = flat.reshape(lead + (la, nout, N_LIMBS)).sum(-3, dtype=torch.int64)
+    return reduce_columns(cols)
+
+
+def _horner(coeffs, b, mul, add):
+    """Synthetic division by (x - b) as the Horner chain q_{n-1} = 0,
+    q_{k-1} = c_k + b q_k: n - 1 products and adds over all pairs at once."""
+    n = coeffs.shape[-2]
+    lead = torch.broadcast_shapes(coeffs.shape[:-2], b.shape[:-1])
+    acc = torch.zeros(lead + (N_LIMBS,), dtype=coeffs.dtype, device=coeffs.device)
+    q = [acc]                      # q_{n-1} = 0, the dropped slot
+    for j in range(n - 1, 0, -1):
+        acc = add(coeffs[..., j, :], mul(b, acc))
+        q.append(acc)
+    return torch.stack(q[::-1], dim=-2)
+
+
+def poly_mul_naive_plain(spec: FieldSpec, a, b):
+    """Plain version of poly_mul_naive: _schoolbook on the plain products and
+    the plain reduction."""
+    return _schoolbook(a, b, lambda x, y: CF.mont_mul_plain(spec, x, y),
+                       lambda cols: CF.reduce_columns_plain(spec, cols))
+
+
+def kate_div_plain(spec: FieldSpec, coeffs, b):
+    """Plain version of kate_div: _horner on the plain products and adds."""
+    return _horner(coeffs, b, lambda x, y: CF.mont_mul_plain(spec, x, y),
+                   lambda x, y: CF.mont_addsub_plain(spec, False, x, y))

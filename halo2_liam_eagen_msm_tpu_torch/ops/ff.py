@@ -11,7 +11,8 @@ kernel (ops/cuda_ff.py), an op on a CPU tensor runs the kernel's plain PyTorch
 version.  Constants are made on the device of the tensor they meet.
 
 The lazy sums of reduce_columns, sum and dot (the polynomial layer's
-anti-diagonal and dot-product sums) are plain PyTorch: the column sums of
+dot-product sums; the schoolbook product's anti-diagonal sums are one
+poly_mul_naive launch on the card) are plain PyTorch: the column sums of
 16-bit limbs are taken exactly in int64 (the JAX package keeps them in
 uint32, which bounds how many it may add; int64 leaves room for 2^46 a
 column), then carried into limbs on the tensor's device and reduced by two
@@ -25,7 +26,7 @@ from functools import lru_cache
 import torch
 
 from ..convert import limbs_from_numpy, limbs_to_numpy
-from ..fields import FieldSpec, N_LIMBS, R
+from ..fields import FieldSpec, N_LIMBS
 from ..limbs import int_to_limbs, int_to_mont_limbs, ints_to_limbs, limbs_to_ints
 from . import cuda_ff
 
@@ -117,23 +118,10 @@ class FF:
     def reduce_columns(self, cols):
         """Reduce lazy column sums of Montgomery residues to a fully reduced
         element: cols (..., K <= 17) integer tensor, every column below
-        2^46 and the total value below 2^271 (both exact in int64).  The
-        columns are carried into 17 limbs; the low 16 are reduced by a
-        Montgomery product with R mod p (lo * R * R^-1 = lo), the top limb by
-        one with (2^256 * R) mod p (top * 2^256), and the two are added."""
-        k = cols.shape[-1]
-        if k > N_LIMBS + 1:
-            raise ValueError(f"reduce_columns: at most {N_LIMBS + 1} columns, got {k}")
-        cols = torch.nn.functional.pad(cols.to(torch.int64), (0, N_LIMBS + 1 - k))
-        C = cuda_ff._plain_consts(self.spec, cols.device)
-        limbs, _ = cuda_ff._normalize(C, cols, folds=3)
-        limbs = limbs.to(torch.int32)
-        one = self.one(cols.device).expand(limbs.shape[:-1] + (N_LIMBS,))
-        lo = self.mul(limbs[..., :N_LIMBS], one)
-        top = torch.nn.functional.pad(limbs[..., N_LIMBS:], (0, N_LIMBS - 1))
-        c256 = self._limb_const("c256", int_to_limbs((R * self.spec.r_mod_p) % self.spec.p),
-                                cols.device)
-        return self.add(lo, self.mul(top, c256.expand(top.shape)))
+        2^46 and the total value below 2^271 (both exact in int64); see
+        cuda_ff.reduce_columns_with, here on this namespace's products and
+        adds."""
+        return cuda_ff.reduce_columns_with(self.spec, cols, self.mul, self.add)
 
     def sum(self, a, axis: int = -2):
         """Sum field elements along `axis`: lazy int64 column sums over chunks

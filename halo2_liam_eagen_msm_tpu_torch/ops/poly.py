@@ -7,16 +7,17 @@ Counterpart of the JAX package's ops/poly.py:
     zeros never change results
   * evaluation is powers of x (a log-depth prefix product) and one lazily
     reduced dot product
-  * kate division (synthetic division by (x - b), remainder dropped): a
-    sequential loop for n <= 64, otherwise suffix sums of c_j b^j scaled by
-    inverse powers
-  * short products are one batched outer product with anti-diagonal lazy
-    sums; long products use the NTT; the dispatch is the reference's
-    len < 32 rule
+  * kate division (synthetic division by (x - b), remainder dropped): the
+    sequential Horner chain for n <= 64, otherwise suffix sums of c_j b^j
+    scaled by inverse powers
+  * short products are the schoolbook product; long products use the NTT;
+    the dispatch is the reference's len < 32 rule
 
-Every op runs through ops/ff.py and ops/ntt.py, so it takes its device from
-its tensors.  `Poly` is the host-side exact-length polynomial (Python ints)
-of the tests and the oracles.
+Every op takes its device from its tensors.  The schoolbook product and the
+Horner chain (the divisor's coefficient levels) are one kernel launch each
+on a CUDA tensor (ops/cuda_poly.py) and their plain versions on a CPU one;
+the rest runs through ops/ff.py and ops/ntt.py.  `Poly` is the host-side
+exact-length polynomial (Python ints) of the tests and the oracles.
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ import torch
 from ..convert import limbs_from_numpy, limbs_to_numpy
 from ..fields import FieldSpec, N_LIMBS
 from ..limbs import ints_to_mont_limbs, mont_limbs_to_ints
+from . import cuda_ff
+from . import cuda_poly as CP
 from .ff import ff
 from .ntt import intt_dit, ntt_dif
 
@@ -72,21 +75,17 @@ def kate_div(spec: FieldSpec, coeffs, b):
     """Synthetic division by (x - b), dropping the remainder:
     q_k = sum_{j>k} c_j b^(j-1-k).  Returns a tensor of the SAME static
     length with the last coefficient zero; callers track semantic lengths.
-    n <= 64: the sequential recurrence q_{k-1} = c_k + b q_k (b = 0 included).
-    Longer: q_k = (suffix_sum_{j>k} c_j b^j) * b^(-k-1), and for b == 0 the
-    quotient is the shift, mask-selected."""
+    n <= 64: the sequential recurrence q_{k-1} = c_k + b q_k (b = 0 included),
+    one kate_div launch on the card.  Longer: q_k = (suffix_sum_{j>k} c_j
+    b^j) * b^(-k-1), and for b == 0 the quotient is the shift, mask-selected."""
     k = ff(spec)
     n = coeffs.shape[-2]
     if n <= 1:
         return torch.zeros_like(coeffs)
     if n <= 64:
-        lead = torch.broadcast_shapes(coeffs.shape[:-2], b.shape[:-1])
-        acc = torch.zeros(lead + (N_LIMBS,), dtype=coeffs.dtype, device=coeffs.device)
-        q = [acc]                      # q_{n-1} = 0, the dropped slot
-        for j in range(n - 1, 0, -1):
-            acc = k.add(coeffs[..., j, :], k.mul(b, acc))
-            q.append(acc)
-        return torch.stack(q[::-1], dim=-2)
+        if cuda_ff._use_kernel(coeffs):
+            return CP.kate_div(spec, coeffs, b)
+        return CP.kate_div_plain(spec, coeffs, b)
     b_is_zero = k.is_zero(b)
     safe_b = k.select(b_is_zero, k.one(b.device).expand(b.shape), b)
     b_inv = k.inv(safe_b)
@@ -100,24 +99,32 @@ def kate_div(spec: FieldSpec, coeffs, b):
 
 def mul_naive(spec: FieldSpec, a, b):
     """Schoolbook product of (..., La, 16) x (..., Lb, 16) -> (..., La+Lb-1,
-    16): one batched Montgomery product for all La*Lb coefficient pairs, then
-    exact int64 anti-diagonal sums and one reduction per output coefficient
-    (ff.reduce_columns: min(La, Lb) <= 2^13 keeps each column below 2^29)."""
-    k = ff(spec)
-    if a.shape[-2] > b.shape[-2]:
-        a, b = b, a  # keep the anti-diagonal row axis (and sum count) short
-    la, lb = a.shape[-2], b.shape[-2]
-    if la > 1 << 13:
+    16), min(La, Lb) <= 2^13: one poly_mul_naive launch on the card; on the
+    CPU one batched Montgomery product for all La*Lb coefficient pairs, then
+    exact int64 anti-diagonal sums and one reduction per output coefficient."""
+    if min(a.shape[-2], b.shape[-2]) > CP.MAX_SHORT_TERMS:
         raise ValueError("mul_naive: the shorter operand must have at most 2^13 terms")
-    outer = k.mul(a[..., :, None, :], b[..., None, :, :])    # (..., La, Lb, 16)
-    # pad the j axis to la + lb and re-view rows at width la + lb - 1: element
-    # (i, j) lands at (i, i + j); the spill hits only zero padding
-    lead = outer.shape[:-3]
-    nout = la + lb - 1
-    padded = torch.nn.functional.pad(outer, (0, 0, 0, la))
-    flat = padded.reshape(lead + (la * (lb + la), N_LIMBS))[..., : la * nout, :]
-    cols = flat.reshape(lead + (la, nout, N_LIMBS)).sum(-3, dtype=torch.int64)
-    return k.reduce_columns(cols)
+    if cuda_ff._use_kernel(a):
+        return CP.poly_mul_naive(spec, a, b)
+    return CP.poly_mul_naive_plain(spec, a, b)
+
+
+def _mul_naive_outer(spec: FieldSpec, a, b):
+    """mul_naive by the route poly_mul_naive replaced: the outer product by
+    ff's product (a mont_mul launch on the card), the int64 anti-diagonal
+    sums in PyTorch and ff.reduce_columns.  Kept for chip_smoke.py's
+    comparison of the two routes; no path calls it."""
+    k = ff(spec)
+    return CP._schoolbook(a, b, k.mul, k.reduce_columns)
+
+
+def _kate_div_chain(spec: FieldSpec, coeffs, b):
+    """kate_div for 2 <= n <= 64 by the route the kate_div kernel replaced: the
+    Horner chain on ff's product and add, 2 (n - 1) launches on the card.
+    Kept for chip_smoke.py's comparison of the two routes; no path calls
+    it."""
+    k = ff(spec)
+    return CP._horner(coeffs, b, k.mul, k.add)
 
 
 def _pad_to(a, n: int):

@@ -1,6 +1,6 @@
 """The CUDA sources of the port, rehearsed without a card: csrc/kernels.cu
-(with csrc/ntt.cuh and csrc/radix.cuh) compiles for the host with g++ behind
-a small shim, the
+(with csrc/ntt.cuh, csrc/radix.cuh and csrc/poly.cuh) compiles for the host
+with g++ behind a small shim, the
 result is loaded in place of the nvcc library, and every kernel's wrapper is
 held against its plain PyTorch version on CPU tensors.
 
@@ -34,14 +34,16 @@ import torch
 
 from halo2_liam_eagen_msm_tpu_torch.convert import JPoint
 from halo2_liam_eagen_msm_tpu_torch.fields import PALLAS
-from halo2_liam_eagen_msm_tpu_torch.limbs import ints_to_limbs, ints_to_mont_limbs
+from halo2_liam_eagen_msm_tpu_torch.limbs import ints_to_limbs, ints_to_mont_limbs, mont_limbs_to_ints
 from halo2_liam_eagen_msm_tpu_torch.ops import cuda_ff as CF
 from halo2_liam_eagen_msm_tpu_torch.ops import cuda_ntt as CN
+from halo2_liam_eagen_msm_tpu_torch.ops import cuda_poly as CP
 from halo2_liam_eagen_msm_tpu_torch.ops import cuda_radix as CR
 from halo2_liam_eagen_msm_tpu_torch.ops import msm as M
 from halo2_liam_eagen_msm_tpu_torch.ops import radix as RX
 from halo2_liam_eagen_msm_tpu_torch.ops.ec import ec
 from halo2_liam_eagen_msm_tpu_torch.ops.ff import ff
+from halo2_liam_eagen_msm_tpu_torch.ops.poly import Poly
 from halo2_liam_eagen_msm_tpu_torch.utils import pyref
 
 torch.set_num_threads(1)
@@ -173,7 +175,7 @@ def host_library(tmp_path_factory):
         pytest.skip("no g++ to compile the CUDA sources for the host")
     out = tmp_path_factory.mktemp("host_kernels")
     n = 0
-    for name in ("kernels.cu", "ntt.cuh", "radix.cuh"):
+    for name in ("kernels.cu", "ntt.cuh", "radix.cuh", "poly.cuh"):
         src = (_CSRC / name).read_text().replace("#include <cuda_runtime.h>", _SHIM)
         src, count = _rewrite_launches(src)
         n += count
@@ -358,17 +360,38 @@ def _case(name, rng, nprng):
         chains = (1, 4, 64)
         return (lambda a: tuple(CF.batch_inv(SPEC, a, chain=c) for c in chains),
                 lambda a: tuple(CF.batch_inv_plain(SPEC, a, chain=c) for c in chains), (a,))
-    if name in ("mont_addsub", "mont_addsub_v1"):
+    if name == "mont_addsub":
         def both(fn):
             return lambda a, b: (fn(SPEC, False, a, b), fn(SPEC, True, a, b))
-        return both(getattr(CF, name)), both(CF.mont_addsub_plain), \
+        return both(CF.mont_addsub), both(CF.mont_addsub_plain), \
             (_field(nprng, B), _field(nprng, B))
+    if name == "poly_mul_naive":
+        # (pairs, La, Lb): La = 17, Lb = 33 (49 outputs a pair, 5 pairs a
+        # block: 7 pairs end in a ragged block), La > Lb, La = 1, and Lb = 4
+        # shared by all pairs (the substitution polynomial of rf_mul)
+        shapes = ((7, 17, 33), (3, 8, 3), (5, 1, 6))
+        ops = [(_field(nprng, m * la).reshape(m, la, 16), _field(nprng, m * lb).reshape(m, lb, 16))
+               for m, la, lb in shapes]
+        ops.append((_field(nprng, 9 * 5).reshape(9, 5, 16), _field(nprng, 4).expand(9, 4, 16)))
+        return (lambda *a: tuple(CP.poly_mul_naive(SPEC, x, y) for x, y in ops),
+                lambda *a: tuple(CP.poly_mul_naive_plain(SPEC, x, y) for x, y in ops), ())
+    if name == "kate_div":
+        # 37 pairs (a ragged second block) at n = 5 and 34 (two chunks of the
+        # chain, the second one row), b = 0 in pair 3; one b for all pairs
+        cases = []
+        for n in (5, 34):
+            b = _field(nprng, B)
+            b[3] = 0
+            cases.append((_field(nprng, B * n).reshape(B, n, 16), b))
+        cases.append((_field(nprng, 6 * 3).reshape(6, 3, 16), _field(nprng, 1)[0]))
+        return (lambda *a: tuple(CP.kate_div(SPEC, c, b) for c, b in cases),
+                lambda *a: tuple(CP.kate_div_plain(SPEC, c, b) for c, b in cases), ())
     hp, hq = _edge_points(rng)
     p = _jacobian(rng, nprng, hp)
-    if name in ("ec_add", "ec_add_fast", "ec_add_fast_v1", "ec_double"):
+    if name in ("ec_add", "ec_add_fast", "ec_double"):
         args = tuple(p) if name == "ec_double" else (*p, *_jacobian(rng, nprng, hq))
         kernel = getattr(CF, name)
-        plain = getattr(CF, name.removesuffix("_v1") + "_plain")
+        plain = getattr(CF, name + "_plain")
         return (lambda *a: kernel(CURVE, *a)), (lambda *a: plain(CURVE, *a)), args
     qx, qy, qid = E.to_affine(E.points_from_ints(hq, "cpu"))
     if name == "ec_add_mixed":
@@ -465,10 +488,10 @@ def _addsub_edges(rng):
     return pairs
 
 
-@pytest.mark.parametrize("name", ["mont_addsub", "mont_addsub_v1"])
+@pytest.mark.parametrize("name", ["mont_addsub"])
 def test_mont_addsub_edges_on_host(name, host_kernels, rng):
-    """The four-lane mont_addsub and its first design at the carry edges, at
-    ragged B = 37: equal to the plain version and to exact ints, raw limbs."""
+    """The four-lane mont_addsub at the carry edges, at ragged B = 37: equal
+    to the plain version and to exact ints, raw limbs."""
     pairs = _addsub_edges(rng)
     assert len(pairs) == B
     limbs = lambda xs: torch.from_numpy(ints_to_limbs(xs).view("int32").copy())
@@ -480,10 +503,9 @@ def test_mont_addsub_edges_on_host(name, host_kernels, rng):
         assert torch.equal(got, limbs(want))
 
 
-@pytest.mark.parametrize("name", ["ec_add_fast", "ec_add_fast_v1"])
+@pytest.mark.parametrize("name", ["ec_add_fast"])
 def test_ec_add_fast_edges_on_host(name, host_kernels, rng, nprng):
-    """The four-lane ec_add_fast and its first design at ragged B = 37 with
-    the edge lanes: p identity (passes q), q identity (passes p), both
+    """The four-lane ec_add_fast at ragged B = 37 with the edge lanes: p identity (passes q), q identity (passes p), both
     identities, P + P (flagged, the only flag), P + (-P) (z = 0, unflagged);
     equal to the plain version limb for limb and to the Python-int oracle on
     every unflagged lane.  The identities carry x and y of other lanes (any
@@ -504,6 +526,67 @@ def test_ec_add_fast_edges_on_host(name, host_kernels, rng, nprng):
     pts = ec(CURVE).points_to_ints(JPoint(*out))
     assert [v for k, v in enumerate(pts) if k != 3] == \
         [pyref.ec_add(u, v, CURVE) for k, (u, v) in enumerate(zip(hp, hq)) if k != 3]
+
+
+def _mont_rows(vals):
+    """Python ints (any nesting of equal-length lists) -> Montgomery limbs."""
+    arr = ints_to_mont_limbs([v for row in vals for v in row], SPEC).view("int32")
+    return torch.from_numpy(arr.copy()).reshape(len(vals), len(vals[0]), 16)
+
+
+def _from_rows(t):
+    flat = mont_limbs_to_ints(t.reshape(-1, 16).numpy().view("uint32"), SPEC)
+    width = t.shape[-2]
+    return [flat[i:i + width] for i in range(0, len(flat), width)]
+
+
+@pytest.mark.parametrize("staging", ["shared", "device"])
+def test_poly_mul_naive_edges_on_host(staging, host_kernels, monkeypatch, rng):
+    """poly_mul_naive at its edges, equal to the plain version limb for limb
+    and to the product of Python ints: raw limbs of p - 1 in every
+    coefficient of pair 0 (the longest anti-diagonal sums La such
+    products), zero coefficients in pair 1 and a zero polynomial in pair 2;
+    13 pairs of 17 x 33 (5 pairs a block: a ragged last block), La > Lb,
+    La = 1 on both sides.  Rows staged in shared memory, or read from device
+    memory (the route of a pair too long to stage)."""
+    if staging == "device":
+        monkeypatch.setattr(CP, "PMUL_SMEM", 0)
+    p = SPEC.p
+    edge = torch.from_numpy(ints_to_limbs([p - 1]).view("int32").copy())[0]
+    for m, la, lb in ((13, 17, 33), (4, 9, 2), (6, 1, 5), (3, 1, 1)):
+        xs = [[rng.randrange(p) for _ in range(la)] for _ in range(m)]
+        ys = [[rng.randrange(p) for _ in range(lb)] for _ in range(m)]
+        xs[1][::2] = [0] * len(xs[1][::2])
+        ys[1][1::2] = [0] * len(ys[1][1::2])
+        xs[2] = [0] * la
+        a, b = _mont_rows(xs), _mont_rows(ys)
+        a[0], b[0] = edge, edge
+        got = CP.poly_mul_naive(SPEC, a, b)
+        assert torch.equal(got, CP.poly_mul_naive_plain(SPEC, a, b))
+        xs[0], ys[0] = _from_rows(a[:1])[0], _from_rows(b[:1])[0]
+        assert _from_rows(got) == [Poly(SPEC, x).mul_naive(Poly(SPEC, y)).coeffs
+                                   for x, y in zip(xs, ys)]
+
+
+@pytest.mark.parametrize("n", [2, 17, 64])
+def test_kate_div_edges_on_host(n, host_kernels, rng):
+    """kate_div at ragged B = 37 pairs of n coefficients (n = 17: one whole
+    chunk of the chain; 64: three and a part): b = 0 (the shift), b = p - 1
+    with every coefficient p - 1, zero coefficients, a zero polynomial; equal
+    to the plain version limb for limb and to Poly.kate_div on Python ints,
+    the last row zero."""
+    p = SPEC.p
+    cs = [[rng.randrange(p) for _ in range(n)] for _ in range(B)]
+    bs = [rng.randrange(p) for _ in range(B)]
+    bs[0] = 0
+    cs[1], bs[1] = [p - 1] * n, p - 1
+    cs[2][::3] = [0] * len(cs[2][::3])
+    cs[3] = [0] * n
+    coeffs, b = _mont_rows(cs), _mont_rows([bs])[0]
+    got = CP.kate_div(SPEC, coeffs, b)
+    assert torch.equal(got, CP.kate_div_plain(SPEC, coeffs, b))
+    assert _from_rows(got) == [Poly(SPEC, c).kate_div(x).coeffs + [0] for c, x in zip(cs, bs)]
+    assert _from_rows(got)[0] == cs[0][1:] + [0]
 
 
 _NEIGHBOURS = """#include <cuda_runtime.h>

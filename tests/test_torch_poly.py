@@ -17,6 +17,7 @@ from halo2_liam_eagen_msm_tpu.ops import poly as jax_poly
 from halo2_liam_eagen_msm_tpu_torch.convert import limbs_from_numpy, limbs_to_numpy
 from halo2_liam_eagen_msm_tpu_torch.fields import PALLAS_FP
 from halo2_liam_eagen_msm_tpu_torch.limbs import ints_to_mont_limbs, mont_limbs_to_ints
+from halo2_liam_eagen_msm_tpu_torch.ops import cuda_poly as CP
 from halo2_liam_eagen_msm_tpu_torch.ops import poly as P
 from halo2_liam_eagen_msm_tpu_torch.ops.ff import ff
 from halo2_liam_eagen_msm_tpu_torch.ops.poly import Poly
@@ -135,6 +136,43 @@ def test_mul_naive_fft_auto(rng, la, lb):
     assert back(P.mul_auto(SPEC, dev(p), dev(q)), la + lb - 1).coeffs == want
 
 
+@pytest.mark.parametrize("la, lb", [(1, 1), (3, 8), (17, 33), (31, 31), (7, 100)])
+def test_poly_mul_naive_plain(rng, la, lb):
+    """The plain version of poly_mul_naive equals the route it replaced on the
+    card (_mul_naive_outer, here on the CPU's field ops) and the host Poly,
+    batched over three pairs, both orders of the operands, and with the
+    second operand shared by all pairs (a broadcast view, as rf_mul passes
+    the substitution polynomial)."""
+    ps = [rand_poly(rng, la) for _ in range(3)]
+    qs = [rand_poly(rng, lb) for _ in range(3)]
+    ps[1] = Poly(SPEC, [0] * la)
+    a, b = torch.stack([dev(x) for x in ps]), torch.stack([dev(x) for x in qs])
+    for x, y, want in ((a, b, [p * q for p, q in zip(ps, qs)]),
+                       (b, a, [q * p for p, q in zip(ps, qs)]),
+                       (a, b[:1].expand(3, lb, 16), [p * qs[0] for p in ps])):
+        got = CP.poly_mul_naive_plain(SPEC, x, y)
+        assert torch.equal(got, P._mul_naive_outer(SPEC, x, y))
+        assert [back(g).coeffs for g in got] == [w.coeffs for w in want]
+
+
+@pytest.mark.parametrize("n", [2, 5, 33, 64])
+def test_kate_div_plain(rng, n):
+    """The plain version of kate_div equals the route it replaced on the card
+    (_kate_div_chain, here on the CPU's field ops), P.kate_div and the host
+    Poly, over four pairs: b random, b = 0 (the shift), a zero polynomial;
+    and with one b for all pairs."""
+    ps = [rand_poly(rng, n) for _ in range(4)]
+    ps[3] = Poly(SPEC, [0] * n)
+    bs = [rng.randrange(SPEC.p), 0, rng.randrange(SPEC.p), 7]
+    coeffs, b = torch.stack([dev(p) for p in ps]), torch.stack([elem(v) for v in bs])
+    for bb, vals in ((b, bs), (b[2], [bs[2]] * 4)):
+        got = CP.kate_div_plain(SPEC, coeffs, bb)
+        assert torch.equal(got, P._kate_div_chain(SPEC, coeffs, bb))
+        assert torch.equal(got, P.kate_div(SPEC, coeffs, bb))
+        assert [back(g).coeffs for g in got] == [p.kate_div(v).coeffs + [0]
+                                                for p, v in zip(ps, vals)]
+
+
 def test_add_scale_shr_batched(rng):
     p, q = rand_poly(rng, 10), rand_poly(rng, 25)
     sc = rng.randrange(SPEC.p)
@@ -151,7 +189,9 @@ def test_add_scale_shr_batched(rng):
 def test_device_functions_equal_jax(rng):
     """One jitted JAX call at test_poly.py's shapes (kate division at 77,
     b random and b = 0; a batched 6 x (9, 12) naive product; an evaluation
-    of a 200-term polynomial at 4 points): the same limbs as the port."""
+    of a 200-term polynomial at 4 points) and kate division at 33 (the JAX
+    package's lax.scan route, b random and b = 0): the same limbs as the
+    port."""
     p77, p200 = rand_poly(rng, 77), rand_poly(rng, 200)
     ps = np.stack([ints_to_mont_limbs(rand_poly(rng, 9).coeffs, SPEC) for _ in range(6)])
     qs = np.stack([ints_to_mont_limbs(rand_poly(rng, 12).coeffs, SPEC) for _ in range(6)])
@@ -159,15 +199,17 @@ def test_device_functions_equal_jax(rng):
     x4 = ints_to_mont_limbs([rng.randrange(SPEC.p) for _ in range(4)], SPEC)
     c77 = ints_to_mont_limbs(p77.coeffs, SPEC)
     c200 = ints_to_mont_limbs(p200.coeffs, SPEC)
+    c33 = np.stack([ints_to_mont_limbs(rand_poly(rng, 33).coeffs, SPEC) for _ in range(2)])
 
-    def jax_all(c77, b, ps, qs, c200, x4):
+    def jax_all(c77, b, ps, qs, c200, x4, c33):
         return (jax_poly.kate_div(JF.PALLAS_FP, c77[None], b),
                 jax_poly.mul_naive(JF.PALLAS_FP, ps, qs),
-                jax_poly.eval_poly(JF.PALLAS_FP, c200[None], x4))
+                jax_poly.eval_poly(JF.PALLAS_FP, c200[None], x4),
+                jax_poly.kate_div(JF.PALLAS_FP, c33, b))
 
-    want = jax.jit(jax_all)(*(jnp.asarray(v) for v in (c77, b, ps, qs, c200, x4)))
+    want = jax.jit(jax_all)(*(jnp.asarray(v) for v in (c77, b, ps, qs, c200, x4, c33)))
     t = lambda v: limbs_from_numpy(v, "cpu")
     got = (P.kate_div(SPEC, t(c77)[None], t(b)), P.mul_naive(SPEC, t(ps), t(qs)),
-           P.eval_poly(SPEC, t(c200)[None], t(x4)))
+           P.eval_poly(SPEC, t(c200)[None], t(x4)), P.kate_div(SPEC, t(c33), t(b)))
     for g, w in zip(got, want):
         assert np.array_equal(limbs_to_numpy(g), np.asarray(w))

@@ -45,25 +45,33 @@ without a card, and on any failed build, failed launch or mismatch.  It
      the card, and at two of them by Python-int Horner on the host), no level
      may take the coefficient fallback, each of the five kernels must have
      been launched as counted, poly_mul_naive ten times and kate_div four
-     times a coefficient level,
+     times a coefficient level, affine_lines once a level (the seeds and
+     every merge) and mont_mul not at all,
   9b. tallies the launches of mont_mul and mont_addsub by B (rows a launch)
      and caller (the nearest frame outside the field layer), of ec_add,
-     ec_add_fast and ec_double by B, of batch_inv by (rows, chain length)
-     and of poly_mul_naive and kate_div by shape over one MSM, one carry
-     stage and one round, and reads the device's busy time of one MSM and
+     ec_add_fast and ec_double by B, of batch_inv by (rows, chain length),
+     of poly_mul_naive and kate_div by shape and of affine_lines by (B,
+     mode) over one MSM, one carry stage and one round, and reads the
+     device's busy time of one MSM and
      one carry stage; holds mont_mul, mont_addsub and ec_add_fast against
      their plain versions bit for bit, with edge lanes (the carry edges of a
      row; identities, P + P, P + (-P)), at every B the tally gives them
      (mont_addsub and ec_add_fast at the kernel phase's shape and the ragged
      size too) and times them there; times ec_double at every B the tally
      gives it; holds poly_mul_naive and kate_div at every shape the tally
-     gives them against their plain versions, the routes they replaced
-     (ops/poly._mul_naive_outer, _kate_div_chain) and the Python-int Poly,
-     with edge pairs (raw p - 1 everywhere, zero terms, the root 0), and
-     times kernel and old route in turns (old, new, new, old), kate_div at
-     one pair too (one chain's latency); ranks the six by launches x (device
-     ms - bound) over the main path (one MSM, one carry stage and 56 rounds
-     like the tallied one); then holds the kernels redesigned before against
+     gives them against their plain versions and the Python-int Poly (and
+     poly_mul_naive against its first design, poly_mul_naive_v1), with edge
+     pairs (raw p - 1 everywhere, zero terms, the root 0), and times them
+     there (the two designs in turns v1, v2, v2, v1), kate_div at one pair
+     too (one chain's latency); holds affine_lines against its plain version
+     and the route it replaced (cuda_lines.affine_lines_composed: mont_mul
+     and mont_addsub launches and PyTorch selects) at every width the tally
+     gives it, head and seeds, with the edge slots of curve_inputs
+     (identities, P = P, P = -P) and times kernel and route in turns (route,
+     kernel, kernel, route); ranks the seven and the first design by
+     launches x (device ms - bound) over the main path (one MSM, one carry
+     stage and 56 rounds like the tallied one); then holds the kernels
+     redesigned before against
      their plain versions bit for bit and times them at the path's shapes:
      ec_add at every B that carries a tenth of its tallied launches, at 2048
      and at the widest; stages_small forward and inverse at (n, E) = (2^7,
@@ -72,12 +80,14 @@ without a card, and on any failed build, failed launch or mismatch.  It
      each against FF._inv_host too; the fused scan at g = 256, 4096 and
      16,384 carries of 64 rows, the windows FUSED_SCAN_MIN_ROWS lets through,
   9c. holds poly_mul_naive and kate_div against their plain versions at a
-     ragged shape and at the round's shape of the most products (the
-     records of the JSON line), then runs round 28 by the routes they
-     replaced and by the kernels: the same witness limb for limb, a kernel
-     launch for each schoolbook product and each Horner chain, mont_mul's
-     and mont_addsub's launches fewer by what the tally puts on the old
-     route's functions; the device's busy time in turns, peak, wall clock,
+     ragged shape and at the round's shape of the most products, and
+     affine_lines at a ragged width and the widest of the round (the
+     records of the JSON line), then runs round 28 by poly_mul_naive_v1 and
+     the composed head and by poly_mul_naive and affine_lines: the same
+     witness limb for limb, a v2 launch for each v1 launch, an affine_lines
+     launch a level, mont_mul's and mont_addsub's launches fewer by exactly
+     the composed head's (mont_mul's to 0); the device's busy time in turns,
+     peak, wall clock,
  10. drives one round of the witness at a cut width, 2^10 points, on the card
      and on the CPU (plain versions): the carries' final carry equal to the
      Python-int oracle, round 28 closing on both and equal limb for limb,
@@ -149,7 +159,11 @@ length: the Montgomery trick's 3 (n - 1) products and one power of p - 2
 (cuda_ff.pow_products), one row read and one written.  poly_mul_naive counts
 La Lb products and La Lb - (La + Lb - 1) adds a pair, kate_div n - 1 of each;
 both each input row once (a shared operand once for all pairs) and each
-output row once.  The radix kernels move data and count: their bound is
+output row once.  affine_lines counts 10 products and 5 subtractions a slot
+(two normalisations, two negations and a line, whose products by a Z of 0
+or 1 are selects) and 6 products and 3 subtractions more a degenerate slot
+(the third point and the second line), its 9 input rows and 7 (head) or 3
+(seeds) output rows and 2 flag bytes a slot.  The radix kernels move data and count: their bound is
 their bytes alone, from this run's inputs.
 """
 
@@ -179,6 +193,7 @@ from halo2_liam_eagen_msm_tpu_torch.limbs import (
 from halo2_liam_eagen_msm_tpu_torch.models.eagen_msm import EagenConfig, EagenMSMWitness
 from halo2_liam_eagen_msm_tpu_torch.negbase import negbase_decompose_batch
 from halo2_liam_eagen_msm_tpu_torch.ops import cuda_ff as CF
+from halo2_liam_eagen_msm_tpu_torch.ops import cuda_lines as CL
 from halo2_liam_eagen_msm_tpu_torch.ops import cuda_ntt as CN
 from halo2_liam_eagen_msm_tpu_torch.ops import cuda_poly as CP
 from halo2_liam_eagen_msm_tpu_torch.ops import cuda_radix as CR
@@ -229,6 +244,9 @@ KERNEL_TABLE = {
     # adds and rows from the shape (mul_naive_bound, kate_div_bound)
     "poly_mul_naive": ("poly.cuh", PALLAS_FF, 515, None, None, 0),
     "kate_div": ("poly.cuh", PALLAS_FF, 515, None, None, 0),
+    "poly_mul_naive_v1": ("poly.cuh", PALLAS_FF, 515, None, None, 0),
+    # and at the merge head's: products from the run's slots (lines_bound)
+    "affine_lines": ("lines.cuh", PALLAS_FF, 515, None, None, 0),
 }
 MSM_KERNELS = ("mont_mul", "batch_inv", "mont_addsub", "ec_add", "ec_add_fast",
                "ec_double", "fused_madd_scan_xyzz")
@@ -239,8 +257,12 @@ ROUND_KERNELS = ("lm_mul", "lm_addsub", "lm_mul_const", "stage_big", "stages_sma
 # twice: five schoolbook products each; kate_div twice for a, twice for b)
 POLY_KERNELS = ("poly_mul_naive", "kate_div")
 POLY_PER_LEVEL = {"poly_mul_naive": 10, "kate_div": 4}
-# the functions of the routes the two replaced, as caller_of names them
-OLD_ROUTE_CALLERS = ("ops/poly.py:_mul_naive_outer", "ops/poly.py:_kate_div_chain")
+# the round's kernels redesigned or added by this slice, and the first design
+# each of them replaced (a kernel, or the route of launches the head was)
+SLICE_KERNELS = ("poly_mul_naive", "affine_lines")
+V1_OF = {"poly_mul_naive_v1": "poly_mul_naive"}
+# the function of the route affine_lines replaced, as caller_of names it
+HEAD_CALLER = "divisor.py:_head_lines"
 RADIX_KERNELS = ("radix_rank", "radix_shuffle", "radix_pass_b", "radix_compact")
 ROUND_K = 28  # the round of the carry stage the round phase takes (= d // 2)
 BASE = 5  # radix of the argument's digit rounds
@@ -759,7 +781,7 @@ def profile_call(dev, what: str, fn) -> None:
 # the functions whose device time a round's profile attributes: span -> (the
 # module that holds the function, the name its callers look it up by)
 ROUND_SPANS = {"mul_naive": (P, "mul_naive"), "kate_div": (P, "kate_div"),
-               "lm tail": (D, "_merge_tail_fused_lm")}
+               "lm tail": (D, "_merge_tail_fused_lm"), "head lines": (D, "_head_lines")}
 
 
 def kernel_class(name: str) -> str:
@@ -1269,6 +1291,9 @@ def round_path(dev, pts: JPoint, carry_state, profile: bool):
             f"the round's inversions went through batch_inv ({counts['batch_inv']} launches): "
             f"mont_mul {counts['mont_mul']} launches, below the {PR6_ROUND_MONT_MUL} of the "
             f"chains of launches")
+    require(counts["affine_lines"] == levels + 1 and counts["mont_mul"] == 0,
+            f"affine_lines was launched once a level ({counts['affine_lines']} for the seeds "
+            f"and {levels} merges), mont_mul not at all ({counts['mont_mul']})")
 
     require(bool(E.is_identity(JPoint(*(c[None] for c in out)))[0]),
             "the round's output is the identity (its slots sum to zero)")
@@ -1312,14 +1337,15 @@ def width_of(*rows) -> int:
     return math.prod(torch.broadcast_shapes(*(r.shape[:-1] for r in rows)))
 
 
-_FIELD_LAYER = ("/ops/ff.py", "/ops/cuda_ff.py", "/ops/cuda_poly.py", "/chip_smoke.py")
+_FIELD_LAYER = ("/ops/ff.py", "/ops/cuda_ff.py", "/ops/cuda_poly.py", "/ops/cuda_lines.py",
+                "/chip_smoke.py")
 
 
 def caller_of() -> str:
     """The nearest frame outside the field layer (ops/ff.py, the wrappers,
-    the algorithms of ops/cuda_poly.py) and this script: "ops/poly.py:
-    _kate_div_chain" for the products of the Horner chain's old route,
-    "divisor.py:linefunc_affine" for those of a line."""
+    the algorithms of ops/cuda_poly.py and ops/cuda_lines.py) and this
+    script: "divisor.py:_head_lines" for the products and subtractions of
+    the composed head, "ops/poly.py:add_padded" for a sum of coefficients."""
     f = sys._getframe(1)
     while f is not None:
         path = f.f_code.co_filename.replace("\\", "/")
@@ -1349,10 +1375,12 @@ TALLY_KEYS = {
                   (width_of(a), chain or CF.batch_inv_chain(width_of(a)))),
     "poly_mul_naive": (CP, lambda spec, a, b: mul_naive_key(a, b)),
     "kate_div": (CP, lambda spec, c, b: (width_of(c[..., 0, :], b), c.shape[-2])),
+    "affine_lines": (CL, lambda spec, head, x, y, zinv:
+                     (width_of(x[0], y[0], zinv[0]), "head" if head else "seeds")),
 }
 BY_CALLER = ("mont_mul", "mont_addsub")
 TALLY_FORMAT = {"batch_inv": "(rows, L)", "poly_mul_naive": "(pairs, La, Lb, a shared, b shared)",
-                "kate_div": "(pairs, n)"}
+                "kate_div": "(pairs, n)", "affine_lines": "(B, mode)"}
 
 
 class Tally:
@@ -1402,6 +1430,21 @@ def print_tally(name: str, by_phase: dict) -> None:
         for phase, t in by_phase.items()), flush=True)
 
 
+def round_k(pts: JPoint, rnd):
+    """Round ROUND_K of the carry stage's points through _one_round_slots and
+    compute_divisor_witness_partial, as a function of no arguments that
+    returns the (witness, output) pair; the carry state is rnd's."""
+    digits, carry_prev, carry_new = rnd["carry_state"]
+    precomp = A.precompute_multiplicities(ec(CURVE), pts, BASE)
+    k = ROUND_K
+
+    def one_round():
+        rp = A._one_round_slots(CURVE, BASE, digits[k], precomp,
+                                A._at(carry_prev, k), A._at(carry_new, k))
+        return D.compute_divisor_witness_partial(CURVE, rp)
+    return one_round
+
+
 def launch_tally(dev, base_pts, logn: int, pts: JPoint, rnd):
     """The launches of the TALLY_KEYS kernels by key (mont_mul and
     mont_addsub by B, rows a launch, and caller; the curve kernels by B;
@@ -1411,18 +1454,10 @@ def launch_tally(dev, base_pts, logn: int, pts: JPoint, rnd):
     carry stage.  Returns ({kernel: {phase: {key: launches}}}, {phase: busy
     ms})."""
     _, scalars, _ = msm_inputs(dev, base_pts, logn)
-    digits, carry_prev, carry_new = rnd["carry_state"]
-    precomp = A.precompute_multiplicities(ec(CURVE), pts, BASE)
-    k = ROUND_K
-
-    def one_round():
-        rp = A._one_round_slots(CURVE, BASE, digits[k], precomp,
-                                A._at(carry_prev, k), A._at(carry_new, k))
-        D.compute_divisor_witness_partial(CURVE, rp)
-
+    digits = rnd["carry_state"][0]
     phases = (("msm", lambda: M.best_multiexp(CURVE, scalars, pts)),
               ("carry stage", lambda: A._carries_only(CURVE, BASE, digits, pts)),
-              ("round", one_round))
+              ("round", round_k(pts, rnd)))
     out = {name: {} for name in TALLY_KEYS}
     for phase, fn in phases:
         with Tally() as tally:
@@ -1664,26 +1699,29 @@ def fused_scan_by_g(dev, base_pts, gs, reps: int):
 
 
 RULE2_KERNELS = ("mont_mul", "mont_addsub", "ec_add_fast", "ec_double", "poly_mul_naive",
-                 "kate_div")
+                 "kate_div", "affine_lines")
 
 
 def rule2_ranking(ab: dict) -> dict:
     """Launches x (device ms - bound) over the main path, summed over the
-    shapes timed, for the kernels of RULE2_KERNELS, and two shares of the
-    bound that the rule (a kernel at half its bound or more is left alone)
-    may read: by launch, the mean over launches of bound / ms; by time, the
-    sum of launches x bound over the sum of launches x ms."""
+    shapes timed, for the kernels of RULE2_KERNELS (and the first designs of
+    V1_OF, at their kernel's launches), and two shares of the bound that the
+    rule (a kernel at half its bound or more is left alone) may read: by
+    launch, the mean over launches of bound / ms; by time, the sum of
+    launches x bound over the sum of launches x ms."""
     out = {}
-    for name in RULE2_KERNELS:
+    ranked = {name: (name, "ms") for name in RULE2_KERNELS}
+    ranked.update({v1: (name, "v1_ms") for v1, name in V1_OF.items()})
+    for label, (name, key) in ranked.items():
         recs = ab[name]
         launches = sum(r["launches"] for r in recs)
-        out[name] = {
+        out[label] = {
             "launches": launches,
-            "gap_ms": sum(r["launches"] * (r["ms"] - r["bound_ms"]) for r in recs),
+            "gap_ms": sum(r["launches"] * (r[key] - r["bound_ms"]) for r in recs),
             "bound_share_by_launch":
-                sum(r["launches"] * r["bound_ms"] / r["ms"] for r in recs) / max(launches, 1),
+                sum(r["launches"] * r["bound_ms"] / r[key] for r in recs) / max(launches, 1),
             "bound_share_by_time": sum(r["launches"] * r["bound_ms"] for r in recs) /
-                max(sum(r["launches"] * r["ms"] for r in recs), 1e-12)}
+                max(sum(r["launches"] * r[key] for r in recs), 1e-12)}
     for name, r in sorted(out.items(), key=lambda kv: -kv[1]["gap_ms"]):
         print(f"  rule-2 ranking: {name}: {r['launches']} launches on the main path, launches x "
               f"(ms - bound) = {r['gap_ms']:.3f} ms, share of the bound by launch "
@@ -1692,15 +1730,17 @@ def rule2_ranking(ab: dict) -> dict:
     return out
 
 
-def ab_phase(dev, base_pts, tally, logn: int, ragged: int, row_shapes: dict, reps: int):
+def ab_phase(dev, base_pts, tally, lines_in: dict, logn: int, ragged: int, row_shapes: dict,
+             reps: int):
     """Phase 9b.  mont_mul, mont_addsub and ec_add_fast against their plain
     versions at every width the tally gives them (mont_addsub and
     ec_add_fast at their kernel-phase shape and the ragged size too),
     ec_double at every width the tally gives it; poly_mul_naive and kate_div
-    at every shape the tally gives them against their plain versions and
-    the routes they replaced (poly_by_shape); the rule-2 ranking of the six
-    over the main path (one MSM, one carry stage and 56 rounds like the
-    tallied one).  Then the kernels redesigned before against their plain
+    at every shape the tally gives them against their plain versions (and
+    poly_mul_naive against its first design; poly_by_shape); affine_lines
+    at every width against its plain version and the route it replaced
+    (affine_lines_by_width); the rule-2 ranking of the seven over the main
+    path (one MSM, one carry stage and 56 rounds like the tallied one).  Then the kernels redesigned before against their plain
     versions at the path's shapes: ec_add at every width that carries a
     tenth of its tallied launches and at the widest, stages_small at the
     fused levels' shapes, batch_inv at n = 33, 512, 700, 2^16 and
@@ -1708,7 +1748,7 @@ def ab_phase(dev, base_pts, tally, logn: int, ragged: int, row_shapes: dict, rep
     ({kernel: per-shape records}, the ranking)."""
     rounds = A.num_digits_for(CURVE, BASE)
     on_path = {name: path_launches(tally[name], rounds) for name in TALLY_KEYS
-               if name not in ("batch_inv",) + POLY_KERNELS}
+               if name not in ("batch_inv", "affine_lines") + POLY_KERNELS}
     for name in ("mont_mul", "mont_addsub", "ec_add_fast", "ec_add"):
         total = sum(on_path[name].values())
         tenth = [b for b, c in on_path[name].items() if 10 * c >= total]
@@ -1732,6 +1772,8 @@ def ab_phase(dev, base_pts, tally, logn: int, ragged: int, row_shapes: dict, rep
     }
     for name in POLY_KERNELS:
         out[name] = poly_by_shape(dev, name, tally[name]["round"], rounds, reps)
+    out["affine_lines"] = affine_lines_by_width(dev, base_pts, lines_in,
+                                                tally["affine_lines"]["round"], rounds, reps)
     ranking = rule2_ranking(out)
     g = max(1, (1 << logn) // CF.SCAN_W)
     out.update({
@@ -1746,19 +1788,26 @@ def ab_phase(dev, base_pts, tally, logn: int, ragged: int, row_shapes: dict, rep
 
 
 # ---------------------------------------------------------------------------
-# phase 9c: the coefficient levels' two kernels at every shape of the round,
-# against their plain versions and the routes they replaced
+# phase 9c: the coefficient levels' two kernels and the merge head's at every
+# shape of the round, against their plain versions and the first designs
 # ---------------------------------------------------------------------------
 
+PMUL_TERM_MADDS = 64     # a term of a lazy sum: its 512-bit product, 8 x 8 words
+PMUL_OUTPUT_MADDS = 72   # an output: REDC's 8 x 8 word products and its 8 m words
+
+
 def mul_naive_bound(key):
-    """poly_mul_naive's bound at (pairs, La, Lb, a shared, b shared): La Lb
-    products and La Lb - (La + Lb - 1) adds a pair; each input row read once
+    """poly_mul_naive's bound at (pairs, La, Lb, a shared, b shared): the
+    function needs La Lb 512-bit products summed lazily into their column
+    and one reduction a column (La + Lb - 1 a pair), in word multiply-adds
+    as a fraction of a field product's (MUL_OPS); each input row read once
     (a shared operand once for all pairs), La + Lb - 1 rows written a pair."""
     pairs, la, lb, sa, sb = key
     nout = la + lb - 1
     rows = (la if sa else pairs * la) + (lb if sb else pairs * lb) + pairs * nout
-    return bound_ms("poly_mul_naive", pairs, rows * ROW_BYTES, muls=la * lb,
-                    adds=la * lb - nout)
+    madds = PMUL_TERM_MADDS * la * lb + PMUL_OUTPUT_MADDS * nout
+    return bound_ms("poly_mul_naive", pairs, rows * ROW_BYTES, muls=madds / (MUL_OPS / 2),
+                    adds=0)
 
 
 def kate_div_bound(key):
@@ -1778,7 +1827,9 @@ def mul_naive_inputs(nprng, key, dev):
     one row of terms expanded over the pairs (as rf_mul passes it); raw
     limbs of p - 1 in every term of pair 0 (the longest anti-diagonal sums
     min(La, Lb) such products) and zero terms in pair 1 of each operand of
-    its own."""
+    its own; where both are the pairs' own and a diagonal has K = min(La, Lb)
+    >= 3 products, pairs from 2 on with diagonal K - 1 built so that the
+    lazy sum's reduction is at its edges (cuda_poly.reduction_edges)."""
     pairs, la, lb, sa, sb = key
 
     def operand(length, shared):
@@ -1789,7 +1840,12 @@ def mul_naive_inputs(nprng, key, dev):
         if pairs > 1:
             t[1, ::2] = 0
         return t
-    return operand(la, sa), operand(lb, sb)
+    a, b = operand(la, sa), operand(lb, sb)
+    k = min(la, lb)
+    if not (sa or sb) and k >= 3:
+        for g, (xe, ye) in enumerate(CP.reduction_edges(SPEC, k)[:pairs - 2], start=2):
+            a[g, :k], b[g, :k] = raw_rows(xe, dev), raw_rows(ye, dev)
+    return a, b
 
 
 def kate_div_inputs(nprng, key, dev):
@@ -1807,14 +1863,13 @@ def kate_div_inputs(nprng, key, dev):
 
 
 POLY_CALLS = {
-    # name: (kernel, plain version, the route it replaced, inputs, bound)
+    # name: (kernel, plain version, its first design or None, inputs, bound)
     "poly_mul_naive": (lambda a, b: CP.poly_mul_naive(SPEC, a, b),
                        lambda a, b: CP.poly_mul_naive_plain(SPEC, a, b),
-                       lambda a, b: P._mul_naive_outer(SPEC, a, b),
+                       lambda a, b: CP.poly_mul_naive_v1(SPEC, a, b),
                        mul_naive_inputs, mul_naive_bound),
     "kate_div": (lambda c, b: CP.kate_div(SPEC, c, b),
-                 lambda c, b: CP.kate_div_plain(SPEC, c, b),
-                 lambda c, b: P._kate_div_chain(SPEC, c, b),
+                 lambda c, b: CP.kate_div_plain(SPEC, c, b), None,
                  kate_div_inputs, kate_div_bound),
 }
 
@@ -1858,76 +1913,195 @@ def check_poly_kernels(dev, row_keys: dict, ragged_keys: dict, reps: int):
 
 def poly_by_shape(dev, name: str, round_tally: dict, rounds: int, reps: int):
     """`name` at every shape one round gives it: equal to its plain version
-    and to the route it replaced, limb for limb, the first three pairs to
-    Python-int Poly; device ms of the kernel and of the old route in turns
-    (old, new, new, old; the old route is tens to hundreds of launches a
-    call, so few calls a timing); kate_div's at one pair too (one chain's
-    latency).  Launches on the main path: a round's x `rounds`."""
+    (and poly_mul_naive to its first design), limb for limb, the first three
+    pairs to Python-int Poly; device ms (poly_mul_naive's two designs in
+    turns v1, v2, v2, v1), kate_div's at one pair too (one chain's latency).
+    Launches on the main path: a round's x `rounds`."""
     nprng = np.random.default_rng(0xAB7)
-    kernel, plain, old, inputs, bound = POLY_CALLS[name]
+    kernel, plain, first, inputs, bound = POLY_CALLS[name]
     out = []
     for key, count in round_tally.items():
         args = inputs(nprng, key, dev)
         new = kernel(*args)
-        require(torch.equal(new, plain(*args)) and torch.equal(new, old(*args))
+        v1_err = outputs_equal([first(*args)], [new]) if first else 0
+        require(torch.equal(new, plain(*args)) and v1_err == 0
                 and poly_vs_ints(name, args, new),
-                f"{name} == {name}_plain == the old route at {key}; the first pairs equal "
-                f"the Python-int Poly")
-        t = ab_times(dev, {"old": lambda: old(*args), "new": lambda: kernel(*args)},
-                     max(1, reps // 10))
-        call_ms = time_ms(dev, lambda: kernel(*args), max(1, reps // 10))[1]
+                f"{name} == {name}_plain" + (" == poly_mul_naive_v1" if first else "")
+                + f" at {key}, edge pairs included; the first pairs equal the Python-int Poly")
+        reps_here = max(1, reps // 10)
+        rec = {"shape": str(key), "key": list(key)}
+        if first:
+            t = ab_times(dev, {"old": lambda: first(*args), "new": lambda: kernel(*args)},
+                         reps_here)
+            rec.update(ms=t["new"], v1_ms=t["old"], v1_max_abs_err=v1_err)
+        else:
+            rec["ms"] = time_ms(dev, lambda: kernel(*args), reps_here)[0]
         b_ms, b_by = bound(key)
-        rec = {"shape": str(key), "key": list(key), "ms": t["new"], "old_ms": t["old"],
-               "call_ms": call_ms, "bound_ms": b_ms, "bound_by": b_by,
-               "launches": count * rounds}
+        rec.update(call_ms=time_ms(dev, lambda: kernel(*args), reps_here)[1], bound_ms=b_ms,
+                   bound_by=b_by, launches=count * rounds)
         if name == "kate_div":
             one = tuple(a[:1] for a in args)
-            rec["chain_ms"] = time_ms(dev, lambda: kernel(*one), max(1, reps // 10))[0]
+            rec["chain_ms"] = time_ms(dev, lambda: kernel(*one), reps_here)[0]
         out.append(rec)
-        print(f"  {name} at {key} ({count} a round): {t['new']:.4f} ms on the device, the old "
-              f"route {t['old']:.4f} ms ({t['old'] / t['new']:.1f}x); {call_ms:.4f} ms a call "
-              f"on the host; bound {b_ms:.5f} ms ({b_by})"
+        print(f"  {name} at {key} ({count} a round): {rec['ms']:.4f} ms on the device"
+              + (f", the first design {rec['v1_ms']:.4f} ms ({rec['v1_ms'] / rec['ms']:.2f}x)"
+                 if first else "")
+              + f"; {rec['call_ms']:.4f} ms a call on the host; bound {b_ms:.5f} ms ({b_by})"
               + (f"; one chain {rec['chain_ms']:.4f} ms" if "chain_ms" in rec else ""),
               flush=True)
     return out
 
 
+def lines_inputs(nprng, base_pts, b: int, dev):
+    """affine_lines' inputs at b slots, {head: (x, y, zinv)}: the two
+    batches of curve_inputs (edge slots 0..4: p identity, q identity, both,
+    q == p, q == -p) as (p, q, p + q) for the head and (p, q, -(p + q)) for
+    the seeds, the three Z inverted at once."""
+    p, q, _, _ = curve_inputs(nprng, base_pts, b, dev)
+    out = JPoint(*CF.ec_add(CURVE, *p, *q))
+    neg = JPoint(out.x, CF.mont_addsub(SPEC, True, torch.zeros_like(out.y), out.y), out.z)
+    ins = {}
+    for head, third in ((True, out), (False, neg)):
+        x, y, z = (torch.stack(c) for c in zip(p, q, third))
+        ins[head] = (x, y, CF.batch_inv(SPEC, z))
+    return ins
+
+
+def capture_lines_inputs(pts: JPoint, rnd):
+    """The inputs of every affine_lines launch of round ROUND_K, by (B,
+    mode), cloned: the data the path gives the kernel."""
+    real, out = CL.affine_lines, {}
+
+    def recording(spec, head, x, y, zinv):
+        key = (width_of(x[0], y[0], zinv[0]), "head" if head else "seeds")
+        out[key] = (head, x.clone(), y.clone(), zinv.clone())
+        return real(spec, head, x, y, zinv)
+    CL.affine_lines = recording
+    try:
+        round_k(pts, rnd)()
+    finally:
+        CL.affine_lines = real
+    return out
+
+
+def lines_outputs(fn, head: bool, args):
+    """affine_lines' outputs as a flat list (the seeds have no flags)."""
+    return [o for o in fn(SPEC, head, *args) if o is not None]
+
+
+def lines_deg(head: bool, x, y, zinv) -> int:
+    """The degenerate slots of affine_lines' inputs, whose third point the
+    function reads and whose second line it takes, from the plain version:
+    those the head flags (equal points; on the seeds' inputs, p1 == p2), and
+    in the seeds also the both-identity slots."""
+    deg = int(CL.affine_lines_plain(SPEC, True, x, y, zinv)[1][0].sum())
+    if not head:
+        deg += int((zinv[:2] == 0).all(dim=-1).all(dim=0).sum())
+    return deg
+
+
+def lines_bound(b: int, head: bool, n_deg: int):
+    """affine_lines' bound at b slots: 10 products and 5 subtractions a slot
+    and 6 products and 3 subtractions more a degenerate one; the first two
+    points' 6 rows read a slot and the third's 3 a degenerate one, 7 (head)
+    or 3 (seeds) rows and 2 flag bytes (head) written a slot."""
+    rows = 6 + (CL.HEAD_ROWS if head else CL.SEEDS_ROWS)
+    extra = (b * rows + 3 * n_deg) * ROW_BYTES + (2 * b if head else 0)
+    return bound_ms("affine_lines", b, extra, muls=10 + 6 * n_deg / b,
+                    adds=5 + 3 * n_deg / b)
+
+
+def affine_lines_by_width(dev, base_pts, lines_in: dict, round_tally: dict, rounds: int,
+                          reps: int):
+    """affine_lines at every (B, mode) one round gives it: on the round's own
+    inputs (lines_in) and on lines_inputs' slots, head and seeds, equal to
+    the plain version and to the route the kernel replaced
+    (affine_lines_composed), outputs and flags, the tangent slot 3 flagged
+    degenerate in the head; device ms on the round's inputs, the route and
+    the kernel in turns (route, kernel, kernel, route); host ms a call.
+    Launches on the main path: a round's x `rounds`."""
+    nprng = np.random.default_rng(0xAB8)
+    out = []
+    for (b, mode), count in round_tally.items():
+        head, *args = lines_in[(b, mode)]
+        cases = [(head, args, "the round's")]
+        cases += [(h, a, "edge") for h, a in lines_inputs(nprng, base_pts, b, dev).items()]
+        for h, a, what in cases:
+            got = lines_outputs(CL.affine_lines, h, a)
+            err = max(outputs_equal(got, lines_outputs(fn, h, a))
+                      for fn in (CL.affine_lines_plain, CL.affine_lines_composed))
+            require(err == 0 and (what != "edge" or b < 5 or not h or bool(got[1][0, 3])),
+                    f"affine_lines == affine_lines_plain == the composed route at B = {b}, "
+                    f"{'head' if h else 'seeds'}, on {what} slots"
+                    + (" (identities, P = P flagged, P = -P)" if what == "edge" else ""))
+        t = ab_times(dev, {"old": lambda: CL.affine_lines_composed(SPEC, head, *args),
+                           "new": lambda: CL.affine_lines(SPEC, head, *args)},
+                     max(1, reps // 10))
+        call_ms = time_ms(dev, lambda: CL.affine_lines(SPEC, head, *args), reps)[1]
+        b_ms, b_by = lines_bound(b, head, lines_deg(head, *args))
+        out.append({"shape": f"B = {b}, {mode}", "b": b, "ms": t["new"], "old_ms": t["old"],
+                    "call_ms": call_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "launches": count * rounds})
+        print(f"  affine_lines at B = {b}, {mode} ({count} a round): {t['new']:.4f} ms on the "
+              f"device, the composed route {t['old']:.4f} ms ({t['old'] / t['new']:.1f}x); "
+              f"{call_ms:.4f} ms a call on the host; bound {b_ms:.6f} ms ({b_by})", flush=True)
+    return out
+
+
+def check_lines_kernel(dev, base_pts, lines_in: dict, keys, reps: int):
+    """affine_lines against its plain version at each (B, mode) of keys: a
+    ragged width on lines_inputs' slots, then the widest of the round on
+    the round's own inputs, timed there.  Returns its record for the JSON
+    line."""
+    nprng = np.random.default_rng(0xC0F0)
+    inputs = {}
+
+    def make_inputs(key):
+        if key in lines_in:
+            inputs[key] = lines_in[key]
+        else:
+            head = key[1] == "head"
+            inputs[key] = (head, *lines_inputs(nprng, base_pts, key[0], dev)[head])
+        return inputs[key]
+
+    return check_kernel(
+        dev, "affine_lines", lambda head, *a: lines_outputs(CL.affine_lines, head, a),
+        lambda head, *a: lines_outputs(CL.affine_lines_plain, head, a), make_inputs, keys,
+        reps, bound_of=lambda key: lines_bound(key[0], inputs[key][0], lines_deg(*inputs[key])))
+
+
 @contextlib.contextmanager
-def old_poly_route():
-    """The routes the two kernels replaced, for the calls inside: the
-    schoolbook products by P._mul_naive_outer, the Horner chains by
-    P._kate_div_chain (ops/poly.py calls CP's wrappers by name)."""
-    real = CP.poly_mul_naive, CP.kate_div
-    CP.poly_mul_naive = lambda spec, a, b: P._mul_naive_outer(spec, a, b)
-    CP.kate_div = lambda spec, c, b: P._kate_div_chain(spec, c, b)
+def first_designs():
+    """The first designs of this slice's two, for the calls inside: the
+    schoolbook products by poly_mul_naive_v1, the merge head by the route
+    affine_lines replaced (ops/poly.py and divisor.py call CP's and CL's
+    wrappers by name)."""
+    real = CP.poly_mul_naive, CL.affine_lines
+    CP.poly_mul_naive, CL.affine_lines = CP.poly_mul_naive_v1, CL.affine_lines_composed
     try:
         yield
     finally:
-        CP.poly_mul_naive, CP.kate_div = real
+        CP.poly_mul_naive, CL.affine_lines = real
 
 
 def round_routes(dev, pts: JPoint, rnd, profile: bool):
-    """Round ROUND_K by the routes the two kernels replaced and by the
-    kernels: the same witness limb for limb; launches by kernel and
-    mont_mul's and mont_addsub's by caller (Tally); the device's busy time
-    in turns old, new, new, old; peak and wall clock of one round each.
-    Requires that the kernels took exactly the old route's work: a
-    poly_mul_naive launch for each schoolbook product, a kate_div launch for
-    each Horner chain, and mont_mul's and mont_addsub's launches fewer by
-    what the tally puts on the old route's functions.  Returns a dict."""
-    digits, carry_prev, carry_new = rnd["carry_state"]
-    precomp = A.precompute_multiplicities(ec(CURVE), pts, BASE)
-    k = ROUND_K
-    print(f"round {k} by the old route and by the coefficient levels' kernels", flush=True)
+    """Round ROUND_K by the first designs (poly_mul_naive_v1 and the composed
+    head) and by this slice's kernels: the same witness limb for limb;
+    launches by kernel and mont_mul's and mont_addsub's by caller (Tally);
+    the device's busy time in turns old, new, new, old; peak and wall clock
+    of one round each.  Requires a poly_mul_naive launch for each v1 launch,
+    an affine_lines launch a level, mont_mul's and mont_addsub's launches
+    fewer by exactly the composed head's (mont_mul's to 0) and every other
+    kernel's the same.  Returns a dict."""
+    print(f"round {ROUND_K} by the first designs and by this slice's kernels", flush=True)
+    one_round = round_k(pts, rnd)
 
-    def one_round():
-        rp = A._one_round_slots(CURVE, BASE, digits[k], precomp,
-                                A._at(carry_prev, k), A._at(carry_new, k))
-        return D.compute_divisor_witness_partial(CURVE, rp)[0]
+    def route(name):
+        return first_designs() if name == "old" else contextlib.nullcontext()
 
     res = {}
-    for route in ("old", "new"):
-        with old_poly_route() if route == "old" else contextlib.nullcontext():
+    for name in ("old", "new"):
+        with route(name):
             one_round()
             sync(dev)
             torch.cuda.reset_peak_memory_stats(dev)
@@ -1937,43 +2111,53 @@ def round_routes(dev, pts: JPoint, rnd, profile: bool):
                 w = one_round()
                 sync(dev)
                 seconds = time.perf_counter() - t0
-            res[route] = {"w": w, "seconds": seconds, "counts": dict(CF.LAUNCHES),
-                          "tally": tally.counts, "peak": torch.cuda.max_memory_allocated(dev)}
+            res[name] = {"w": w[0], "seconds": seconds, "counts": dict(CF.LAUNCHES),
+                         "tally": tally.counts, "peak": torch.cuda.max_memory_allocated(dev)}
     old, new = res["old"], res["new"]
     require(torch.equal(old["w"].a, new["w"].a) and torch.equal(old["w"].b, new["w"].b),
-            "the round's witness by the kernels equals the old route's, limb for limb")
-    for route in ("old", "new", "new", "old"):
-        with old_poly_route() if route == "old" else contextlib.nullcontext():
-            res[route].setdefault("busy", []).append(device_busy_ms(dev, one_round))
-    calls = {name: sum(old["tally"][name].values()) for name in POLY_KERNELS}
-    gone = {name: sum(n for (_, c), n in old["tally"][name].items() if c in OLD_ROUTE_CALLERS)
+            "the round's witness by this slice's kernels equals the first designs', limb for "
+            "limb")
+    for name in ("old", "new", "new", "old"):
+        with route(name):
+            res[name].setdefault("busy", []).append(device_busy_ms(dev, one_round))
+    gone = {name: sum(n for (_, c), n in old["tally"][name].items() if c == HEAD_CALLER)
             for name in BY_CALLER}
     for name in BY_CALLER:
-        print(f"  {name} launches by caller, old route: " + ", ".join(
+        print(f"  {name} launches by caller, first designs: " + ", ".join(
             f"{c} {sum(w.values())}" for c, w in by_caller(old["tally"][name]).items())
-            + "; new: " + ", ".join(f"{c} {sum(w.values())}"
-                                    for c, w in by_caller(new["tally"][name]).items()), flush=True)
-    for name in BY_CALLER + POLY_KERNELS:
-        print(f"  a round's {name} launches: old route {old['counts'][name]}, kernels "
+            + "; this slice: " + ", ".join(f"{c} {sum(w.values())}"
+                                           for c, w in by_caller(new["tally"][name]).items()),
+              flush=True)
+    shown = BY_CALLER + SLICE_KERNELS + tuple(V1_OF)
+    for name in shown:
+        print(f"  a round's {name} launches: first designs {old['counts'][name]}, this slice "
               f"{new['counts'][name]}", flush=True)
-    for route in ("old", "new"):
-        r = res[route]
-        print(f"  {route} route: one round {r['seconds']:.4f} s, device busy "
-              + ", ".join(f"{b:.3f}" for b in r["busy"]) + f" ms, peak "
-              f"{r['peak'] / 2**20:.0f} MiB", flush=True)
-    for name in POLY_KERNELS:
-        require(new["counts"][name] == calls[name] > 0 and old["counts"][name] == 0,
-                f"{name} was launched once for each of the old route's {calls[name]} calls")
+    for name in ("old", "new"):
+        r = res[name]
+        print(f"  {'first designs' if name == 'old' else 'this slice'}: one round "
+              f"{r['seconds']:.4f} s, device busy " + ", ".join(f"{b:.3f}" for b in r["busy"])
+              + f" ms, peak {r['peak'] / 2**20:.0f} MiB", flush=True)
+    levels = rnd["levels"] + 1
+    require(new["counts"]["poly_mul_naive"] == old["counts"]["poly_mul_naive_v1"] > 0
+            and old["counts"]["poly_mul_naive"] == new["counts"]["poly_mul_naive_v1"] == 0,
+            f"poly_mul_naive was launched once for each of v1's "
+            f"{old['counts']['poly_mul_naive_v1']} launches")
+    require(new["counts"]["affine_lines"] == levels and old["counts"]["affine_lines"] == 0,
+            f"affine_lines was launched once a level ({levels})")
     for name in BY_CALLER:
         require(new["counts"][name] == old["counts"][name] - gone[name] and gone[name] > 0,
-                f"a round's {name} launches fell by the old route's {gone[name]} "
+                f"a round's {name} launches fell by exactly the composed head's {gone[name]} "
                 f"({old['counts'][name]} -> {new['counts'][name]})")
+    require(new["counts"]["mont_mul"] == 0, "a round launches mont_mul no more")
+    same = [name for name in CF.KERNELS if name not in shown]
+    require(all(old["counts"][name] == new["counts"][name] for name in same),
+            "every other kernel was launched as often by both")
     if profile:
-        with old_poly_route():
-            print("old route:", flush=True)
+        with first_designs():
+            print("first designs:", flush=True)
             profile_round(dev, one_round)
-    return {route: {key: res[route][key] for key in ("seconds", "counts", "peak", "busy")}
-            for route in res}
+    return {name: {key: res[name][key] for key in ("seconds", "counts", "peak", "busy")}
+            for name in res}
 
 
 # ---------------------------------------------------------------------------
@@ -2736,9 +2920,11 @@ def main() -> int:
     rnd = round_path(dev, pts, carry_state, args.profile)
     del carry_state
     tally, busy = launch_tally(dev, base_pts, args.logn, pts, rnd)
-    ab, ranking = ab_phase(dev, base_pts, tally, args.logn, ragged, shapes, reps=50)
+    lines_in = capture_lines_inputs(pts, rnd)
+    ab, ranking = ab_phase(dev, base_pts, tally, lines_in, args.logn, ragged, shapes, reps=50)
     # the coefficient levels' two: their records at the shape of the most
-    # products in a round and at a ragged one, then the round by both routes
+    # products in a round and at a ragged one; the merge head's at a ragged
+    # width and the widest of the round; then the round by both designs
     work = {"poly_mul_naive": lambda key: key[0] * key[1] * key[2],
             "kate_div": lambda key: key[0] * (key[1] - 1)}
     row_keys = {name: max(tally[name]["round"].items(),
@@ -2746,7 +2932,10 @@ def main() -> int:
                 for name in POLY_KERNELS}
     recs += check_poly_kernels(dev, row_keys, {"poly_mul_naive": (5003, 9, 17, False, False),
                                                "kate_div": (5003, 33)}, reps=50)
-    poly_routes = round_routes(dev, pts, rnd, args.profile)
+    recs.append(check_lines_kernel(dev, base_pts, lines_in,
+                                   [(5003, "head"), max(tally["affine_lines"]["round"])], reps=50))
+    del lines_in
+    slice_routes = round_routes(dev, pts, rnd, args.profile)
     # at 2^14 the fused scan flags and the safe flavor redoes the round at a
     # real width; at half of FUSED_SCAN_MIN_ROWS the stepwise scan runs
     fallback_counts = {name: 0 for name in CF.KERNELS}
@@ -2780,12 +2969,22 @@ def main() -> int:
         by_name[name]["ab"] = ab[name]  # every shape of phase 9b
     for name in RULE2_KERNELS:
         by_name[name]["rule2"] = ranking[name]
-    for name in POLY_KERNELS:
-        # the round by the route this kernel replaced and by the kernels
+    shown = BY_CALLER + SLICE_KERNELS + tuple(V1_OF)
+    for name in SLICE_KERNELS:
+        # the round by the first designs and by this slice's kernels
         by_name[name]["round_by_route"] = {
             route: {"seconds": r["seconds"], "busy_ms": r["busy"], "peak_mib": r["peak"] / 2**20,
-                    "launches": {k: r["counts"][k] for k in BY_CALLER + POLY_KERNELS}}
-            for route, r in poly_routes.items()}
+                    "launches": {k: r["counts"][k] for k in shown}}
+            for route, r in slice_routes.items()}
+    for v1, name in V1_OF.items():
+        # a line for each first design, at its kernel's record shape: its ms
+        # and its difference from the plain version from phase 9b, the plain
+        # version and bound of the same function
+        rec = by_name[name]
+        at = next(r for r in ab[name] if r["shape"] == rec["shape"])
+        recs.append(dict(rec, name=v1, ms=at["v1_ms"], call_ms=None, ab=None, rule2=ranking[v1],
+                         round_by_route=None, path="phase 9b only",
+                         max_abs_err=max(r["v1_max_abs_err"] for r in ab[name])))
     by_phase = {"launches_msm": msm_counts, "launches_carry": carry_counts,
                 "launches_fallback": fallback_counts, "launches_round": rnd["counts"],
                 "launches_radix_msm": radix_counts, "launches_add_mixed_fast": amf_counts,
@@ -2794,7 +2993,8 @@ def main() -> int:
     for rec in recs:
         name = rec["name"]
         rec["launches"] = (fallback_counts if name in FALLBACK_KERNELS else
-                           rnd["counts"] if name in ROUND_KERNELS + POLY_KERNELS else
+                           rnd["counts"] if name in ROUND_KERNELS + POLY_KERNELS
+                           + ("affine_lines",) else
                            radix_counts if name in RADIX_KERNELS else
                            amf_counts if name == "ec_add_mixed_fast" else msm_counts).get(name, 0)
         for key, counts in by_phase.items():
@@ -2806,7 +3006,8 @@ def main() -> int:
               f"{rec['launches_naive']} (naive arrangement), {rec['launches_model']} (model "
               f"forward), {rec['launches_config4']} (config 4); {rec['ms']} ms each on "
               f"the device at shape {rec['shape']}", flush=True)
-        require(rec["launches"] > 0, f"{name} was launched on the path that runs it")
+        if name not in V1_OF:
+            require(rec["launches"] > 0, f"{name} was launched on the path that runs it")
 
     print(f"msm: n = {n}, seconds = {seconds}, points_per_s = {n / seconds}, card = {card}",
           flush=True)
@@ -2823,11 +3024,10 @@ def main() -> int:
           f"runs = {rnd['runs']}, device_busy_ms = {rnd['busy_ms']}, "
           f"peak_mib = {rnd['peak'] / 2**20}, setup_s = {rnd['setup_s']}, card = {card}",
           flush=True)
-    for route, r in poly_routes.items():
+    for route, r in slice_routes.items():
         print(f"round by route: route = {route}, seconds = {r['seconds']}, device_busy_ms = "
               f"{r['busy']}, peak_mib = {r['peak'] / 2**20}, launches = "
-              f"{ {k: r['counts'][k] for k in BY_CALLER + POLY_KERNELS} }, card = {card}",
-              flush=True)
+              f"{ {k: r['counts'][k] for k in shown} }, card = {card}", flush=True)
     print(f"add_mixed_fast: n = {n}, seconds = {amf_s}, card = {card}", flush=True)
     print(f"naive: slots = {rnd['slots']}, seconds = {naive['seconds']}, pos_lines = "
           f"{naive['n_pos']}, neg_lines = {naive['n_neg']}, ratio_check_s = {naive['ratio_s']}, "

@@ -43,6 +43,8 @@ import torch
 from .convert import JPoint, Level, RF, limbs_from_numpy, limbs_to_numpy
 from .fields import CurveSpec, N_LIMBS
 from .limbs import mont_limbs_to_ints
+from .ops import cuda_ff as CF
+from .ops import cuda_lines as CL
 from .ops import cuda_ntt as CN
 from .ops import poly as P
 from .ops.ec import EC, ec
@@ -104,14 +106,7 @@ def linefunc_affine(curve: CurveSpec, x1, y1, id1, x2, y2, id2):
     for the identity: cross-product coefficients (lx, ly, lz) of the line
     lx*X + ly*Y + lz."""
     k = ff(curve.field)
-    zero = torch.zeros_like(x1)
-    one = k.one(x1.device).expand(x1.shape)
-    ax, ay, az = k.select(id1, zero, x1), k.select(id1, one, y1), k.select(id1, zero, one)
-    bx, by, bz = k.select(id2, zero, x2), k.select(id2, one, y2), k.select(id2, zero, one)
-    lx = k.sub(k.mul(ay, bz), k.mul(az, by))
-    ly = k.sub(k.mul(az, bx), k.mul(ax, bz))
-    lz = k.sub(k.mul(ax, by), k.mul(ay, bx))
-    return lx, ly, lz
+    return CL.line(k.mul, k.sub, k.one(x1.device).expand(x1.shape), x1, y1, id1, x2, y2, id2)
 
 
 def _line_rf(lx, ly, lz) -> RF:
@@ -182,6 +177,18 @@ def _pad_poly(arr, n: int):
     return torch.nn.functional.pad(arr, (0, 0, 0, n - cur))
 
 
+def _head_lines(curve: CurveSpec, head: bool, pts):
+    """The lines of merge_head (head) or seeds from the three points of each
+    slot (JPoints of one shape): their Z inverted by one batch inversion,
+    then the affine normalisation, the lines and the masks in one
+    affine_lines launch on the card (ops/cuda_lines.py), its plain version
+    on the CPU.  Returns affine_lines' (rows, flags)."""
+    x, y, z = (torch.stack(c) for c in zip(*pts))
+    zinv = ff(curve.field).batch_inv(z.reshape(-1, N_LIMBS), axis=0).reshape(z.shape)
+    fn = CL.affine_lines if CF._use_kernel(x) else CL.affine_lines_plain
+    return fn(curve.field, head, x, y, zinv)
+
+
 def seeds(curve: CurveSpec, pts: JPoint) -> Level:
     """Seed level from N points (N even): consecutive pairs (p1, p2)
 
@@ -189,36 +196,15 @@ def seeds(curve: CurveSpec, pts: JPoint) -> Level:
       p1 == id, p2 != id   -> line(p2, -p2), output -p2
       both id              -> witness 1, output id
 
-    so the output is -(p1 + p2) in every case.  The line's points and the
-    degenerate case's third point c = -(left + right) are normalized by one
-    batch inversion."""
+    so the output is -(p1 + p2) in every case.  Where the line's points are
+    equal (the tangent case p1 == p2) it is the line through p1 and the
+    output.  The three points of a slot are normalised with one batch
+    inversion (_head_lines)."""
     E = ec(curve)
-    k = ff(curve.field)
     p1 = _take_pts(pts, slice(0, None, 2))
     p2 = _take_pts(pts, slice(1, None, 2))
-    id1 = E.is_identity(p1)
-    id2 = E.is_identity(p2)
-
     out = E.neg(E.add(p1, p2))
-
-    # line arguments: (p1, p2) normally; (p2, -p2) when p1 is the identity
-    left = E.select(id1, p2, p1)
-    right = E.select(id1, E.neg(p2), p2)
-    cpt = E.neg(E.add(left, right))
-    (lxa, lya, ida), (lxb, lyb, idb), (cx, cy, cid) = _multi_affine(E, [left, right, cpt])
-    lx, ly, lz = linefunc_affine(curve, lxa, lya, ida, lxb, lyb, idb)
-
-    # degenerate: the cross product vanished (projectively equal arguments,
-    # the tangent case p1 == p2): the line through c = -(left + right)
-    deg = k.is_zero(lx) & k.is_zero(ly) & k.is_zero(lz)
-    lx2, ly2, lz2 = linefunc_affine(curve, lxa, lya, ida, cx, cy, cid)
-    lx, ly, lz = k.select(deg, lx2, lx), k.select(deg, ly2, ly), k.select(deg, lz2, lz)
-
-    # both-identity slots: the witness is the constant 1
-    both = id1 & id2
-    zero = torch.zeros_like(lx)
-    lx, ly = k.select(both, zero, lx), k.select(both, zero, ly)
-    lz = k.select(both, k.one(lz.device).expand(lz.shape), lz)
+    (lx, ly, lz), _ = _head_lines(curve, False, [p1, p2, out])
     return Level(out, _line_rf(lx, ly, lz))
 
 
@@ -229,34 +215,15 @@ def fused_logn(la: int, lb: int) -> int:
 
 def merge_head(curve: CurveSpec, a_out: JPoint, b_out: JPoint):
     """The point/line/root computation every merge route shares: from the
-    two subtree outputs, the merged output, the bypass mask, the
-    degenerate-line flag, the (masked) line coefficients, the outputs'
-    negated y and the division roots.  -a.out, -b.out and a.out + b.out are
-    normalized by one batch inversion."""
-    E = ec(curve)
-    k = ff(curve.field)
-
-    out = E.add(a_out, b_out)
-    bypass = E.is_identity(a_out) | E.is_identity(b_out)
-
-    na, nb = E.neg(a_out), E.neg(b_out)
-    (nax, nay, naid), (nbx, nby, nbid), (cx, cy, cid) = _multi_affine(E, [na, nb, out])
-    lx, ly, lz = linefunc_affine(curve, nax, nay, naid, nbx, nby, nbid)
-
-    # degenerate line (equal points, -a.out == -b.out): through c = a + b
-    deg = k.is_zero(lx) & k.is_zero(ly) & k.is_zero(lz) & ~bypass
-    lx2, ly2, lz2 = linefunc_affine(curve, nax, nay, naid, cx, cy, cid)
-    lx, ly, lz = k.select(deg, lx2, lx), k.select(deg, ly2, ly), k.select(deg, lz2, lz)
-
-    # bypass slots: line = constant 1, so the product is wtns_a * wtns_b
-    one = k.one(lx.device).expand(lx.shape)
-    zero = torch.zeros_like(lx)
-    lx, ly, lz = k.select(bypass, zero, lx), k.select(bypass, zero, ly), k.select(bypass, one, lz)
-
-    # roots of the divisions: the affine x of the outputs (x is
-    # negation-invariant, so nax / nbx serve)
-    root_a = k.select(bypass, one, nax)
-    root_b = k.select(bypass, one, nbx)
+    two subtree outputs, the merged output, the bypass mask (either output
+    the identity), the degenerate-line flag, the (masked) line coefficients
+    of line(-a.out, -b.out) (through c = a.out + b.out where -a.out ==
+    -b.out; the constant 1 on bypass slots), the outputs' negated y and the
+    division roots (the affine x of the outputs, 1 on bypass slots).  The
+    three points are normalised with one batch inversion (_head_lines)."""
+    out = ec(curve).add(a_out, b_out)
+    (lx, ly, lz, nay, nby, root_a, root_b), (deg, bypass) = _head_lines(
+        curve, True, [a_out, b_out, out])
     return out, bypass, deg, (lx, ly, lz), (nay, nby), (root_a, root_b)
 
 

@@ -1,8 +1,9 @@
 // The eleven kernels of the field and curve layers and their C launchers,
 // with those of the kernels included below: the divisor merge tree's five in
-// ntt.cuh, the MSM's radix reorder's four in radix.cuh and the coefficient
-// levels' two (poly_mul_naive, kate_div) in poly.cuh.  Most are one thread
-// per element: it
+// ntt.cuh, the MSM's radix reorder's four in radix.cuh, the coefficient
+// levels' two (poly_mul_naive, with its first design poly_mul_naive_v1, and
+// kate_div) in poly.cuh and the merge head's affine_lines in lines.cuh.
+// Most are one thread per element: it
 // reads its (16,) rows, does the whole formula in registers (ff.cuh, ec.cuh)
 // and writes its rows back; mont_addsub spreads one row over four lanes,
 // ec_add and ec_add_fast one point over four, fused_madd_scan_xyzz one carry
@@ -33,6 +34,7 @@ __device__ __forceinline__ int64_t global_index() {
 #include "ntt.cuh"
 #include "radix.cuh"
 #include "poly.cuh"
+#include "lines.cuh"
 
 // ---- 1. mont_mul: replaces pallas_ff.mont_mul ---------------------------------
 
@@ -802,16 +804,42 @@ int ec_add_mixed_fast_launch(const FieldParams* P, const void* x1, const void* y
 // a_stride, b_stride: rows from one pair's operand to the next's (0: one
 // operand for all pairs); group: pairs a block of `threads` (at most
 // PMUL_MAX_THREADS); staged: 0 reads the rows from device memory (the
-// wrapper's choice where a pair's rows exceed the block's shared memory).
+// wrapper's choice where a pair's rows exceed the block's shared memory);
+// lazy: the second design's instantiation (two outputs a thread) or the
+// first's (one).  poly_mul_naive_v1 launches the first design alone.
+static inline size_t pmul_smem(int la, int lb, int64_t a_stride, int64_t b_stride, int group,
+                               int staged) {
+  return staged ? (size_t)8 * sizeof(uint32_t) *
+      ((a_stride ? group * la : la) + (b_stride ? group * lb : lb)) : 0;
+}
+
+static inline double pmul_inv_p_hi(const FieldParams* P) {
+  return 1.0 / ((double)P->p[FE_WORDS - 1] + 1.0);
+}
+
 int poly_mul_naive_launch(const FieldParams* P, const void* a, const void* b, void* out,
                           int64_t pairs, int la, int lb, int64_t a_stride, int64_t b_stride,
-                          int group, int threads, int staged, void* stream) {
+                          int group, int threads, int staged, int lazy, void* stream) {
   if (pairs > 0 && la > 0 && lb > 0 && group > 0) {
-    const size_t smem = staged ? (size_t)8 * sizeof(uint32_t) *
-        ((a_stride ? group * la : la) + (b_stride ? group * lb : lb)) : 0;
-    poly_mul_naive_kernel<<<grid_for(pairs, group), threads, smem, (cudaStream_t)stream>>>(
+    const size_t smem = pmul_smem(la, lb, a_stride, b_stride, group, staged);
+    auto* kern = lazy ? &poly_mul_naive_kernel<true> : &poly_mul_naive_kernel<false>;
+    kern<<<grid_for(pairs, group), threads, smem, (cudaStream_t)stream>>>(
         *P, (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, pairs, la, lb,
-        a_stride, b_stride, group, staged);
+        a_stride, b_stride, group, staged, pmul_inv_p_hi(P));
+  }
+  return (int)cudaGetLastError();
+}
+
+int poly_mul_naive_v1_launch(const FieldParams* P, const void* a, const void* b, void* out,
+                             int64_t pairs, int la, int lb, int64_t a_stride,
+                             int64_t b_stride, int group, int threads, int staged,
+                             void* stream) {
+  if (pairs > 0 && la > 0 && lb > 0 && group > 0) {
+    const size_t smem = pmul_smem(la, lb, a_stride, b_stride, group, staged);
+    poly_mul_naive_kernel<false><<<grid_for(pairs, group), threads, smem,
+                                   (cudaStream_t)stream>>>(
+        *P, (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, pairs, la, lb,
+        a_stride, b_stride, group, staged, pmul_inv_p_hi(P));
   }
   return (int)cudaGetLastError();
 }
@@ -822,6 +850,17 @@ int kate_div_launch(const FieldParams* P, const void* c, const void* b, void* ou
   if (pairs > 0 && n > 0)
     kate_div_kernel<<<grid_for(pairs, KDIV_PAIRS), KDIV_PAIRS, 0, (cudaStream_t)stream>>>(
         *P, (const uint32_t*)c, (const uint32_t*)b, (uint32_t*)out, pairs, n, b_stride);
+  return (int)cudaGetLastError();
+}
+
+// x, y, zinv: (3, n) rows, the three points of each slot; out: (7, n) rows
+// (head) or (3, n) (seeds); flags: (2, n) bytes, written in head mode only.
+int affine_lines_launch(const FieldParams* P, const void* x, const void* y, const void* zinv,
+                        void* out, void* flags, int64_t n, int head, void* stream) {
+  if (n > 0)
+    affine_lines_kernel<<<grid_for(n, LINES_BLOCK), LINES_BLOCK, 0, (cudaStream_t)stream>>>(
+        *P, (const uint32_t*)x, (const uint32_t*)y, (const uint32_t*)zinv, (uint32_t*)out,
+        (uint8_t*)flags, n, head);
   return (int)cudaGetLastError();
 }
 

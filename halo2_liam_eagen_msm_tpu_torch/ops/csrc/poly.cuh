@@ -23,18 +23,49 @@
 // out[pair, k] = sum_{i + j = k} a[pair, i] * b[pair, j] * R^-1 mod p, fully
 // reduced, for every pair of polynomials: a block takes `group` pairs, stages
 // their a and b rows once into shared memory, repacked to 8 words of 32 bits
-// (an operand shared by all pairs, stride 0, is staged once), and a thread
-// takes one output coefficient k of one pair (the wrapper sizes the block to
-// the group's outputs, rounded up to whole warps, so few threads idle): it
-// walks its anti-diagonal with fe_mul and adds each product with fe_add, so
-// the sum is exact mod p in any order and equals the plain version's
-// (products, int64 column sums, one reduction) limb for limb.  Threads of a
-// block take the group's outputs in order, so neighbouring threads write
-// neighbouring rows.  Where even one
+// (an operand shared by all pairs, stride 0, is staged once).  Where even one
 // pair's rows do not fit the block's shared memory (the wrapper decides;
 // never on the path, whose operands have at most 65 terms), the threads read
 // their rows from device memory instead (staged = 0).  The La x Lb products
 // never touch device memory.
+//
+// One kernel, poly_mul_naive_kernel<LAZY>, in two instantiations.
+//
+// LAZY = false, the first design: a thread takes one output coefficient k
+// and walks its anti-diagonal with fe_mul and fe_add, a full Montgomery
+// reduction and a modular add a product.  At (La, Lb) = (17, 19), the
+// heaviest shape of a round, a warp's 32 outputs have diagonals of 1 to 17
+// products, so the warp runs for its longest, about twice the mean.  The
+// wrapper poly_mul_naive_v1 launches only this, for one comparison on the
+// card; poly_mul_naive takes it where no diagonal has more than two
+// products (min(La, Lb) <= 2): there a lazy sum saves nothing, and its
+// larger footprint (78 registers a thread against 62) costs occupancy at
+// shapes that are bound by bytes (0.83-0.91x of this design on an H100 80GB
+// HBM3 at 700 W, PERF.md).
+//
+// LAZY = true, the second design, for every other shape:
+//   * lazy accumulation.  A term's 512-bit product (8 x 8 word products)
+//     is added into a 17-word accumulator, and the sum is reduced once an
+//     output (acc_reduce): about 64 multiply-adds a term and 64 an output,
+//     where the first design spends 136 a term and an fe_add.  The sum T of
+//     K products of reduced operands is below K p^2; its REDC r = (T + m p)
+//     / R lies below (K p / R + 1) p, so more than a conditional
+//     subtraction is needed from K = 4 on (R / p is about 4 for Pallas and
+//     Vesta): acc_reduce takes a quotient from r's top 64 bits, one that
+//     may be one too large, then adds p back or subtracts it, at most
+//     once each.  A diagonal longer than PMUL_LAZY_TERMS
+//     products (never on the path, whose diagonals have at most 33) is
+//     summed in runs of that many, each run reduced and the reduced runs
+//     added with fe_add, so every output is fully reduced whatever the
+//     length.
+//   * balanced threads.  A thread takes output k and output k + ceil(nout /
+//     2) of the same pair: a diagonal of the rising ramp with one of the
+//     falling ramp, whose lengths sum to about min(La, Lb) + 1, so at
+//     (17, 19) every thread walks 17 or 18 products.  (Pairing k with
+//     nout - 1 - k would pair equal lengths: the diagonals are symmetric.)
+// Threads of a block take the group's outputs in order, so neighbouring
+// threads write neighbouring rows.  Both instantiations give the unique
+// reduced value, so their limbs equal each other's and the plain version's.
 
 #define PMUL_MAX_THREADS 256
 
@@ -72,36 +103,114 @@ __device__ __forceinline__ void stage_rows(uint32_t* sm, const uint32_t* __restr
   }
 }
 
+#define PMUL_ACC_WORDS (2 * FE_WORDS + 1)
+#define PMUL_LAZY_TERMS 64
+
+// acc += x y, exactly: eight rows of eight word products.  Row i adds into
+// words i .. i + 8; its carry out of word i + 8 (at most 1) is added at the
+// end of row i + 1, whose own products stop at word i + 8, and the last
+// row's into word 16.  A sum of up to PMUL_LAZY_TERMS products of reduced
+// operands is below 2^6 p^2 < 2^516, so word 16 never overflows.
+__device__ __forceinline__ void acc_mul_add(uint32_t (&acc)[PMUL_ACC_WORDS], const Fe& x,
+                                            const Fe& y) {
+  uint32_t pend = 0;
+#pragma unroll
+  for (int i = 0; i < FE_WORDS; i++) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < FE_WORDS; j++) {
+      const uint64_t s = (uint64_t)x.v[j] * (uint64_t)y.v[i] + (uint64_t)acc[i + j] + c;
+      acc[i + j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    const uint64_t s = (uint64_t)acc[i + FE_WORDS] + c + pend;
+    acc[i + FE_WORDS] = (uint32_t)s;
+    pend = (uint32_t)(s >> 32);
+  }
+  acc[2 * FE_WORDS] += pend;
+}
+
+// T R^-1 mod p, fully reduced, for the lazy sum T of at most PMUL_LAZY_TERMS
+// products (the wrapper requires 2^247 < p < 2^255).  Eight word steps of REDC
+// (the carries as in acc_mul_add) leave r = (T + m p) / R in words 8 .. 16, r <
+// (K p / R + 1) p <= 33 p < 2^261.  With W = 2^224, r_hi = r / W < 2^37, p_hi =
+// p / W (the top word of p, at least 2^23) and F = floor(r_hi / (p_hi + 1)) <
+// 2^14: F p < F (p_hi + 1) W <= r, and r - F p < (r_hi + 1 - F p_hi) W <= (p_hi
+// + F + 1) W <= p + (F + 1) W < 2p, as (F + 1) W <= 2^238 < p.  The ratio r_hi /
+// (p_hi + 1) is estimated in double precision from inv_p_hi, the rounded 1 /
+// (p_hi + 1), to within 2^-38; a ratio that is not an integer lies at least 1 /
+// (p_hi + 1) >= 2^-32 from one, so the estimate's floor is F, or F - 1 where
+// r_hi = F (p_hi + 1) exactly.  So q = floor + 1 is F or F + 1, and r - q p lies
+// in [-p, 2p): where it is negative (word 8 of the difference all ones) p is
+// added back, and one conditional subtraction finishes it.  The difference fits
+// 256 bits either way, so its words 0 .. 7 are all that is kept.  (A 64-bit
+// integer division here made the short diagonals slower than v1's.)
+__device__ __forceinline__ Fe acc_reduce(uint32_t (&t)[PMUL_ACC_WORDS], const FieldParams& P,
+                                         double inv_p_hi) {
+  uint32_t pend = 0;
+#pragma unroll
+  for (int i = 0; i < FE_WORDS; i++) {
+    const uint32_t m = t[i] * P.n0;
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < FE_WORDS; j++) {
+      const uint64_t s = (uint64_t)m * (uint64_t)P.p[j] + (uint64_t)t[i + j] + c;
+      t[i + j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    const uint64_t s = (uint64_t)t[i + FE_WORDS] + c + pend;
+    t[i + FE_WORDS] = (uint32_t)s;
+    pend = (uint32_t)(s >> 32);
+  }
+  t[2 * FE_WORDS] += pend;
+  const uint64_t r_hi = ((uint64_t)t[2 * FE_WORDS] << 32) | t[2 * FE_WORDS - 1];
+  const uint64_t q = (uint64_t)((double)r_hi * inv_p_hi) + 1;
+  Fe d;
+  uint64_t c = 0, borrow = 0;
+#pragma unroll
+  for (int k = 0; k < FE_WORDS; k++) {
+    const uint64_t qp = q * (uint64_t)P.p[k] + c;
+    c = qp >> 32;
+    const uint64_t s = (uint64_t)t[FE_WORDS + k] - (uint64_t)(uint32_t)qp - borrow;
+    d.v[k] = (uint32_t)s;
+    borrow = s >> 63;
+  }
+  const uint32_t neg = t[2 * FE_WORDS] - (uint32_t)c - (uint32_t)borrow;  // 0 or ~0
+  uint64_t s = 0;
+#pragma unroll
+  for (int k = 0; k < FE_WORDS; k++) {
+    s += (uint64_t)d.v[k] + (P.p[k] & neg);
+    d.v[k] = (uint32_t)s;
+    s >>= 32;
+  }
+  return fe_cond_sub_p(d, P);
+}
+
+template <bool LAZY>
 __global__ void __launch_bounds__(PMUL_MAX_THREADS)
 poly_mul_naive_kernel(FieldParams P, const uint32_t* __restrict__ a,
                       const uint32_t* __restrict__ b, uint32_t* __restrict__ out,
                       int64_t pairs, int la, int lb, int64_t a_stride, int64_t b_stride,
-                      int group, int staged) {
+                      int group, int staged, double inv_p_hi) {
   extern __shared__ uint4 pmul_sm[];
   const int nout = la + lb - 1;
+  const int step = LAZY ? (nout + 1) / 2 : nout;  // a thread's outputs k, k + step
   const int64_t first = (int64_t)blockIdx.x * group;
   const int in_block = (int)(pairs - first < group ? pairs - first : group);
-  // rows staged: a pair's own rows, or one copy of a shared operand
   const int a_rows = a_stride ? in_block * la : la;
   uint32_t* sa = reinterpret_cast<uint32_t*>(pmul_sm);
   uint32_t* sb = sa + 8 * (a_stride ? group * la : la);
   if (staged) {
-    // row r of a's stage: pair first + r / la, term r % la (a_stride = la),
-    // or term r of the one shared row (a_stride = 0); the same for b
     stage_rows(sa, a, a_rows, [&](int r) { return first * a_stride + r; });
     stage_rows(sb, b, b_stride ? in_block * lb : lb,
                [&](int r) { return first * b_stride + r; });
     __syncthreads();
   }
-  for (int o = threadIdx.x; o < in_block * nout; o += blockDim.x) {
-    const int g = o / nout, k = o - g * nout;
-    const int i_lo = k - lb + 1 > 0 ? k - lb + 1 : 0;
-    const int i_hi = k < la - 1 ? k : la - 1;
+  for (int o = threadIdx.x; o < in_block * step; o += blockDim.x) {
+    const int g = o / step;
     const int64_t pair = first + g;
-    Fe acc = fe_zero();
-#pragma unroll 1
-    for (int i = i_lo; i <= i_hi; i++) {
-      Fe x, y;
+    // term i of output k: a[i] and b[k - i] of this pair
+    auto operands = [&](int i, int k, Fe& x, Fe& y) {
       if (staged) {
         x = staged_row(sa, (a_stride ? g * la : 0) + i);
         y = staged_row(sb, (b_stride ? g * lb : 0) + k - i);
@@ -109,9 +218,37 @@ poly_mul_naive_kernel(FieldParams P, const uint32_t* __restrict__ a,
         x = fe_load(a + (pair * a_stride + i) * ELEMS_PER_ROW);
         y = fe_load(b + (pair * b_stride + k - i) * ELEMS_PER_ROW);
       }
-      acc = fe_add(acc, fe_mul(x, y, P), P);
+    };
+#pragma unroll 1
+    for (int k = o - g * step; k < nout; k += step) {
+      const int i_lo = k - lb + 1 > 0 ? k - lb + 1 : 0;
+      const int i_hi = k < la - 1 ? k : la - 1;
+      Fe sum = fe_zero(), x, y;
+      if constexpr (LAZY) {
+#pragma unroll 1
+        for (int run = i_lo; run <= i_hi; run += PMUL_LAZY_TERMS) {
+          const int run_end =
+              run + PMUL_LAZY_TERMS - 1 < i_hi ? run + PMUL_LAZY_TERMS - 1 : i_hi;
+          uint32_t acc[PMUL_ACC_WORDS];
+#pragma unroll
+          for (int w = 0; w < PMUL_ACC_WORDS; w++) acc[w] = 0;
+#pragma unroll 1
+          for (int i = run; i <= run_end; i++) {
+            operands(i, k, x, y);
+            acc_mul_add(acc, x, y);
+          }
+          const Fe run_sum = acc_reduce(acc, P, inv_p_hi);
+          sum = run == i_lo ? run_sum : fe_add(sum, run_sum, P);
+        }
+      } else {
+#pragma unroll 1
+        for (int i = i_lo; i <= i_hi; i++) {
+          operands(i, k, x, y);
+          sum = fe_add(sum, fe_mul(x, y, P), P);
+        }
+      }
+      fe_store(out + (pair * nout + k) * ELEMS_PER_ROW, sum);
     }
-    fe_store(out + (pair * nout + k) * ELEMS_PER_ROW, acc);
   }
 }
 

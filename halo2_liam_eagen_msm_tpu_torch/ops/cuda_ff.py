@@ -46,9 +46,12 @@ launches its kernel.  The same library, counters and launcher carry the five
 kernels of the divisor merge tree (csrc/ntt.cuh), whose wrappers and plain
 versions are in ops/cuda_ntt.py, the four of the MSM's radix reorder
 (csrc/radix.cuh), whose wrappers and plain versions are in ops/cuda_radix.py,
-and the coefficient levels' two (csrc/poly.cuh: mont_mul's work at the
+the coefficient levels' two (csrc/poly.cuh: mont_mul's work at the
 schoolbook product and the Horner division), whose wrappers and plain
-versions are in ops/cuda_poly.py.
+versions are in ops/cuda_poly.py, and the merge head's affine_lines
+(csrc/lines.cuh: mont_mul's and mont_addsub's work at the affine
+normalisation and the lines of divisor.merge_head and divisor.seeds), whose
+wrapper and plain version are in ops/cuda_lines.py.
 """
 
 from __future__ import annotations
@@ -72,8 +75,11 @@ KERNELS = ("mont_mul", "batch_inv", "mont_addsub", "ec_add", "ec_add_fast",
            "lm_mul", "lm_addsub", "lm_mul_const", "stage_big", "stages_small",
            # the radix reorder's four, in csrc/radix.cuh (ops/cuda_radix.py)
            "radix_rank", "radix_shuffle", "radix_pass_b", "radix_compact",
-           # the coefficient levels' two, in csrc/poly.cuh (ops/cuda_poly.py)
-           "poly_mul_naive", "kate_div")
+           # the coefficient levels' two, in csrc/poly.cuh (ops/cuda_poly.py),
+           # with the first design of poly_mul_naive, kept for one comparison
+           "poly_mul_naive", "kate_div", "poly_mul_naive_v1",
+           # the merge head's, in csrc/lines.cuh (ops/cuda_lines.py)
+           "affine_lines")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 SCAN_W = 64  # sequential madd steps per lane of the fused scan
@@ -188,8 +194,12 @@ def _lib():
             "radix_shuffle_launch": [vp, vp, vp, vp, i64, ci, ci, vp],
             "radix_pass_b_launch": [vp, vp, vp, ci, i64, i64, ci, vp],
             "radix_compact_launch": [vp, vp, vp, ci, i64, i64, vp],
-            "poly_mul_naive_launch": [fpp, vp, vp, vp, i64, ci, ci, i64, i64, ci, ci, ci, vp],
+            "poly_mul_naive_launch":
+                [fpp, vp, vp, vp, i64, ci, ci, i64, i64, ci, ci, ci, ci, vp],
+            "poly_mul_naive_v1_launch":
+                [fpp, vp, vp, vp, i64, ci, ci, i64, i64, ci, ci, ci, vp],
             "kate_div_launch": [fpp, vp, vp, vp, i64, ci, i64, vp],
+            "affine_lines_launch": [fpp] + [vp] * 5 + [i64, ci, vp],
         }
         for name, argtypes in sigs.items():
             fn = getattr(lib, name)

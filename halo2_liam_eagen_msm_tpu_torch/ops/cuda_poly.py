@@ -9,24 +9,30 @@ library of ops/cuda_ff.py):
   poly_mul_naive   pallas_ff.mont_mul (:515), at the   the schoolbook product of
                    JAX ops/poly.mul_naive's outer      (..., La, 16) x (..., Lb,
                    product and column sums             16), La + Lb - 1 terms
+                                                       (lazy sums, two balanced
+                                                       outputs a thread, from
+                                                       three products a
+                                                       diagonal)
   kate_div         pallas_ff.mont_mul and mont_addsub  synthetic division by
                    (:515, :541), at the JAX ops/poly   (x - b), remainder
                    .kate_div scan's body (n <= 64)     dropped, same length n
 
 ops/poly.py takes them for a CUDA tensor and the plain versions for a CPU
-one.  The plain versions are today's algorithms on the plain products and
-adds of ops/cuda_ff.py, device-agnostic: the outer product, its int64
-anti-diagonal sums and one reduction a coefficient; the Horner chain of
-n - 1 products and adds.  Every result is fully reduced, so kernel and plain
-version agree limb for limb.  _schoolbook and _horner take the field ops as
-arguments, so that ops/poly.py can run the same algorithms on the kernels'
-wrappers (the route the two kernels replaced).
+one.  poly_mul_naive_v1, the first design of poly_mul_naive (a thread an
+output, a full reduction a product) at every shape, stays beside it for one
+comparison on the card; no path calls it (poly_mul_naive takes that design
+only where no diagonal has more than two products).  The plain versions are
+today's algorithms on the plain products and adds of ops/cuda_ff.py,
+device-agnostic: the outer product, its int64 anti-diagonal sums and one
+reduction a coefficient; the Horner chain of n - 1 products and adds.  Every
+result is fully reduced, so kernel and plain version agree limb for limb.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import random
 
 import torch
 
@@ -61,32 +67,33 @@ def _pair_rows(t, lead):
     return rows, stride
 
 
-def _mul_naive_group(pairs: int, la: int, lb: int, a_stride: int, b_stride: int):
-    """(pairs a block, threads a block, staged) of poly_mul_naive: as many
-    pairs as give every thread of PMUL_MAX_THREADS an output coefficient and
-    the block's shared memory stages, the block their outputs rounded up to
-    whole warps; where one pair's rows do not fit, one pair a block with the
-    rows read from device memory."""
-    nout = la + lb - 1
-    group = max(1, min(pairs, PMUL_MAX_THREADS // nout))
+def _mul_naive_group(pairs: int, la: int, lb: int, a_stride: int, b_stride: int,
+                     per_thread: int):
+    """(pairs a block, threads a block, staged) of a poly_mul_naive design
+    whose threads take `per_thread` output coefficients each: as many pairs
+    as give every thread of PMUL_MAX_THREADS its outputs and the block's
+    shared memory stages, the block their threads rounded up to whole warps;
+    where one pair's rows do not fit, one pair a block with the rows read
+    from device memory."""
+    per_pair = -(-(la + lb - 1) // per_thread)
+    group = max(1, min(pairs, PMUL_MAX_THREADS // per_pair))
 
     def staged_bytes(g):
         return STAGED_ROW_BYTES * ((g * la if a_stride else la) + (g * lb if b_stride else lb))
 
     while group > 1 and staged_bytes(group) > PMUL_SMEM:
         group -= 1
-    threads = min(PMUL_MAX_THREADS, -(-group * nout // 32) * 32)
+    threads = min(PMUL_MAX_THREADS, -(-group * per_pair // 32) * 32)
     return group, threads, staged_bytes(group) <= PMUL_SMEM
 
 
-def poly_mul_naive(spec: FieldSpec, a, b):
-    """(..., La, 16) x (..., Lb, 16) -> (..., La + Lb - 1, 16) schoolbook
-    product, one kernel launch; leading dims broadcast, an operand shared by
-    all pairs is read once.  Requires min(La, Lb) <= 2^13, as mul_naive."""
-    CF._check_cuda("poly_mul_naive", a, b)
+def _poly_mul(name: str, lazy: bool, spec: FieldSpec, a, b):
+    CF._check_cuda(name, a, b)
     la, lb = a.shape[-2], b.shape[-2]
     if min(la, lb) > MAX_SHORT_TERMS or min(la, lb) < 1:
-        raise ValueError("poly_mul_naive: the shorter operand must have 1 to 2^13 terms")
+        raise ValueError(f"{name}: the shorter operand must have 1 to 2^13 terms")
+    if not 1 << 247 < spec.p:
+        raise ValueError(f"{name}: the lazy reduction needs p > 2^247")
     lead = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
     pairs = math.prod(lead)
     out = torch.empty(lead + (la + lb - 1, N_LIMBS), dtype=torch.int32, device=a.device)
@@ -94,11 +101,31 @@ def poly_mul_naive(spec: FieldSpec, a, b):
         return out
     af, a_stride = _pair_rows(a, lead)
     bf, b_stride = _pair_rows(b, lead)
-    group, threads, staged = _mul_naive_group(pairs, la, lb, a_stride, b_stride)
-    CF._launch("poly_mul_naive", a.device, ctypes.byref(CF._field_params(spec)),
+    group, threads, staged = _mul_naive_group(pairs, la, lb, a_stride, b_stride,
+                                              2 if lazy else 1)
+    # poly_mul_naive chooses its instantiation; the first design has one
+    choice = (int(lazy),) if name == "poly_mul_naive" else ()
+    CF._launch(name, a.device, ctypes.byref(CF._field_params(spec)),
                af.data_ptr(), bf.data_ptr(), out.data_ptr(), pairs, la, lb,
-               a_stride, b_stride, group, threads, int(staged))
+               a_stride, b_stride, group, threads, int(staged), *choice)
     return out
+
+
+def poly_mul_naive(spec: FieldSpec, a, b):
+    """(..., La, 16) x (..., Lb, 16) -> (..., La + Lb - 1, 16) schoolbook
+    product, one kernel launch: lazy sums and outputs k and k + ceil(nout /
+    2) a thread, or, where no diagonal has more than two products, the first
+    design (an output a thread, a reduction a product); leading dims
+    broadcast, an operand shared by all pairs is read once.  Requires
+    min(La, Lb) <= 2^13, as mul_naive, and p > 2^247."""
+    return _poly_mul("poly_mul_naive", min(a.shape[-2], b.shape[-2]) > 2, spec, a, b)
+
+
+def poly_mul_naive_v1(spec: FieldSpec, a, b):
+    """poly_mul_naive by its first design alone (an output a thread, fe_mul
+    and fe_add a product): the same function, for a comparison on the
+    card."""
+    return _poly_mul("poly_mul_naive_v1", False, spec, a, b)
 
 
 def kate_div(spec: FieldSpec, coeffs, b):
@@ -166,3 +193,32 @@ def kate_div_plain(spec: FieldSpec, coeffs, b):
     """Plain version of kate_div: _horner on the plain products and adds."""
     return _horner(coeffs, b, lambda x, y: CF.mont_mul_plain(spec, x, y),
                    lambda x, y: CF.mont_addsub_plain(spec, False, x, y))
+
+
+def reduction_edges(spec: FieldSpec, k: int, seed: int = 0):
+    """Raw operand values (a, b), k terms each, whose diagonal k - 1 (the sum
+    T of a[i] b[k - 1 - i], k products) has its REDC r = (T + m p) / R where
+    poly_mul_naive's lazy reduction (csrc/poly.cuh acc_reduce) is hardest to
+    get right: with W = 2^224, p_hi = p // W and F = floor((r // W) / (p_hi +
+    1)), r in the window [(F + 1) p, (F + 1) (p_hi + 1) W), where r - F p >=
+    p; r // W = F (p_hi + 1) exactly, where the quotient's floating-point
+    estimate may fall below F; and the window's top end: every such r up to F
+    = 32 that k products of reduced values reach.  T = r R - m p for a random
+    m in [0, R) (REDC's own m: T = -m p mod R), written as (p - 1) Y + z with
+    a = (1, p - 1, ..., p - 1), b[k - 1] = z and b[0 .. k - 2] summing to Y."""
+    p, big_r, w = spec.p, 1 << 256, 1 << 224
+    top = (p // w + 1) * w
+    t_max = (p - 2) + (k - 1) * (p - 1) ** 2
+    targets = ({f * p + w for f in range(2, 33)} | {f * top for f in range(1, 33)}
+               | {f * top + w - 1 for f in range(2, 33)} | {f * top - 1 for f in range(2, 33)})
+    rnd = random.Random(seed)
+    out = []
+    for r in sorted(targets):
+        m_lo = max(0, -(-(r * big_r - t_max) // p))
+        if m_lo >= big_r:
+            continue
+        t = r * big_r - rnd.randrange(m_lo, big_r) * p
+        y, z = divmod(t, p - 1)
+        ys = [min(p - 1, max(0, y - (p - 1) * j)) for j in range(k - 1)]
+        out.append(([1] + [p - 1] * (k - 1), ys[::-1] + [z]))
+    return out

@@ -109,24 +109,6 @@ def mul_naive(spec: FieldSpec, a, b):
     return CP.poly_mul_naive_plain(spec, a, b)
 
 
-def _mul_naive_outer(spec: FieldSpec, a, b):
-    """mul_naive by the route poly_mul_naive replaced: the outer product by
-    ff's product (a mont_mul launch on the card), the int64 anti-diagonal
-    sums in PyTorch and ff.reduce_columns.  Kept for chip_smoke.py's
-    comparison of the two routes; no path calls it."""
-    k = ff(spec)
-    return CP._schoolbook(a, b, k.mul, k.reduce_columns)
-
-
-def _kate_div_chain(spec: FieldSpec, coeffs, b):
-    """kate_div for 2 <= n <= 64 by the route the kate_div kernel replaced: the
-    Horner chain on ff's product and add, 2 (n - 1) launches on the card.
-    Kept for chip_smoke.py's comparison of the two routes; no path calls
-    it."""
-    k = ff(spec)
-    return CP._horner(coeffs, b, k.mul, k.add)
-
-
 def _pad_to(a, n: int):
     la = a.shape[-2]
     if la == n:

@@ -2,8 +2,9 @@
 package (one call, the seeds), coefficient for coefficient against the host-int
 oracle at the sizes test_divisor.py uses (n <= 12, the coefficient route) and
 where the fused tail runs (128 to 257 points, odd sizes), the limb-major tail
-against the element-major one, and the three exact fallbacks of a fused
-level.
+against the element-major one, the three exact fallbacks of a fused level,
+and merge_head and seeds (through affine_lines' plain version) against the
+composition they replaced.
 
 All on the CPU, on the plain versions.  Integer arithmetic: tolerance zero."""
 
@@ -19,7 +20,10 @@ from halo2_liam_eagen_msm_tpu_torch import divisor as D
 from halo2_liam_eagen_msm_tpu_torch.convert import (
     JPoint, level_from_numpy, level_to_numpy, limbs_to_numpy, rf_to_numpy)
 from halo2_liam_eagen_msm_tpu_torch.fields import PALLAS
+from halo2_liam_eagen_msm_tpu_torch.limbs import ints_to_mont_limbs
+from halo2_liam_eagen_msm_tpu_torch.ops import cuda_ff as CF
 from halo2_liam_eagen_msm_tpu_torch.ops.ec import ec
+from halo2_liam_eagen_msm_tpu_torch.ops.ff import ff
 from halo2_liam_eagen_msm_tpu_torch.ops.poly import Poly
 from halo2_liam_eagen_msm_tpu_torch.utils import pyref
 
@@ -193,3 +197,88 @@ def test_fused_level_fallbacks_exact(rng, case):
     assert D.LEVEL_COUNTS["fused"] == 1
     assert D.LEVEL_COUNTS["fallback"] == (0 if case == "identity_laden" else 1)
     assert_equals_host_oracle(wtns, out, pts)
+
+
+# ---------------------------------------------------------------------------
+# merge_head and seeds through affine_lines, against the composition they
+# replaced: EC.to_affine of the three points stacked, linefunc_affine twice,
+# the selects (as the port wrote them before affine_lines)
+# ---------------------------------------------------------------------------
+
+def _composed_head(curve, a_out, b_out):
+    E, k = ec(curve), ff(curve.field)
+    out = E.add(a_out, b_out)
+    bypass = E.is_identity(a_out) | E.is_identity(b_out)
+    na, nb = E.neg(a_out), E.neg(b_out)
+    (nax, nay, naid), (nbx, nby, nbid), (cx, cy, cid) = D._multi_affine(E, [na, nb, out])
+    lx, ly, lz = D.linefunc_affine(curve, nax, nay, naid, nbx, nby, nbid)
+    deg = k.is_zero(lx) & k.is_zero(ly) & k.is_zero(lz) & ~bypass
+    lx2, ly2, lz2 = D.linefunc_affine(curve, nax, nay, naid, cx, cy, cid)
+    lx, ly, lz = k.select(deg, lx2, lx), k.select(deg, ly2, ly), k.select(deg, lz2, lz)
+    one = k.one(lx.device).expand(lx.shape)
+    zero = torch.zeros_like(lx)
+    lx, ly, lz = k.select(bypass, zero, lx), k.select(bypass, zero, ly), k.select(bypass, one, lz)
+    roots = k.select(bypass, one, nax), k.select(bypass, one, nbx)
+    return out, bypass, deg, (lx, ly, lz), (nay, nby), roots
+
+
+def _composed_seeds(curve, pts):
+    E, k = ec(curve), ff(curve.field)
+    p1, p2 = D._take_pts(pts, slice(0, None, 2)), D._take_pts(pts, slice(1, None, 2))
+    id1, id2 = E.is_identity(p1), E.is_identity(p2)
+    out = E.neg(E.add(p1, p2))
+    left = E.select(id1, p2, p1)
+    right = E.select(id1, E.neg(p2), p2)
+    cpt = E.neg(E.add(left, right))
+    (lxa, lya, ida), (lxb, lyb, idb), (cx, cy, cid) = D._multi_affine(E, [left, right, cpt])
+    lx, ly, lz = D.linefunc_affine(curve, lxa, lya, ida, lxb, lyb, idb)
+    deg = k.is_zero(lx) & k.is_zero(ly) & k.is_zero(lz)
+    lx2, ly2, lz2 = D.linefunc_affine(curve, lxa, lya, ida, cx, cy, cid)
+    lx, ly, lz = k.select(deg, lx2, lx), k.select(deg, ly2, ly), k.select(deg, lz2, lz)
+    both = id1 & id2
+    zero = torch.zeros_like(lx)
+    lx, ly = k.select(both, zero, lx), k.select(both, zero, ly)
+    lz = k.select(both, k.one(lz.device).expand(lz.shape), lz)
+    return out, (lx, ly, lz)
+
+
+def _adversarial_slots(rng, nprng, n=24):
+    """Two Jacobian batches of n points, each point with a random
+    representative (Z != 1), and the adversarial slots first: p identity, q
+    identity, both, q == p (the tangent case), q == -p."""
+    E = ec(CURVE)
+    spec = CURVE.field
+    hp, hq = pyref.random_points(rng, CURVE, n), pyref.random_points(rng, CURVE, n)
+    hp[0] = hq[1] = hp[2] = hq[2] = None
+    hq[3] = hp[3]
+    hq[4] = pyref.ec_neg(hp[4], CURVE)
+    mul = lambda u, v: CF.mont_mul_plain(spec, u, v)
+
+    def jacobian(pts):
+        p = E.points_from_ints(pts, "cpu")
+        lam = ints_to_mont_limbs([int(v) % spec.p or 1 for v in nprng.integers(1, 1 << 62, n)],
+                                 spec)
+        lam = torch.from_numpy(lam.view("int32").copy())
+        l2 = mul(lam, lam)
+        z = torch.where(E.is_identity(p)[:, None], p.z, lam)
+        return JPoint(mul(p.x, l2), mul(p.y, mul(l2, lam)), z)
+    return jacobian(hp), jacobian(hq)
+
+
+@pytest.mark.parametrize("fn", ["merge_head", "seeds"])
+def test_head_lines_equal_composition(rng, nprng, fn):
+    """merge_head and seeds through the plain affine_lines (the route a CPU
+    tensor takes) equal the composition they replaced, limb for limb and
+    mask for mask, on the adversarial slots and random ones."""
+    p, q = _adversarial_slots(rng, nprng)
+    if fn == "merge_head":
+        got, want = D.merge_head(CURVE, p, q), _composed_head(CURVE, p, q)
+        assert got[1][:5].tolist() == [True, True, True, False, False]
+        assert bool(got[2][3]) and int(got[2].sum()) == 1   # the tangent slot
+    else:
+        pts = JPoint(*(torch.stack([a, b], dim=1).reshape(-1, 16) for a, b in zip(p, q)))
+        lv = D.seeds(CURVE, pts)
+        got = (lv.out, (lv.wtns.a[..., 1, :], lv.wtns.b[..., 0, :], lv.wtns.a[..., 0, :]))
+        want = _composed_seeds(CURVE, pts)
+    flat = lambda t: [x for v in t for x in (v if isinstance(v, tuple) else (v,))]
+    assert all(torch.equal(g, w) for g, w in zip(flat(got), flat(want), strict=True))

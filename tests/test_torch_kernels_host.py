@@ -1,5 +1,6 @@
 """The CUDA sources of the port, rehearsed without a card: csrc/kernels.cu
-(with csrc/ntt.cuh, csrc/radix.cuh and csrc/poly.cuh) compiles for the host
+(with csrc/ntt.cuh, csrc/radix.cuh, csrc/poly.cuh and csrc/lines.cuh)
+compiles for the host
 with g++ behind a small shim, the
 result is loaded in place of the nvcc library, and every kernel's wrapper is
 held against its plain PyTorch version on CPU tensors.
@@ -36,6 +37,7 @@ from halo2_liam_eagen_msm_tpu_torch.convert import JPoint
 from halo2_liam_eagen_msm_tpu_torch.fields import PALLAS
 from halo2_liam_eagen_msm_tpu_torch.limbs import ints_to_limbs, ints_to_mont_limbs, mont_limbs_to_ints
 from halo2_liam_eagen_msm_tpu_torch.ops import cuda_ff as CF
+from halo2_liam_eagen_msm_tpu_torch.ops import cuda_lines as CL
 from halo2_liam_eagen_msm_tpu_torch.ops import cuda_ntt as CN
 from halo2_liam_eagen_msm_tpu_torch.ops import cuda_poly as CP
 from halo2_liam_eagen_msm_tpu_torch.ops import cuda_radix as CR
@@ -175,7 +177,7 @@ def host_library(tmp_path_factory):
         pytest.skip("no g++ to compile the CUDA sources for the host")
     out = tmp_path_factory.mktemp("host_kernels")
     n = 0
-    for name in ("kernels.cu", "ntt.cuh", "radix.cuh", "poly.cuh"):
+    for name in ("kernels.cu", "ntt.cuh", "radix.cuh", "poly.cuh", "lines.cuh"):
         src = (_CSRC / name).read_text().replace("#include <cuda_runtime.h>", _SHIM)
         src, count = _rewrite_launches(src)
         n += count
@@ -365,16 +367,27 @@ def _case(name, rng, nprng):
             return lambda a, b: (fn(SPEC, False, a, b), fn(SPEC, True, a, b))
         return both(CF.mont_addsub), both(CF.mont_addsub_plain), \
             (_field(nprng, B), _field(nprng, B))
-    if name == "poly_mul_naive":
+    if name in ("poly_mul_naive", "poly_mul_naive_v1"):
         # (pairs, La, Lb): La = 17, Lb = 33 (49 outputs a pair, 5 pairs a
-        # block: 7 pairs end in a ragged block), La > Lb, La = 1, and Lb = 4
-        # shared by all pairs (the substitution polynomial of rf_mul)
+        # block of v1, 10 of v2: 7 pairs end in a ragged block), La > Lb,
+        # La = 1, and Lb = 4 shared by all pairs (the substitution
+        # polynomial of rf_mul)
         shapes = ((7, 17, 33), (3, 8, 3), (5, 1, 6))
         ops = [(_field(nprng, m * la).reshape(m, la, 16), _field(nprng, m * lb).reshape(m, lb, 16))
                for m, la, lb in shapes]
         ops.append((_field(nprng, 9 * 5).reshape(9, 5, 16), _field(nprng, 4).expand(9, 4, 16)))
-        return (lambda *a: tuple(CP.poly_mul_naive(SPEC, x, y) for x, y in ops),
+        kernel = getattr(CP, name)
+        return (lambda *a: tuple(kernel(SPEC, x, y) for x, y in ops),
                 lambda *a: tuple(CP.poly_mul_naive_plain(SPEC, x, y) for x, y in ops), ())
+    if name == "affine_lines":
+        # head and seeds on the edge slots of _edge_points (37 slots: a
+        # ragged block)
+        hp, hq = _edge_points(rng)
+        ins = _lines_inputs(_jacobian(rng, nprng, hp), _jacobian(rng, nprng, hq))
+
+        def both(fn):
+            return lambda *a: (*fn(SPEC, True, *ins[True]), fn(SPEC, False, *ins[False])[0])
+        return both(CL.affine_lines), both(CL.affine_lines_plain), ()
     if name == "kate_div":
         # 37 pairs (a ragged second block) at n = 5 and 34 (two chunks of the
         # chain, the second one row), b = 0 in pair 3; one b for all pairs
@@ -417,6 +430,53 @@ def _case(name, rng, nprng):
     return (lambda rows: CF.fused_madd_scan_xyzz(CURVE, t_limbs, rows, w),
             lambda rows: CF.fused_madd_scan_xyzz_plain(CURVE, t_limbs, rows, w),
             (M._pack_pair(ax, ay).contiguous(),))
+
+
+def _lines_inputs(p, q):
+    """affine_lines' inputs {head: (x, y, zinv)} from two Jacobian batches:
+    (p, q, p + q) for the head, (p, q, -(p + q)) for the seeds, the Z of the
+    three inverted at once."""
+    out = JPoint(*CF.ec_add_plain(CURVE, *p, *q))
+    neg = JPoint(out.x, CF.mont_addsub_plain(SPEC, True, torch.zeros_like(out.y), out.y), out.z)
+    ins = {}
+    for head, third in ((True, out), (False, neg)):
+        x, y, z = (torch.stack(c) for c in zip(p, q, third))
+        zinv = CF.batch_inv_plain(SPEC, z.reshape(-1, 16)).reshape(z.shape)
+        ins[head] = (x, y, zinv)
+    return ins
+
+
+def _lines_ints(head, hp, hq):
+    """affine_lines slot by slot on Python ints: (rows, flags) as ints, the
+    lines through the canonical projective points (x, y, 1), (0, 1, 0) for
+    the identity."""
+    p = SPEC.p
+    neg = lambda u: pyref.ec_neg(u, CURVE)
+
+    def line(a, b):
+        ax, ay, az = (0, 1, 0) if a is None else (a[0], a[1], 1)
+        bx, by, bz = (0, 1, 0) if b is None else (b[0], b[1], 1)
+        return [(ay * bz - az * by) % p, (az * bx - ax * bz) % p, (ax * by - ay * bx) % p]
+    rows, flags = [], []
+    for u, v in zip(hp, hq):
+        if head:
+            a, b, c = neg(u), neg(v), pyref.ec_add(u, v, CURVE)
+            mask = u is None or v is None
+        else:
+            a, b = (u, v) if u is not None else (v, neg(v))
+            c = neg(pyref.ec_add(u, v, CURVE)) if u is not None else None
+            mask = u is None and v is None
+        lv = line(a, b)
+        deg = lv == [0, 0, 0] and not (head and mask)
+        if deg:
+            lv = line(a, c)
+        if mask:
+            lv = [0, 0, 1]
+        if head:
+            lv += [a[1] if a else 0, b[1] if b else 0, 1 if mask else u[0], 1 if mask else v[0]]
+            flags.append((deg, mask))
+        rows.append(lv)
+    return rows, flags
 
 
 def _flat(out):
@@ -503,18 +563,35 @@ def test_mont_addsub_edges_on_host(name, host_kernels, rng):
         assert torch.equal(got, limbs(want))
 
 
-@pytest.mark.parametrize("name", ["ec_add_fast"])
+@pytest.mark.parametrize("name", ["ec_add_fast", "affine_lines head", "affine_lines seeds"])
 def test_ec_add_fast_edges_on_host(name, host_kernels, rng, nprng):
     """The four-lane ec_add_fast at ragged B = 37 with the edge lanes: p identity (passes q), q identity (passes p), both
     identities, P + P (flagged, the only flag), P + (-P) (z = 0, unflagged);
     equal to the plain version limb for limb and to the Python-int oracle on
     every unflagged lane.  The identities carry x and y of other lanes (any
     x, y with z = 0 is the identity), so that lane 2 pins the selects' order:
-    a q identity passes p first."""
+    a q identity passes p first.  affine_lines (head and seeds) on the same
+    slots (bypass slots 0-2, the tangent slot 3, P and -P in slot 4): equal
+    to its plain version and to the lines on Python ints, every slot."""
     hp, hq = _edge_points(rng)
     p, q = _jacobian(rng, nprng, hp), _jacobian(rng, nprng, hq)
     for c, lane, src in ((p, 0, 5), (q, 1, 6), (p, 2, 7), (q, 2, 8)):
         c.x[lane], c.y[lane] = c.x[src], c.y[src]
+    if name != "ec_add_fast":
+        head = name.endswith("head")
+        ins = _lines_inputs(p, q)[head]
+        rows, flags = CL.affine_lines(SPEC, head, *ins)
+        want_rows, want_flags = CL.affine_lines_plain(SPEC, head, *ins)
+        assert torch.equal(rows, want_rows)
+        assert flags is want_flags is None or torch.equal(flags, want_flags)
+        ints, int_flags = _lines_ints(head, hp, hq)
+        got = mont_limbs_to_ints(rows.reshape(-1, 16).numpy().view("uint32"), SPEC)
+        assert [got[k * B + i] for i in range(B) for k in range(len(ints[0]))] == \
+            [v for r in ints for v in r]
+        if head:
+            assert list(zip(*flags.tolist())) == int_flags
+            assert int_flags[:5] == [(False, True)] * 3 + [(True, False), (False, False)]
+        return
     got = getattr(CF, name)(CURVE, *p, *q)
     want = CF.ec_add_fast_plain(CURVE, *p, *q)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
@@ -534,26 +611,41 @@ def _mont_rows(vals):
     return torch.from_numpy(arr.copy()).reshape(len(vals), len(vals[0]), 16)
 
 
+def _raw_rows(vals):
+    """Python ints -> limbs taken as they are (no Montgomery form)."""
+    return torch.from_numpy(ints_to_limbs(vals).view("int32").copy())
+
+
 def _from_rows(t):
     flat = mont_limbs_to_ints(t.reshape(-1, 16).numpy().view("uint32"), SPEC)
     width = t.shape[-2]
     return [flat[i:i + width] for i in range(0, len(flat), width)]
 
 
+@pytest.mark.parametrize("name", ["poly_mul_naive", "poly_mul_naive_v1"])
 @pytest.mark.parametrize("staging", ["shared", "device"])
-def test_poly_mul_naive_edges_on_host(staging, host_kernels, monkeypatch, rng):
-    """poly_mul_naive at its edges, equal to the plain version limb for limb
-    and to the product of Python ints: raw limbs of p - 1 in every
-    coefficient of pair 0 (the longest anti-diagonal sums La such
-    products), zero coefficients in pair 1 and a zero polynomial in pair 2;
-    13 pairs of 17 x 33 (5 pairs a block: a ragged last block), La > Lb,
-    La = 1 on both sides.  Rows staged in shared memory, or read from device
-    memory (the route of a pair too long to stage)."""
+def test_poly_mul_naive_edges_on_host(staging, name, host_kernels, monkeypatch, rng):
+    """poly_mul_naive (and its first design) at its edges, equal to the plain
+    version limb for limb and to the product of Python ints: raw limbs of
+    p - 1 in every coefficient of pair 0 (the longest anti-diagonal sums
+    min(La, Lb) such products), zero coefficients in pair 1 and a zero
+    polynomial in pair 2; 13 pairs of 17 x 33 (a ragged last block), La >
+    Lb, La = 1 on both sides, and 3 pairs of 70 x 66, whose middle
+    diagonals pass the lazy sums' run of 64 products (66 products: a run of
+    64 and one of 2); and 17 x 19, where the pairs from 3 on have the
+    17-product diagonal 16 built so that its REDC r = (T + m p) / R falls
+    where a quotient from r's top words is hardest to take
+    (cuda_poly.reduction_edges).
+    Rows staged in shared memory, or read from device memory (the route of a
+    pair too long to stage)."""
     if staging == "device":
         monkeypatch.setattr(CP, "PMUL_SMEM", 0)
+    kernel = getattr(CP, name)
     p = SPEC.p
-    edge = torch.from_numpy(ints_to_limbs([p - 1]).view("int32").copy())[0]
-    for m, la, lb in ((13, 17, 33), (4, 9, 2), (6, 1, 5), (3, 1, 1)):
+    edge = _raw_rows([p - 1])[0]
+    edges = CP.reduction_edges(SPEC, 17)
+    for m, la, lb in ((13, 17, 33), (4, 9, 2), (6, 1, 5), (3, 1, 1), (3, 70, 66),
+                      (3 + len(edges), 17, 19)):
         xs = [[rng.randrange(p) for _ in range(la)] for _ in range(m)]
         ys = [[rng.randrange(p) for _ in range(lb)] for _ in range(m)]
         xs[1][::2] = [0] * len(xs[1][::2])
@@ -561,9 +653,13 @@ def test_poly_mul_naive_edges_on_host(staging, host_kernels, monkeypatch, rng):
         xs[2] = [0] * la
         a, b = _mont_rows(xs), _mont_rows(ys)
         a[0], b[0] = edge, edge
-        got = CP.poly_mul_naive(SPEC, a, b)
+        if (la, lb) == (17, 19):
+            for g, (xe, ye) in enumerate(edges, start=3):
+                a[g] = _raw_rows(xe)
+                b[g, :17] = _raw_rows(ye)
+        got = kernel(SPEC, a, b)
         assert torch.equal(got, CP.poly_mul_naive_plain(SPEC, a, b))
-        xs[0], ys[0] = _from_rows(a[:1])[0], _from_rows(b[:1])[0]
+        xs, ys = _from_rows(a), _from_rows(b)
         assert _from_rows(got) == [Poly(SPEC, x).mul_naive(Poly(SPEC, y)).coeffs
                                    for x, y in zip(xs, ys)]
 

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card, nvcc and the sources of this checkout; exits non-zero
+Needs one CUDA card, nvcc, g++ and the sources of this checkout; exits non-zero
 without a card, and on any failed build, failed launch or mismatch.  It
 
   1. prints the card's name and power limit (nvidia-smi),
@@ -50,44 +50,36 @@ without a card, and on any failed build, failed launch or mismatch.  It
   9b. tallies the launches of mont_mul and mont_addsub by B (rows a launch)
      and caller (the nearest frame outside the field layer), of ec_add,
      ec_add_fast and ec_double by B, of batch_inv by (rows, chain length),
-     of poly_mul_naive and kate_div by shape and of affine_lines by (B,
-     mode) over one MSM, one carry stage and one round, and reads the
-     device's busy time of one MSM and
-     one carry stage; holds mont_mul, mont_addsub and ec_add_fast against
-     their plain versions bit for bit, with edge lanes (the carry edges of a
-     row; identities, P + P, P + (-P)), at every B the tally gives them
+     of poly_mul_naive and kate_div by shape, of affine_lines by (B, mode),
+     of stages_small by (E, tile, direction, transform size) and of
+     fused_madd_scan_xyzz by (g, W) over one MSM, one carry stage and one
+     round, and reads the device's busy time of one MSM and one carry
+     stage; holds mont_mul, mont_addsub and ec_add_fast against their plain
+     versions bit for bit, with edge lanes (the carry edges of a row;
+     identities, P + P, P + (-P)), at every B the tally gives them
      (mont_addsub and ec_add_fast at the kernel phase's shape and the ragged
      size too) and times them there; times ec_double at every B the tally
      gives it; holds poly_mul_naive and kate_div at every shape the tally
-     gives them against their plain versions and the Python-int Poly (and
-     poly_mul_naive against its first design, poly_mul_naive_v1), with edge
-     pairs (raw p - 1 everywhere, zero terms, the root 0), and times them
-     there (the two designs in turns v1, v2, v2, v1), kate_div at one pair
-     too (one chain's latency); holds affine_lines against its plain version
-     and the route it replaced (cuda_lines.affine_lines_composed: mont_mul
-     and mont_addsub launches and PyTorch selects) at every width the tally
-     gives it, head and seeds, with the edge slots of curve_inputs
-     (identities, P = P, P = -P) and times kernel and route in turns (route,
-     kernel, kernel, route); ranks the seven and the first design by
+     gives them against their plain versions and the Python-int Poly, with
+     edge pairs (raw p - 1 everywhere, zero terms, the root 0), and times
+     them there, kate_div at one pair too (one chain's latency); holds
+     affine_lines against its plain version at every width the tally gives
+     it, head and seeds, on the round's own inputs and the edge slots of
+     curve_inputs (identities, P = P, P = -P), and times it there; then
+     holds the kernels redesigned before against their plain versions bit
+     for bit and times them at every shape the tally gives them: ec_add at
+     every B (and 2048), stages_small forward and inverse at every (E,
+     tile) (and the fused levels' (n, E) = (2^7, 2^20), (2^9, 2^20), (2^10,
+     2^20), (2^21, 2^21)), batch_inv at every (rows, chain length) (and n =
+     33, 512, 700, 2^16 and 2^21 rows), zeros planted, against
+     FF._inv_host too, the fused scan at every g the tally gives it (and g =
+     256 and 4096); and ranks the eleven kernels that rule 2 covers by
      launches x (device ms - bound) over the main path (one MSM, one carry
-     stage and 56 rounds like the tallied one); then holds the kernels
-     redesigned before against
-     their plain versions bit for bit and times them at the path's shapes:
-     ec_add at every B that carries a tenth of its tallied launches, at 2048
-     and at the widest; stages_small forward and inverse at (n, E) = (2^7,
-     2^20), (2^9, 2^20), (2^10, 2^20) and (2^21, 2^21), the fused levels'
-     shapes; batch_inv at n = 33, 512, 700, 2^16 and 2^21 rows with zeros,
-     each against FF._inv_host too; the fused scan at g = 256, 4096 and
-     16,384 carries of 64 rows, the windows FUSED_SCAN_MIN_ROWS lets through,
+     stage and 56 rounds like the tallied one),
   9c. holds poly_mul_naive and kate_div against their plain versions at a
      ragged shape and at the round's shape of the most products, and
      affine_lines at a ragged width and the widest of the round (the
-     records of the JSON line), then runs round 28 by poly_mul_naive_v1 and
-     the composed head and by poly_mul_naive and affine_lines: the same
-     witness limb for limb, a v2 launch for each v1 launch, an affine_lines
-     launch a level, mont_mul's and mont_addsub's launches fewer by exactly
-     the composed head's (mont_mul's to 0); the device's busy time in turns,
-     peak, wall clock,
+     records of the JSON line),
  10. drives one round of the witness at a cut width, 2^10 points, on the card
      and on the CPU (plain versions): the carries' final carry equal to the
      Python-int oracle, round 28 closing on both and equal limb for limb,
@@ -100,14 +92,19 @@ without a card, and on any failed build, failed launch or mismatch.  It
      PyTorch call that does the shuffle's scatter (index_copy_) and the
      compaction's gather (index_select),
  13. drives the radix route of the MSM (config.RADIX_MSM): best_multiexp at
-     2^20 Pallas points, full-width scalars below q (all below 2^254, so
-     max_scalar_bits = 254 and the top window is split off at 14 bits),
-     against the Python-int oracle and the classic route, flag clear, each
-     radix kernel launched; seconds, device busy time, peak memory and
+     2^20 Pallas points (2^17 with a smaller --logn: the route's least),
+     full-width scalars below q (all below 2^254, so max_scalar_bits = 254),
+     against the Python-int oracle and the classic route, each radix kernel
+     launched once a window; seconds, device busy time, peak memory and
      launches of both routes from this call, the spilled rows of every
-     window; then once at the default bound of 255 bits, where the top
-     window keeps c = 15 bits, overflows every tile, and the safe redo gives
-     the exact result,
+     window.  What the route must do follows the predicate that both
+     packages share: at 2^20, c = 15, the top window is split off at 14
+     bits, and no window overflows and the flag stays clear; at 2^17, c =
+     12, the top window's 2 bits are too narrow to split off, it runs at c
+     = 12 with keys below 4, every tile overflows, and the flag must be set
+     and the safe redo exact.  Then once at the default bound of 255 bits,
+     where the top window is not split off, overflows every tile, and the
+     safe redo gives the exact result,
  14. times one 2^20, c = 15 window by both routes, the reorder alone (radix
      reorder against sort + gather + histogram) and the whole window, on the
      host clock and as the device's busy time,
@@ -138,12 +135,35 @@ without a card, and on any failed build, failed launch or mismatch.  It
      slots summing to the identity, the first and last round's witness equal
      to a single-round computation), and entry()'s fn on the card against the
      same fn on the CPU,
- 20. prints one JSON line describing the kernels (with phase 9b's shapes,
-     the rule-2 ranking, and the round by both routes for the coefficient
-     levels' two) and, last, one JSON line {"ok": true, "device": {...}}.
+ 20. holds the port's host oracles against the card: the C++ oracle
+     (oracle/, built with g++ into build/; its seconds printed) against
+     FF.mul, FF.add and FF.inv (one launch each of mont_mul, mont_addsub and
+     batch_inv) on 2^16 seeded values with 0, 1 and p - 1 among them, as
+     canonical ints; against best_multiexp at 2^12 distinct points (an
+     identity among them) with full-width scalars (0, 1 and q - 1 among
+     them); the merge tree at 2^12
+     closing points with identities sprinkled in against the C++ witness and
+     the port's ref_divisor, coefficient for coefficient; and the tree on
+     the golden vectors' points (data/golden_divisor_*.json; Pallas and
+     Grumpkin, 12 points each) against the golden witness times one nonzero
+     scalar (the coefficient convention's), after rustsem has reproduced the
+     golden witness exactly,
+ 21. drives the circuit: Params of 64 Pallas points (base 5) that
+     params_check accepts, synthesize.assemble on scalars of 55 random digits
+     in base -5 (below sqrt(q); every round has points), the checker
+     finding every gate vanishing on every row; every round's slot
+     list (host_round_slots) through the merge tree on the card, its a||b
+     coefficients equal to that round's stream in the a column; the carry
+     equal to best_multiexp on the card on the same points and scalars;
+     seconds of the assembly and of the card's rounds,
+ 22. prints one JSON line describing the kernels (with phase 9b's shapes
+     and the rule-2 ranking) and, last, one JSON line {"ok": true,
+     "device": {...}}.
 
-Phases 16-19 run last, on the round's (phase 9) slots and witness and the
-carry stage's inputs, which are kept alive until then.
+Phases 16-19 run after the radix phases, on the round's (phase 9) slots and
+witness and the carry stage's inputs, which are kept alive until then.
+--logn 16 makes the MSM, the carry stage and the rounds smaller: a quick
+run of every phase.
 
 Each kernel's bound is the least time the card could take for the same work:
 the larger of bytes moved (each input read once, each output written once)
@@ -170,7 +190,6 @@ their bytes alone, from this run's inputs.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import math
 import random
@@ -184,14 +203,18 @@ import torch
 from halo2_liam_eagen_msm_tpu_torch import argument as A
 from halo2_liam_eagen_msm_tpu_torch import config
 from halo2_liam_eagen_msm_tpu_torch import divisor as D
+from halo2_liam_eagen_msm_tpu_torch import oracle
+from halo2_liam_eagen_msm_tpu_torch.circuit.params import Params, params_check
+from halo2_liam_eagen_msm_tpu_torch.circuit.synthesize import (
+    assemble, host_round_polys, host_round_slots)
 from halo2_liam_eagen_msm_tpu_torch.convert import (
     JPoint, digits_to_rounds, limbs_from_numpy, limbs_to_numpy)
-from halo2_liam_eagen_msm_tpu_torch.fields import LIMB_BITS, N_LIMBS, PALLAS
+from halo2_liam_eagen_msm_tpu_torch.fields import GRUMPKIN, LIMB_BITS, N_LIMBS, PALLAS
 from halo2_liam_eagen_msm_tpu_torch.entry import entry
 from halo2_liam_eagen_msm_tpu_torch.limbs import (
     ints_to_limbs, ints_to_mont_limbs, limbs_to_ints, mont_limbs_to_ints)
 from halo2_liam_eagen_msm_tpu_torch.models.eagen_msm import EagenConfig, EagenMSMWitness
-from halo2_liam_eagen_msm_tpu_torch.negbase import negbase_decompose_batch
+from halo2_liam_eagen_msm_tpu_torch.negbase import negbase_decompose_batch, negbase_recompose
 from halo2_liam_eagen_msm_tpu_torch.ops import cuda_ff as CF
 from halo2_liam_eagen_msm_tpu_torch.ops import cuda_lines as CL
 from halo2_liam_eagen_msm_tpu_torch.ops import cuda_ntt as CN
@@ -204,7 +227,7 @@ from halo2_liam_eagen_msm_tpu_torch.ops import radix as RX
 from halo2_liam_eagen_msm_tpu_torch.ops.ec import ec
 from halo2_liam_eagen_msm_tpu_torch.ops.ff import ff
 from halo2_liam_eagen_msm_tpu_torch.ops.poly import Poly as PolyInts
-from halo2_liam_eagen_msm_tpu_torch.utils import pyref
+from halo2_liam_eagen_msm_tpu_torch.utils import pyref, ref_divisor, rustsem
 
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 33.5e12
@@ -244,7 +267,6 @@ KERNEL_TABLE = {
     # adds and rows from the shape (mul_naive_bound, kate_div_bound)
     "poly_mul_naive": ("poly.cuh", PALLAS_FF, 515, None, None, 0),
     "kate_div": ("poly.cuh", PALLAS_FF, 515, None, None, 0),
-    "poly_mul_naive_v1": ("poly.cuh", PALLAS_FF, 515, None, None, 0),
     # and at the merge head's: products from the run's slots (lines_bound)
     "affine_lines": ("lines.cuh", PALLAS_FF, 515, None, None, 0),
 }
@@ -257,12 +279,6 @@ ROUND_KERNELS = ("lm_mul", "lm_addsub", "lm_mul_const", "stage_big", "stages_sma
 # twice: five schoolbook products each; kate_div twice for a, twice for b)
 POLY_KERNELS = ("poly_mul_naive", "kate_div")
 POLY_PER_LEVEL = {"poly_mul_naive": 10, "kate_div": 4}
-# the round's kernels redesigned or added by this slice, and the first design
-# each of them replaced (a kernel, or the route of launches the head was)
-SLICE_KERNELS = ("poly_mul_naive", "affine_lines")
-V1_OF = {"poly_mul_naive_v1": "poly_mul_naive"}
-# the function of the route affine_lines replaced, as caller_of names it
-HEAD_CALLER = "divisor.py:_head_lines"
 RADIX_KERNELS = ("radix_rank", "radix_shuffle", "radix_pass_b", "radix_compact")
 ROUND_K = 28  # the round of the carry stage the round phase takes (= d // 2)
 BASE = 5  # radix of the argument's digit rounds
@@ -1377,9 +1393,14 @@ TALLY_KEYS = {
     "kate_div": (CP, lambda spec, c, b: (width_of(c[..., 0, :], b), c.shape[-2])),
     "affine_lines": (CL, lambda spec, head, x, y, zinv:
                      (width_of(x[0], y[0], zinv[0]), "head" if head else "seeds")),
+    "stages_small": (CN, lambda spec, x, tile, inverse, tw:
+                     (x.shape[-1], tile, bool(inverse), tw.shape[-1] + 1)),
+    "fused_madd_scan_xyzz": (CF, lambda curve, t_limbs, rows, w=CF.SCAN_W:
+                             (rows.shape[0] // w, w)),
 }
 BY_CALLER = ("mont_mul", "mont_addsub")
 TALLY_FORMAT = {"batch_inv": "(rows, L)", "poly_mul_naive": "(pairs, La, Lb, a shared, b shared)",
+                "stages_small": "(E, tile, inverse, n)", "fused_madd_scan_xyzz": "(g, W)",
                 "kate_div": "(pairs, n)", "affine_lines": "(B, mode)"}
 
 
@@ -1473,26 +1494,26 @@ def launch_tally(dev, base_pts, logn: int, pts: JPoint, rnd):
     return out, busy
 
 
-def path_launches(tally_of: dict, rounds: int) -> dict:
-    """Launches by width on the main path, one MSM + one carry stage +
-    `rounds` rounds like the tallied one (config 4 is the carry stage and its
-    rounds), widths of no rows left out; mont_mul's callers summed."""
+def key_launches(tally_of: dict, rounds: int) -> dict:
+    """Launches by tally key on the main path, one MSM + one carry stage +
+    `rounds` rounds like the tallied one (config 4 is the carry stage and
+    its rounds)."""
     out = {}
     for phase, t in tally_of.items():
-        for b, c in t.items():
-            b = b[0] if isinstance(b, tuple) else b
-            if b:  # an empty launch enqueues nothing
-                out[b] = out.get(b, 0) + c * (rounds if phase == "round" else 1)
+        for key, c in t.items():
+            out[key] = out.get(key, 0) + c * (rounds if phase == "round" else 1)
     return dict(sorted(out.items()))
 
 
-def ab_times(dev, fns: dict, reps: int):
-    """Device ms of the "old" and the "new" call, timed in turns old, new,
-    new, old; the mean of each one's two turns."""
-    got = {key: [] for key in fns}
-    for key in ("old", "new", "new", "old"):
-        got[key].append(time_ms(dev, fns[key], reps)[0])
-    return {key: sum(v) / len(v) for key, v in got.items()}
+def path_launches(tally_of: dict, rounds: int) -> dict:
+    """key_launches by width, widths of no rows left out; mont_mul's and
+    mont_addsub's callers summed."""
+    out = {}
+    for key, c in key_launches(tally_of, rounds).items():
+        b = key[0] if isinstance(key, tuple) else key
+        if b:  # an empty launch enqueues nothing
+            out[b] = out.get(b, 0) + c
+    return dict(sorted(out.items()))
 
 
 def addsub_edges():
@@ -1623,59 +1644,68 @@ def by_width(dev, base_pts, name: str, widths, launches: dict, reps: int):
     return out
 
 
-def stages_small_by_shape(dev, reps: int):
-    """stages_small (register-blocked) against its plain version, forward and
-    inverse, at the (n, E) the fused levels of a 2^20 round give it; device
-    ms at each."""
+# (log2 n, E) of the fused levels of a 2^20 round, timed at every --logn
+STAGES_SMALL_FIXED = ((7, 1 << 20), (9, 1 << 20), (10, 1 << 20), (21, 1 << 21))
+# the fixed sizes batch_inv is timed at besides the tally's, and the most rows
+# of a tallied shape held against FF._inv_host (about 120 us a row)
+BATCH_INV_FIXED = (33, 512, 700, 1 << 16)
+BATCH_INV_HOST_ROWS = 2048
+
+
+def stages_small_by_shape(dev, keys, launches: dict, reps: int):
+    """stages_small (register-blocked) against its plain version at each
+    (E, tile, inverse, n) of keys (the tally's and the fused levels' of a
+    2^20 round); device ms at each."""
     nprng = np.random.default_rng(0xAB1)
     out = []
-    for logn, e in ((7, 1 << 20), (9, 1 << 20), (10, 1 << 20), (21, 1 << 21)):
-        tile = min(1 << logn, CN.BLOCK)
+    for key in keys:
+        e, tile, inverse, n = key
         x = lm_inputs(nprng, e, dev, EDGES_A)
-        for inverse in (False, True):
-            tw = CN.tables(SPEC, logn, inverse, dev)
-            shape = (f"n = {1 << logn}, tile = {tile}, E = {e}, "
-                     f"{'inverse' if inverse else 'forward'}")
-            require(torch.equal(CN.stages_small(SPEC, x, tile, inverse, tw),
-                                CN.stages_small_plain(SPEC, x, tile, inverse, tw)),
-                    f"stages_small == stages_small_plain at {shape}")
-            ms = time_ms(dev, lambda: CN.stages_small(SPEC, x, tile, inverse, tw), reps)[0]
-            b_ms, b_by = bound_ms("stages_small", e, (tile - 1) * ROW_BYTES,
-                                  tile.bit_length() - 1)
-            out.append({"shape": shape, "ms": ms, "bound_ms": b_ms, "bound_by": b_by})
-            print(f"  stages_small at {shape}: {ms:.4f} ms on the device, bound {b_ms:.5f} ms "
-                  f"({b_by})", flush=True)
+        tw = CN.tables(SPEC, n.bit_length() - 1, inverse, dev)
+        shape = f"n = {n}, tile = {tile}, E = {e}, {'inverse' if inverse else 'forward'}"
+        require(torch.equal(CN.stages_small(SPEC, x, tile, inverse, tw),
+                            CN.stages_small_plain(SPEC, x, tile, inverse, tw)),
+                f"stages_small == stages_small_plain at {shape}")
+        ms = time_ms(dev, lambda: CN.stages_small(SPEC, x, tile, inverse, tw), reps)[0]
+        b_ms, b_by = bound_ms("stages_small", e, (tile - 1) * ROW_BYTES, tile.bit_length() - 1)
+        out.append({"shape": shape, "key": list(key), "ms": ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "launches": launches.get(key, 0)})
+        print(f"  stages_small at {shape} ({launches.get(key, 0)} launches on the path): "
+              f"{ms:.4f} ms on the device, bound {b_ms:.5f} ms ({b_by})", flush=True)
     return out
 
 
-def batch_inv_by_size(dev, sizes, reps: int):
+def batch_inv_by_size(dev, keys, fixed, launches: dict, reps: int):
     """batch_inv (one launch an inversion) against its plain version at each
-    size, zeros at rows 0, n // 2 and n - 1, and against FF._inv_host (above
-    2^16 rows on every 32nd row and the last: the host takes some 120 us a
-    row); device ms at each."""
+    (rows, chain length) of keys, zeros at rows 0, n // 2 and n - 1, and
+    against FF._inv_host: the keys of `fixed` up to 2^16 rows on every row,
+    above on every 32nd row and the last; the tally's other shapes on at
+    most BATCH_INV_HOST_ROWS rows, evenly spread, and the last; device ms at
+    each."""
     nprng = np.random.default_rng(0xAB2)
     out = []
-    for n in sizes:
+    for n, L in keys:
         a = zero_laced(nprng, n, dev)
-        L = CF.batch_inv_chain(n)
-        new = CF.batch_inv(SPEC, a)
+        new = CF.batch_inv(SPEC, a, chain=L)
         rows = torch.arange(n, device=dev)
-        if n > 1 << 16:
-            rows = torch.cat([rows[::32], rows[-1:]])
+        step = (1 if n <= 1 << 16 else 32) if (n, L) in fixed else -(-n // BATCH_INV_HOST_ROWS)
+        if step > 1:
+            rows = torch.cat([rows[::step], rows[-1:]])
         host = ff(SPEC)._inv_host(a[rows].cpu())
-        require(torch.equal(new, CF.batch_inv_plain(SPEC, a))
+        require(torch.equal(new, CF.batch_inv_plain(SPEC, a, chain=L))
                 and torch.equal(new[rows].cpu(), host),
                 f"batch_inv (L = {L}) == batch_inv_plain at n = {n}, zeros at rows 0, "
                 f"{n // 2} and {n - 1}; == FF._inv_host at {rows.numel()} rows")
-        ms = time_ms(dev, lambda: CF.batch_inv(SPEC, a), reps)[0]
+        ms = time_ms(dev, lambda: CF.batch_inv(SPEC, a, chain=L), reps)[0]
         b_ms, b_by = bound_ms("batch_inv", n, muls=inv_muls(n))
-        out.append({"shape": f"n = {n}, L = {L}", "ms": ms, "bound_ms": b_ms, "bound_by": b_by})
-        print(f"  batch_inv at n = {n} (L = {L}): {ms:.4f} ms on the device, bound "
-              f"{b_ms:.5f} ms ({b_by})", flush=True)
+        out.append({"shape": f"n = {n}, L = {L}", "key": [n, L], "ms": ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "launches": launches.get((n, L), 0)})
+        print(f"  batch_inv at n = {n} (L = {L}, {launches.get((n, L), 0)} launches on the "
+              f"path): {ms:.4f} ms on the device, bound {b_ms:.5f} ms ({b_by})", flush=True)
     return out
 
 
-def fused_scan_by_g(dev, base_pts, gs, reps: int):
+def fused_scan_by_g(dev, base_pts, gs, launches: dict, reps: int):
     """fused_madd_scan_xyzz (two lanes a carry) against its plain version at
     g carries of 64 rows, with zero rows and lane 5 opening with -T (the only
     flagged lane); device ms at each."""
@@ -1692,36 +1722,36 @@ def fused_scan_by_g(dev, base_pts, gs, reps: int):
                 f"(9 outputs), lane 5 flagged and no other")
         ms = time_ms(dev, lambda: CF.fused_madd_scan_xyzz(CURVE, t_limbs, rows, w), reps)[0]
         b_ms, b_by = bound_ms("fused_madd_scan_xyzz", g * w, g * (4 * ROW_BYTES + 1))
-        out.append({"shape": f"W = {w}, g = {g}", "ms": ms, "bound_ms": b_ms, "bound_by": b_by})
-        print(f"  fused_madd_scan_xyzz at W = {w}, g = {g}: {ms:.4f} ms on the device, bound "
-              f"{b_ms:.5f} ms ({b_by})", flush=True)
+        out.append({"shape": f"W = {w}, g = {g}", "ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "launches": launches.get((g, w), 0)})
+        print(f"  fused_madd_scan_xyzz at W = {w}, g = {g} ({launches.get((g, w), 0)} launches "
+              f"on the path): {ms:.4f} ms on the device, bound {b_ms:.5f} ms ({b_by})",
+              flush=True)
     return out
 
 
 RULE2_KERNELS = ("mont_mul", "mont_addsub", "ec_add_fast", "ec_double", "poly_mul_naive",
-                 "kate_div", "affine_lines")
+                 "kate_div", "affine_lines", "stages_small", "batch_inv",
+                 "fused_madd_scan_xyzz", "ec_add")
 
 
 def rule2_ranking(ab: dict) -> dict:
     """Launches x (device ms - bound) over the main path, summed over the
-    shapes timed, for the kernels of RULE2_KERNELS (and the first designs of
-    V1_OF, at their kernel's launches), and two shares of the bound that the
-    rule (a kernel at half its bound or more is left alone) may read: by
-    launch, the mean over launches of bound / ms; by time, the sum of
-    launches x bound over the sum of launches x ms."""
+    shapes timed, for the kernels of RULE2_KERNELS, and two shares of the
+    bound that the rule (a kernel at half its bound or more is left alone)
+    may read: by launch, the mean over launches of bound / ms; by time, the
+    sum of launches x bound over the sum of launches x ms."""
     out = {}
-    ranked = {name: (name, "ms") for name in RULE2_KERNELS}
-    ranked.update({v1: (name, "v1_ms") for v1, name in V1_OF.items()})
-    for label, (name, key) in ranked.items():
+    for name in RULE2_KERNELS:
         recs = ab[name]
         launches = sum(r["launches"] for r in recs)
-        out[label] = {
+        out[name] = {
             "launches": launches,
-            "gap_ms": sum(r["launches"] * (r[key] - r["bound_ms"]) for r in recs),
+            "gap_ms": sum(r["launches"] * (r["ms"] - r["bound_ms"]) for r in recs),
             "bound_share_by_launch":
-                sum(r["launches"] * r["bound_ms"] / r[key] for r in recs) / max(launches, 1),
+                sum(r["launches"] * r["bound_ms"] / r["ms"] for r in recs) / max(launches, 1),
             "bound_share_by_time": sum(r["launches"] * r["bound_ms"] for r in recs) /
-                max(sum(r["launches"] * r[key] for r in recs), 1e-12)}
+                max(sum(r["launches"] * r["ms"] for r in recs), 1e-12)}
     for name, r in sorted(out.items(), key=lambda kv: -kv[1]["gap_ms"]):
         print(f"  rule-2 ranking: {name}: {r['launches']} launches on the main path, launches x "
               f"(ms - bound) = {r['gap_ms']:.3f} ms, share of the bound by launch "
@@ -1736,28 +1766,27 @@ def ab_phase(dev, base_pts, tally, lines_in: dict, logn: int, ragged: int, row_s
     versions at every width the tally gives them (mont_addsub and
     ec_add_fast at their kernel-phase shape and the ragged size too),
     ec_double at every width the tally gives it; poly_mul_naive and kate_div
-    at every shape the tally gives them against their plain versions (and
-    poly_mul_naive against its first design; poly_by_shape); affine_lines
-    at every width against its plain version and the route it replaced
-    (affine_lines_by_width); the rule-2 ranking of the seven over the main
-    path (one MSM, one carry stage and 56 rounds like the tallied one).  Then the kernels redesigned before against their plain
-    versions at the path's shapes: ec_add at every width that carries a
-    tenth of its tallied launches and at the widest, stages_small at the
-    fused levels' shapes, batch_inv at n = 33, 512, 700, 2^16 and
-    2^(logn + 1), the fused scan at g = 256, 4096 and 2^logn / 64.  Returns
-    ({kernel: per-shape records}, the ranking)."""
+    at every shape the tally gives them against their plain versions
+    (poly_by_shape); affine_lines at every width against its plain version
+    (affine_lines_by_width).  Then the kernels redesigned before against
+    their plain versions at every shape the tally gives them: ec_add at
+    every width (and 2048), stages_small at every (E, tile, direction, n)
+    (and the fused levels' shapes of a 2^20 round), batch_inv at every
+    (rows, chain length) (and n = 33, 512, 700, 2^16 and 2^(logn + 1)), the
+    fused scan at every g (and 256 and 4096).  Last, the rule-2 ranking of
+    the eleven over the main path (one MSM, one carry stage and 56 rounds
+    like the tallied one).  Returns ({kernel: per-shape records}, the
+    ranking)."""
     rounds = A.num_digits_for(CURVE, BASE)
-    on_path = {name: path_launches(tally[name], rounds) for name in TALLY_KEYS
-               if name not in ("batch_inv", "affine_lines") + POLY_KERNELS}
+    on_path = {name: path_launches(tally[name], rounds)
+               for name in ("mont_mul", "mont_addsub", "ec_add", "ec_add_fast", "ec_double")}
+    by_key = {name: key_launches(tally[name], rounds)
+              for name in ("stages_small", "batch_inv", "fused_madd_scan_xyzz")}
     for name in ("mont_mul", "mont_addsub", "ec_add_fast", "ec_add"):
         total = sum(on_path[name].values())
         tenth = [b for b, c in on_path[name].items() if 10 * c >= total]
         print(f"{name}: {total} launches on the main path at {len(on_path[name])} widths; a "
               f"tenth or more at B = {tenth}, the widest B = {max(on_path[name])}", flush=True)
-    ec_add_launches = path_launches(tally["ec_add"], 1)
-    total = sum(ec_add_launches.values())
-    ec_add_widths = sorted({b for b, c in ec_add_launches.items() if 10 * c >= total}
-                           | {2048, max(ec_add_launches)})
     out = {
         "mont_mul": mont_mul_by_width(dev, sorted(on_path["mont_mul"]), on_path["mont_mul"], reps),
         "mont_addsub": mont_addsub_by_width(
@@ -1774,22 +1803,28 @@ def ab_phase(dev, base_pts, tally, lines_in: dict, logn: int, ragged: int, row_s
         out[name] = poly_by_shape(dev, name, tally[name]["round"], rounds, reps)
     out["affine_lines"] = affine_lines_by_width(dev, base_pts, lines_in,
                                                 tally["affine_lines"]["round"], rounds, reps)
-    ranking = rule2_ranking(out)
     g = max(1, (1 << logn) // CF.SCAN_W)
+    small = {(e, min(1 << ln, CN.BLOCK), inverse, 1 << ln)
+             for ln, e in STAGES_SMALL_FIXED for inverse in (False, True)}
+    inv_fixed = {(n, CF.batch_inv_chain(n)) for n in BATCH_INV_FIXED + (1 << (logn + 1),)}
     out.update({
-        "ec_add": by_width(dev, base_pts, "ec_add", ec_add_widths, on_path["ec_add"], reps),
-        "stages_small": stages_small_by_shape(dev, max(1, reps // 5)),
-        "batch_inv": batch_inv_by_size(dev, sorted({33, 512, 700, 1 << 16, 1 << (logn + 1)}),
-                                       max(1, reps // 5)),
-        "fused_madd_scan_xyzz": fused_scan_by_g(dev, base_pts, sorted({256, 4096, g}),
-                                                max(1, reps // 10)),
+        "ec_add": by_width(dev, base_pts, "ec_add", sorted(set(on_path["ec_add"]) | {2048}),
+                           on_path["ec_add"], reps),
+        "stages_small": stages_small_by_shape(dev, sorted(small | set(by_key["stages_small"])),
+                                              by_key["stages_small"], max(1, reps // 5)),
+        "batch_inv": batch_inv_by_size(
+            dev, sorted(inv_fixed | {k for k in by_key["batch_inv"] if k[0]}), inv_fixed,
+            by_key["batch_inv"], max(1, reps // 5)),
+        "fused_madd_scan_xyzz": fused_scan_by_g(
+            dev, base_pts, sorted({256, 4096, g} | {k[0] for k in by_key["fused_madd_scan_xyzz"]}),
+            by_key["fused_madd_scan_xyzz"], max(1, reps // 10)),
     })
-    return out, ranking
+    return out, rule2_ranking(out)
 
 
 # ---------------------------------------------------------------------------
-# phase 9c: the coefficient levels' two kernels and the merge head's at every
-# shape of the round, against their plain versions and the first designs
+# phase 9c: the coefficient levels' two kernels and the merge head's at a
+# ragged shape and the round's heaviest, against their plain versions
 # ---------------------------------------------------------------------------
 
 PMUL_TERM_MADDS = 64     # a term of a lazy sum: its 512-bit product, 8 x 8 words
@@ -1863,13 +1898,12 @@ def kate_div_inputs(nprng, key, dev):
 
 
 POLY_CALLS = {
-    # name: (kernel, plain version, its first design or None, inputs, bound)
+    # name: (kernel, plain version, inputs, bound)
     "poly_mul_naive": (lambda a, b: CP.poly_mul_naive(SPEC, a, b),
                        lambda a, b: CP.poly_mul_naive_plain(SPEC, a, b),
-                       lambda a, b: CP.poly_mul_naive_v1(SPEC, a, b),
                        mul_naive_inputs, mul_naive_bound),
     "kate_div": (lambda c, b: CP.kate_div(SPEC, c, b),
-                 lambda c, b: CP.kate_div_plain(SPEC, c, b), None,
+                 lambda c, b: CP.kate_div_plain(SPEC, c, b),
                  kate_div_inputs, kate_div_bound),
 }
 
@@ -1898,7 +1932,7 @@ def check_poly_kernels(dev, row_keys: dict, ragged_keys: dict, reps: int):
     nprng = np.random.default_rng(0xC0EF)
     recs = []
     for name in POLY_KERNELS:
-        kernel, plain, _, inputs, bound = POLY_CALLS[name]
+        kernel, plain, inputs, bound = POLY_CALLS[name]
 
         def host(key, args, got, name=name):
             require(poly_vs_ints(name, args, got[0]),
@@ -1912,41 +1946,30 @@ def check_poly_kernels(dev, row_keys: dict, ragged_keys: dict, reps: int):
 
 
 def poly_by_shape(dev, name: str, round_tally: dict, rounds: int, reps: int):
-    """`name` at every shape one round gives it: equal to its plain version
-    (and poly_mul_naive to its first design), limb for limb, the first three
-    pairs to Python-int Poly; device ms (poly_mul_naive's two designs in
-    turns v1, v2, v2, v1), kate_div's at one pair too (one chain's latency).
-    Launches on the main path: a round's x `rounds`."""
+    """`name` at every shape one round gives it: equal to its plain version,
+    limb for limb, the first three pairs to Python-int Poly; device ms,
+    kate_div's at one pair too (one chain's latency).  Launches on the main
+    path: a round's x `rounds`."""
     nprng = np.random.default_rng(0xAB7)
-    kernel, plain, first, inputs, bound = POLY_CALLS[name]
+    kernel, plain, inputs, bound = POLY_CALLS[name]
     out = []
     for key, count in round_tally.items():
         args = inputs(nprng, key, dev)
         new = kernel(*args)
-        v1_err = outputs_equal([first(*args)], [new]) if first else 0
-        require(torch.equal(new, plain(*args)) and v1_err == 0
-                and poly_vs_ints(name, args, new),
-                f"{name} == {name}_plain" + (" == poly_mul_naive_v1" if first else "")
-                + f" at {key}, edge pairs included; the first pairs equal the Python-int Poly")
+        require(torch.equal(new, plain(*args)) and poly_vs_ints(name, args, new),
+                f"{name} == {name}_plain at {key}, edge pairs included; the first pairs "
+                f"equal the Python-int Poly")
         reps_here = max(1, reps // 10)
         rec = {"shape": str(key), "key": list(key)}
-        if first:
-            t = ab_times(dev, {"old": lambda: first(*args), "new": lambda: kernel(*args)},
-                         reps_here)
-            rec.update(ms=t["new"], v1_ms=t["old"], v1_max_abs_err=v1_err)
-        else:
-            rec["ms"] = time_ms(dev, lambda: kernel(*args), reps_here)[0]
+        rec["ms"], rec["call_ms"] = time_ms(dev, lambda: kernel(*args), reps_here)
         b_ms, b_by = bound(key)
-        rec.update(call_ms=time_ms(dev, lambda: kernel(*args), reps_here)[1], bound_ms=b_ms,
-                   bound_by=b_by, launches=count * rounds)
+        rec.update(bound_ms=b_ms, bound_by=b_by, launches=count * rounds)
         if name == "kate_div":
             one = tuple(a[:1] for a in args)
             rec["chain_ms"] = time_ms(dev, lambda: kernel(*one), reps_here)[0]
         out.append(rec)
-        print(f"  {name} at {key} ({count} a round): {rec['ms']:.4f} ms on the device"
-              + (f", the first design {rec['v1_ms']:.4f} ms ({rec['v1_ms'] / rec['ms']:.2f}x)"
-                 if first else "")
-              + f"; {rec['call_ms']:.4f} ms a call on the host; bound {b_ms:.5f} ms ({b_by})"
+        print(f"  {name} at {key} ({count} a round): {rec['ms']:.4f} ms on the device; "
+              f"{rec['call_ms']:.4f} ms a call on the host; bound {b_ms:.5f} ms ({b_by})"
               + (f"; one chain {rec['chain_ms']:.4f} ms" if "chain_ms" in rec else ""),
               flush=True)
     return out
@@ -2015,10 +2038,8 @@ def affine_lines_by_width(dev, base_pts, lines_in: dict, round_tally: dict, roun
                           reps: int):
     """affine_lines at every (B, mode) one round gives it: on the round's own
     inputs (lines_in) and on lines_inputs' slots, head and seeds, equal to
-    the plain version and to the route the kernel replaced
-    (affine_lines_composed), outputs and flags, the tangent slot 3 flagged
-    degenerate in the head; device ms on the round's inputs, the route and
-    the kernel in turns (route, kernel, kernel, route); host ms a call.
+    the plain version, outputs and flags, the tangent slot 3 flagged
+    degenerate in the head; device ms on the round's inputs; host ms a call.
     Launches on the main path: a round's x `rounds`."""
     nprng = np.random.default_rng(0xAB8)
     out = []
@@ -2028,23 +2049,18 @@ def affine_lines_by_width(dev, base_pts, lines_in: dict, round_tally: dict, roun
         cases += [(h, a, "edge") for h, a in lines_inputs(nprng, base_pts, b, dev).items()]
         for h, a, what in cases:
             got = lines_outputs(CL.affine_lines, h, a)
-            err = max(outputs_equal(got, lines_outputs(fn, h, a))
-                      for fn in (CL.affine_lines_plain, CL.affine_lines_composed))
+            err = outputs_equal(got, lines_outputs(CL.affine_lines_plain, h, a))
             require(err == 0 and (what != "edge" or b < 5 or not h or bool(got[1][0, 3])),
-                    f"affine_lines == affine_lines_plain == the composed route at B = {b}, "
+                    f"affine_lines == affine_lines_plain at B = {b}, "
                     f"{'head' if h else 'seeds'}, on {what} slots"
                     + (" (identities, P = P flagged, P = -P)" if what == "edge" else ""))
-        t = ab_times(dev, {"old": lambda: CL.affine_lines_composed(SPEC, head, *args),
-                           "new": lambda: CL.affine_lines(SPEC, head, *args)},
-                     max(1, reps // 10))
-        call_ms = time_ms(dev, lambda: CL.affine_lines(SPEC, head, *args), reps)[1]
+        ms, call_ms = time_ms(dev, lambda: CL.affine_lines(SPEC, head, *args), reps)
         b_ms, b_by = lines_bound(b, head, lines_deg(head, *args))
-        out.append({"shape": f"B = {b}, {mode}", "b": b, "ms": t["new"], "old_ms": t["old"],
-                    "call_ms": call_ms, "bound_ms": b_ms, "bound_by": b_by,
-                    "launches": count * rounds})
-        print(f"  affine_lines at B = {b}, {mode} ({count} a round): {t['new']:.4f} ms on the "
-              f"device, the composed route {t['old']:.4f} ms ({t['old'] / t['new']:.1f}x); "
-              f"{call_ms:.4f} ms a call on the host; bound {b_ms:.6f} ms ({b_by})", flush=True)
+        out.append({"shape": f"B = {b}, {mode}", "b": b, "ms": ms, "call_ms": call_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "launches": count * rounds})
+        print(f"  affine_lines at B = {b}, {mode} ({count} a round): {ms:.4f} ms on the "
+              f"device; {call_ms:.4f} ms a call on the host; bound {b_ms:.6f} ms ({b_by})",
+              flush=True)
     return out
 
 
@@ -2068,96 +2084,6 @@ def check_lines_kernel(dev, base_pts, lines_in: dict, keys, reps: int):
         dev, "affine_lines", lambda head, *a: lines_outputs(CL.affine_lines, head, a),
         lambda head, *a: lines_outputs(CL.affine_lines_plain, head, a), make_inputs, keys,
         reps, bound_of=lambda key: lines_bound(key[0], inputs[key][0], lines_deg(*inputs[key])))
-
-
-@contextlib.contextmanager
-def first_designs():
-    """The first designs of this slice's two, for the calls inside: the
-    schoolbook products by poly_mul_naive_v1, the merge head by the route
-    affine_lines replaced (ops/poly.py and divisor.py call CP's and CL's
-    wrappers by name)."""
-    real = CP.poly_mul_naive, CL.affine_lines
-    CP.poly_mul_naive, CL.affine_lines = CP.poly_mul_naive_v1, CL.affine_lines_composed
-    try:
-        yield
-    finally:
-        CP.poly_mul_naive, CL.affine_lines = real
-
-
-def round_routes(dev, pts: JPoint, rnd, profile: bool):
-    """Round ROUND_K by the first designs (poly_mul_naive_v1 and the composed
-    head) and by this slice's kernels: the same witness limb for limb;
-    launches by kernel and mont_mul's and mont_addsub's by caller (Tally);
-    the device's busy time in turns old, new, new, old; peak and wall clock
-    of one round each.  Requires a poly_mul_naive launch for each v1 launch,
-    an affine_lines launch a level, mont_mul's and mont_addsub's launches
-    fewer by exactly the composed head's (mont_mul's to 0) and every other
-    kernel's the same.  Returns a dict."""
-    print(f"round {ROUND_K} by the first designs and by this slice's kernels", flush=True)
-    one_round = round_k(pts, rnd)
-
-    def route(name):
-        return first_designs() if name == "old" else contextlib.nullcontext()
-
-    res = {}
-    for name in ("old", "new"):
-        with route(name):
-            one_round()
-            sync(dev)
-            torch.cuda.reset_peak_memory_stats(dev)
-            CF.reset_launch_counts()
-            with Tally() as tally:
-                t0 = time.perf_counter()
-                w = one_round()
-                sync(dev)
-                seconds = time.perf_counter() - t0
-            res[name] = {"w": w[0], "seconds": seconds, "counts": dict(CF.LAUNCHES),
-                         "tally": tally.counts, "peak": torch.cuda.max_memory_allocated(dev)}
-    old, new = res["old"], res["new"]
-    require(torch.equal(old["w"].a, new["w"].a) and torch.equal(old["w"].b, new["w"].b),
-            "the round's witness by this slice's kernels equals the first designs', limb for "
-            "limb")
-    for name in ("old", "new", "new", "old"):
-        with route(name):
-            res[name].setdefault("busy", []).append(device_busy_ms(dev, one_round))
-    gone = {name: sum(n for (_, c), n in old["tally"][name].items() if c == HEAD_CALLER)
-            for name in BY_CALLER}
-    for name in BY_CALLER:
-        print(f"  {name} launches by caller, first designs: " + ", ".join(
-            f"{c} {sum(w.values())}" for c, w in by_caller(old["tally"][name]).items())
-            + "; this slice: " + ", ".join(f"{c} {sum(w.values())}"
-                                           for c, w in by_caller(new["tally"][name]).items()),
-              flush=True)
-    shown = BY_CALLER + SLICE_KERNELS + tuple(V1_OF)
-    for name in shown:
-        print(f"  a round's {name} launches: first designs {old['counts'][name]}, this slice "
-              f"{new['counts'][name]}", flush=True)
-    for name in ("old", "new"):
-        r = res[name]
-        print(f"  {'first designs' if name == 'old' else 'this slice'}: one round "
-              f"{r['seconds']:.4f} s, device busy " + ", ".join(f"{b:.3f}" for b in r["busy"])
-              + f" ms, peak {r['peak'] / 2**20:.0f} MiB", flush=True)
-    levels = rnd["levels"] + 1
-    require(new["counts"]["poly_mul_naive"] == old["counts"]["poly_mul_naive_v1"] > 0
-            and old["counts"]["poly_mul_naive"] == new["counts"]["poly_mul_naive_v1"] == 0,
-            f"poly_mul_naive was launched once for each of v1's "
-            f"{old['counts']['poly_mul_naive_v1']} launches")
-    require(new["counts"]["affine_lines"] == levels and old["counts"]["affine_lines"] == 0,
-            f"affine_lines was launched once a level ({levels})")
-    for name in BY_CALLER:
-        require(new["counts"][name] == old["counts"][name] - gone[name] and gone[name] > 0,
-                f"a round's {name} launches fell by exactly the composed head's {gone[name]} "
-                f"({old['counts'][name]} -> {new['counts'][name]})")
-    require(new["counts"]["mont_mul"] == 0, "a round launches mont_mul no more")
-    same = [name for name in CF.KERNELS if name not in shown]
-    require(all(old["counts"][name] == new["counts"][name] for name in same),
-            "every other kernel was launched as often by both")
-    if profile:
-        with first_designs():
-            print("first designs:", flush=True)
-            profile_round(dev, one_round)
-    return {name: {key: res[name][key] for key in ("seconds", "counts", "peak", "busy")}
-            for name in res}
 
 
 # ---------------------------------------------------------------------------
@@ -2367,40 +2293,78 @@ def timed_msms(dev, scalars, pts, bits: int, runs: int = 3):
                 launches=sum(counts.values()))
 
 
+def top_window(n: int, c: int, bits: int):
+    """(windows, c_top, split): the top window's width c_top = bits - (W -
+    1) c, and whether best_multiexp splits it off at that width on the radix
+    route, by the predicate both packages share (ops/msm._best_multiexp:
+    narrower than c, more than one window, and the route taking both
+    widths)."""
+    num_windows = -(-bits // c)
+    c_top = bits - (num_windows - 1) * c
+    try:
+        config.RADIX_MSM = True
+        split = (c_top < c and num_windows > 1 and M._radix_ok(n, c, "fast")
+                 and M._radix_ok(n, c_top, "fast"))
+    finally:
+        config.RADIX_MSM = False
+    return num_windows, c_top, split
+
+
 def radix_msm_path(dev, base_pts, logn: int):
     """best_multiexp with config.RADIX_MSM on at 2^logn (the main path's
     inputs) against the oracle and the classic route, timed beside it.  The
     scalars are random below q, which lies just above 2^254: all of them fit
-    254 bits (checked), and max_scalar_bits = 254 splits the top window off
-    at c_top = 14 by the JAX package's predicate.  Then one call at the
-    default bound of 255 bits, where c_top = c: the top window's keys, below
-    2^14, crowd half the coarse partitions, every tile overflows, and the
-    MSM ends in the safe redo, exact."""
+    254 bits (checked), and max_scalar_bits = 254.  What the route must do
+    follows the shared predicate (top_window): where the top window is
+    split off (2^20: c = 15, c_top = 14), no window overflows and the flag
+    is clear; where it is not (2^17: c = 12, c_top = 2), the top window runs
+    at c with keys below 2^c_top, and where they crowd its tiles past their
+    spill rows (every tile at 2^17) the flag must be set and the safe redo
+    exact.  Then one call at the default bound of 255 bits, where c_top = c
+    at 2^20 and c_top = 3 at 2^17: the top window is not split off, its
+    keys crowd a fraction of the coarse partitions, every tile overflows,
+    and the MSM ends in the safe redo, exact."""
     n = 1 << logn
     c = M.pick_window(n)
     full_bits = CURVE.scalar_field.p.bit_length()
     bits = full_bits - 1
-    num_windows = -(-bits // c)
-    c_top = bits - (num_windows - 1) * c
+    num_windows, c_top, split = top_window(n, c, bits)
     print(f"radix route: best_multiexp, Pallas, n = 2^{logn}, c = {c}, {num_windows} "
-          f"windows, max_scalar_bits = {bits}: the top one split off at c_top = {c_top}",
+          f"windows, max_scalar_bits = {bits}: c_top = {c_top}, "
+          + ("split off" if split else f"not split off (the top window runs at c = {c})"),
           flush=True)
     sc, scalars, pts = msm_inputs(dev, base_pts, logn)
     require(bool((sc[:, N_LIMBS - 1] >> (bits - LIMB_BITS * (N_LIMBS - 1)) == 0).all()),
             f"every scalar fits {bits} bits")
     want = tiled_msm_oracle(sc, base_pts)
+    E = ec(CURVE)
+    ax, ay, _ = E.to_affine(pts)
+    pay = M._pack_pair(ax, ay)
+    digits = M.window_digits(scalars, c, num_windows)
+    # the top window at the width it runs at: overflowing where its keys
+    # crowd the tiles past their spill rows (only where it is not split off)
+    plan = RX.make_plan(n, c, M.RADIX_TILE)
+    top_spills = RX.ghost_bases(plan, CR.rank(plan, digits[-1], pay)[1])[1]
+    top_overflows = not split and bool((top_spills > plan.SP).all())
+    require(split or top_overflows or not bool((top_spills > plan.SP).any()),
+            f"the top window at c = {c}: every tile or none overflows")
     out = {}
     try:
         config.RADIX_MSM = True
         res, exc = M._best_multiexp(CURVE, c, bits, "fast", scalars, pts)
-        require(not bool(exc), "the radix route's fast flavor runs with its flag clear")
+        require(bool(exc) == top_overflows,
+                "the radix route's fast flavor " + ("flags the top window's overflow"
+                                                    if top_overflows else "runs with its flag clear"))
         out["radix"] = timed_msms(dev, scalars, pts, bits)
     finally:
         config.RADIX_MSM = False
     out["classic"] = timed_msms(dev, scalars, pts, bits)
     r, k = out["radix"], out["classic"]
-    require(one_point(res) == r["res"] == k["res"] == want,
+    require(r["res"] == k["res"] == want and (top_overflows or one_point(res) == want),
             "the radix route's result equals the Python-int oracle and the classic route's")
+    if top_overflows:
+        require(r["counts"]["ec_add_mixed"] > 0,
+                "the radix route ended in the safe redo (ec_add_mixed launched), exact")
     for name in RADIX_KERNELS:
         require(r["counts"][name] == num_windows,
                 f"{name} was launched once a window on the radix route ({r['counts'][name]})")
@@ -2410,29 +2374,31 @@ def radix_msm_path(dev, base_pts, logn: int):
               + f" s; device busy {o['busy_ms']:.2f} ms; peak {o['peak'] / 2**20:.0f} MiB; "
               f"{o['launches']} kernel launches of the port's", flush=True)
 
-    # spilled rows of every window, and the top window at c (the default bound)
-    E = ec(CURVE)
-    ax, ay, _ = E.to_affine(pts)
-    pay = M._pack_pair(ax, ay)
-    digits = M.window_digits(scalars, c, num_windows)
+    # spilled rows of every window at the width it runs at, and the top
+    # window at c (the default bound)
     spilled = []
     for w in range(num_windows):
-        width = c_top if w == num_windows - 1 else c
-        plan = RX.make_plan(n, width, M.RADIX_TILE)
-        _, _, sp_pay, _, ov = RX.radix_window(plan, digits[w], pay)
-        require(not bool(ov), f"window {w} does not overflow")
+        top = w == num_windows - 1
+        wplan = RX.make_plan(n, c_top if top and split else c, M.RADIX_TILE)
+        _, _, sp_pay, _, ov = RX.radix_window(wplan, digits[w], pay)
+        require(bool(ov) == (top and top_overflows),
+                f"window {w} " + ("overflows" if top and top_overflows else "does not overflow"))
         spilled.append(int(sp_pay.any(dim=1).sum()))
-    plan = RX.make_plan(n, c, M.RADIX_TILE)
-    top_spills = RX.ghost_bases(plan, CR.rank(plan, digits[-1], pay)[1])[1]
     out.update(spilled=spilled, top_at_c=(int(top_spills.float().mean()),
                                           int((top_spills > plan.SP).sum()), plan.n_tiles))
     print(f"  spilled rows a window (of {n}): {spilled}; the top window at c = {c} "
-          f"(the default bound of {full_bits} bits) spills {out['top_at_c'][0]} rows a "
-          f"tile on average (SP = {plan.SP}) and overflows {out['top_at_c'][1]} of "
-          f"{plan.n_tiles} tiles", flush=True)
+          f"spills {out['top_at_c'][0]} rows a tile on average (SP = {plan.SP}) and "
+          f"overflows {out['top_at_c'][1]} of {plan.n_tiles} tiles", flush=True)
 
-    # the default bound: the fast flavor flags the top window's overflow and
+    # the default bound: the top window is not split off, its keys crowd
+    # every tile past its spill rows, the fast flavor flags the overflow and
     # best_multiexp redoes the MSM in the safe flavor
+    nw_full, c_top_full, split_full = top_window(n, c, full_bits)
+    full_spills = RX.ghost_bases(plan, CR.rank(
+        plan, M.window_digits(scalars, c, nw_full)[-1], pay)[1])[1]
+    require(not split_full and bool((full_spills > plan.SP).all()),
+            f"at {full_bits} bits the top window (c_top = {c_top_full}) is not split off and "
+            f"overflows all {plan.n_tiles} tiles at c = {c}")
     try:
         config.RADIX_MSM = True
         CF.reset_launch_counts()
@@ -2860,6 +2826,224 @@ def config4_path(dev, base_pts, pts: JPoint, carry_out, rnd):
             "counts": counts}
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the port's host oracles against the card
+# ---------------------------------------------------------------------------
+
+ORACLE_FF_N = 1 << 16     # field values held against the C++ oracle
+ORACLE_MSM_N = 1 << 12    # points of the MSM held against it (double-and-add)
+ORACLE_TREE_N = 1 << 12   # closing points of the merge tree held against it
+TREE_KERNELS = ("batch_inv", "affine_lines", "poly_mul_naive", "kate_div") + ROUND_KERNELS
+
+
+def distinct_points(rng, curve, n: int):
+    """A random point's first n multiples: n distinct points, one Python-int
+    addition each."""
+    g = pyref.random_point(rng, curve)
+    pts, acc = [], g
+    for _ in range(n):
+        pts.append(acc)
+        acc = pyref.ec_add(acc, g, curve)
+    return pts
+
+
+def coeff_ints(curve, t) -> list:
+    """A (L, 16) tensor of Montgomery coefficient rows -> canonical ints."""
+    return PolyInts.from_device(curve.field, t).coeffs
+
+
+def equals_padded(got: list, want: list) -> bool:
+    """A coefficient vector of the merge tree (padded with zeros to its
+    level's length) against an exact-length one."""
+    return got[:len(want)] == want and not any(got[len(want):])
+
+
+def oracle_path(dev):
+    """The port's C++ oracle (and its Python-int ones) against the card: the
+    field kernels, best_multiexp, the merge tree, and the tree on the golden
+    vectors.  Returns a dict of sizes and seconds."""
+    t_phase = time.perf_counter()
+    out = {}
+    path = oracle.build()
+    out["build_s"] = oracle.BUILD_INFO["seconds"]
+    print(f"host oracles: g++ build of the C++ oracle in {out['build_s']:.2f} s ({path.name})",
+          flush=True)
+    rng = random.Random(0x0AC1)
+    p = SPEC.p
+    E = ec(CURVE)
+
+    # field: mont_mul, mont_addsub and FF.inv (one batch_inv launch)
+    n = ORACLE_FF_N
+    edges = [0, 1, p - 1]
+    xs = [x for x in edges for _ in edges] + [rng.randrange(p) for _ in range(n - 9)]
+    ys = [y for _ in edges for y in edges] + [rng.randrange(p) for _ in range(n - 9)]
+    a = limbs_from_numpy(ints_to_mont_limbs(xs, SPEC), dev)
+    b = limbs_from_numpy(ints_to_mont_limbs(ys, SPEC), dev)
+    F = ff(SPEC)
+    CF.reset_launch_counts()
+    got = [F.mul(a, b), F.add(a, b), F.inv(a)]
+    sync(dev)
+    counts = dict(CF.LAUNCHES)
+    got = [mont_limbs_to_ints(limbs_to_numpy(t), SPEC) for t in got]
+    want = [oracle.ff_mul(SPEC, xs, ys), oracle.ff_add(SPEC, xs, ys), oracle.ff_inv(SPEC, xs)]
+    require(got == want, f"FF.mul, FF.add and FF.inv on {n} values (0, 1 and p - 1 among "
+                         f"them) equal the C++ oracle's ff_mul, ff_add and ff_inv")
+    require(counts["mont_mul"] == counts["mont_addsub"] == counts["batch_inv"] == 1
+            and sum(counts.values()) == 3,
+            "they launched mont_mul, mont_addsub and batch_inv once each, nothing else")
+
+    # the MSM: full-width scalars, an identity among the points
+    n = ORACLE_MSM_N
+    pts = distinct_points(rng, CURVE, n)
+    pts[7] = None
+    q = CURVE.scalar_field.p
+    sc = [0, 1, q - 1] + [rng.randrange(q) for _ in range(n - 3)]
+    t0 = time.perf_counter()
+    want = oracle.ec_msm(CURVE, sc, pts)
+    out["msm_cpp_s"] = time.perf_counter() - t0
+    M.msm_ints(CURVE, sc, pts, device=dev)
+    sync(dev)
+    CF.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = M.msm_ints(CURVE, sc, pts, device=dev)
+    out["msm_card_s"] = time.perf_counter() - t0
+    require(all(CF.LAUNCHES[k] > 0 for k in MSM_KERNELS),
+            "best_multiexp launched " + ", ".join(f"{k} {CF.LAUNCHES[k]}" for k in MSM_KERNELS))
+    require(got == want,
+            f"best_multiexp on the card at {n} points (full-width scalars, 0, 1 and q - 1 "
+            f"among them, an identity among the points; {out['msm_card_s']:.3f} s) equals "
+            f"the C++ oracle's ec_msm ({out['msm_cpp_s']:.2f} s)")
+
+    # the merge tree: closing points, identities sprinkled in
+    n = ORACLE_TREE_N
+    pts = distinct_points(rng, CURVE, n - 1)
+    for i in range(3, n - 1, 97):
+        pts[i] = None
+    s = None
+    for pt in pts:
+        s = pyref.ec_add(s, pt, CURVE)
+    pts.append(pyref.ec_neg(s, CURVE))
+    t0 = time.perf_counter()
+    ca, cb, cout = oracle.divisor_witness(CURVE, pts)
+    out["tree_cpp_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hrf, hout = ref_divisor.divisor_witness_host(CURVE, pts)
+    out["tree_py_s"] = time.perf_counter() - t0
+    rp = E.points_from_ints(pts, dev)
+    D.compute_divisor_witness_partial(CURVE, rp)
+    sync(dev)
+    CF.reset_launch_counts()
+    D.reset_level_counts()
+    t0 = time.perf_counter()
+    w, wout = D.compute_divisor_witness_partial(CURVE, rp)
+    sync(dev)
+    out["tree_card_s"] = time.perf_counter() - t0
+    counts, levels = dict(CF.LAUNCHES), dict(D.LEVEL_COUNTS)
+    wa, wb = coeff_ints(CURVE, w.a), coeff_ints(CURVE, w.b)
+    require(cout is None and hout is None and one_point(wout) is None
+            and ca == hrf.a.coeffs and cb == hrf.b.coeffs
+            and equals_padded(wa, ca) and equals_padded(wb, cb),
+            f"the merge tree on the card at {n} closing points ({len(range(3, n - 1, 97))} "
+            f"identities; levels {levels}; {out['tree_card_s']:.3f} s) equals the C++ "
+            f"oracle's divisor_witness ({out['tree_cpp_s']:.2f} s) and ref_divisor's "
+            f"({out['tree_py_s']:.2f} s), {len(ca)} + {len(cb)} coefficients")
+    require(all(counts[k] > 0 for k in TREE_KERNELS),
+            "the tree launched " + ", ".join(f"{k} {counts[k]}" for k in TREE_KERNELS))
+
+    # the golden vectors: rustsem reproduces them; the tree equals them up
+    # to the one scalar between the two line conventions
+    for name, curve in (("pallas", PALLAS), ("grumpkin", GRUMPKIN)):
+        gpts, ga, gb = rustsem.load_golden(name)
+        rw, rout = rustsem.compute_divisor_witness_partial([(x, y, 1) for x, y in gpts], curve)
+        require(rustsem.jac_is_identity(rout) and rw.a == ga and rw.b == gb,
+                f"rustsem reproduces data/golden_divisor_{name}.json exactly")
+        w, wout = D.compute_divisor_witness_partial(curve, ec(curve).points_from_ints(gpts, dev))
+        wa, wb = coeff_ints(curve, w.a), coeff_ints(curve, w.b)
+        cp = curve.field.p
+        i0 = next(i for i, c in enumerate(wa) if c)
+        k = ga[i0] * pow(wa[i0], cp - 2, cp) % cp
+        require(k != 0 and equals_padded(wa, [c * pow(k, cp - 2, cp) % cp for c in ga])
+                and equals_padded(wb, [c * pow(k, cp - 2, cp) % cp for c in gb])
+                and ec(curve).points_to_ints(JPoint(*(c[None] for c in wout)))[0] is None,
+                f"the merge tree on the card on the {len(gpts)} golden {name} points equals the "
+                f"golden witness times one nonzero scalar ({len(ga)} + {len(gb)} coefficients)")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the circuit, its rounds through the card's merge tree
+# ---------------------------------------------------------------------------
+
+CIRCUIT_POINTS = 64
+
+
+def circuit_path(dev):
+    """synthesize.assemble on CIRCUIT_POINTS Pallas points (base 5), every
+    gate vanishing on every row; every round's slot list through the merge
+    tree on the card, equal to the round's stream in the a column; the
+    carry equal to best_multiexp on the card.  Returns a dict of sizes and
+    seconds."""
+    t_phase = time.perf_counter()
+    rng = random.Random(0xC1C)
+    n = CIRCUIT_POINTS
+    pts = tuple(distinct_points(rng, CURVE, n))
+    prm = Params(num_pts=n, base=BASE, logtable=4, poly_fan_in=10, batch_offset=36, pts=pts)
+    ext = params_check(CURVE, prm)
+    d = ext.num_digits
+    # scalars of d random digits in [0, base), the top one nonzero: every
+    # round has points, and each scalar fits the d digits the layout holds
+    scalars = [negbase_recompose([rng.randrange(BASE) for _ in range(d - 1)]
+                                 + [rng.randrange(1, BASE)], BASE) for _ in range(n)]
+    v, ch, r = (rng.randrange(SPEC.p) for _ in range(3))
+    print(f"circuit: {n} Pallas points, base {BASE}, logtable {prm.logtable}, poly_fan_in "
+          f"{prm.poly_fan_in}, batch_offset {prm.batch_offset}: {ext}", flush=True)
+    t0 = time.perf_counter()
+    asm = assemble(CURVE, prm, scalars, v, ch, r)
+    out = {"n": n, "rows": asm.grid.nrows, "assemble_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    bad = {name: asm.grid.eval_gate(g) for name, g in asm.gates.items()}
+    out["check_s"] = time.perf_counter() - t0
+    require(not any(bad.values()),
+            f"synthesize.assemble ({out['assemble_s']:.2f} s, {asm.grid.nrows} rows) and every "
+            f"gate of the checker vanishing on every row ({out['check_s']:.2f} s): "
+            + ", ".join(f"{name} fails at {len(b)} rows" for name, b in bad.items()))
+
+    carry, slots = host_round_slots(CURVE, scalars, list(pts), BASE, d)
+    carry2, rounds = host_round_polys(CURVE, scalars, list(pts), BASE, d)
+    E = ec(CURVE)
+    bs = ext.batch_size
+    acol = asm.grid.cols["a"]
+    out["card_rounds_s"] = 0.0
+    ok = []
+    CF.reset_launch_counts()
+    for k, (tmp, (ca, cb)) in enumerate(zip(slots, rounds)):
+        rp = E.points_from_ints(tmp, dev)
+        sync(dev)
+        t0 = time.perf_counter()
+        w, wout = D.compute_divisor_witness_partial(CURVE, rp)
+        sync(dev)
+        out["card_rounds_s"] += time.perf_counter() - t0
+        wa, wb = coeff_ints(CURVE, w.a), coeff_ints(CURVE, w.b)
+        stream = (wa[:len(ca)] + wb[:len(cb)])[:bs][:max(0, asm.grid.nrows - k * bs)]
+        ok.append(one_point(wout) is None and equals_padded(wa, ca) and equals_padded(wb, cb)
+                  and len(stream) > 0 and acol[k * bs:k * bs + len(stream)] == stream)
+    out["rounds"] = len(slots)
+    counts = dict(CF.LAUNCHES)
+    require(counts["poly_mul_naive"] > 0 and counts["affine_lines"] > 0,
+            "the rounds launched poly_mul_naive and affine_lines")
+    require(all(ok) and carry == carry2,
+            f"all {len(slots)} rounds' slot lists ({min(map(len, slots))}-"
+            f"{max(map(len, slots))} points) through the merge tree on the card "
+            f"({out['card_rounds_s']:.3f} s): each round's a||b equals its stream in the a "
+            f"column")
+    got = M.msm_ints(CURVE, scalars, list(pts), device=dev)
+    require(got == carry, "the circuit's carry equals best_multiexp on the card on the same "
+                          "points and scalars")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--logn", type=int, default=20,
@@ -2924,7 +3108,7 @@ def main() -> int:
     ab, ranking = ab_phase(dev, base_pts, tally, lines_in, args.logn, ragged, shapes, reps=50)
     # the coefficient levels' two: their records at the shape of the most
     # products in a round and at a ragged one; the merge head's at a ragged
-    # width and the widest of the round; then the round by both designs
+    # width and the widest of the round
     work = {"poly_mul_naive": lambda key: key[0] * key[1] * key[2],
             "kate_div": lambda key: key[0] * (key[1] - 1)}
     row_keys = {name: max(tally[name]["round"].items(),
@@ -2935,7 +3119,6 @@ def main() -> int:
     recs.append(check_lines_kernel(dev, base_pts, lines_in,
                                    [(5003, "head"), max(tally["affine_lines"]["round"])], reps=50))
     del lines_in
-    slice_routes = round_routes(dev, pts, rnd, args.profile)
     # at 2^14 the fused scan flags and the safe flavor redoes the round at a
     # real width; at half of FUSED_SCAN_MIN_ROWS the stepwise scan runs
     fallback_counts = {name: 0 for name in CF.KERNELS}
@@ -2963,28 +3146,14 @@ def main() -> int:
     cfg4 = config4_path(dev, base_pts, pts, carry_out, rnd)
     del pts, rnd["w"], rnd["carry_state"]
     model = model_path(dev, base_pts, min(16, args.logn))
+    oracles = oracle_path(dev)
+    circuit = circuit_path(dev)
 
     by_name = {rec["name"]: rec for rec in recs}
     for name in ab:
         by_name[name]["ab"] = ab[name]  # every shape of phase 9b
     for name in RULE2_KERNELS:
         by_name[name]["rule2"] = ranking[name]
-    shown = BY_CALLER + SLICE_KERNELS + tuple(V1_OF)
-    for name in SLICE_KERNELS:
-        # the round by the first designs and by this slice's kernels
-        by_name[name]["round_by_route"] = {
-            route: {"seconds": r["seconds"], "busy_ms": r["busy"], "peak_mib": r["peak"] / 2**20,
-                    "launches": {k: r["counts"][k] for k in shown}}
-            for route, r in slice_routes.items()}
-    for v1, name in V1_OF.items():
-        # a line for each first design, at its kernel's record shape: its ms
-        # and its difference from the plain version from phase 9b, the plain
-        # version and bound of the same function
-        rec = by_name[name]
-        at = next(r for r in ab[name] if r["shape"] == rec["shape"])
-        recs.append(dict(rec, name=v1, ms=at["v1_ms"], call_ms=None, ab=None, rule2=ranking[v1],
-                         round_by_route=None, path="phase 9b only",
-                         max_abs_err=max(r["v1_max_abs_err"] for r in ab[name])))
     by_phase = {"launches_msm": msm_counts, "launches_carry": carry_counts,
                 "launches_fallback": fallback_counts, "launches_round": rnd["counts"],
                 "launches_radix_msm": radix_counts, "launches_add_mixed_fast": amf_counts,
@@ -3006,8 +3175,7 @@ def main() -> int:
               f"{rec['launches_naive']} (naive arrangement), {rec['launches_model']} (model "
               f"forward), {rec['launches_config4']} (config 4); {rec['ms']} ms each on "
               f"the device at shape {rec['shape']}", flush=True)
-        if name not in V1_OF:
-            require(rec["launches"] > 0, f"{name} was launched on the path that runs it")
+        require(rec["launches"] > 0, f"{name} was launched on the path that runs it")
 
     print(f"msm: n = {n}, seconds = {seconds}, points_per_s = {n / seconds}, card = {card}",
           flush=True)
@@ -3024,10 +3192,6 @@ def main() -> int:
           f"runs = {rnd['runs']}, device_busy_ms = {rnd['busy_ms']}, "
           f"peak_mib = {rnd['peak'] / 2**20}, setup_s = {rnd['setup_s']}, card = {card}",
           flush=True)
-    for route, r in slice_routes.items():
-        print(f"round by route: route = {route}, seconds = {r['seconds']}, device_busy_ms = "
-              f"{r['busy']}, peak_mib = {r['peak'] / 2**20}, launches = "
-              f"{ {k: r['counts'][k] for k in shown} }, card = {card}", flush=True)
     print(f"add_mixed_fast: n = {n}, seconds = {amf_s}, card = {card}", flush=True)
     print(f"naive: slots = {rnd['slots']}, seconds = {naive['seconds']}, pos_lines = "
           f"{naive['n_pos']}, neg_lines = {naive['n_neg']}, ratio_check_s = {naive['ratio_s']}, "
@@ -3055,6 +3219,14 @@ def main() -> int:
     for (what, route), (wall_ms, busy_ms) in window_routes.items():
         print(f"window route: part = {what}, route = {route}, n = {1 << radix_logn}, "
               f"wall_ms = {wall_ms}, device_busy_ms = {busy_ms}, card = {card}", flush=True)
+    print(f"host oracles: phase_s = {oracles['phase_s']}, oracle_build_s = {oracles['build_s']}, ff_values = {ORACLE_FF_N}, "
+          f"msm_points = {ORACLE_MSM_N}, msm_card_s = {oracles['msm_card_s']}, msm_cpp_s = "
+          f"{oracles['msm_cpp_s']}, tree_points = {ORACLE_TREE_N}, tree_card_s = "
+          f"{oracles['tree_card_s']}, tree_cpp_s = {oracles['tree_cpp_s']}, tree_py_s = "
+          f"{oracles['tree_py_s']}, card = {card}", flush=True)
+    print(f"circuit: phase_s = {circuit['phase_s']}, n = {circuit['n']}, rows = {circuit['rows']}, rounds = {circuit['rounds']}, "
+          f"assemble_s = {circuit['assemble_s']}, check_s = {circuit['check_s']}, "
+          f"card_rounds_s = {circuit['card_rounds_s']}, card = {card}", flush=True)
     print(json.dumps({"kernels": recs}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

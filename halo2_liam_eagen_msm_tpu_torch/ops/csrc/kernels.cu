@@ -1,8 +1,8 @@
 // The eleven kernels of the field and curve layers and their C launchers,
 // with those of the kernels included below: the divisor merge tree's five in
 // ntt.cuh, the MSM's radix reorder's four in radix.cuh, the coefficient
-// levels' two (poly_mul_naive, with its first design poly_mul_naive_v1, and
-// kate_div) in poly.cuh and the merge head's affine_lines in lines.cuh.
+// levels' two (poly_mul_naive and kate_div) in poly.cuh and the merge head's
+// affine_lines in lines.cuh.
 // Most are one thread per element: it
 // reads its (16,) rows, does the whole formula in registers (ff.cuh, ec.cuh)
 // and writes its rows back; mont_addsub spreads one row over four lanes,
@@ -806,7 +806,7 @@ int ec_add_mixed_fast_launch(const FieldParams* P, const void* x1, const void* y
 // PMUL_MAX_THREADS); staged: 0 reads the rows from device memory (the
 // wrapper's choice where a pair's rows exceed the block's shared memory);
 // lazy: the second design's instantiation (two outputs a thread) or the
-// first's (one).  poly_mul_naive_v1 launches the first design alone.
+// first's (one).
 static inline size_t pmul_smem(int la, int lb, int64_t a_stride, int64_t b_stride, int group,
                                int staged) {
   return staged ? (size_t)8 * sizeof(uint32_t) *
@@ -824,20 +824,6 @@ int poly_mul_naive_launch(const FieldParams* P, const void* a, const void* b, vo
     const size_t smem = pmul_smem(la, lb, a_stride, b_stride, group, staged);
     auto* kern = lazy ? &poly_mul_naive_kernel<true> : &poly_mul_naive_kernel<false>;
     kern<<<grid_for(pairs, group), threads, smem, (cudaStream_t)stream>>>(
-        *P, (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, pairs, la, lb,
-        a_stride, b_stride, group, staged, pmul_inv_p_hi(P));
-  }
-  return (int)cudaGetLastError();
-}
-
-int poly_mul_naive_v1_launch(const FieldParams* P, const void* a, const void* b, void* out,
-                             int64_t pairs, int la, int lb, int64_t a_stride,
-                             int64_t b_stride, int group, int threads, int staged,
-                             void* stream) {
-  if (pairs > 0 && la > 0 && lb > 0 && group > 0) {
-    const size_t smem = pmul_smem(la, lb, a_stride, b_stride, group, staged);
-    poly_mul_naive_kernel<false><<<grid_for(pairs, group), threads, smem,
-                                   (cudaStream_t)stream>>>(
         *P, (const uint32_t*)a, (const uint32_t*)b, (uint32_t*)out, pairs, la, lb,
         a_stride, b_stride, group, staged, pmul_inv_p_hi(P));
   }

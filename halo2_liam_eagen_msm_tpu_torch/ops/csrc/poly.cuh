@@ -35,11 +35,10 @@
 // and walks its anti-diagonal with fe_mul and fe_add, a full Montgomery
 // reduction and a modular add a product.  At (La, Lb) = (17, 19), the
 // heaviest shape of a round, a warp's 32 outputs have diagonals of 1 to 17
-// products, so the warp runs for its longest, about twice the mean.  The
-// wrapper poly_mul_naive_v1 launches only this, for one comparison on the
-// card; poly_mul_naive takes it where no diagonal has more than two
-// products (min(La, Lb) <= 2): there a lazy sum saves nothing, and its
-// larger footprint (78 registers a thread against 62) costs occupancy at
+// products, so the warp runs for its longest, about twice the mean.
+// poly_mul_naive takes it where no diagonal has more than two products
+// (min(La, Lb) <= 2): there a lazy sum saves nothing, and its larger
+// footprint (78 registers a thread against 62) costs occupancy at
 // shapes that are bound by bytes (0.83-0.91x of this design on an H100 80GB
 // HBM3 at 700 W, PERF.md).
 //
@@ -144,7 +143,8 @@ __device__ __forceinline__ void acc_mul_add(uint32_t (&acc)[PMUL_ACC_WORDS], con
 // in [-p, 2p): where it is negative (word 8 of the difference all ones) p is
 // added back, and one conditional subtraction finishes it.  The difference fits
 // 256 bits either way, so its words 0 .. 7 are all that is kept.  (A 64-bit
-// integer division here made the short diagonals slower than v1's.)
+// integer division here made the short diagonals slower than the first
+// design's.)
 __device__ __forceinline__ Fe acc_reduce(uint32_t (&t)[PMUL_ACC_WORDS], const FieldParams& P,
                                          double inv_p_hi) {
   uint32_t pend = 0;

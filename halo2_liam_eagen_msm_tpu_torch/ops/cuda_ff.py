@@ -75,9 +75,8 @@ KERNELS = ("mont_mul", "batch_inv", "mont_addsub", "ec_add", "ec_add_fast",
            "lm_mul", "lm_addsub", "lm_mul_const", "stage_big", "stages_small",
            # the radix reorder's four, in csrc/radix.cuh (ops/cuda_radix.py)
            "radix_rank", "radix_shuffle", "radix_pass_b", "radix_compact",
-           # the coefficient levels' two, in csrc/poly.cuh (ops/cuda_poly.py),
-           # with the first design of poly_mul_naive, kept for one comparison
-           "poly_mul_naive", "kate_div", "poly_mul_naive_v1",
+           # the coefficient levels' two, in csrc/poly.cuh (ops/cuda_poly.py)
+           "poly_mul_naive", "kate_div",
            # the merge head's, in csrc/lines.cuh (ops/cuda_lines.py)
            "affine_lines")
 LAUNCHES = {name: 0 for name in KERNELS}
@@ -196,8 +195,6 @@ def _lib():
             "radix_compact_launch": [vp, vp, vp, ci, i64, i64, vp],
             "poly_mul_naive_launch":
                 [fpp, vp, vp, vp, i64, ci, ci, i64, i64, ci, ci, ci, ci, vp],
-            "poly_mul_naive_v1_launch":
-                [fpp, vp, vp, vp, i64, ci, ci, i64, i64, ci, ci, ci, vp],
             "kate_div_launch": [fpp, vp, vp, vp, i64, ci, i64, vp],
             "affine_lines_launch": [fpp] + [vp] * 5 + [i64, ci, vp],
         }

@@ -14,13 +14,9 @@ sm_90a, built into the one library of ops/cuda_ff.py):
                                                      the masks
 
 divisor.py takes it for a CUDA tensor and the plain version for a CPU one.
-_lines writes the computation once, on field ops passed in: on the plain
-products and subtractions of ops/cuda_ff.py it is the plain version; on the
-kernels' wrappers it is affine_lines_composed, the route the kernel replaced
-(16 mont_mul and 7 mont_addsub launches a call, the selects in
-PyTorch), kept for one comparison on the card; no path calls it.  Every
-value is fully reduced, so kernel, plain version and route agree limb for
-limb.
+_lines writes the computation on field ops passed in; on the plain products
+and subtractions of ops/cuda_ff.py it is the plain version.  Every value is
+fully reduced, so kernel and plain version agree limb for limb.
 """
 
 from __future__ import annotations
@@ -116,11 +112,3 @@ def affine_lines_plain(spec: FieldSpec, head: bool, x, y, zinv):
     subtractions."""
     return _lines(spec, head, x, y, zinv, lambda a, b: CF.mont_mul_plain(spec, a, b),
                   lambda a, b: CF.mont_addsub_plain(spec, True, a, b))
-
-
-def affine_lines_composed(spec: FieldSpec, head: bool, x, y, zinv):
-    """affine_lines by the route the kernel replaced: _lines on the mont_mul
-    and mont_addsub kernels' wrappers (CUDA tensors), for a comparison on the
-    card."""
-    return _lines(spec, head, x, y, zinv, lambda a, b: CF.mont_mul(spec, a, b),
-                  lambda a, b: CF.mont_addsub(spec, True, a, b))

@@ -18,14 +18,14 @@ library of ops/cuda_ff.py):
                    .kate_div scan's body (n <= 64)     dropped, same length n
 
 ops/poly.py takes them for a CUDA tensor and the plain versions for a CPU
-one.  poly_mul_naive_v1, the first design of poly_mul_naive (a thread an
-output, a full reduction a product) at every shape, stays beside it for one
-comparison on the card; no path calls it (poly_mul_naive takes that design
-only where no diagonal has more than two products).  The plain versions are
-today's algorithms on the plain products and adds of ops/cuda_ff.py,
-device-agnostic: the outer product, its int64 anti-diagonal sums and one
-reduction a coefficient; the Horner chain of n - 1 products and adds.  Every
-result is fully reduced, so kernel and plain version agree limb for limb.
+one.  poly_mul_naive has two instantiations: the lazy sums where a diagonal
+has three products or more, and its first design (a thread an output, a
+full reduction a product) where no diagonal has more than two.  The plain
+versions are today's algorithms on the plain products and adds of
+ops/cuda_ff.py, device-agnostic: the outer product, its int64 anti-diagonal
+sums and one reduction a coefficient; the Horner chain of n - 1 products
+and adds.  Every result is fully reduced, so kernel and plain version agree
+limb for limb.
 """
 
 from __future__ import annotations
@@ -87,9 +87,17 @@ def _mul_naive_group(pairs: int, la: int, lb: int, a_stride: int, b_stride: int,
     return group, threads, staged_bytes(group) <= PMUL_SMEM
 
 
-def _poly_mul(name: str, lazy: bool, spec: FieldSpec, a, b):
+def poly_mul_naive(spec: FieldSpec, a, b):
+    """(..., La, 16) x (..., Lb, 16) -> (..., La + Lb - 1, 16) schoolbook
+    product, one kernel launch: lazy sums and outputs k and k + ceil(nout /
+    2) a thread, or, where no diagonal has more than two products, the first
+    design (an output a thread, a reduction a product); leading dims
+    broadcast, an operand shared by all pairs is read once.  Requires
+    min(La, Lb) <= 2^13, as mul_naive, and p > 2^247."""
+    name = "poly_mul_naive"
     CF._check_cuda(name, a, b)
     la, lb = a.shape[-2], b.shape[-2]
+    lazy = min(la, lb) > 2
     if min(la, lb) > MAX_SHORT_TERMS or min(la, lb) < 1:
         raise ValueError(f"{name}: the shorter operand must have 1 to 2^13 terms")
     if not 1 << 247 < spec.p:
@@ -103,29 +111,10 @@ def _poly_mul(name: str, lazy: bool, spec: FieldSpec, a, b):
     bf, b_stride = _pair_rows(b, lead)
     group, threads, staged = _mul_naive_group(pairs, la, lb, a_stride, b_stride,
                                               2 if lazy else 1)
-    # poly_mul_naive chooses its instantiation; the first design has one
-    choice = (int(lazy),) if name == "poly_mul_naive" else ()
     CF._launch(name, a.device, ctypes.byref(CF._field_params(spec)),
                af.data_ptr(), bf.data_ptr(), out.data_ptr(), pairs, la, lb,
-               a_stride, b_stride, group, threads, int(staged), *choice)
+               a_stride, b_stride, group, threads, int(staged), int(lazy))
     return out
-
-
-def poly_mul_naive(spec: FieldSpec, a, b):
-    """(..., La, 16) x (..., Lb, 16) -> (..., La + Lb - 1, 16) schoolbook
-    product, one kernel launch: lazy sums and outputs k and k + ceil(nout /
-    2) a thread, or, where no diagonal has more than two products, the first
-    design (an output a thread, a reduction a product); leading dims
-    broadcast, an operand shared by all pairs is read once.  Requires
-    min(La, Lb) <= 2^13, as mul_naive, and p > 2^247."""
-    return _poly_mul("poly_mul_naive", min(a.shape[-2], b.shape[-2]) > 2, spec, a, b)
-
-
-def poly_mul_naive_v1(spec: FieldSpec, a, b):
-    """poly_mul_naive by its first design alone (an output a thread, fe_mul
-    and fe_add a product): the same function, for a comparison on the
-    card."""
-    return _poly_mul("poly_mul_naive_v1", False, spec, a, b)
 
 
 def kate_div(spec: FieldSpec, coeffs, b):

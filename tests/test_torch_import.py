@@ -28,6 +28,10 @@ import {PKG}.models.eagen_msm
 import {PKG}.entry
 import {PKG}.utils.checks
 import {PKG}.utils.profiling
+import {PKG}.oracle
+import {PKG}.utils.ref_divisor
+import {PKG}.utils.rustsem
+import {PKG}.circuit.synthesize
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "{JAX_PKG}" or m.startswith("{JAX_PKG}."))

@@ -367,17 +367,16 @@ def _case(name, rng, nprng):
             return lambda a, b: (fn(SPEC, False, a, b), fn(SPEC, True, a, b))
         return both(CF.mont_addsub), both(CF.mont_addsub_plain), \
             (_field(nprng, B), _field(nprng, B))
-    if name in ("poly_mul_naive", "poly_mul_naive_v1"):
-        # (pairs, La, Lb): La = 17, Lb = 33 (49 outputs a pair, 5 pairs a
-        # block of v1, 10 of v2: 7 pairs end in a ragged block), La > Lb,
+    if name == "poly_mul_naive":
+        # (pairs, La, Lb): La = 17, Lb = 33 (49 outputs a pair, 10 pairs a
+        # block: 7 pairs end in a ragged block), La > Lb,
         # La = 1, and Lb = 4 shared by all pairs (the substitution
         # polynomial of rf_mul)
         shapes = ((7, 17, 33), (3, 8, 3), (5, 1, 6))
         ops = [(_field(nprng, m * la).reshape(m, la, 16), _field(nprng, m * lb).reshape(m, lb, 16))
                for m, la, lb in shapes]
         ops.append((_field(nprng, 9 * 5).reshape(9, 5, 16), _field(nprng, 4).expand(9, 4, 16)))
-        kernel = getattr(CP, name)
-        return (lambda *a: tuple(kernel(SPEC, x, y) for x, y in ops),
+        return (lambda *a: tuple(CP.poly_mul_naive(SPEC, x, y) for x, y in ops),
                 lambda *a: tuple(CP.poly_mul_naive_plain(SPEC, x, y) for x, y in ops), ())
     if name == "affine_lines":
         # head and seeds on the edge slots of _edge_points (37 slots: a
@@ -622,30 +621,38 @@ def _from_rows(t):
     return [flat[i:i + width] for i in range(0, len(flat), width)]
 
 
-@pytest.mark.parametrize("name", ["poly_mul_naive", "poly_mul_naive_v1"])
+# (pairs, La, Lb) of each case (None: 3 pairs and one a reduction edge)
+PMUL_EDGE_SHAPES = {
+    "poly_mul_naive": ((13, 17, 33), (4, 9, 2), (6, 1, 5), (3, 1, 1), (3, 70, 66), (None, 17, 19)),
+    "min_terms_le_2": ((13, 1, 2), (11, 2, 1), (7, 2, 2), (5, 2, 19), (9, 33, 1)),
+}
+
+
+@pytest.mark.parametrize("name", list(PMUL_EDGE_SHAPES))
 @pytest.mark.parametrize("staging", ["shared", "device"])
 def test_poly_mul_naive_edges_on_host(staging, name, host_kernels, monkeypatch, rng):
-    """poly_mul_naive (and its first design) at its edges, equal to the plain
-    version limb for limb and to the product of Python ints: raw limbs of
-    p - 1 in every coefficient of pair 0 (the longest anti-diagonal sums
-    min(La, Lb) such products), zero coefficients in pair 1 and a zero
-    polynomial in pair 2; 13 pairs of 17 x 33 (a ragged last block), La >
+    """poly_mul_naive at its edges, equal to the plain version limb for limb
+    and to the product of Python ints: raw limbs of p - 1 in every
+    coefficient of pair 0 (the longest anti-diagonal sums min(La, Lb) such
+    products), zero coefficients in pair 1 and a zero polynomial in pair 2.
+    Case poly_mul_naive: 13 pairs of 17 x 33 (a ragged last block), La >
     Lb, La = 1 on both sides, and 3 pairs of 70 x 66, whose middle
     diagonals pass the lazy sums' run of 64 products (66 products: a run of
     64 and one of 2); and 17 x 19, where the pairs from 3 on have the
     17-product diagonal 16 built so that its REDC r = (T + m p) / R falls
     where a quotient from r's top words is hardest to take
-    (cuda_poly.reduction_edges).
+    (cuda_poly.reduction_edges).  Case min_terms_le_2: the shapes of at most
+    two products a diagonal (La = 1, Lb = 2 and the like), which take the
+    first design's instantiation.
     Rows staged in shared memory, or read from device memory (the route of a
     pair too long to stage)."""
     if staging == "device":
         monkeypatch.setattr(CP, "PMUL_SMEM", 0)
-    kernel = getattr(CP, name)
     p = SPEC.p
     edge = _raw_rows([p - 1])[0]
     edges = CP.reduction_edges(SPEC, 17)
-    for m, la, lb in ((13, 17, 33), (4, 9, 2), (6, 1, 5), (3, 1, 1), (3, 70, 66),
-                      (3 + len(edges), 17, 19)):
+    for m, la, lb in PMUL_EDGE_SHAPES[name]:
+        m = m or 3 + len(edges)
         xs = [[rng.randrange(p) for _ in range(la)] for _ in range(m)]
         ys = [[rng.randrange(p) for _ in range(lb)] for _ in range(m)]
         xs[1][::2] = [0] * len(xs[1][::2])
@@ -657,7 +664,7 @@ def test_poly_mul_naive_edges_on_host(staging, name, host_kernels, monkeypatch, 
             for g, (xe, ye) in enumerate(edges, start=3):
                 a[g] = _raw_rows(xe)
                 b[g, :17] = _raw_rows(ye)
-        got = kernel(SPEC, a, b)
+        got = CP.poly_mul_naive(SPEC, a, b)
         assert torch.equal(got, CP.poly_mul_naive_plain(SPEC, a, b))
         xs, ys = _from_rows(a), _from_rows(b)
         assert _from_rows(got) == [Poly(SPEC, x).mul_naive(Poly(SPEC, y)).coeffs

@@ -343,3 +343,29 @@ def test_split_top_follows_jax_predicate(radix_route, monkeypatch, c, bits, rout
 def test_radix_route_default_off():
     assert config.RADIX_MSM is False and not config.use_radix_msm()
     assert not M._radix_ok(1 << 20, 15, "fast")
+
+
+@pytest.mark.parametrize("keys,overflows", [("uniform 12-bit", False), ("below 4", True)])
+def test_top_window_crowding_at_2_17(monkeypatch, keys, overflows):
+    """At 2^17 points pick_window gives c = 12, and 254-bit scalars leave
+    the top window c_top = 254 - 21 * 12 = 2 bits, narrower than the 8 the
+    route takes, so it is not split off and runs at c = 12 with keys below
+    4.  Those keys all fall in coarse partition 0 (cb = 9, fb = 3) and every
+    tile overflows its spill rows; uniform 12-bit keys do not overflow.  The
+    plain radix_window on make_plan(2^17, 12); no JAX call."""
+    n = 1 << 17
+    c = M.pick_window(n)
+    bits = 254
+    num_windows = -(-bits // c)
+    c_top = bits - (num_windows - 1) * c
+    monkeypatch.setattr(config, "RADIX_MSM", True)
+    assert (c, num_windows, c_top) == (12, 22, 2)
+    assert M._radix_ok(n, c, "fast") and not M._radix_ok(n, c_top, "fast")
+    plan = RX.make_plan(n, c, M.RADIX_TILE)
+    assert (plan.cb, plan.fb) == (9, 3)
+    rng = np.random.default_rng(0x217)
+    top = 4 if keys == "below 4" else 1 << c
+    k = torch.from_numpy(rng.integers(0, top, size=n).astype(np.int32))
+    pay = torch.from_numpy(rng.integers(0, 1 << 32, size=(n, 16), dtype=np.uint32).view(np.int32))
+    *_, ov = RX.radix_window(plan, k, pay)
+    assert bool(ov) == overflows

@@ -156,7 +156,26 @@ without a card, and on any failed build, failed launch or mismatch.  It
      coefficients equal to that round's stream in the a column; the carry
      equal to best_multiexp on the card on the same points and scalars;
      seconds of the assembly and of the card's rounds,
- 22. prints one JSON line describing the kernels (with phase 9b's shapes
+ 22. drives the sharded paths (parallel/) through launch.run_world, the
+     kernel library built here first so that the ranks only load it, each
+     result held against its single-device counterpart or oracle: (a) one
+     NCCL rank on cuda:0 (tensors never leave the card): sharded_msm at
+     2^logn against the Python-int oracle, points_sharded_divisor_witness_a2a
+     at 2^12 closing points, both flavors, against the single-device tree;
+     (b) four gloo ranks, every one on cuda:0, the collectives' payloads
+     staged through host memory: sharded_msm and sharded_msm_2d (2 x 2) at
+     2^logn on phase 4's inputs against the oracle; sharded_divisor_witness
+     on rounds 0, 27, 28 and 55 of phase 5's carry stage, one a rank, every
+     round closing and round 28's witness equal to phase 9's bit for bit;
+     points_sharded_divisor_witness and _a2a (both flavors) on 2^logn
+     closing points against the single-device tree, no rerun taken;
+     hierarchical_divisor_witness (2 x 2) on two rounds of 2^16 points
+     padded to 2^17 slots against the single-device tree; the a2a witness on
+     points with a root on the evaluation domain, every rank taking the
+     replicated rerun, exact; each part's D, backend, sizes, seconds, bytes
+     sent a rank by collective kind and peak memory printed.  Four ranks
+     time-share one card: the seconds say nothing about scaling,
+ 23. prints one JSON line describing the kernels (with phase 9b's shapes
      and the rule-2 ranking) and, last, one JSON line {"ok": true,
      "device": {...}}.
 
@@ -190,6 +209,7 @@ their bytes alone, from this run's inputs.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import math
 import random
@@ -208,7 +228,7 @@ from halo2_liam_eagen_msm_tpu_torch.circuit.params import Params, params_check
 from halo2_liam_eagen_msm_tpu_torch.circuit.synthesize import (
     assemble, host_round_polys, host_round_slots)
 from halo2_liam_eagen_msm_tpu_torch.convert import (
-    JPoint, digits_to_rounds, limbs_from_numpy, limbs_to_numpy)
+    RF, JPoint, digits_to_rounds, limbs_from_numpy, limbs_to_numpy)
 from halo2_liam_eagen_msm_tpu_torch.fields import GRUMPKIN, LIMB_BITS, N_LIMBS, PALLAS
 from halo2_liam_eagen_msm_tpu_torch.entry import entry
 from halo2_liam_eagen_msm_tpu_torch.limbs import (
@@ -227,6 +247,8 @@ from halo2_liam_eagen_msm_tpu_torch.ops import radix as RX
 from halo2_liam_eagen_msm_tpu_torch.ops.ec import ec
 from halo2_liam_eagen_msm_tpu_torch.ops.ff import ff
 from halo2_liam_eagen_msm_tpu_torch.ops.poly import Poly as PolyInts
+from halo2_liam_eagen_msm_tpu_torch.parallel import mesh as PM
+from halo2_liam_eagen_msm_tpu_torch.parallel.launch import run_world
 from halo2_liam_eagen_msm_tpu_torch.utils import pyref, ref_divisor, rustsem
 
 HBM_BYTES_PER_S = 3.35e12
@@ -3044,6 +3066,268 @@ def circuit_path(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the sharded paths (parallel/) on ranks that share the card
+# ---------------------------------------------------------------------------
+
+SHARDED_D = 4                          # gloo ranks, every one on cuda:0
+SHARDED_ROUNDS = (0, 27, ROUND_K, 55)  # carry-stage rounds, one a rank
+HIER_LOGN = 16                         # points of the hierarchical witness's rounds (phase 19's)
+NCCL_TREE_LOGN = 12                    # closing points of the NCCL run's a2a witness
+CLOSING_SEED, HIER_SEED, UNSAFE_SEED = 0xC105, 0x41E2, 0x0A2A
+
+
+def witness_sha(w) -> str:
+    """SHA-256 of a witness's a and b coefficient rows, with their shapes."""
+    h = hashlib.sha256()
+    for t in (w.a, w.b):
+        h.update(str(tuple(t.shape)).encode())
+        h.update(limbs_to_numpy(t).tobytes())
+    return h.hexdigest()
+
+
+def closing_digit_points(dev, base_pts, logn: int, seed: int) -> JPoint:
+    """2^logn points tiled from base_pts, each times a seeded digit in [0,
+    BASE) (the identity at 0), the last slot replaced by the negated sum of
+    the others (a 64-point MSM of the digit sums on the host): a closing
+    list whose sub-sums are random combinations of the base points, so no
+    level meets an exceptional input but with negligible probability."""
+    n = 1 << logn
+    E = ec(CURVE)
+    digits = np.random.default_rng(seed).integers(0, BASE, size=n).astype(np.int32)
+    precomp = A.precompute_multiplicities(E, tiled_points(dev, base_pts, n), BASE)
+    sel = A._select_digit_points(precomp, torch.from_numpy(digits).to(dev))
+    sums = np.bincount(np.arange(n - 1) % len(base_pts), weights=digits[:-1],
+                       minlength=len(base_pts)).astype(np.int64)
+    last = E.points_from_ints(
+        [pyref.ec_neg(pyref.ec_msm([int(s) for s in sums], base_pts, CURVE), CURVE)], dev)
+    for c, l in zip(sel, last):
+        c[-1] = l[0]
+    return sel
+
+
+def hier_rounds(dev, base_pts, logn: int, seed: int) -> JPoint:
+    """Two rounds of seeded base-BASE digits over 2^logn tiled points
+    (argument._rounds_and_carries: BASE carry slots, the digit slots, the
+    closing slot), identity-padded to the next power of two of slots."""
+    n = 1 << logn
+    digits = np.random.default_rng(seed).integers(0, BASE, size=(2, n)).astype(np.int32)
+    rp, _ = A._rounds_and_carries(CURVE, BASE, torch.from_numpy(digits).to(dev),
+                                  tiled_points(dev, base_pts, n))
+    s = rp.x.shape[1]
+    idp = ec(CURVE).identity((2, (1 << (s - 1).bit_length()) - s), dev)
+    return JPoint(*(torch.cat([c, i], dim=1) for c, i in zip(rp, idp)))
+
+
+def sharded_round_inputs(carry_state) -> dict:
+    """The carry stage's digit rows and carries (Jacobian limbs, as the round
+    phase used them) of SHARDED_ROUNDS, for the ranks to rebuild the rounds."""
+    digits, carry_prev, carry_new = carry_state
+    idx = torch.tensor(SHARDED_ROUNDS, device=digits.device)
+    return {"digits": digits[idx].to(torch.uint8).cpu().numpy(),
+            "prev": torch.stack(tuple(c[idx] for c in carry_prev)).cpu().numpy(),
+            "new": torch.stack(tuple(c[idx] for c in carry_new)).cpu().numpy()}
+
+
+def _timed_part(dev, mesh, fn) -> dict:
+    """fn() between two barriers of the world: its seconds (the slowest
+    rank's), the bytes this rank sent by collective kind and its peak."""
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    sent0 = dict(mesh.sent)
+    torch.distributed.barrier()
+    t0 = time.perf_counter()
+    res = fn()
+    sync(dev)
+    torch.distributed.barrier()
+    res["seconds"] = time.perf_counter() - t0
+    res["sent"] = {k: mesh.sent[k] - sent0[k] for k in mesh.sent}
+    res["peak_mib"] = torch.cuda.max_memory_allocated(dev) / 2**20 if on_card else 0.0
+    return res
+
+
+def _tree_res(mesh, w, out) -> dict:
+    return {"sha": witness_sha(w), "closes": bool(ec(CURVE).is_identity(out).all()),
+            "reruns": PM.reruns}
+
+
+def nccl_rank(rank, dev, inp) -> dict:
+    """Phase 22 (a), the one NCCL rank: sharded_msm at 2^logn and the a2a
+    witness at 2^NCCL_TREE_LOGN closing points, both flavors."""
+    mesh = PM.make_mesh(1, device=dev)
+    _, scalars, pts = msm_inputs(dev, inp["base_pts"], inp["logn"])
+    out = {"msm": _timed_part(dev, mesh, lambda: {
+        "point": one_point(PM.sharded_msm(CURVE, scalars, pts, mesh))})}
+    del scalars, pts
+    cp = closing_digit_points(dev, inp["base_pts"], NCCL_TREE_LOGN, CLOSING_SEED)
+    for name, cs in (("a2a", False), ("a2a_coeff_sharded", True)):
+        out[name] = _timed_part(dev, mesh, lambda cs=cs: _tree_res(
+            mesh, *PM.points_sharded_divisor_witness_a2a(CURVE, mesh, cp, coeff_sharded=cs)))
+    return out
+
+
+def gloo_rank(rank, dev, inp) -> dict:
+    """Phase 22 (b), one of SHARDED_D gloo ranks on cuda:0: parts 1-5 in
+    turn, each timed between barriers; inputs are rebuilt here from the
+    phases' seeds (the carry stage's rounds from their digit rows and
+    carries), outside the timed region."""
+    base_pts, logn = inp["base_pts"], inp["logn"]
+    E = ec(CURVE)
+    m1 = PM.make_mesh(SHARDED_D, device=dev)
+    m2 = PM.make_mesh_2d(2, SHARDED_D // 2, device=dev)
+    out = {}
+    t0 = time.perf_counter()
+    for lg in range(6, logn + 2):     # the merge tree's host tables, built once
+        D._fused_consts_dev(CURVE, lg, dev)
+    out["setup_s"] = time.perf_counter() - t0
+
+    _, scalars, pts = msm_inputs(dev, base_pts, logn)
+    out["msm"] = _timed_part(dev, m1, lambda: {
+        "point": one_point(PM.sharded_msm(CURVE, scalars, pts, m1))})
+    out["msm_2d"] = _timed_part(dev, m2, lambda: {
+        "point": one_point(PM.sharded_msm_2d(CURVE, scalars, pts, m2))})
+    del scalars
+
+    precomp = A.precompute_multiplicities(E, pts, BASE)
+    digits = torch.from_numpy(inp["digits"]).to(dev).to(torch.int32)
+    prev, new = (torch.from_numpy(inp[k]).to(dev) for k in ("prev", "new"))
+    rp = [A._one_round_slots(CURVE, BASE, digits[i], precomp, JPoint(*prev[:, i]),
+                             JPoint(*new[:, i])) for i in range(len(SHARDED_ROUNDS))]
+    rounds = JPoint(*(torch.stack(c) for c in zip(*rp)))
+    del precomp, rp, pts
+
+    def round_part():
+        w, o = PM.sharded_divisor_witness(CURVE, m1, rounds)
+        return {"sha": witness_sha(RF(w.a[0], w.b[0])), "closes": bool(E.is_identity(o).all()),
+                "round": SHARDED_ROUNDS[rank]}
+    out["rounds"] = _timed_part(dev, m1, round_part)
+    del rounds
+
+    cp = closing_digit_points(dev, base_pts, logn, CLOSING_SEED)
+    out["points"] = _timed_part(dev, m1, lambda: _tree_res(
+        m1, *PM.points_sharded_divisor_witness(CURVE, m1, cp)))
+    for name, cs in (("a2a", False), ("a2a_coeff_sharded", True)):
+        out[name] = _timed_part(dev, m1, lambda cs=cs: _tree_res(
+            m1, *PM.points_sharded_divisor_witness_a2a(CURVE, m1, cp, coeff_sharded=cs)))
+    del cp
+
+    hr = hier_rounds(dev, base_pts, min(HIER_LOGN, logn), HIER_SEED)
+
+    def hier_part():
+        w, o = PM.hierarchical_divisor_witness(CURVE, m2, hr)
+        return {"sha": witness_sha(RF(w.a[0], w.b[0])), "closes": bool(E.is_identity(o).all()),
+                "row": rank // (SHARDED_D // 2)}
+    out["hierarchical"] = _timed_part(dev, m2, hier_part)
+
+    up = E.points_from_ints(
+        pyref.root_on_domain_points(random.Random(UNSAFE_SEED), CURVE), dev)
+    before = PM.reruns
+    out["unsafe"] = _timed_part(dev, m1, lambda: _tree_res(
+        m1, *PM.points_sharded_divisor_witness_a2a(CURVE, m1, up)))
+    out["unsafe"]["reruns"] -= before
+    return out
+
+
+def _part_line(what: str, d: int, backend: str, sizes: str, res: list, card: str) -> None:
+    sent = {k: max(r["sent"][k] for r in res) for k in res[0]["sent"]}
+    print(f"sharded: part = {what}, D = {d}, backend = {backend}, {sizes}, seconds = "
+          f"{max(r['seconds'] for r in res)}, sent_bytes_max_rank = {sent}, peak_mib_max_rank "
+          f"= {max(r['peak_mib'] for r in res)}, card = {card}", flush=True)
+
+
+def sharded_path(dev, base_pts, logn: int, rounds_in: dict, w28_sha: str, card: str) -> dict:
+    """Phase 22: parallel/ on the card, through launch.run_world.  (a) one
+    NCCL rank; (b) SHARDED_D gloo ranks time-sharing cuda:0, their
+    collectives staged through host memory.  Every result is held against
+    its single-device counterpart or oracle, computed here first."""
+    t_phase = time.perf_counter()
+    E = ec(CURVE)
+    n = 1 << logn
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    sc, _, _ = msm_inputs(dev, base_pts, logn)
+    want_msm = tiled_msm_oracle(sc, base_pts)
+    del sc
+    want = {}
+    for name, lg in (("nccl", NCCL_TREE_LOGN), ("points", logn)):
+        w, o = D.compute_divisor_witness_partial(
+            CURVE, closing_digit_points(dev, base_pts, lg, CLOSING_SEED))
+        require(bool(E.is_identity(JPoint(*(c[None] for c in o)))[0]),
+                f"the 2^{lg} closing points close on the single device")
+        want[name] = witness_sha(w)
+    hier_logn = min(HIER_LOGN, logn)
+    hr = hier_rounds(dev, base_pts, hier_logn, HIER_SEED)
+    w, o = D.compute_divisor_witness_partial(CURVE, hr)
+    want["hier"] = [witness_sha(RF(w.a[i], w.b[i])) for i in range(2)]
+    hier_slots = hr.x.shape[1]
+    del hr, w, o
+    up_ints = pyref.root_on_domain_points(random.Random(UNSAFE_SEED), CURVE)
+    w, o = D.compute_divisor_witness_partial(CURVE, E.points_from_ints(up_ints, dev))
+    want["unsafe"] = witness_sha(w)
+    hrf, hout = ref_divisor.divisor_witness_host(CURVE, up_ints)
+    require(equals_padded(coeff_ints(CURVE, w.a), hrf.a.coeffs)
+            and equals_padded(coeff_ints(CURVE, w.b), hrf.b.coeffs) and one_point(o) == hout,
+            "the single-device tree of the root-on-domain points equals ref_divisor")
+    print(f"  references on the single device: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    inp = {"base_pts": base_pts, "logn": logn}
+    t0 = time.perf_counter()
+    a = run_world(nccl_rank, 1, "nccl", dev, args=(inp,), timeout_s=240)[0]
+    a_s = time.perf_counter() - t0
+    require(a["msm"]["point"] == want_msm,
+            f"(a) NCCL, D = 1: sharded_msm at 2^{logn} equals the Python-int oracle")
+    for name in ("a2a", "a2a_coeff_sharded"):
+        require(a[name]["sha"] == want["nccl"] and a[name]["closes"] and a[name]["reruns"] == 0,
+                f"(a) NCCL, D = 1: points_sharded_divisor_witness_{name} at 2^{NCCL_TREE_LOGN} "
+                f"closing points equals the single-device tree")
+    _part_line("msm", 1, "nccl", f"n = {n}", [a["msm"]], card)
+    for name in ("a2a", "a2a_coeff_sharded"):
+        _part_line(name, 1, "nccl", f"points = {1 << NCCL_TREE_LOGN}", [a[name]], card)
+    print(f"  (a) the NCCL world: {a_s:.1f} s with its start", flush=True)
+
+    t0 = time.perf_counter()
+    b = run_world(gloo_rank, SHARDED_D, "gloo", dev, args=(dict(inp, **rounds_in),),
+                  timeout_s=420)
+    b_s = time.perf_counter() - t0
+    print(f"  (b) the gloo world: {b_s:.1f} s with its start; the ranks' host tables "
+          f"{max(r['setup_s'] for r in b):.1f} s", flush=True)
+    for name in ("msm", "msm_2d"):
+        require(all(r[name]["point"] == want_msm for r in b),
+                f"(b) gloo, D = {SHARDED_D}: sharded_{name} at 2^{logn} on every rank equals "
+                f"the Python-int oracle")
+    require(all(r["rounds"]["closes"] for r in b)
+            and [r["rounds"]["round"] for r in b] == list(SHARDED_ROUNDS)
+            and b[SHARDED_ROUNDS.index(ROUND_K)]["rounds"]["sha"] == w28_sha,
+            f"(b) sharded_divisor_witness on rounds {SHARDED_ROUNDS} ({BASE + n + 1} slots "
+            f"each), one a rank: every round closes and round {ROUND_K}'s witness equals the "
+            f"round phase's bit for bit")
+    for name in ("points", "a2a", "a2a_coeff_sharded"):
+        require(all(r[name]["sha"] == want["points"] and r[name]["closes"]
+                    and r[name]["reruns"] == 0 for r in b),
+                f"(b) points_sharded_divisor_witness{'' if name == 'points' else '_' + name} at "
+                f"2^{logn} closing points equals the single-device tree on every rank, no rerun")
+    require(all(r["hierarchical"]["sha"] == want["hier"][r["hierarchical"]["row"]]
+                and r["hierarchical"]["closes"] for r in b),
+            f"(b) hierarchical_divisor_witness on a 2x{SHARDED_D // 2} mesh: two rounds of "
+            f"2^{hier_logn} points padded to {hier_slots} slots equal the single-device tree")
+    require(all(r["unsafe"]["reruns"] == 1 and r["unsafe"]["sha"] == want["unsafe"]
+                for r in b),
+            "(b) the a2a witness on the root-on-domain points: every rank took the replicated "
+            "rerun, and the result equals the single-device tree and ref_divisor")
+    sizes = {"msm": f"n = {n}", "msm_2d": f"n = {n}, mesh = 2x{SHARDED_D // 2}",
+             "rounds": f"rounds = {len(SHARDED_ROUNDS)}, slots = {BASE + n + 1}",
+             "points": f"points = {n}", "a2a": f"points = {n}",
+             "a2a_coeff_sharded": f"points = {n}",
+             "hierarchical": f"rounds = 2, slots = {hier_slots}, mesh = 2x{SHARDED_D // 2}",
+             "unsafe": "points = 128"}
+    for name, what in sizes.items():
+        _part_line(name, SHARDED_D, "gloo", what, [r[name] for r in b], card)
+    seconds = time.perf_counter() - t_phase
+    print(f"  the sharded phase: {seconds:.1f} s", flush=True)
+    return {"phase_s": seconds, "nccl_s": a_s, "gloo_s": b_s}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--logn", type=int, default=20,
@@ -3102,6 +3386,7 @@ def main() -> int:
     carry_s, carry_counts, rounds, carry_state, carry_out = carry_path(
         dev, base_pts, pts, args.logn, args.profile)
     rnd = round_path(dev, pts, carry_state, args.profile)
+    sharded_in, w28_sha = sharded_round_inputs(carry_state), witness_sha(rnd["w"])
     del carry_state
     tally, busy = launch_tally(dev, base_pts, args.logn, pts, rnd)
     lines_in = capture_lines_inputs(pts, rnd)
@@ -3148,6 +3433,7 @@ def main() -> int:
     model = model_path(dev, base_pts, min(16, args.logn))
     oracles = oracle_path(dev)
     circuit = circuit_path(dev)
+    sharded = sharded_path(dev, base_pts, args.logn, sharded_in, w28_sha, card)
 
     by_name = {rec["name"]: rec for rec in recs}
     for name in ab:
@@ -3227,6 +3513,8 @@ def main() -> int:
     print(f"circuit: phase_s = {circuit['phase_s']}, n = {circuit['n']}, rows = {circuit['rows']}, rounds = {circuit['rounds']}, "
           f"assemble_s = {circuit['assemble_s']}, check_s = {circuit['check_s']}, "
           f"card_rounds_s = {circuit['card_rounds_s']}, card = {card}", flush=True)
+    print(f"sharded: phase_s = {sharded['phase_s']}, nccl_world_s = {sharded['nccl_s']}, "
+          f"gloo_world_s = {sharded['gloo_s']}, card = {card}", flush=True)
     print(json.dumps({"kernels": recs}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -118,3 +118,21 @@ def random_point(rng, c: CurveSpec):
 
 def random_points(rng, c: CurveSpec, n: int):
     return [random_point(rng, c) for _ in range(n)]
+
+
+def root_on_domain_points(rng, c: CurveSpec):
+    """128 points whose first 64 sum to -Q, Q = (w^j, y) with w a 128th root
+    of unity (the first j with a point on the curve): at the merge tree's
+    top level (NTT size 128) the root x(a.out) = w^j is an evaluation point,
+    so the fused level's denominator has a zero (divisor's exact fallback;
+    in parallel.mesh's a2a witness, the replicated rerun)."""
+    f = c.field
+    w = f.omega_pow(f.s - 7)
+    for j in range(1, 128):
+        x = pow(w, j, f.p)
+        y = sqrt_tonelli((x * x * x + c.a * x + c.b) % f.p, f)
+        if y is not None:
+            break
+    first = random_points(rng, c, 63)
+    last = ec_neg(ec_add(ec_msm([1] * 63, first, c), (x, y), c), c)
+    return first + [last] + random_points(rng, c, 64)

@@ -146,26 +146,6 @@ def test_lm_tail_equals_em_tail_on_one_level(rng):
     assert all(torch.equal(x, y) for x, y in zip(got.out, want.out))
 
 
-def _root_on_domain_points(rng):
-    """128 points whose first 64 sum to -Q, Q = (w^j, y) with w a 128th root
-    of unity: at the fused top level (NTT size 128) the root x(a.out) = w^j
-    is an evaluation point, so the denominator has a zero."""
-    spec = CURVE.field
-    w = spec.omega_pow(spec.s - 7)
-    for j in range(1, 128):
-        x = pow(w, j, spec.p)
-        y = pyref.sqrt_tonelli((x * x * x + CURVE.a * x + CURVE.b) % spec.p, spec)
-        if y is not None:
-            break
-    q = (x, y)
-    first = pyref.random_points(rng, CURVE, 63)
-    s = None
-    for p in first:
-        s = pyref.ec_add(s, p, CURVE)
-    last = pyref.ec_neg(pyref.ec_add(s, q, CURVE), CURVE)   # first + last sum to -Q
-    return first + [last] + pyref.random_points(rng, CURVE, 64)
-
-
 def _identity_laden_points(rng):
     """128 points, the first 64 P, id, -P, id for 16 points P (their sum
     the identity, so a.out is the identity at the fused level: the bypass),
@@ -189,7 +169,7 @@ def test_fused_level_fallbacks_exact(rng, case):
         half = pyref.random_points(rng, CURVE, 64)
         pts = half + half
     elif case == "root_on_domain":
-        pts = _root_on_domain_points(rng)
+        pts = pyref.root_on_domain_points(rng, CURVE)
     else:
         pts = _identity_laden_points(rng)
     D.reset_level_counts()

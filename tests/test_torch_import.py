@@ -32,6 +32,10 @@ import {PKG}.oracle
 import {PKG}.utils.ref_divisor
 import {PKG}.utils.rustsem
 import {PKG}.circuit.synthesize
+import {PKG}.parallel.comm
+import {PKG}.parallel.launch
+import {PKG}.parallel.mesh
+import {PKG}.parallel.dist_ntt
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "{JAX_PKG}" or m.startswith("{JAX_PKG}."))

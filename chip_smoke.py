@@ -73,9 +73,11 @@ without a card, and on any failed build, failed launch or mismatch.  It
      2^20), (2^21, 2^21)), batch_inv at every (rows, chain length) (and n =
      33, 512, 700, 2^16 and 2^21 rows), zeros planted, against
      FF._inv_host too, the fused scan at every g the tally gives it (and g =
-     256 and 4096); and ranks the eleven kernels that rule 2 covers by
+     256 and 4096); and ranks the thirteen kernels that rule 2 covers by
      launches x (device ms - bound) over the main path (one MSM, one carry
-     stage and 56 rounds like the tallied one),
+     stage and 56 rounds like the tallied one; radix_rank and radix_pass_b
+     with no launch there, and, after phase 13, their loss a radix-route
+     MSM on a line of their own),
   9c. holds poly_mul_naive and kate_div against their plain versions at a
      ragged shape and at the round's shape of the most products, and
      affine_lines at a ragged width and the widest of the round (the
@@ -88,16 +90,25 @@ without a card, and on any failed build, failed launch or mismatch.  It
  12. holds the radix reorder's four kernels (ops/csrc/radix.cuh) against their
      plain versions (torch.equal) at a ragged plan (three tiles of 768 rows,
      the first overflowing its spill rows, the second spilling some) and at
-     the plan of a 2^20, c = 15 window, and times them there beside the one
-     PyTorch call that does the shuffle's scatter (index_copy_) and the
-     compaction's gather (index_select),
+     the plan of a 2^20, c = 15 window, and times shuffle and compact there
+     beside the one PyTorch call that does the shuffle's scatter
+     (index_copy_) and the compaction's gather (index_select); then holds
+     radix_rank and radix_pass_b (warp-vote ranks) and their first designs
+     (radix_rank_v1, radix_pass_b_v1: serial walks) against the plain
+     versions at those plans and at the 2^20 plan of the split top window
+     (c = 14) and the 2^17, c = 12 plan on uniform keys and on phase 15's
+     keys (every row in coarse partition 0), and times both designs in turns
+     at each, with their shares of the bound; radix_pass_b also at R on
+     both sides of its stash's limit (its fine ids kept in shared memory,
+     then read again from the rows),
  13. drives the radix route of the MSM (config.RADIX_MSM): best_multiexp at
      2^20 Pallas points (2^17 with a smaller --logn: the route's least),
      full-width scalars below q (all below 2^254, so max_scalar_bits = 254),
      against the Python-int oracle and the classic route, each radix kernel
-     launched once a window; seconds, device busy time, peak memory and
-     launches of both routes from this call, the spilled rows of every
-     window.  What the route must do follows the predicate that both
+     launched once a window and no first design launched; seconds, device
+     busy time, peak memory and launches of both routes, the device busy
+     time of the route with rank and pass B by their first designs, the
+     spilled rows of every window.  What the route must do follows the predicate that both
      packages share: at 2^20, c = 15, the top window is split off at 14
      bits, and no window overflows and the flag stays clear; at 2^17, c =
      12, the top window's 2 bits are too narrow to split off, it runs at c
@@ -106,11 +117,13 @@ without a card, and on any failed build, failed launch or mismatch.  It
      where the top window is not split off, overflows every tile, and the
      safe redo gives the exact result,
  14. times one 2^20, c = 15 window by both routes, the reorder alone (radix
-     reorder against sort + gather + histogram) and the whole window, on the
-     host clock and as the device's busy time,
+     reorder, also with rank and pass B by their first designs, against sort
+     + gather + histogram) and the whole window, on the host clock and as the
+     device's busy time; one reorder launches each radix kernel once,
  15. drives the radix route's overflow on the card: 2^17 points, scalars
      below 7 (one window, c = 12, every row in coarse partition 0): every tile
-     overflows, the flag is set, and the safe redo is exact,
+     overflows, each radix kernel is launched once, the flag is set, and the
+     safe redo is exact,
  16. drives the curve layer's entry point EC.add_mixed_fast (kernel 9) on 2^20
      lanes: carries from EC.scalar_mul_small, affine points, an identity
      carry, an affine identity and carry == +-Q planted; exactly those flagged
@@ -175,8 +188,9 @@ without a card, and on any failed build, failed launch or mismatch.  It
      replicated rerun, exact; each part's D, backend, sizes, seconds, bytes
      sent a rank by collective kind and peak memory printed.  Four ranks
      time-share one card: the seconds say nothing about scaling,
- 23. prints one JSON line describing the kernels (with phase 9b's shapes
-     and the rule-2 ranking) and, last, one JSON line {"ok": true,
+ 23. prints one JSON line describing the kernels (with phase 9b's shapes,
+     the rule-2 ranking and phase 12's A/B of the two radix designs; the
+     first designs with no launch) and, last, one JSON line {"ok": true,
      "device": {...}}.
 
 Phases 16-19 run after the radix phases, on the round's (phase 9) slots and
@@ -209,10 +223,13 @@ their bytes alone, from this run's inputs.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import hashlib
 import json
 import math
 import random
+import re
 import subprocess
 import sys
 import time
@@ -285,6 +302,8 @@ KERNEL_TABLE = {
     "radix_shuffle": ("radix.cuh", RADIX_PY, 270, 0, 0, 0),
     "radix_pass_b": ("radix.cuh", RADIX_PY, 363, 0, 0, 0),
     "radix_compact": ("radix.cuh", RADIX_PY, 421, 0, 0, 0),
+    "radix_rank_v1": ("radix.cuh", RADIX_PY, 235, 0, 0, 0),
+    "radix_pass_b_v1": ("radix.cuh", RADIX_PY, 363, 0, 0, 0),
     # mont_mul (and mont_addsub) at the coefficient levels' shapes: products,
     # adds and rows from the shape (mul_naive_bound, kate_div_bound)
     "poly_mul_naive": ("poly.cuh", PALLAS_FF, 515, None, None, 0),
@@ -302,6 +321,7 @@ ROUND_KERNELS = ("lm_mul", "lm_addsub", "lm_mul_const", "stage_big", "stages_sma
 POLY_KERNELS = ("poly_mul_naive", "kate_div")
 POLY_PER_LEVEL = {"poly_mul_naive": 10, "kate_div": 4}
 RADIX_KERNELS = ("radix_rank", "radix_shuffle", "radix_pass_b", "radix_compact")
+RADIX_V1 = ("radix_rank_v1", "radix_pass_b_v1")  # first designs: no path launches them
 ROUND_K = 28  # the round of the carry stage the round phase takes (= d // 2)
 BASE = 5  # radix of the argument's digit rounds
 CURVE = PALLAS
@@ -1754,7 +1774,7 @@ def fused_scan_by_g(dev, base_pts, gs, launches: dict, reps: int):
 
 RULE2_KERNELS = ("mont_mul", "mont_addsub", "ec_add_fast", "ec_double", "poly_mul_naive",
                  "kate_div", "affine_lines", "stages_small", "batch_inv",
-                 "fused_madd_scan_xyzz", "ec_add")
+                 "fused_madd_scan_xyzz", "ec_add", "radix_rank", "radix_pass_b")
 
 
 def rule2_ranking(ab: dict) -> dict:
@@ -1783,7 +1803,7 @@ def rule2_ranking(ab: dict) -> dict:
 
 
 def ab_phase(dev, base_pts, tally, lines_in: dict, logn: int, ragged: int, row_shapes: dict,
-             reps: int):
+             radix_recs: dict, reps: int):
     """Phase 9b.  mont_mul, mont_addsub and ec_add_fast against their plain
     versions at every width the tally gives them (mont_addsub and
     ec_add_fast at their kernel-phase shape and the ragged size too),
@@ -1796,9 +1816,10 @@ def ab_phase(dev, base_pts, tally, lines_in: dict, logn: int, ragged: int, row_s
     (and the fused levels' shapes of a 2^20 round), batch_inv at every
     (rows, chain length) (and n = 33, 512, 700, 2^16 and 2^(logn + 1)), the
     fused scan at every g (and 256 and 4096).  Last, the rule-2 ranking of
-    the eleven over the main path (one MSM, one carry stage and 56 rounds
-    like the tallied one).  Returns ({kernel: per-shape records}, the
-    ranking)."""
+    the thirteen over the main path (one MSM, one carry stage and 56 rounds
+    like the tallied one): radix_rank and radix_pass_b with no launch there
+    (the radix route is off), at phase 12's full plan (radix_recs).
+    Returns ({kernel: per-shape records}, the ranking)."""
     rounds = A.num_digits_for(CURVE, BASE)
     on_path = {name: path_launches(tally[name], rounds)
                for name in ("mont_mul", "mont_addsub", "ec_add", "ec_add_fast", "ec_double")}
@@ -1841,7 +1862,36 @@ def ab_phase(dev, base_pts, tally, lines_in: dict, logn: int, ragged: int, row_s
             dev, base_pts, sorted({256, 4096, g} | {k[0] for k in by_key["fused_madd_scan_xyzz"]}),
             by_key["fused_madd_scan_xyzz"], max(1, reps // 10)),
     })
+    for name, rec in radix_recs.items():
+        out[name] = [{"shape": rec["shape"], "launches": 0, "ms": rec["ms"],
+                      "bound_ms": rec["bound_ms"]}]
     return out, rule2_ranking(out)
+
+
+def radix_rule2(radix_recs: dict, plans: dict, radix: dict) -> dict:
+    """radix_rank and radix_pass_b in the rule-2 ranking on their own path:
+    launches x (ms - bound) over one radix-route MSM (phase 13's launch
+    counts), each window at its plan's time from phase 12 (the top window at
+    its split width where it is split off), for the second design and the
+    first."""
+    out = {}
+    for name, rec in radix_recs.items():
+        rows = {r["plan"]: r for r in rec["radix_ab"]}
+        launches = radix["radix"]["counts"][name]
+        per_plan = {plans["full"]: launches}
+        if radix["split"]:
+            per_plan = {plans["full"]: launches - 1, plans["top"]: 1}
+        loss = {lab: sum(k * (rows[key][f"{lab}_ms"] - rows[key]["bound_ms"])
+                         for key, k in per_plan.items()) for lab in ("v2", "v1")}
+        bound = sum(k * rows[key]["bound_ms"] for key, k in per_plan.items())
+        share = bound / sum(k * rows[key]["v2_ms"] for key, k in per_plan.items())
+        out[name] = {"launches_radix_msm": launches, "gap_ms_radix_msm": loss["v2"],
+                     "gap_ms_radix_msm_v1": loss["v1"], "bound_share_by_time_radix_msm": share}
+        print(f"  rule-2 ranking, radix route: {name}: 0 launches on the main path (the route "
+              f"is off); {launches} launches a radix-route MSM ({per_plan}), launches x (ms - "
+              f"bound) = {loss['v2']:.3f} ms a radix-route MSM (first design {loss['v1']:.3f} "
+              f"ms), share of the bound by time {share:.3f}", flush=True)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2175,12 +2225,12 @@ def divisor_fallback_path(dev):
 # phase 12: the radix reorder's four kernels
 # ---------------------------------------------------------------------------
 
-def radix_inputs(nprng, dev, n: int, c: int, T, crowd=()):
-    """One window's keys (uniform in [0, 2^c)) and packed rows (random words,
-    1 % all-zero rows of no point); crowd[t] rows of tile t moved into
-    coarse partition 9.  Returns (plan, keys, payload)."""
+def radix_inputs(nprng, dev, n: int, c: int, T, crowd=(), keys_below=None):
+    """One window's keys (uniform in [0, 2^c), or in [0, keys_below)) and
+    packed rows (random words, 1 % all-zero rows of no point); crowd[t] rows
+    of tile t moved into coarse partition 9.  Returns (plan, keys, payload)."""
     plan = RX.make_plan(n, c, T)
-    keys = nprng.integers(0, 1 << c, size=n).astype(np.int32)
+    keys = nprng.integers(0, keys_below or 1 << c, size=n).astype(np.int32)
     pay = nprng.integers(0, 1 << 32, size=(n, 16), dtype=np.uint32).view(np.int32)
     pay[nprng.random(n) < 0.01] = 0
     for t, k in enumerate(crowd):
@@ -2189,17 +2239,115 @@ def radix_inputs(nprng, dev, n: int, c: int, T, crowd=()):
     return plan, torch.from_numpy(keys).to(dev), torch.from_numpy(pay).to(dev)
 
 
+def radix_bytes(name: str, d: dict) -> int:
+    """Bytes a radix kernel must move on one plan's inputs: each input read
+    once (the shuffle's and the compaction's payload rows where they land),
+    each output written once, the image's and the stream's zero rows
+    included (the kernels write them)."""
+    p = d["plan"]
+    if name.startswith("radix_rank"):
+        return p.n * (4 + ROW_BYTES + 4) + p.n_tiles * p.P * 4
+    if name == "radix_shuffle":
+        return p.n * 4 + d["landed"] * (ROW_BYTES + 4) + p.n_tiles * p.OUT_ROWS * 80
+    if name.startswith("radix_pass_b"):
+        # the payload and the key of each slot row (the image's zero
+        # columns 17-19 are never read)
+        return (p.P * p.R * (ROW_BYTES + 4) + p.P * p.R_pad * ROW_BYTES
+                + p.P * ((1 << p.fb) + 1) * 4)
+    gathered = min(p.n_ext, int(d["base4"][-1]) + p.R_pad)
+    return p.P * 4 + (gathered + p.n_ext) * ROW_BYTES
+
+
+# the two redesigned kernels: name -> (the designs timed, by label; the
+# plain version; its inputs from a plan's state)
+RADIX_AB = {
+    "radix_rank": ({"v2": CR.rank, "v1": CR.rank_v1}, CR.rank_plain,
+                   lambda d: (d["keys"], d["pay"])),
+    "radix_pass_b": ({"v2": CR.pass_b, "v1": CR.pass_b_v1}, CR.pass_b_plain,
+                     lambda d: (d["main"],)),
+}
+
+
+def radix_ab(dev, st: dict, full: str, reps: int):
+    """radix_rank and radix_pass_b (second design) and their first designs
+    against the plain version, torch.equal, on every plan of st, and both
+    timed there in turns (v2, v1, v1, v2; CUDA events while a spin kernel
+    holds the queue), each with its share of the bound.  Returns the JSON
+    records of the four kernels (v2 and v1 at the full plan, every plan
+    under "radix_ab")."""
+    recs = []
+    for name, (designs, plain, args_of) in RADIX_AB.items():
+        print(f"kernel {name} and {name}_v1", flush=True)
+        rows = []
+        for key, d in st.items():
+            p, args = d["plan"], args_of(d)
+            want = flatten_outs(plain(p, *args))
+            sync(dev)
+            t0 = time.perf_counter()
+            plain(p, *args)
+            sync(dev)
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            errs = {}
+            for label, fn in designs.items():
+                errs[label] = outputs_equal(flatten_outs(fn(p, *args)), want)
+                require(errs[label] == 0, f"{name} ({label}) equals {name}_plain at {key} "
+                                          f"(max abs diff {errs[label]})")
+            ms = {label: [] for label in designs}
+            calls = {}
+            for label in [*designs, *reversed(designs)]:
+                fn = designs[label]
+                dev_ms, calls[label] = time_ms(dev, lambda fn=fn: fn(p, *args), reps)
+                ms[label].append(dev_ms)
+            b_ms = radix_bytes(name, d) / HBM_BYTES_PER_S * 1e3
+            row = {"plan": key, "bound_ms": b_ms, "plain_ms": plain_ms,
+                   "max_abs_err": max(errs.values())}
+            for label in designs:
+                row[f"{label}_ms"] = sum(ms[label]) / 2
+                row[f"{label}_runs"], row[f"{label}_call_ms"] = ms[label], calls[label]
+                row[f"share_{label}"] = b_ms / row[f"{label}_ms"]
+            rows.append(row)
+            print(f"  A/B {name} at {key}: " + ", ".join(
+                      f"{label} {row[f'{label}_ms']:.4f} ms" for label in designs)
+                  + f" on the device ({row['v1_ms'] / row['v2_ms']:.2f}x v1 / v2), bound "
+                  f"{b_ms:.5f} ms (bytes); share of the bound " + ", ".join(
+                      f"{label} {row[f'share_{label}']:.3f}" for label in designs)
+                  + f"; plain {plain_ms:.1f} ms", flush=True)
+        top = next(r for r in rows if r["plan"] == full)
+        src, tpu_file, line = KERNEL_TABLE[name][:3]
+        for label, rec_name in (("v2", name), ("v1", name + "_v1")):
+            recs.append({"name": rec_name, "route": "cuda", "source": CSRC + src,
+                         "replaces": f"{tpu_file}:{line}", "launches": 0,
+                         "max_abs_err": max(r["max_abs_err"] for r in rows),
+                         "ms": top[f"{label}_ms"], "plain_ms": top["plain_ms"],
+                         "bound_ms": top["bound_ms"], "bound_by": "bytes", "library_ms": None,
+                         "shape": full, "call_ms": top[f"{label}_call_ms"], "radix_ab": rows})
+    return recs
+
+
 def check_radix_kernels(dev, logn: int, reps: int):
     """The four kernels of csrc/radix.cuh against their plain versions at a
-    ragged plan and at the plan of one 2^logn window (c = pick_window), the
-    last timed.  Each kernel's inputs come from the kernels before it.  The
-    bound is bytes: each input read once (the shuffle's and the compaction's
-    payload rows where they land), each output written once, the image's and
-    the stream's zero rows included (the kernels write them)."""
+    ragged plan and at the plan of one 2^L window (L = max(logn, 17), c =
+    pick_window), shuffle and compact timed there.  Each kernel's inputs come
+    from the kernels before it.  Then radix_rank and radix_pass_b, each
+    beside its first design (radix_ab), at those plans and at: the split top
+    window's width at 2^L (max_scalar_bits = 254), and 2^17, c = 12 on
+    uniform keys and on keys below 7 (phase 15's: every row in coarse
+    partition 0, every tile overflowing).  Returns (the JSON records, the
+    plans' keys by name)."""
     nprng = np.random.default_rng(0x4AD1)
-    n = 1 << logn
+    big = max(logn, 17)
+    n = 1 << big
+    c = M.pick_window(n)
+    _, c_top, split = top_window(n, c, CURVE.scalar_field.p.bit_length() - 1)
+    full = f"2^{big}, c = {c}"
     cases = {"ragged": radix_inputs(nprng, dev, 3 * 768, 10, 768, crowd=(400, 60)),
-             "full": radix_inputs(nprng, dev, n, M.pick_window(n), M.RADIX_TILE)}
+             full: radix_inputs(nprng, dev, n, c, M.RADIX_TILE)}
+    if split:
+        cases[f"2^{big}, c = {c_top}"] = radix_inputs(nprng, dev, n, c_top, M.RADIX_TILE)
+    c17 = M.pick_window(1 << 17)
+    cases[f"2^17, c = {c17}"] = radix_inputs(nprng, dev, 1 << 17, c17, M.RADIX_TILE)
+    cases[f"2^17, c = {c17}, one partition"] = radix_inputs(
+        nprng, dev, 1 << 17, c17, M.RADIX_TILE, keys_below=7)
     st = {}
     for key, (plan, keys, pay) in cases.items():
         dst, cnt = CR.rank(plan, keys, pay)
@@ -2210,42 +2358,24 @@ def check_radix_kernels(dev, logn: int, reps: int):
         st[key] = dict(plan=plan, keys=keys, pay=pay, dst=dst, main=main, parts=parts,
                        base4=base4, spills=spills, landed=int((dst < plan.OUT_ROWS).sum()))
         print(f"  radix plan {key}: n = {plan.n}, c = {plan.c}, T = {plan.T}, P = {plan.P}, "
-              f"S = {plan.S}, SP = {plan.SP}, OUT_ROWS = {plan.OUT_ROWS}, R = {plan.R}, "
-              f"R_pad = {plan.R_pad}, n_ext = {plan.n_ext}; spills a tile: "
+              f"fb = {plan.fb}, S = {plan.S}, SP = {plan.SP}, OUT_ROWS = {plan.OUT_ROWS}, "
+              f"R = {plan.R}, R_pad = {plan.R_pad}, n_ext = {plan.n_ext}; spills a tile: "
               f"{spills.tolist()[:8]}", flush=True)
     spills, sp = st["ragged"]["spills"], st["ragged"]["plan"].SP
     require(int(spills[0]) > sp and 0 < int(spills[1]) <= sp,
             "the ragged plan's tile 0 overflows its spill rows and tile 1 spills within them")
+    one = st[f"2^17, c = {c17}, one partition"]
+    require(bool((one["spills"] > one["plan"].SP).all()),
+            "keys below 7 at 2^17: every row in coarse partition 0, every tile overflows")
 
     def shape(key):
         p = st[key]["plan"]
         return f"n = {p.n}, c = {p.c}, T = {p.T}, P = {p.P}"
 
-    def bytes_of(name):
-        def count(key):
-            d = st[key]
-            p = d["plan"]
-            if name == "radix_rank":
-                return p.n * (4 + ROW_BYTES + 4) + p.n_tiles * p.P * 4
-            if name == "radix_shuffle":
-                return p.n * 4 + d["landed"] * (ROW_BYTES + 4) + p.n_tiles * p.OUT_ROWS * 80
-            if name == "radix_pass_b":
-                # the payload and the key of each slot row (the image's
-                # zero columns 17-19 are never read)
-                return (p.P * p.R * (ROW_BYTES + 4) + p.P * p.R_pad * ROW_BYTES
-                        + p.P * ((1 << p.fb) + 1) * 4)
-            gathered = min(p.n_ext, int(d["base4"][-1]) + p.R_pad)
-            return p.P * 4 + (gathered + p.n_ext) * ROW_BYTES
-        return count
-
     calls = {
-        "radix_rank": (lambda d: (d["keys"], d["pay"]),
-                       lambda p, k, y: CR.rank(p, k, y), lambda p, k, y: CR.rank_plain(p, k, y)),
         "radix_shuffle": (lambda d: (d["keys"], d["dst"], d["pay"]),
                           lambda p, k, t, y: (CR.shuffle(p, k, t, y),),
                           lambda p, k, t, y: (CR.shuffle_plain(p, k, t, y),)),
-        "radix_pass_b": (lambda d: (d["main"],), lambda p, m: CR.pass_b(p, m),
-                         lambda p, m: CR.pass_b_plain(p, m)),
         "radix_compact": (lambda d: (d["parts"], d["base4"]),
                           lambda p, a, b: (CR.compact(p, a, b),),
                           lambda p, a, b: (CR.compact_plain(p, a, b),)),
@@ -2254,14 +2384,14 @@ def check_radix_kernels(dev, logn: int, reps: int):
     for name, (args_of, kernel, plain) in calls.items():
         recs.append(check_kernel(
             dev, name, kernel, plain, lambda key: (st[key]["plan"], *args_of(st[key])),
-            ["ragged", "full"], reps, elems_of=lambda key: 0, extra_bytes_of=bytes_of(name),
-            shape_of=shape))
+            ["ragged", full], reps, elems_of=lambda key: 0,
+            extra_bytes_of=lambda key, name=name: radix_bytes(name, st[key]), shape_of=shape))
 
     # the one PyTorch call for the same data movement, and its result.  The
     # shuffle's is timed with the zero fill of the image (the kernel writes
     # every image row), not with the build of its flat indices and source
     # rows (the key column appended), which the kernel does in place
-    d = st["full"]
+    d = st[full]
     p = d["plan"]
     kept = (d["dst"] < p.OUT_ROWS).nonzero().flatten()
     flat = torch.div(kept, p.T, rounding_mode="floor") * p.OUT_ROWS + d["dst"][kept]
@@ -2280,17 +2410,75 @@ def check_radix_kernels(dev, logn: int, reps: int):
     lib_compact = lambda: table.index_select(0, rowmap)
     require(torch.equal(lib_compact(), CR.compact(p, d["parts"], d["base4"])),
             "index_select through the row map equals radix_compact at the full plan")
-    for rec, lib in zip(recs, (None, lib_shuffle, None, lib_compact)):
-        if lib is not None:
-            rec["library_ms"] = time_ms(dev, lib, reps)[0]
-            print(f"  time {rec['name']}: one PyTorch call {rec['library_ms']:.4f} ms on "
-                  f"the device", flush=True)
-    return recs
+    for rec, lib in zip(recs, (lib_shuffle, lib_compact)):
+        rec["library_ms"] = time_ms(dev, lib, reps)[0]
+        print(f"  time {rec['name']}: one PyTorch call {rec['library_ms']:.4f} ms on "
+              f"the device", flush=True)
+    recs += radix_ab(dev, st, full, reps)
+    next(r for r in recs if r["name"] == "radix_pass_b")["stash_limit"] = pass_b_routes(
+        dev, st[full]["plan"], reps)
+    return recs, {"full": full, "top": f"2^{big}, c = {c_top}" if split else None}
+
+
+def pass_b_stash_rows() -> int:
+    """RADIX_PASS_B_STASH of csrc/radix.cuh: the R up to which radix_pass_b
+    keeps its first pass's fine ids in shared memory."""
+    src = (CF._CSRC / "radix.cuh").read_text()
+    return int(re.search(r"#define RADIX_PASS_B_STASH (\d+)", src).group(1))
+
+
+def pass_b_routes(dev, full, reps: int):
+    """radix_pass_b on both sides of its stash's limit L (pass_b_stash_rows):
+    the full plan's P and fb with R = L (fine ids kept in shared memory) and
+    R = L + 256 (read again from the rows), image rows as a window's (each
+    S-row slot block begins with its valid rows, about half of them).  Each
+    against pass_b_plain (torch.equal) and timed, with its time a row and
+    share of the bound.  Returns the two records."""
+    gen = torch.Generator(device=dev).manual_seed(0x5A5B)
+    limit = pass_b_stash_rows()
+    out = []
+    for R in (limit, limit + 256):
+        R_pad = -(-R // 512) * 512
+        plan = dataclasses.replace(full, R=R, R_pad=R_pad)
+        main = torch.randint(-1 << 31, 1 << 31, (plan.P, R, 20), generator=gen, device=dev,
+                             dtype=torch.int32)
+        main[..., 17:] = 0
+        fill = torch.randint(0, plan.S + 1, (plan.P, R // plan.S, 1), generator=gen,
+                             device=dev)
+        slot = torch.arange(plan.S, device=dev)
+        main[(slot >= fill).reshape(plan.P, R)] = 0
+        err = outputs_equal(flatten_outs(CR.pass_b(plan, main)),
+                            flatten_outs(CR.pass_b_plain(plan, main)))
+        route = "stash" if R <= limit else "re-read"
+        require(err == 0, f"radix_pass_b ({route}) equals radix_pass_b_plain at P = {plan.P}, "
+                          f"R = {R}, fb = {plan.fb}")
+        dev_ms, _ = time_ms(dev, lambda: CR.pass_b(plan, main), reps)
+        b_ms = radix_bytes("radix_pass_b", {"plan": plan}) / HBM_BYTES_PER_S * 1e3
+        rec = {"R": R, "route": route, "ms": dev_ms, "ns_a_row": dev_ms * 1e6 / (plan.P * R),
+               "bound_ms": b_ms, "share": b_ms / dev_ms}
+        out.append(rec)
+        print(f"  radix_pass_b at P = {plan.P}, R = {R} ({route}): {dev_ms:.4f} ms on the "
+              f"device, {rec['ns_a_row']:.5f} ns a row, bound {b_ms:.4f} ms, share "
+              f"{rec['share']:.3f}", flush=True)
+        del main
+    return out
 
 
 # ---------------------------------------------------------------------------
 # phase 13: the radix route of the MSM
 # ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def radix_first_designs():
+    """The radix route with rank and pass B by their first designs
+    (radix_rank_v1, radix_pass_b_v1), for a comparison beside a path."""
+    rank, pass_b = CR.rank, CR.pass_b
+    CR.rank, CR.pass_b = CR.rank_v1, CR.pass_b_v1
+    try:
+        yield
+    finally:
+        CR.rank, CR.pass_b = rank, pass_b
+
 
 def timed_msms(dev, scalars, pts, bits: int, runs: int = 3):
     """Three timed best_multiexp calls after a warm-up (host clock, each
@@ -2390,11 +2578,25 @@ def radix_msm_path(dev, base_pts, logn: int):
     for name in RADIX_KERNELS:
         require(r["counts"][name] == num_windows,
                 f"{name} was launched once a window on the radix route ({r['counts'][name]})")
+    require(all(r["counts"][name] == 0 for name in RADIX_V1),
+            "the first designs (radix_rank_v1, radix_pass_b_v1) were not launched on the route")
     for route in ("radix", "classic"):
         o = out[route]
         print(f"  {route}: runs " + ", ".join(f"{t:.4f}" for t in o["runs"])
               + f" s; device busy {o['busy_ms']:.2f} ms; peak {o['peak'] / 2**20:.0f} MiB; "
               f"{o['launches']} kernel launches of the port's", flush=True)
+    # the same MSM with rank and pass B by their first designs, its device
+    # busy beside the route's (a comparison, not a path)
+    try:
+        config.RADIX_MSM = True
+        with radix_first_designs():
+            out["radix_v1_busy_ms"] = device_busy_ms(
+                dev, lambda: M.best_multiexp(CURVE, scalars, pts, max_scalar_bits=bits))
+    finally:
+        config.RADIX_MSM = False
+    print(f"  radix route with rank and pass B by their first designs: device busy "
+          f"{out['radix_v1_busy_ms']:.2f} ms, against {r['busy_ms']:.2f} ms", flush=True)
+    out.update(windows=num_windows, split=split)
 
     # spilled rows of every window at the width it runs at, and the top
     # window at c (the default bound)
@@ -2449,9 +2651,11 @@ def radix_msm_path(dev, base_pts, logn: int):
 
 def radix_window_routes(dev, base_pts, logn: int, reps: int = 5):
     """One c = pick_window window of the main path's inputs (window 0) by both
-    routes: the reorder alone and the whole window, host clock (best of
-    `reps` after a warm-up, each ending in a synchronise) and device busy
-    time of one call.  The window sums must be equal."""
+    routes: the reorder alone (by the radix route also with rank and pass B
+    by their first designs) and the whole window, host clock (best of `reps`
+    after a warm-up, each ending in a synchronise) and device busy time of
+    one call.  The window sums must be equal, and one radix_window must
+    launch each radix kernel once."""
     n = 1 << logn
     c = M.pick_window(n)
     print(f"one window by both routes at n = 2^{logn}, c = {c}", flush=True)
@@ -2468,8 +2672,20 @@ def radix_window_routes(dev, base_pts, logn: int, reps: int = 5):
             windows[route] = M._make_one_window(E, c, "fast", pay, n)
         finally:
             config.RADIX_MSM = False
+    def reorder_v1():
+        with radix_first_designs():
+            return RX.radix_window(plan, keys, pay)
+
+    CF.reset_launch_counts()
+    got = RX.radix_window(plan, keys, pay)
+    require(all(CF.LAUNCHES[k] == 1 for k in RADIX_KERNELS)
+            and not any(CF.LAUNCHES[k] for k in RADIX_V1),
+            "one radix_window launched each of the four radix kernels once, no first design")
+    require(all(torch.equal(a, b) for a, b in zip(got, reorder_v1())),
+            "the reorder by the first designs of rank and pass B gives the same outputs")
     fns = {
         ("reorder", "radix"): lambda: RX.radix_window(plan, keys, pay),
+        ("reorder", "radix, first designs"): reorder_v1,
         ("reorder", "classic"): lambda: (pay[torch.sort(keys, stable=True).indices],
                                          M.bucket_bounds_hist(keys, c)),
         ("window", "radix"): lambda: windows["radix"](keys),
@@ -2527,8 +2743,10 @@ def radix_overflow_path(dev, base_pts, logn: int = 17):
         config.RADIX_MSM = True
         CF.reset_launch_counts()
         _, exc = M._best_multiexp(CURVE, c, 3, "fast", scalars, pts)
-        require(all(CF.LAUNCHES[k] > 0 for k in RADIX_KERNELS),
-                "the four radix kernels were launched on the overflowing window")
+        require(all(CF.LAUNCHES[k] == 1 for k in RADIX_KERNELS)
+                and not any(CF.LAUNCHES[k] for k in RADIX_V1),
+                "the four radix kernels were launched once on the overflowing window, no "
+                "first design")
         require(bool(exc), "the radix route's fast flavor flags the overflow")
         CF.reset_launch_counts()
         res = M.best_multiexp(CURVE, scalars, pts, max_scalar_bits=3)
@@ -3377,7 +3595,8 @@ def main() -> int:
     recs = check_kernels(dev, base_pts, ragged=ragged, shapes=shapes,
                          scan_small_g=2050, reps=50)
     recs += check_ntt_kernels(dev, ragged=5000, reps=50, top_logn=args.logn + 1)
-    recs += check_radix_kernels(dev, args.logn, reps=50)
+    radix_recs, radix_plans = check_radix_kernels(dev, args.logn, reps=50)
+    recs += radix_recs
 
     seconds, msm_counts, (scalars, pts) = main_path(dev, base_pts, args.logn)
     if args.profile:
@@ -3390,7 +3609,9 @@ def main() -> int:
     del carry_state
     tally, busy = launch_tally(dev, base_pts, args.logn, pts, rnd)
     lines_in = capture_lines_inputs(pts, rnd)
-    ab, ranking = ab_phase(dev, base_pts, tally, lines_in, args.logn, ragged, shapes, reps=50)
+    radix_by_name = {rec["name"]: rec for rec in radix_recs if rec["name"] in RADIX_AB}
+    ab, ranking = ab_phase(dev, base_pts, tally, lines_in, args.logn, ragged, shapes,
+                           radix_by_name, reps=50)
     # the coefficient levels' two: their records at the shape of the most
     # products in a round and at a ragged one; the merge head's at a ragged
     # width and the widest of the round
@@ -3421,6 +3642,8 @@ def main() -> int:
     radix_logn = max(args.logn, 17)
     radix = radix_msm_path(dev, base_pts, radix_logn)
     radix_counts = radix["radix"]["counts"]
+    for name, r in radix_rule2(radix_by_name, radix_plans, radix).items():
+        ranking[name].update(r)
     window_routes = radix_window_routes(dev, base_pts, radix_logn)
     radix_overflow_path(dev, base_pts)
     # the paths of this slice last, on the round phase's slots and witness and
@@ -3450,7 +3673,7 @@ def main() -> int:
         rec["launches"] = (fallback_counts if name in FALLBACK_KERNELS else
                            rnd["counts"] if name in ROUND_KERNELS + POLY_KERNELS
                            + ("affine_lines",) else
-                           radix_counts if name in RADIX_KERNELS else
+                           radix_counts if name in RADIX_KERNELS + RADIX_V1 else
                            amf_counts if name == "ec_add_mixed_fast" else msm_counts).get(name, 0)
         for key, counts in by_phase.items():
             rec[key] = counts.get(name, 0)
@@ -3461,7 +3684,10 @@ def main() -> int:
               f"{rec['launches_naive']} (naive arrangement), {rec['launches_model']} (model "
               f"forward), {rec['launches_config4']} (config 4); {rec['ms']} ms each on "
               f"the device at shape {rec['shape']}", flush=True)
-        require(rec["launches"] > 0, f"{name} was launched on the path that runs it")
+        if name in RADIX_V1:
+            require(rec["launches"] == 0, f"{name}, a first design, was launched on no path")
+        else:
+            require(rec["launches"] > 0, f"{name} was launched on the path that runs it")
 
     print(f"msm: n = {n}, seconds = {seconds}, points_per_s = {n / seconds}, card = {card}",
           flush=True)
@@ -3496,6 +3722,9 @@ def main() -> int:
         print(f"msm route: route = {route}, n = {1 << radix_logn}, runs = {o['runs']}, "
               f"device_busy_ms = {o['busy_ms']}, peak_mib = {o['peak'] / 2**20}, "
               f"launches = {o['launches']}, card = {card}", flush=True)
+    print(f"msm route: route = radix, rank and pass B by their first designs, n = "
+          f"{1 << radix_logn}, device_busy_ms = {radix['radix_v1_busy_ms']}, card = {card}",
+          flush=True)
     print(f"msm route: route = radix at {CURVE.scalar_field.p.bit_length()} bits (safe redo), "
           f"n = {1 << radix_logn}, seconds = {radix['overflowing']['seconds']}, "
           f"launches = {radix['overflowing']['launches']}, card = {card}", flush=True)

@@ -73,8 +73,10 @@ KERNELS = ("mont_mul", "batch_inv", "mont_addsub", "ec_add", "ec_add_fast",
            "ec_add_mixed_fast",
            # the divisor merge tree's five, in csrc/ntt.cuh (ops/cuda_ntt.py)
            "lm_mul", "lm_addsub", "lm_mul_const", "stage_big", "stages_small",
-           # the radix reorder's four, in csrc/radix.cuh (ops/cuda_radix.py)
+           # the radix reorder's four, in csrc/radix.cuh (ops/cuda_radix.py),
+           # and the first designs of two of them (no path launches those)
            "radix_rank", "radix_shuffle", "radix_pass_b", "radix_compact",
+           "radix_rank_v1", "radix_pass_b_v1",
            # the coefficient levels' two, in csrc/poly.cuh (ops/cuda_poly.py)
            "poly_mul_naive", "kate_div",
            # the merge head's, in csrc/lines.cuh (ops/cuda_lines.py)
@@ -190,8 +192,10 @@ def _lib():
             "stage_big_launch": [fpp, ci, vp, vp, vp, i64, i64, i64, vp],
             "stages_small_launch": [fpp, ci, vp, vp, vp, i64, ci, i64, vp],
             "radix_rank_launch": [vp, vp, vp, vp, i64] + [ci] * 6 + [vp],
+            "radix_rank_v1_launch": [vp, vp, vp, vp, i64] + [ci] * 6 + [vp],
             "radix_shuffle_launch": [vp, vp, vp, vp, i64, ci, ci, vp],
             "radix_pass_b_launch": [vp, vp, vp, ci, i64, i64, ci, vp],
+            "radix_pass_b_v1_launch": [vp, vp, vp, ci, i64, i64, ci, vp],
             "radix_compact_launch": [vp, vp, vp, ci, i64, i64, vp],
             "poly_mul_naive_launch":
                 [fpp, vp, vp, vp, i64, ci, ci, i64, i64, ci, ci, ci, ci, vp],

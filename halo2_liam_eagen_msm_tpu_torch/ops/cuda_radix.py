@@ -16,6 +16,11 @@ ops/cuda_ff.py's library, launcher and LAUNCHES) carry ops/radix.radix_window:
   radix_compact   _compact_kernel           the partitions' row blocks at
                                             their 64-row aligned bases
 
+radix_rank and radix_pass_b rank rows by warp votes and a scan of per-warp
+counts; their first designs, which walk the rows of a chunk serially, stay
+as rank_v1 and pass_b_v1 (kernels radix_rank_v1, radix_pass_b_v1) for one
+comparison on the card.  No path calls them.
+
 Every function takes the window's RadixPlan (ops/radix.make_plan) for its
 shapes.  Tensors are int32: keys (n,) in [0, 2^c); packed payload rows (n,
 16) as ops/msm._pack_pair makes them (all 32 bits used; the all-zero row is
@@ -69,13 +74,22 @@ def rank(plan, keys, pay):
     next ones while the tile's SP spill rows last, OUT_ROWS (dropped) for a
     row of no point, a key past 2^c (the caller flags those) and spills past
     SP.  cnt: valid rows of each (tile, partition), spilled ones included."""
-    _check_window("radix_rank", plan, keys, pay)
+    return _rank_by("radix_rank", plan, keys, pay)
+
+
+def rank_v1(plan, keys, pay):
+    """rank by the first design (radix_rank_v1)."""
+    return _rank_by("radix_rank_v1", plan, keys, pay)
+
+
+def _rank_by(kernel: str, plan, keys, pay):
+    _check_window(kernel, plan, keys, pay)
     if not CF._use_kernel(keys):
         return rank_plain(plan, keys, pay)
-    _check("radix_rank", keys, pay)
+    _check(kernel, keys, pay)
     dst = torch.empty_like(keys)
     cnt = torch.empty((plan.n_tiles, plan.P), dtype=torch.int32, device=keys.device)
-    CF._launch("radix_rank", keys.device, keys.data_ptr(), pay.data_ptr(), dst.data_ptr(),
+    CF._launch(kernel, keys.device, keys.data_ptr(), pay.data_ptr(), dst.data_ptr(),
                cnt.data_ptr(), plan.n_tiles, plan.T, plan.fb, plan.P, plan.S, plan.SP,
                plan.OUT_ROWS)
     return dst, cnt
@@ -104,20 +118,31 @@ def pass_b(plan, main):
     """main (P, R, 20), each partition's slot rows -> (parts (P, R_pad, 16),
     fc (P, 2^fb + 1)).  parts[p]: the rows with a point, stably sorted by fine
     id (key & (2^fb - 1)), then zeros; fc[p, f]: rows of fine id f, and in the
-    last column the rows of no point."""
+    last column the rows of no point.  The kernel keeps its first pass's fine
+    ids in shared memory where R <= RADIX_PASS_B_STASH of csrc/radix.cuh,
+    else it reads the rows' key words again."""
+    return _pass_b_by("radix_pass_b", plan, main)
+
+
+def pass_b_v1(plan, main):
+    """pass_b by the first design (radix_pass_b_v1)."""
+    return _pass_b_by("radix_pass_b_v1", plan, main)
+
+
+def _pass_b_by(kernel: str, plan, main):
     if plan.fb > MAX_FB:
-        raise ValueError(f"radix_pass_b: fb = {plan.fb} > {MAX_FB} (2^fb + 1 fine ids "
+        raise ValueError(f"{kernel}: fb = {plan.fb} > {MAX_FB} (2^fb + 1 fine ids "
                          "must fit the pass's 65 bins, as the TPU's FB_COLS == 128)")
     if main.shape != (plan.P, plan.R, IMG_COLS):
-        raise ValueError(f"radix_pass_b: expected ({plan.P}, {plan.R}, {IMG_COLS}), "
+        raise ValueError(f"{kernel}: expected ({plan.P}, {plan.R}, {IMG_COLS}), "
                          f"got {tuple(main.shape)}")
     if not CF._use_kernel(main):
         return pass_b_plain(plan, main)
-    _check("radix_pass_b", main)
+    _check(kernel, main)
     parts = torch.empty((plan.P, plan.R_pad, 16), dtype=torch.int32, device=main.device)
     fc = torch.empty((plan.P, (1 << plan.fb) + 1), dtype=torch.int32, device=main.device)
-    CF._launch("radix_pass_b", main.device, main.data_ptr(), parts.data_ptr(), fc.data_ptr(),
-               plan.P, plan.R, plan.R_pad, plan.fb)
+    CF._launch(kernel, main.device, main.data_ptr(), parts.data_ptr(), fc.data_ptr(), plan.P,
+               plan.R, plan.R_pad, plan.fb)
     return parts, fc
 
 

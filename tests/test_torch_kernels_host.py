@@ -7,15 +7,17 @@ held against its plain PyTorch version on CPU tensors.
 
 The shim rewrites `kernel<<<grid, block, smem, stream>>>(...)` into a call of
 host_launch, which runs the blocks one after another and each thread of a
-block as a std::thread.  The threads of a block take turns: one runs at a
+block as a coroutine (ucontext) on the calling thread, with a stack of its
+own.  The threads of a block take turns: one runs at a
 time, in a fixed order (ascending thread index in even blocks, descending in
 odd ones), and hands on to the next at each __syncthreads() or __syncwarp()
 and when it returns; so a barrier is a whole round of the block (every
 kernel reaches each __syncwarp() with all its lanes, so a block-wide barrier
 is a stricter one), and a value read from another thread without a barrier
 between its write and the read is, deterministically, the stale one for
-half the pairs.  __shfl_sync and __shfl_up_sync go through a per-block
-exchange array between two barriers.  __shared__ arrays and the extern
+half the pairs.  __shfl_sync and __shfl_up_sync, and the warp votes
+__ballot_sync and __match_any_sync, go through a per-block exchange array
+between two barriers; __popc is the compiler's popcount.  __shared__ arrays and the extern
 __shared__ dynamic array are static (one block is alive at a time; the
 launch's dynamic size is ignored), cudaFuncSetAttribute a stub and atomicAdd
 an atomic fetch-and-add.
@@ -25,6 +27,7 @@ wrappers' pointer plumbing; that the sources compile with nvcc and run on
 the card is chip_smoke.py's business.  Integer arithmetic: torch.equal."""
 
 import ctypes
+import dataclasses
 import re
 import shutil
 import subprocess
@@ -57,9 +60,8 @@ _CSRC = Path(CF.__file__).resolve().parent / "csrc"
 
 _SHIM = """
 #include <stdint.h>
-#include <memory>
-#include <semaphore>
-#include <thread>
+#include <stdlib.h>
+#include <ucontext.h>
 #include <vector>
 #define __device__
 #define __global__
@@ -69,29 +71,49 @@ _SHIM = """
 #define __shared__ static
 struct uint4 { uint32_t x, y, z, w; };
 struct idx3 { unsigned int x; };
-static thread_local idx3 blockIdx, threadIdx;
-static idx3 blockDim, gridDim;
-// The threads of one block, taking turns: thread at place k of the order
-// runs while it holds turn[k] and hands on to the next live place.
+static idx3 blockIdx, threadIdx, blockDim, gridDim;
+// The threads of one block, coroutines on the launching thread taking turns:
+// the one at place cur of the order runs until a barrier or its end, then
+// hands on to the next live place.
 struct HostBlock {
-  std::vector<std::unique_ptr<std::binary_semaphore>> turn;
+  std::vector<ucontext_t> ctx;  // never moved once made (a context points into itself)
+  std::vector<unsigned int> idx;
   std::vector<char> done;
+  ucontext_t launcher;
+  unsigned int cur;
+  void (*body)(void*);
+  void* arg;
 };
-static thread_local HostBlock* host_block;
-static thread_local unsigned int host_place;
-static void host_hand_on(unsigned int place) {
-  const unsigned int n = (unsigned int)host_block->turn.size();
+static HostBlock* host_block;
+static bool host_next_live(unsigned int& q) {
+  const unsigned int n = (unsigned int)host_block->ctx.size();
   for (unsigned int k = 1; k <= n; k++) {
-    const unsigned int q = (place + k) % n;
-    if (!host_block->done[q]) {
-      host_block->turn[q]->release();
-      return;
-    }
+    q = (host_block->cur + k) % n;
+    if (!host_block->done[q]) return true;
   }
+  return false;
 }
 static inline void __syncthreads() {
-  host_hand_on(host_place);
-  host_block->turn[host_place]->acquire();
+  HostBlock* hb = host_block;
+  unsigned int q;
+  host_next_live(q);  // the running place is live, so there is one
+  if (q == hb->cur) return;
+  const unsigned int from = hb->cur;
+  hb->cur = q;
+  threadIdx.x = hb->idx[q];
+  swapcontext(&hb->ctx[from], &hb->ctx[q]);
+}
+static void host_entry() {
+  HostBlock* hb = host_block;
+  hb->body(hb->arg);
+  hb->done[hb->cur] = 1;
+  unsigned int q;
+  if (host_next_live(q)) {
+    hb->cur = q;
+    threadIdx.x = hb->idx[q];
+    setcontext(&hb->ctx[q]);
+  }
+  // the last one returns to the launcher (uc_link)
 }
 static inline void __syncwarp() { __syncthreads(); }
 static uint64_t host_xchg[1024];
@@ -113,7 +135,26 @@ static inline T __shfl_up_sync(unsigned int, T v, unsigned int delta, int width 
   __syncthreads();
   return r;
 }
-enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+// The warp votes: every lane of the warp publishes, then reads the others'.
+static inline unsigned int host_warp_mask(bool (*same)(uint64_t, uint64_t), uint64_t v) {
+  host_xchg[threadIdx.x] = v;
+  __syncthreads();
+  const unsigned int w0 = threadIdx.x & ~31u;
+  unsigned int r = 0;
+  for (unsigned int k = 0; k < 32 && w0 + k < blockDim.x; k++)
+    if (same(host_xchg[w0 + k], v)) r |= 1u << k;
+  __syncthreads();
+  return r;
+}
+static inline unsigned int __ballot_sync(unsigned int, int pred) {
+  return host_warp_mask([](uint64_t o, uint64_t) { return o != 0; }, pred != 0);
+}
+template <class T>
+static inline unsigned int __match_any_sync(unsigned int, T v) {
+  return host_warp_mask([](uint64_t o, uint64_t m) { return o == m; }, (uint64_t)v);
+}
+static inline int __popc(unsigned int x) { return __builtin_popcount(x); }
+enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8, cudaErrorInvalidValue = 1 };
 template <class F>
 static inline int cudaFuncSetAttribute(F, int, int) { return 0; }
 static inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
@@ -121,28 +162,31 @@ typedef void* cudaStream_t;
 static inline int cudaGetLastError() { return 0; }
 template <class F>
 static void host_launch(unsigned int grid, unsigned int block, F body) {
+  const size_t stack = (size_t)1 << 18;
+  char* stacks = (char*)malloc(stack * block);
   gridDim.x = grid;
   blockDim.x = block;
   for (unsigned int b = 0; b < grid; b++) {
     HostBlock hb;
+    hb.ctx.resize(block);
     hb.done.assign(block, 0);
-    for (unsigned int k = 0; k < block; k++)
-      hb.turn.emplace_back(std::make_unique<std::binary_semaphore>(0));
-    std::vector<std::thread> threads;
-    for (unsigned int k = 0; k < block; k++)
-      threads.emplace_back([&, b, k]() {
-        blockIdx.x = b;
-        threadIdx.x = b % 2 ? block - 1 - k : k;
-        host_block = &hb;
-        host_place = k;
-        hb.turn[k]->acquire();
-        body();
-        hb.done[k] = 1;
-        host_hand_on(k);
-      });
-    hb.turn[0]->release();
-    for (auto& th : threads) th.join();
+    hb.body = [](void* f) { (*(F*)f)(); };
+    hb.arg = &body;
+    blockIdx.x = b;
+    for (unsigned int k = 0; k < block; k++) {
+      hb.idx.push_back(b % 2 ? block - 1 - k : k);
+      getcontext(&hb.ctx[k]);
+      hb.ctx[k].uc_stack.ss_sp = stacks + stack * k;
+      hb.ctx[k].uc_stack.ss_size = stack;
+      hb.ctx[k].uc_link = &hb.launcher;
+      makecontext(&hb.ctx[k], host_entry, 0);
+    }
+    host_block = &hb;
+    hb.cur = 0;
+    threadIdx.x = hb.idx[0];
+    swapcontext(&hb.launcher, &hb.ctx[0]);
   }
+  free(stacks);
 }
 """
 _LAUNCH = re.compile(r"(\w+(?:<\w+>)?)<<<(.*?),\s*([^,]+?),\s*([^,]+?),\s*\(cudaStream_t\)\s*stream>>>\(",
@@ -170,6 +214,11 @@ def _rewrite_launches(src: str):
     return _DYN_SHARED.sub(r"static \1 \2[1 << 15];", "".join(out)), count
 
 
+# radix_pass_b keeps its fine ids in shared memory up to this R in the host
+# build (16,384 in csrc/radix.cuh), so that the host's plans take both routes
+HOST_STASH_ROWS = 512
+
+
 @pytest.fixture(scope="module")
 def host_library(tmp_path_factory):
     gxx = shutil.which("g++")
@@ -186,7 +235,8 @@ def host_library(tmp_path_factory):
     for name in ("ff.cuh", "ec.cuh"):
         shutil.copy(_CSRC / name, out / name)
     lib = out / "libkernels_host.so"
-    subprocess.run([gxx, "-std=c++20", "-O1", "-pthread", "-shared", "-fPIC",
+    subprocess.run([gxx, "-std=c++20", "-O1", "-shared", "-fPIC",
+                    f"-DRADIX_PASS_B_STASH={HOST_STASH_ROWS}",
                     "-o", str(lib), str(out / "kernels.cpp")],
                    check=True, capture_output=True, text=True, timeout=300)
     return lib
@@ -308,23 +358,23 @@ def _radix_windows(nprng):
 
 
 def _radix_case(name, nprng):
-    """The four kernels of csrc/radix.cuh, at the plans above; pass B also at
-    a plan cut to 3 partitions of 300 rows (two chunks, 2^6 + 1 fine ids,
-    a zero tail to 320), compact at 6 partitions whose bases repeat (0, 64,
-    64, 128, 192, 192: partitions 1 and 4 are overwritten by the next) with
-    rows past the last one."""
-    import dataclasses
-
-    if name in ("radix_rank", "radix_shuffle"):
+    """The four kernels of csrc/radix.cuh and the first designs of rank and
+    pass B, at the plans above; pass B also at a plan cut to 3 partitions of
+    300 rows (2^3 + 1 fine ids, a zero tail to 320), compact at 6 partitions
+    whose bases repeat (0, 64, 64, 128, 192, 192: partitions 1 and 4 are
+    overwritten by the next) with rows past the last one."""
+    if name in ("radix_rank", "radix_rank_v1", "radix_shuffle"):
         wins = _radix_windows(nprng)
-        if name == "radix_rank":
-            return (lambda *a: tuple(CR.rank(p, k, y) for p, k, y in wins),
+        if name != "radix_shuffle":
+            fn = CR.rank if name == "radix_rank" else CR.rank_v1
+            return (lambda *a: tuple(fn(p, k, y) for p, k, y in wins),
                     lambda *a: tuple(CR.rank_plain(p, k, y) for p, k, y in wins), ())
         dsts = [CR.rank_plain(p, k, y)[0] for p, k, y in wins]
         return (lambda *a: tuple(CR.shuffle(p, k, d, y) for (p, k, y), d in zip(wins, dsts)),
                 lambda *a: tuple(CR.shuffle_plain(p, k, d, y)
                                  for (p, k, y), d in zip(wins, dsts)), ())
-    if name == "radix_pass_b":
+    if name in ("radix_pass_b", "radix_pass_b_v1"):
+        fn = CR.pass_b if name == "radix_pass_b" else CR.pass_b_v1
         p, k, y = _radix_windows(nprng)[0]
         tiles = CR.shuffle_plain(p, k, CR.rank_plain(p, k, y)[0], y)
         main = tiles[:, :p.P * p.S].reshape(p.n_tiles, p.P, p.S, 20).transpose(0, 1) \
@@ -333,7 +383,7 @@ def _radix_case(name, nprng):
         rnd = torch.from_numpy(nprng.integers(-1 << 31, 1 << 31, size=(3, 300, 20)).astype("int32"))
         rnd[torch.from_numpy(nprng.random((3, 300)) < 0.2), :16] = 0
         cases = ((p, main), (cut, rnd))
-        return (lambda *a: tuple(CR.pass_b(q, m) for q, m in cases),
+        return (lambda *a: tuple(fn(q, m) for q, m in cases),
                 lambda *a: tuple(CR.pass_b_plain(q, m) for q, m in cases), ())
     assert name == "radix_compact"
     plan = dataclasses.replace(RX.make_plan(512, 8, 256), P=6, R_pad=64, n_ext=300)
@@ -503,6 +553,105 @@ def test_kernel_source_on_host_equals_plain(name, host_kernels, rng, nprng):
         assert got[8].nonzero().flatten().tolist() == [5]
     if name == "batch_inv":
         assert all(torch.equal(g, ff(SPEC)._inv_host(args[0])) for g in got)
+
+
+def _rank_rows(nprng, plan):
+    """Uniform keys in [0, 2^c) and random payload rows, 5 % of no point."""
+    keys = nprng.integers(0, 1 << plan.c, size=plan.n).astype("int32")
+    pay = nprng.integers(-1 << 31, 1 << 31, size=(plan.n, 16)).astype("int32")
+    pay[nprng.random(plan.n) < 0.05] = 0
+    return keys, pay
+
+
+def _slot_rows(nprng, plan):
+    """Random image rows (payload, key, three words) for pass B, 20 % of no
+    point."""
+    main = nprng.integers(-1 << 31, 1 << 31, size=(plan.P, plan.R, 20)).astype("int32")
+    main[nprng.random((plan.P, plan.R)) < 0.2, :16] = 0
+    return main
+
+
+def _cut_plan(c: int, R: int):
+    """A 2^18-point plan at width c cut to 3 partitions of R rows."""
+    return dataclasses.replace(RX.make_plan(1 << 18, c), P=3, R=R, R_pad=-(-R // 64) * 64)
+
+
+def _radix_edge_calls(case, nprng):
+    """[("rank", plan, keys, pay) or ("pass_b", plan, main)] of one edge
+    case.  Rank plans have two or four tiles of at most 768 rows (two chunks
+    of the rank, the second partial); pass B's the main rows of such a plan
+    or a cut plan of 3 partitions."""
+    calls = []
+    if case in ("one partition", "identity tile", "skewed warp"):
+        plan = RX.make_plan(1536, 10, 768)
+        keys, pay = _rank_rows(nprng, plan)
+        if case == "one partition":  # tile 0 wholly in partition 5: 754 spills past SP
+            keys[:768] = (5 << plan.fb) + nprng.integers(0, 1 << plan.fb, size=768)
+        elif case == "identity tile":
+            pay[768:] = 0
+        else:  # whole warps of one partition, and of one fine id
+            keys[64:96] = 3 << plan.fb
+            keys[768 + 512:768 + 576] = (9 << plan.fb) + 2
+        calls.append(("rank", plan, keys, pay))
+        k, y = torch.from_numpy(keys), torch.from_numpy(pay)
+        tiles = CR.shuffle_plain(plan, k, CR.rank_plain(plan, k, y)[0], y)
+        calls.append(("pass_b", plan, RX.partition_major(plan, tiles).numpy()))
+        if case == "skewed warp":  # one fine id in every lane, and over a whole partition
+            plan = _cut_plan(15, 1100)
+            main = _slot_rows(nprng, plan)
+            main[0, 32:64, 16] = 7
+            main[1, :, 16] = 64 * nprng.integers(0, 1 << 20, size=1100) + 40
+            calls.append(("pass_b", plan, main))
+    elif case == "keys out of range":  # past 2^c and negative
+        plan = RX.make_plan(1024, 9, 256)
+        keys, pay = _rank_rows(nprng, plan)
+        pick = nprng.random(plan.n)
+        keys[pick < 0.15] = nprng.integers(1 << plan.c, 1 << 31, size=int((pick < 0.15).sum()))
+        keys[pick > 0.85] = -nprng.integers(1, 1 << 31, size=int((pick > 0.85).sum()))
+        calls.append(("rank", plan, keys, pay))
+    elif case.startswith("fb = "):
+        fb = int(case[5:])
+        plan = RX.make_plan(1536, 7 + fb, 768)
+        assert plan.fb == fb
+        calls.append(("rank", plan, *_rank_rows(nprng, plan)))
+        plan = _cut_plan({3: 12, 5: 14, 6: 15}[fb], 1100)  # three chunks, the last partial
+        assert plan.fb == fb
+        calls.append(("pass_b", plan, _slot_rows(nprng, plan)))
+    else:
+        assert case == "ragged R"  # one partial chunk; one row past a chunk
+        for r in (300, HOST_STASH_ROWS + 1):  # the stash's route, then the re-read's
+            plan = _cut_plan(12, r)
+            calls.append(("pass_b", plan, _slot_rows(nprng, plan)))
+    return calls
+
+
+RADIX_EDGE_CASES = ["one partition", "identity tile", "keys out of range", "fb = 3", "fb = 5",
+                    "fb = 6", "ragged R", "skewed warp"]
+
+
+@pytest.mark.parametrize("case", RADIX_EDGE_CASES)
+def test_radix_ranks_edges_on_host(case, host_kernels, nprng):
+    """radix_rank and radix_pass_b at the edges of stable ranks, equal to
+    their plain versions and to their first designs (radix_rank_v1,
+    radix_pass_b_v1) output for output: a tile wholly in one partition (every
+    lane of a warp a peer; spills past SP dropped), a tile of identity rows
+    only, keys past 2^c and negative keys, fb = 3, 5 and 6, a pass-B
+    partition whose R is not a multiple of the chunk, one fine id in every
+    lane of a warp and over a whole partition.  Pass B by both routes: its
+    fine ids kept in shared memory (R <= HOST_STASH_ROWS) and read again from
+    the rows (R = 513 and 1100)."""
+    calls = _radix_edge_calls(case, nprng)
+    for kind, plan, *args in calls:
+        args = [torch.from_numpy(a) for a in args]
+        fns = (CR.rank, CR.rank_v1) if kind == "rank" else (CR.pass_b, CR.pass_b_v1)
+        want = (CR.rank_plain if kind == "rank" else CR.pass_b_plain)(plan, *args)
+        before = CF.LAUNCHES["radix_" + kind]
+        got, v1 = (fn(plan, *args) for fn in fns)
+        assert CF.LAUNCHES["radix_" + kind] == before + 1
+        assert all(torch.equal(g, w) and torch.equal(u, w) for g, u, w in zip(got, v1, want))
+    if case == "one partition":
+        dst = CR.rank_plain(*calls[0][1:2], *map(torch.from_numpy, calls[0][2:]))[0]
+        assert int((dst[:768] == calls[0][1].OUT_ROWS).sum()) == 768 - 14 - 128
 
 
 def test_fused_merge_level_on_host_kernels(host_kernels, rng):
@@ -695,7 +844,9 @@ def test_kate_div_edges_on_host(n, host_kernels, rng):
 _NEIGHBOURS = """#include <cuda_runtime.h>
 // Thread t of a 64-thread block publishes its value and takes thread t ^ 1's:
 // through shared memory with or without a barrier between the write and the
-// read, or through __shfl_sync (groups of 4) and __shfl_up_sync (by 1).
+// read, or through __shfl_sync (groups of 4) and __shfl_up_sync (by 1); or
+// it takes its warp's vote on its value: __ballot_sync of x % 3 == 0, the
+// __match_any_sync mask of x % 5; or __popc of a hash of x.
 __global__ void neighbours_kernel(int how, uint32_t* out) {
   __shared__ uint32_t v[64];
   const unsigned int t = threadIdx.x;
@@ -707,8 +858,14 @@ __global__ void neighbours_kernel(int how, uint32_t* out) {
     r = v[t ^ 1];
   } else if (how == 2) {
     r = __shfl_sync(0xFFFFFFFFu, x, (int)(t & 3) ^ 1, 4);
-  } else {
+  } else if (how == 3) {
     r = __shfl_up_sync(0xFFFFFFFFu, x, 1, 4);
+  } else if (how == 4) {
+    r = __ballot_sync(0xFFFFFFFFu, x % 3 == 0);
+  } else if (how == 5) {
+    r = __match_any_sync(0xFFFFFFFFu, x % 5);
+  } else {
+    r = (uint32_t)__popc(x * 0x9E3779B9u);
   }
   out[blockIdx.x * 64 + t] = r;
 }
@@ -726,7 +883,7 @@ def neighbours_library(host_library, tmp_path_factory):
     assert count == 1
     (out / "neighbours.cpp").write_text(src)
     lib = out / "libneighbours_host.so"
-    subprocess.run([shutil.which("g++"), "-std=c++20", "-O1", "-pthread", "-shared", "-fPIC",
+    subprocess.run([shutil.which("g++"), "-std=c++20", "-O1", "-shared", "-fPIC",
                     "-o", str(lib), str(out / "neighbours.cpp")],
                    check=True, capture_output=True, text=True, timeout=300)
     fn = ctypes.CDLL(str(lib)).neighbours_launch
@@ -734,17 +891,33 @@ def neighbours_library(host_library, tmp_path_factory):
     return fn
 
 
-@pytest.mark.parametrize("how", ["no barrier", "barrier", "shfl", "shfl_up"])
+SHIM_EXCHANGES = ["no barrier", "barrier", "shfl", "shfl_up", "ballot", "match_any", "popc"]
+
+
+@pytest.mark.parametrize("how", SHIM_EXCHANGES)
 def test_shim_exchanges_between_lanes(how, neighbours_library):
     """The shim's barrier and shuffles hand a neighbour's value over; a read
     of it without a barrier gets the stale value, for the lower thread of
     each pair in the ascending block and the upper one in the descending
-    block, so a kernel that forgets its barrier fails the rehearsal."""
-    mode = ["no barrier", "barrier", "shfl", "shfl_up"].index(how)
+    block, so a kernel that forgets its barrier fails the rehearsal.  The
+    warp votes give every lane its own warp's mask (lanes in either order),
+    __popc the popcount."""
     got = torch.zeros(128, dtype=torch.int32)
-    neighbours_library(mode, got.data_ptr(), None)
+    neighbours_library(SHIM_EXCHANGES.index(how), got.data_ptr(), None)
     t = torch.arange(64).repeat(2)
     blk = torch.arange(2).repeat_interleave(64)
+    x = 7 * t + 1 + 1000 * blk
+    if how in ("ballot", "match_any", "popc"):
+        x = x.tolist()
+        if how == "popc":
+            want = [bin(v * 0x9E3779B9 % 2**32).count("1") for v in x]
+        else:
+            same = (lambda u, v: u % 3 == 0) if how == "ballot" else \
+                (lambda u, v: u % 5 == v % 5)
+            want = [sum(1 << k for k in range(32) if same(x[i - i % 32 + k], x[i]))
+                    for i in range(128)]
+        assert got.numpy().view("uint32").tolist() == want
+        return
     src = {"shfl_up": torch.where(t % 4 == 0, t, t - 1)}.get(how, t ^ 1)
     want = (7 * src + 1 + 1000 * blk).to(torch.int32)
     if how == "no barrier":

@@ -15,7 +15,7 @@ without a card, and on any failed build, failed launch or mismatch.  It
      (ec_madd_xyzz_fast at the lanes of the stepwise scan's widest window,
      the only shape a card path launches it with; batch_inv at 2^21 rows,
      the lm tail's width at the top level, and at the ragged size against
-     FF._inv_host too),
+     FF._inv_host too; ec_double one doubling, ec_add_mixed one step),
   4. drives the MSM path: best_multiexp on the Pallas curve at 2^20 points
      with full-width scalars (64 random base points tiled, as the headline
      benchmark makes them), checks the result against the exact Python-int
@@ -29,8 +29,13 @@ without a card, and on any failed build, failed launch or mismatch.  It
      so that exactly one round is flagged and recomputed with complete adds,
      exact in every round, at 2^14 points (the fused scan flags) and at half
      of ops/msm.FUSED_SCAN_MIN_ROWS (the stepwise scan flags), so that
-     ec_madd_xyzz_fast and ec_add_mixed are both launched; then best_multiexp
-     at n = 16 (safe flavor) against the oracle,
+     ec_madd_xyzz_fast and ec_add_mixed are both launched, ec_add_mixed once
+     for the recomputed round's window scan; then best_multiexp at n = 16
+     (safe flavor) against the oracle,
+  6b. drives best_multiexp's safe flavor on the MSM phase's 2^logn inputs:
+     the oracle's result, one ec_add_mixed launch (the window's whole scan)
+     and one ec_double launch (c doublings) a window; seconds of three runs
+     and the device's busy time of one,
   7. times one window by the fused and the stepwise scan at 2^6 to 2^16
      points, on the host clock and as the device's busy time (torch.profiler),
      and requires equal window sums,
@@ -48,18 +53,30 @@ without a card, and on any failed build, failed launch or mismatch.  It
      times a coefficient level, affine_lines once a level (the seeds and
      every merge) and mont_mul not at all,
   9b. tallies the launches of mont_mul and mont_addsub by B (rows a launch)
-     and caller (the nearest frame outside the field layer), of ec_add,
-     ec_add_fast and ec_double by B, of batch_inv by (rows, chain length),
+     and caller (the nearest frame outside the field layer), of ec_add and
+     ec_add_fast by B, of ec_double by (B, doublings k), of batch_inv by
+     (rows, chain length),
      of poly_mul_naive and kate_div by shape, of affine_lines by (B, mode),
      of stages_small by (E, tile, direction, transform size) and of
      fused_madd_scan_xyzz by (g, W) over one MSM, one carry stage and one
-     round, and reads the device's busy time of one MSM and one carry
-     stage; holds mont_mul, mont_addsub and ec_add_fast against their plain
+     round (one ec_double launch a window of the MSM and a round of the
+     carry stage: checked), and reads the device's busy time of one MSM and
+     one carry stage; holds mont_mul, mont_addsub and ec_add_fast against
+     their plain
      versions bit for bit, with edge lanes (the carry edges of a row;
      identities, P + P, P + (-P)), at every B the tally gives them
      (mont_addsub and ec_add_fast at the kernel phase's shape and the ragged
-     size too) and times them there; times ec_double at every B the tally
-     gives it; holds poly_mul_naive and kate_div at every shape the tally
+     size too) and times them there; holds ec_double (four lanes a point, k
+     doublings a launch) against its plain version, k launches of its first
+     design (ec_double_v1) and the Python-int oracle at every (B, k) the
+     tally gives it and at B = 1, k = 1, 2 and 15, and times both designs
+     there; holds ec_add_mixed's window scan (two lanes a carry, w steps a
+     launch) against its plain version (the loop of w plain steps) and w
+     launches of its first design (ec_add_mixed_v1) at a safe 2^logn
+     window's scan (g = 2^logn / 64 lanes, w = 64 steps: identity carries at
+     every lane's head, q == carry, q == -carry and affine identities
+     planted) and at one step of it, first lanes against the Python-int
+     oracle, and times both designs there; holds poly_mul_naive and kate_div at every shape the tally
      gives them against their plain versions and the Python-int Poly, with
      edge pairs (raw p - 1 everywhere, zero terms, the root 0), and times
      them there, kate_div at one pair too (one chain's latency); holds
@@ -73,11 +90,12 @@ without a card, and on any failed build, failed launch or mismatch.  It
      2^20), (2^21, 2^21)), batch_inv at every (rows, chain length) (and n =
      33, 512, 700, 2^16 and 2^21 rows), zeros planted, against
      FF._inv_host too, the fused scan at every g the tally gives it (and g =
-     256 and 4096); and ranks the thirteen kernels that rule 2 covers by
+     256 and 4096); and ranks the fourteen kernels that rule 2 covers by
      launches x (device ms - bound) over the main path (one MSM, one carry
-     stage and 56 rounds like the tallied one; radix_rank and radix_pass_b
-     with no launch there, and, after phase 13, their loss a radix-route
-     MSM on a line of their own),
+     stage and 56 rounds like the tallied one; ec_add_mixed, radix_rank and
+     radix_pass_b with no launch there, and their loss on their own paths on
+     lines of their own: ec_add_mixed's over phase 6b's safe MSM, the radix
+     kernels' over a radix-route MSM after phase 13),
   9c. holds poly_mul_naive and kate_div against their plain versions at a
      ragged shape and at the round's shape of the most products, and
      affine_lines at a ragged width and the widest of the round (the
@@ -93,22 +111,19 @@ without a card, and on any failed build, failed launch or mismatch.  It
      the plan of a 2^20, c = 15 window, and times shuffle and compact there
      beside the one PyTorch call that does the shuffle's scatter
      (index_copy_) and the compaction's gather (index_select); then holds
-     radix_rank and radix_pass_b (warp-vote ranks) and their first designs
-     (radix_rank_v1, radix_pass_b_v1: serial walks) against the plain
+     radix_rank and radix_pass_b (warp-vote ranks) against the plain
      versions at those plans and at the 2^20 plan of the split top window
      (c = 14) and the 2^17, c = 12 plan on uniform keys and on phase 15's
-     keys (every row in coarse partition 0), and times both designs in turns
-     at each, with their shares of the bound; radix_pass_b also at R on
-     both sides of its stash's limit (its fine ids kept in shared memory,
-     then read again from the rows),
+     keys (every row in coarse partition 0), and times them at each, with
+     their shares of the bound; radix_pass_b also at R on both sides of its
+     stash's limit (its fine ids kept in shared memory, then read again
+     from the rows),
  13. drives the radix route of the MSM (config.RADIX_MSM): best_multiexp at
      2^20 Pallas points (2^17 with a smaller --logn: the route's least),
      full-width scalars below q (all below 2^254, so max_scalar_bits = 254),
      against the Python-int oracle and the classic route, each radix kernel
-     launched once a window and no first design launched; seconds, device
-     busy time, peak memory and launches of both routes, the device busy
-     time of the route with rank and pass B by their first designs, the
-     spilled rows of every window.  What the route must do follows the predicate that both
+     launched once a window; seconds, device busy time, peak memory and
+     launches of both routes, the spilled rows of every window.  What the route must do follows the predicate that both
      packages share: at 2^20, c = 15, the top window is split off at 14
      bits, and no window overflows and the flag stays clear; at 2^17, c =
      12, the top window's 2 bits are too narrow to split off, it runs at c
@@ -117,8 +132,7 @@ without a card, and on any failed build, failed launch or mismatch.  It
      where the top window is not split off, overflows every tile, and the
      safe redo gives the exact result,
  14. times one 2^20, c = 15 window by both routes, the reorder alone (radix
-     reorder, also with rank and pass B by their first designs, against sort
-     + gather + histogram) and the whole window, on the host clock and as the
+     reorder against sort + gather + histogram) and the whole window, on the host clock and as the
      device's busy time; one reorder launches each radix kernel once,
  15. drives the radix route's overflow on the card: 2^17 points, scalars
      below 7 (one window, c = 12, every row in coarse partition 0): every tile
@@ -189,8 +203,9 @@ without a card, and on any failed build, failed launch or mismatch.  It
      sent a rank by collective kind and peak memory printed.  Four ranks
      time-share one card: the seconds say nothing about scaling,
  23. prints one JSON line describing the kernels (with phase 9b's shapes,
-     the rule-2 ranking and phase 12's A/B of the two radix designs; the
-     first designs with no launch) and, last, one JSON line {"ok": true,
+     the rule-2 ranking and phase 9b's A/B of ec_double and ec_add_mixed
+     against their first designs; the first designs with no launch, which
+     is checked) and, last, one JSON line {"ok": true,
      "device": {...}}.
 
 Phases 16-19 run after the radix phases, on the round's (phase 9) slots and
@@ -223,7 +238,6 @@ their bytes alone, from this run's inputs.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import hashlib
 import json
@@ -288,10 +302,13 @@ KERNEL_TABLE = {
     "mont_addsub": ("kernels.cu", PALLAS_FF, 541, 0, 1, 3),
     "ec_add": ("kernels.cu", PALLAS_FF, 568, 23, 21, 9),
     "ec_add_fast": ("kernels.cu", PALLAS_FF, 630, 16, 7, 9),
-    "ec_double": ("kernels.cu", PALLAS_FF, 832, 7, 14, 6),
+    "ec_double": ("kernels.cu", PALLAS_FF, 832, 7, 14, 6),             # a doubling: k stages
     "fused_madd_scan_xyzz": ("kernels.cu", PALLAS_FF, 740, 10, 7, 5),  # per packed row: 1 in, 4 out
     "ec_madd_xyzz_fast": ("kernels.cu", PALLAS_FF, 699, 10, 7, 10),    # 6 in, 4 out (+ 1 flag byte)
-    "ec_add_mixed": ("kernels.cu", PALLAS_FF, 599, 18, 21, 8),         # 5 in, 3 out (+ 1 mask byte)
+    # a step: 2 in, 3 out (+ 1 mask byte); a lane's carry 3 in (+ 3 totals out);
+    # madd-2007-bl's products and adds, the doubling's where the data takes it
+    # (mixed_bound)
+    "ec_add_mixed": ("kernels.cu", PALLAS_FF, 599, 11, 7, 5),
     "ec_add_mixed_fast": ("kernels.cu", PALLAS_FF, 664, 11, 7, 8),     # 5 in, 3 out (+ 1 flag byte)
     "lm_mul": ("ntt.cuh", PALLAS_NTT, 121, 1, 0, 3),
     "lm_addsub": ("ntt.cuh", PALLAS_NTT, 136, 0, 1, 3),
@@ -302,8 +319,9 @@ KERNEL_TABLE = {
     "radix_shuffle": ("radix.cuh", RADIX_PY, 270, 0, 0, 0),
     "radix_pass_b": ("radix.cuh", RADIX_PY, 363, 0, 0, 0),
     "radix_compact": ("radix.cuh", RADIX_PY, 421, 0, 0, 0),
-    "radix_rank_v1": ("radix.cuh", RADIX_PY, 235, 0, 0, 0),
-    "radix_pass_b_v1": ("radix.cuh", RADIX_PY, 363, 0, 0, 0),
+    # first designs
+    "ec_double_v1": ("kernels.cu", PALLAS_FF, 832, 7, 14, 6),
+    "ec_add_mixed_v1": ("kernels.cu", PALLAS_FF, 599, 18, 21, 8),
     # mont_mul (and mont_addsub) at the coefficient levels' shapes: products,
     # adds and rows from the shape (mul_naive_bound, kate_div_bound)
     "poly_mul_naive": ("poly.cuh", PALLAS_FF, 515, None, None, 0),
@@ -321,7 +339,7 @@ ROUND_KERNELS = ("lm_mul", "lm_addsub", "lm_mul_const", "stage_big", "stages_sma
 POLY_KERNELS = ("poly_mul_naive", "kate_div")
 POLY_PER_LEVEL = {"poly_mul_naive": 10, "kate_div": 4}
 RADIX_KERNELS = ("radix_rank", "radix_shuffle", "radix_pass_b", "radix_compact")
-RADIX_V1 = ("radix_rank_v1", "radix_pass_b_v1")  # first designs: no path launches them
+FIRST_DESIGNS = ("ec_double_v1", "ec_add_mixed_v1")  # no path launches them
 ROUND_K = 28  # the round of the carry stage the round phase takes (= d // 2)
 BASE = 5  # radix of the argument's digit rounds
 CURVE = PALLAS
@@ -379,6 +397,32 @@ def bound_ms(name: str, elems: int, extra_bytes: int = 0, stages: int = 1, muls=
     t_bytes = (elems * rows * ROW_BYTES + extra_bytes) / HBM_BYTES_PER_S
     t_ops = stages * elems * (muls * MUL_OPS + adds * ADD_OPS) / INT32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def mixed_doublings(x1, y1, z1, qx, qy) -> int:
+    """Rows at which ec_add_mixed computes the doubling of its carry (x1, y1,
+    z1) besides the sum: h == 0 and r == 0 of madd-2007-bl (qx Z1^2 == X1 and
+    qy Z1^3 == Y1), by the plain field ops."""
+    def mul(a, b):
+        return CF.mont_mul_plain(SPEC, a, b)
+
+    def is_zero(a):
+        return (a == 0).all(dim=-1)
+
+    zz = mul(z1, z1)
+    h0 = is_zero(CF.mont_addsub_plain(SPEC, True, mul(qx, zz), x1))
+    r0 = is_zero(CF.mont_addsub_plain(SPEC, True, mul(qy, mul(z1, zz)), y1))
+    return int((h0 & r0).sum())
+
+
+def mixed_bound(rows: int, doublings: int, extra_bytes: int):
+    """bound_ms of ec_add_mixed over rows steps: madd-2007-bl's products and
+    adds at every step, and ec_double's at the steps where this run's data
+    takes the doubling (doublings of them, from mixed_doublings)."""
+    muls, adds = KERNEL_TABLE["ec_add_mixed"][3:5]
+    d_muls, d_adds = KERNEL_TABLE["ec_double"][3:5]
+    return bound_ms("ec_add_mixed", rows, extra_bytes, muls=muls + d_muls * doublings / rows,
+                    adds=adds + d_adds * doublings / rows)
 
 
 def inv_muls(n: int) -> float:
@@ -658,7 +702,7 @@ def check_kernels(dev, base_pts, ragged: int, shapes: dict, scan_small_g: int, r
 
     def mixed(b):
         p, qx, qy, mask, hp, hq = mixed_inputs(nprng, base_pts, b, dev)
-        host["p"], host["q"] = hp, hq
+        host["p"], host["q"], host["args"] = hp, hq, (*p, qx, qy)
         return (*p, qx, qy, mask)
 
     def vs_pyref_mixed(size, args, got):
@@ -672,7 +716,8 @@ def check_kernels(dev, base_pts, ragged: int, shapes: dict, scan_small_g: int, r
         dev, "ec_add_mixed", lambda *a: CF.ec_add_mixed(CURVE, *a),
         lambda *a: CF.ec_add_mixed_plain(CURVE, *a),
         mixed, [ragged, shapes["ec_add_mixed"]], reps,
-        extra_bytes_of=lambda b: b, host_check=vs_pyref_mixed))
+        host_check=vs_pyref_mixed, bound_of=lambda b: mixed_bound(
+            b, mixed_doublings(*host["args"]), b * (1 + 3 * ROW_BYTES))))
 
     def mixed_fast_flags(size, args, got):
         k = len(host["p"])
@@ -1080,10 +1125,10 @@ def fallback_path(dev, base_pts, logn: int):
                          pyref.ec_mul(neg_t, int(digits_host[k, 0]), CURVE), CURVE)
             for k in range(rounds)]
     require(got == want, f"round_sums equals the Python-int oracle in all {rounds} rounds")
-    require(counts["ec_add_mixed"] > 0 and counts[
+    require(counts["ec_add_mixed"] == 1 and counts[
         "ec_madd_xyzz_fast" if route == "stepwise" else "fused_madd_scan_xyzz"] > 0,
-            f"round_sums launched ec_add_mixed ({counts['ec_add_mixed']} times) and the "
-            f"{route} scan's kernel")
+            f"round_sums launched ec_add_mixed once (the recomputed round's window scan: "
+            f"{counts['ec_add_mixed']} times) and the {route} scan's kernel")
 
     rng = random.Random(0x5AFE)
     q = CURVE.scalar_field.p
@@ -1096,6 +1141,69 @@ def fallback_path(dev, base_pts, logn: int):
             and CF.LAUNCHES["ec_add_mixed"] > before,
             "best_multiexp at n = 16 (safe flavor, on the card) equals the oracle")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: the safe flavor of the MSM
+# ---------------------------------------------------------------------------
+
+def safe_msm_path(dev, base_pts, logn: int):
+    """best_multiexp's safe flavor (the complete-add redo that follows a
+    flagged fast flavor) on the MSM phase's 2^logn inputs: equal to the
+    Python-int oracle, one ec_add_mixed launch (the window's scan) and one
+    ec_double launch (c doublings) a window; three timed runs after a
+    warm-up (host clock, each ending in a synchronise), the launches of the
+    first, the device's busy time of one more.  Returns a dict."""
+    n = 1 << logn
+    c = M.pick_window(n)
+    bits = CURVE.scalar_field.p.bit_length()
+    windows = -(-bits // c)
+    w = M._pick_block_width(n, True)
+    print(f"safe flavor: best_multiexp, Pallas, n = 2^{logn}, c = {c}, {windows} windows, "
+          f"scans of g = {-(-n // w)} lanes x w = {w} steps", flush=True)
+    sc, scalars, pts = msm_inputs(dev, base_pts, logn)
+    want = tiled_msm_oracle(sc, base_pts)
+    safe = lambda: M._best_multiexp(CURVE, c, bits, "safe", scalars, pts)
+    require(one_point(safe()) == want, "warm-up result equals the Python-int oracle (affine)")
+    CF.reset_launch_counts()
+    runs = []
+    for i in range(3):
+        sync(dev)
+        t0 = time.perf_counter()
+        res = safe()
+        sync(dev)
+        runs.append(time.perf_counter() - t0)
+        if i == 0:
+            counts = dict(CF.LAUNCHES)
+    require(one_point(res) == want, "the safe flavor's result equals the Python-int oracle")
+    require(counts["ec_add_mixed"] == windows and counts["ec_double"] == windows,
+            f"one ec_add_mixed launch (a scan of {w} steps) and one ec_double launch ({c} "
+            f"doublings) a window: {counts['ec_add_mixed']} and {counts['ec_double']} for "
+            f"{windows} windows")
+    busy = device_busy_ms(dev, safe)
+    out = dict(seconds=min(runs), runs=runs, busy_ms=busy, counts=counts, windows=windows,
+               launches=sum(counts.values()))
+    print(f"  safe flavor: runs " + ", ".join(f"{t:.4f}" for t in runs) + f" s; device busy "
+          f"{busy:.2f} ms; {out['launches']} kernel launches of the port's", flush=True)
+    return out
+
+
+def safe_rule2(recs: list, safe: dict) -> dict:
+    """ec_add_mixed in the rule-2 ranking on its own path: launches x (ms -
+    bound) over one safe MSM (phase 6b's launches), at the window scan's time
+    from phase 9b, for it and for its first design (w launches a window)."""
+    scan = recs[0]
+    launches = safe["counts"]["ec_add_mixed"]
+    loss = {lab: launches * (scan[key] - scan["bound_ms"])
+            for lab, key in (("v2", "ms"), ("v1", "v1_ms"))}
+    print(f"  rule-2 ranking, safe flavor: ec_add_mixed: 0 launches on the main path; "
+          f"{launches} launches a safe MSM ({scan['shape']}), launches x (ms - bound) = "
+          f"{loss['v2']:.3f} ms a safe MSM (first design, {scan['w']} launches a window: "
+          f"{loss['v1']:.3f} ms), share of the bound by time "
+          f"{scan['bound_ms'] / scan['ms']:.3f}", flush=True)
+    return {"launches_safe_msm": launches, "gap_ms_safe_msm": loss["v2"],
+            "gap_ms_safe_msm_v1": loss["v1"],
+            "bound_share_by_time_safe_msm": scan["bound_ms"] / scan["ms"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1428,7 +1536,7 @@ TALLY_KEYS = {
     "mont_addsub": (CF, lambda spec, is_sub, a, b: (width_of(a, b), caller_of())),
     "ec_add": (CF, lambda curve, *rows: width_of(*rows)),
     "ec_add_fast": (CF, lambda curve, *rows: width_of(*rows)),
-    "ec_double": (CF, lambda curve, *rows: width_of(*rows)),
+    "ec_double": (CF, lambda curve, x1, y1, z1, k=1: (width_of(x1, y1, z1), k)),
     "batch_inv": (CF, lambda spec, a, chain=None:
                   (width_of(a), chain or CF.batch_inv_chain(width_of(a)))),
     "poly_mul_naive": (CP, lambda spec, a, b: mul_naive_key(a, b)),
@@ -1441,7 +1549,7 @@ TALLY_KEYS = {
                              (rows.shape[0] // w, w)),
 }
 BY_CALLER = ("mont_mul", "mont_addsub")
-TALLY_FORMAT = {"batch_inv": "(rows, L)", "poly_mul_naive": "(pairs, La, Lb, a shared, b shared)",
+TALLY_FORMAT = {"ec_double": "(B, k)", "batch_inv": "(rows, L)", "poly_mul_naive": "(pairs, La, Lb, a shared, b shared)",
                 "stages_small": "(E, tile, inverse, n)", "fused_madd_scan_xyzz": "(g, W)",
                 "kate_div": "(pairs, n)", "affine_lines": "(B, mode)"}
 
@@ -1530,6 +1638,14 @@ def launch_tally(dev, base_pts, logn: int, pts: JPoint, rnd):
             out[name][phase] = dict(sorted(t.items()))
     for name, by_phase in out.items():
         print_tally(name, by_phase)
+    c = M.pick_window(1 << logn)
+    windows = -(-CURVE.scalar_field.p.bit_length() // c)
+    rounds = digits.shape[0]
+    require(out["ec_double"]["msm"] == {(1, c): windows}
+            and out["ec_double"]["carry stage"] == {(1, 2): rounds},
+            f"ec_double: one launch of {c} doublings a window of the MSM ({windows}) and one "
+            f"of 2 a round of the carry stage ({rounds}: carry * {BASE}); "
+            f"{out['ec_double']['msm']}, {out['ec_double']['carry stage']}")
     busy = {phase: device_busy_ms(dev, fn) for phase, fn in phases[:2]}
     print(f"device busy: one MSM {busy['msm']:.3f} ms, one carry stage "
           f"{busy['carry stage']:.3f} ms", flush=True)
@@ -1661,19 +1777,19 @@ def ec_add_fast_by_width(dev, base_pts, widths, launches: dict, reps: int):
 
 
 def by_width(dev, base_pts, name: str, widths, launches: dict, reps: int):
-    """ec_add or ec_double against its plain version at each width, with the
-    edge lanes of curve_inputs and the first 64 lanes against the Python-int
-    oracle; device ms at each width."""
+    """ec_add against its plain version at each width, with the edge lanes
+    of curve_inputs and the first 64 lanes against the Python-int oracle;
+    device ms at each width."""
     nprng = np.random.default_rng(0xAB0)
     kernel, plain = getattr(CF, name), getattr(CF, name + "_plain")
     out = []
     for b in widths:
         p, q, hp, hq = curve_inputs(nprng, base_pts, b, dev)
-        args = tuple(p) if name == "ec_double" else (*p, *q)
+        args = (*p, *q)
         got = kernel(CURVE, *args)
         k = len(hp)
         pts = ec(CURVE).points_to_ints(JPoint(*(c[:k] for c in got)))
-        want = [pyref.ec_add(u, u if name == "ec_double" else v, CURVE) for u, v in zip(hp, hq)]
+        want = [pyref.ec_add(u, v, CURVE) for u, v in zip(hp, hq)]
         require(outputs_equal(got, plain(CURVE, *args)) == 0 and pts == want,
                 f"{name} == {name}_plain at B = {b}, the first {k} lanes (edge lanes among "
                 f"them) equal to the Python-int oracle")
@@ -1684,6 +1800,195 @@ def by_width(dev, base_pts, name: str, widths, launches: dict, reps: int):
         print(f"  {name} at B = {b} ({launches.get(b, 0)} launches on the path): {ms:.4f} ms on "
               f"the device, bound {b_ms:.6f} ms ({b_by})", flush=True)
     return out
+
+
+def turns(dev, fns: dict, reps: int):
+    """Device ms and host ms a call (time_ms) of each function of fns
+    ({label: fn}), timed in turns (the labels in order, then reversed) and
+    averaged over the two turns.  Returns ({label: device ms}, {label: host
+    ms a call})."""
+    runs = {label: [] for label in fns}
+    for label in [*fns, *reversed(fns)]:
+        runs[label].append(time_ms(dev, fns[label], reps))
+    return ({label: sum(d for d, _ in r) / len(r) for label, r in runs.items()},
+            {label: sum(c for _, c in r) / len(r) for label, r in runs.items()})
+
+
+# (B, k) ec_double is timed at besides the tally's: the Horner fold's c = 15,
+# the carry stage's 2, one doubling
+EC_DOUBLE_FIXED = ((1, 1), (1, 2), (1, 15))
+
+
+def ec_double_ab(dev, base_pts, keys, launches: dict, reps: int):
+    """ec_double (four lanes a point, k doublings a launch) at each (B, k) of
+    keys against its plain version, k launches of its first design
+    (ec_double_v1) and [2^k]P on Python ints (the first 64 lanes, the edge
+    lanes of curve_inputs among them), bit for bit; one launch of it and
+    the first design's k launches timed in turns.  Returns the records."""
+    nprng = np.random.default_rng(0xAB0D)
+    E = ec(CURVE)
+    out = []
+    for b, k in keys:
+        p, _, hp, _ = curve_inputs(nprng, base_pts, b, dev)
+
+        def v1_chain(p=p, k=k):
+            q = tuple(p)
+            for _ in range(k):
+                q = CF.ec_double_v1(CURVE, *q)
+            return q
+
+        new = CF.ec_double(CURVE, *p, k=k)
+        pts = E.points_to_ints(JPoint(*(c[:len(hp)] for c in new)))
+        require(outputs_equal(new, CF.ec_double_plain(CURVE, *p, k=k)) == 0
+                and outputs_equal(new, v1_chain()) == 0
+                and pts == [pyref.ec_mul(u, 1 << k, CURVE) for u in hp],
+                f"ec_double (k = {k}) == ec_double_plain and {k} launches of ec_double_v1 "
+                f"at B = {b}; the first {len(hp)} lanes (edge lanes among them) equal "
+                f"[2^{k}]P on Python ints")
+        ms, call = turns(dev, {"v2": lambda p=p, k=k: CF.ec_double(CURVE, *p, k=k),
+                               "v1": v1_chain}, reps)
+        b_ms, b_by = bound_ms("ec_double", b, stages=k)
+        key = (b, k)
+        out.append({"shape": f"B = {b}, k = {k}", "b": b, "k": k, "ms": ms["v2"],
+                    "v1_ms": ms["v1"], "call_ms": call["v2"], "v1_call_ms": call["v1"],
+                    "bound_ms": b_ms, "bound_by": b_by, "launches": launches.get(key, 0)})
+        print(f"  A/B ec_double at B = {b}, k = {k} ({launches.get(key, 0)} launches on the "
+              f"path): {ms['v2']:.4f} ms a launch on the device; first design {ms['v1']:.4f} ms "
+              f"for {k} launches ({ms['v1'] / k:.4f} a launch; {ms['v1'] / ms['v2']:.2f}x); "
+              f"bound {b_ms:.7f} ms ({b_by}); host {call['v2']:.4f} and {call['v1']:.4f} ms a "
+              f"call", flush=True)
+    return out
+
+
+def safe_scan_inputs(nprng, base_pts, g: int, w: int, dev):
+    """A safe window's scan: g identity carries (every lane opens on the
+    identity, as the path's do) and g*w affine rows of base points, 5 % of
+    them affine identities; lane 3's second row equals its first (a
+    doubling at step 1), lane 4's second is the negation of its first (the
+    identity carry at step 2), lane 5 opens on an affine identity.  Returns
+    (carries, qx, qy, mask, the first min(g, 8) lanes' rows as host
+    points)."""
+    n = g * w
+    bx = limbs_from_numpy(ints_to_mont_limbs([p[0] for p in base_pts], SPEC), dev)
+    by = limbs_from_numpy(ints_to_mont_limbs([p[1] for p in base_pts], SPEC), dev)
+    idx = nprng.integers(0, len(base_pts), size=n)
+    ident = nprng.random(n) < 0.05
+    neg = np.zeros(n, dtype=bool)
+    if g > 5 and w > 1:
+        idx[3 * w + 1], idx[4 * w + 1] = idx[3 * w], idx[4 * w]
+        ident[3 * w:3 * w + 2] = ident[4 * w:4 * w + 2] = False
+        neg[4 * w + 1] = ident[5 * w] = True
+    it = torch.from_numpy(idx).to(dev)
+    qx, qy = bx[it], by[it]
+    neg_t = torch.from_numpy(neg).to(dev)
+    qy = torch.where(neg_t[:, None],
+                     CF.mont_addsub_plain(SPEC, True, torch.zeros_like(qy), qy), qy)
+    mask = torch.from_numpy(ident).to(dev)
+    qx = torch.where(mask[:, None], torch.zeros_like(qx), qx)
+    qy = torch.where(mask[:, None], torch.zeros_like(qy), qy)
+    host = [None if ident[i] else pyref.ec_neg(base_pts[idx[i]], CURVE) if neg[i]
+            else base_pts[idx[i]] for i in range(min(g, 8) * w)]
+    carries = tuple(c.contiguous() for c in ec(CURVE).identity((g,), dev))
+    return carries, qx, qy, mask, host
+
+
+def ec_add_mixed_ab(dev, base_pts, logn: int, reps: int):
+    """ec_add_mixed (two lanes a carry) at the shapes of a safe 2^logn
+    window: its whole scan (g = 2^logn / w lanes of w = _pick_block_width
+    steps, one launch; safe_scan_inputs) against the plain version's loop,
+    w launches of the first design (ec_add_mixed_v1) step by step and the
+    first 8 lanes' running sums on Python ints; and one step at B = g
+    (mixed_inputs' edge lanes) against its plain version and the first
+    design.  Both designs timed in turns at each.  Returns (the records,
+    the first design's record for the kernels line)."""
+    nprng = np.random.default_rng(0xAB8)
+    n = 1 << logn
+    w = M._pick_block_width(n, True)
+    g = -(-n // w)
+    E = ec(CURVE)
+    carries, qx, qy, mask, host = safe_scan_inputs(nprng, base_pts, g, w, dev)
+    inner, totals = CF.ec_add_mixed_scan(CURVE, *carries, qx, qy, mask, w)
+    sync(dev)
+    t0 = time.perf_counter()
+    want = CF.ec_add_mixed_scan_plain(CURVE, *carries, qx, qy, mask, w)
+    sync(dev)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    cols = [c.reshape((g, w) + c.shape[1:]).transpose(0, 1).contiguous() for c in (qx, qy, mask)]
+
+    def v1_scan():
+        carry = carries
+        for t in range(w):
+            carry = CF.ec_add_mixed_v1(CURVE, *carry, cols[0][t], cols[1][t], cols[2][t])
+        return carry
+
+    carry, same = carries, True
+    for t in range(w):
+        carry = CF.ec_add_mixed_v1(CURVE, *carry, cols[0][t], cols[1][t], cols[2][t])
+        same = same and all(torch.equal(a.reshape(g, w, N_LIMBS)[:, t], b)
+                            for a, b in zip(inner, carry))
+    lanes = len(host) // w
+    got = E.points_to_ints(JPoint(*(c[:lanes * w] for c in inner)))
+    running = []
+    for j in range(lanes):
+        acc = None
+        for t in range(w):
+            acc = pyref.ec_add(acc, host[j * w + t], CURVE)
+            running.append(acc)
+    require(outputs_equal(inner + totals, want[0] + want[1]) == 0 and same
+            and got == running,
+            f"ec_add_mixed's scan == ec_add_mixed_scan_plain (inner prefixes and totals) and "
+            f"{w} launches of ec_add_mixed_v1 at g = {g}, w = {w}; the first {lanes} lanes "
+            f"(q == carry, q == -carry, affine identities among them) equal running sums on "
+            f"Python ints")
+    ms, call = turns(dev, {"v2": lambda: CF.ec_add_mixed_scan(CURVE, *carries, qx, qy, mask, w),
+                           "v1": v1_scan}, max(1, reps // 5))
+    before = [torch.cat([c[:, None], i.reshape(g, w, N_LIMBS)[:, :-1]], dim=1).reshape(
+        g * w, N_LIMBS) for c, i in zip(carries, inner)]
+    doublings = mixed_doublings(*before, qx, qy)
+    b_ms, b_by = mixed_bound(g * w, doublings, g * w + 6 * g * ROW_BYTES)
+    recs = [{"shape": f"g = {g}, w = {w} (a window's scan)", "g": g, "w": w, "ms": ms["v2"],
+             "v1_ms": ms["v1"], "call_ms": call["v2"], "v1_call_ms": call["v1"],
+             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "launches": 0,
+             "doublings": doublings}]
+    print(f"  A/B ec_add_mixed, a safe window's scan, g = {g}, w = {w}: {ms['v2']:.4f} ms (one "
+          f"launch) on the device; first design {ms['v1']:.4f} ms for {w} launches "
+          f"({ms['v1'] / ms['v2']:.2f}x); bound {b_ms:.5f} ms ({b_by}; {doublings} of the "
+          f"{g * w} steps take the doubling); host {call['v2']:.4f} and {call['v1']:.4f} ms a "
+          f"call; plain {plain_ms:.1f} ms", flush=True)
+
+    p, sx, sy, smask, hp, hq = mixed_inputs(nprng, base_pts, g, dev)
+    args = (*p, sx, sy, smask)
+    new = CF.ec_add_mixed(CURVE, *args)
+    sync(dev)
+    t0 = time.perf_counter()
+    want = CF.ec_add_mixed_plain(CURVE, *args)
+    sync(dev)
+    step_plain_ms = (time.perf_counter() - t0) * 1e3
+    k = len(hp)
+    pts = E.points_to_ints(JPoint(*(c[:k] for c in new)))
+    require(outputs_equal(new, want) == 0
+            and outputs_equal(new, CF.ec_add_mixed_v1(CURVE, *args)) == 0
+            and pts == [pyref.ec_add(a, b, CURVE) for a, b in zip(hp, hq)],
+            f"ec_add_mixed (one step) == ec_add_mixed_plain and ec_add_mixed_v1 at B = {g}, "
+            f"the first {k} lanes (edge lanes among them) equal to the Python-int oracle")
+    ms1, call1 = turns(dev, {"v2": lambda: CF.ec_add_mixed(CURVE, *args),
+                             "v1": lambda: CF.ec_add_mixed_v1(CURVE, *args)}, reps)
+    s_ms, s_by = mixed_bound(g, mixed_doublings(*args[:5]), g * (1 + 3 * ROW_BYTES))
+    recs.append({"shape": f"B = {g}, w = 1 (a step)", "g": g, "w": 1, "ms": ms1["v2"],
+                 "v1_ms": ms1["v1"], "call_ms": call1["v2"], "v1_call_ms": call1["v1"],
+                 "plain_ms": step_plain_ms, "bound_ms": s_ms, "bound_by": s_by, "launches": 0})
+    print(f"  A/B ec_add_mixed, one step at B = {g}: {ms1['v2']:.4f} ms on the device; first "
+          f"design {ms1['v1']:.4f} ms ({ms1['v1'] / ms1['v2']:.2f}x); bound {s_ms:.5f} ms "
+          f"({s_by}); host {call1['v2']:.4f} and {call1['v1']:.4f} ms a call; plain "
+          f"{step_plain_ms:.1f} ms", flush=True)
+    v1_ms, v1_by = bound_ms("ec_add_mixed_v1", g, g)
+    v1_rec = {"name": "ec_add_mixed_v1", "route": "cuda", "source": CSRC + "kernels.cu",
+              "replaces": f"{PALLAS_FF}:{KERNEL_TABLE['ec_add_mixed_v1'][2]}", "launches": 0,
+              "max_abs_err": 0, "ms": ms1["v1"], "plain_ms": step_plain_ms,
+              "bound_ms": v1_ms, "bound_by": v1_by, "library_ms": None,
+              "shape": f"B = {g}", "call_ms": call1["v1"], "scan_ms": ms["v1"],
+              "scan_shape": f"g = {g}, w = {w}"}
+    return recs, v1_rec
 
 
 # (log2 n, E) of the fused levels of a 2^20 round, timed at every --logn
@@ -1774,7 +2079,7 @@ def fused_scan_by_g(dev, base_pts, gs, launches: dict, reps: int):
 
 RULE2_KERNELS = ("mont_mul", "mont_addsub", "ec_add_fast", "ec_double", "poly_mul_naive",
                  "kate_div", "affine_lines", "stages_small", "batch_inv",
-                 "fused_madd_scan_xyzz", "ec_add", "radix_rank", "radix_pass_b")
+                 "fused_madd_scan_xyzz", "ec_add", "ec_add_mixed", "radix_rank", "radix_pass_b")
 
 
 def rule2_ranking(ab: dict) -> dict:
@@ -1815,16 +2120,20 @@ def ab_phase(dev, base_pts, tally, lines_in: dict, logn: int, ragged: int, row_s
     every width (and 2048), stages_small at every (E, tile, direction, n)
     (and the fused levels' shapes of a 2^20 round), batch_inv at every
     (rows, chain length) (and n = 33, 512, 700, 2^16 and 2^(logn + 1)), the
-    fused scan at every g (and 256 and 4096).  Last, the rule-2 ranking of
-    the thirteen over the main path (one MSM, one carry stage and 56 rounds
-    like the tallied one): radix_rank and radix_pass_b with no launch there
-    (the radix route is off), at phase 12's full plan (radix_recs).
-    Returns ({kernel: per-shape records}, the ranking)."""
+    fused scan at every g (and 256 and 4096).  ec_double at every (B, k) of
+    the tally and EC_DOUBLE_FIXED and ec_add_mixed at a safe window's shapes
+    against their first designs (ec_double_ab, ec_add_mixed_ab).  Last, the
+    rule-2 ranking of the fourteen over the main path (one MSM, one carry
+    stage and 56 rounds like the tallied one): ec_add_mixed, radix_rank and
+    radix_pass_b with no launch there (the safe flavor is a fallback, the
+    radix route is off), the radix kernels at phase 12's full plan
+    (radix_recs).  Returns ({kernel: per-shape records}, the ranking, the
+    first designs' records for the kernels line)."""
     rounds = A.num_digits_for(CURVE, BASE)
     on_path = {name: path_launches(tally[name], rounds)
-               for name in ("mont_mul", "mont_addsub", "ec_add", "ec_add_fast", "ec_double")}
+               for name in ("mont_mul", "mont_addsub", "ec_add", "ec_add_fast")}
     by_key = {name: key_launches(tally[name], rounds)
-              for name in ("stages_small", "batch_inv", "fused_madd_scan_xyzz")}
+              for name in ("stages_small", "batch_inv", "fused_madd_scan_xyzz", "ec_double")}
     for name in ("mont_mul", "mont_addsub", "ec_add_fast", "ec_add"):
         total = sum(on_path[name].values())
         tenth = [b for b, c in on_path[name].items() if 10 * c >= total]
@@ -1839,9 +2148,23 @@ def ab_phase(dev, base_pts, tally, lines_in: dict, logn: int, ragged: int, row_s
             dev, base_pts,
             sorted(set(on_path["ec_add_fast"]) | {row_shapes["ec_add_fast"], ragged}),
             on_path["ec_add_fast"], reps),
-        "ec_double": by_width(dev, base_pts, "ec_double", sorted(on_path["ec_double"]),
-                              on_path["ec_double"], reps),
+        "ec_double": ec_double_ab(dev, base_pts,
+                                  sorted(set(EC_DOUBLE_FIXED) | set(by_key["ec_double"])),
+                                  by_key["ec_double"], reps),
     }
+    out["ec_add_mixed"], mixed_v1 = ec_add_mixed_ab(dev, base_pts, logn, reps)
+    one = next(r for r in out["ec_double"] if (r["b"], r["k"]) == (1, 1))
+    p1 = curve_inputs(np.random.default_rng(0xAB0E), base_pts, 1, dev)[0]
+    sync(dev)
+    t0 = time.perf_counter()
+    CF.ec_double_plain(CURVE, *p1)
+    sync(dev)
+    double_v1 = {"name": "ec_double_v1", "route": "cuda", "source": CSRC + "kernels.cu",
+                 "replaces": f"{PALLAS_FF}:{KERNEL_TABLE['ec_double_v1'][2]}", "launches": 0,
+                 "max_abs_err": 0, "ms": one["v1_ms"],
+                 "plain_ms": (time.perf_counter() - t0) * 1e3, "bound_ms": one["bound_ms"],
+                 "bound_by": one["bound_by"], "library_ms": None, "shape": "B = 1",
+                 "call_ms": one["v1_call_ms"]}
     for name in POLY_KERNELS:
         out[name] = poly_by_shape(dev, name, tally[name]["round"], rounds, reps)
     out["affine_lines"] = affine_lines_by_width(dev, base_pts, lines_in,
@@ -1865,15 +2188,14 @@ def ab_phase(dev, base_pts, tally, lines_in: dict, logn: int, ragged: int, row_s
     for name, rec in radix_recs.items():
         out[name] = [{"shape": rec["shape"], "launches": 0, "ms": rec["ms"],
                       "bound_ms": rec["bound_ms"]}]
-    return out, rule2_ranking(out)
+    return out, rule2_ranking(out), [double_v1, mixed_v1]
 
 
 def radix_rule2(radix_recs: dict, plans: dict, radix: dict) -> dict:
     """radix_rank and radix_pass_b in the rule-2 ranking on their own path:
     launches x (ms - bound) over one radix-route MSM (phase 13's launch
     counts), each window at its plan's time from phase 12 (the top window at
-    its split width where it is split off), for the second design and the
-    first."""
+    its split width where it is split off)."""
     out = {}
     for name, rec in radix_recs.items():
         rows = {r["plan"]: r for r in rec["radix_ab"]}
@@ -1881,16 +2203,15 @@ def radix_rule2(radix_recs: dict, plans: dict, radix: dict) -> dict:
         per_plan = {plans["full"]: launches}
         if radix["split"]:
             per_plan = {plans["full"]: launches - 1, plans["top"]: 1}
-        loss = {lab: sum(k * (rows[key][f"{lab}_ms"] - rows[key]["bound_ms"])
-                         for key, k in per_plan.items()) for lab in ("v2", "v1")}
+        loss = sum(k * (rows[key]["ms"] - rows[key]["bound_ms"]) for key, k in per_plan.items())
         bound = sum(k * rows[key]["bound_ms"] for key, k in per_plan.items())
-        share = bound / sum(k * rows[key]["v2_ms"] for key, k in per_plan.items())
-        out[name] = {"launches_radix_msm": launches, "gap_ms_radix_msm": loss["v2"],
-                     "gap_ms_radix_msm_v1": loss["v1"], "bound_share_by_time_radix_msm": share}
+        share = bound / sum(k * rows[key]["ms"] for key, k in per_plan.items())
+        out[name] = {"launches_radix_msm": launches, "gap_ms_radix_msm": loss,
+                     "bound_share_by_time_radix_msm": share}
         print(f"  rule-2 ranking, radix route: {name}: 0 launches on the main path (the route "
               f"is off); {launches} launches a radix-route MSM ({per_plan}), launches x (ms - "
-              f"bound) = {loss['v2']:.3f} ms a radix-route MSM (first design {loss['v1']:.3f} "
-              f"ms), share of the bound by time {share:.3f}", flush=True)
+              f"bound) = {loss:.3f} ms a radix-route MSM, share of the bound by time "
+              f"{share:.3f}", flush=True)
     return out
 
 
@@ -2258,26 +2579,23 @@ def radix_bytes(name: str, d: dict) -> int:
     return p.P * 4 + (gathered + p.n_ext) * ROW_BYTES
 
 
-# the two redesigned kernels: name -> (the designs timed, by label; the
-# plain version; its inputs from a plan's state)
+# the two kernels redesigned by warp votes: name -> (the kernel, its plain
+# version, their inputs from a plan's state)
 RADIX_AB = {
-    "radix_rank": ({"v2": CR.rank, "v1": CR.rank_v1}, CR.rank_plain,
-                   lambda d: (d["keys"], d["pay"])),
-    "radix_pass_b": ({"v2": CR.pass_b, "v1": CR.pass_b_v1}, CR.pass_b_plain,
-                     lambda d: (d["main"],)),
+    "radix_rank": (CR.rank, CR.rank_plain, lambda d: (d["keys"], d["pay"])),
+    "radix_pass_b": (CR.pass_b, CR.pass_b_plain, lambda d: (d["main"],)),
 }
 
 
 def radix_ab(dev, st: dict, full: str, reps: int):
-    """radix_rank and radix_pass_b (second design) and their first designs
-    against the plain version, torch.equal, on every plan of st, and both
-    timed there in turns (v2, v1, v1, v2; CUDA events while a spin kernel
+    """radix_rank and radix_pass_b against their plain versions, torch.equal,
+    on every plan of st, and timed there (CUDA events while a spin kernel
     holds the queue), each with its share of the bound.  Returns the JSON
-    records of the four kernels (v2 and v1 at the full plan, every plan
-    under "radix_ab")."""
+    records of the two kernels (at the full plan, every plan under
+    "radix_ab")."""
     recs = []
-    for name, (designs, plain, args_of) in RADIX_AB.items():
-        print(f"kernel {name} and {name}_v1", flush=True)
+    for name, (kernel, plain, args_of) in RADIX_AB.items():
+        print(f"kernel {name}", flush=True)
         rows = []
         for key, d in st.items():
             p, args = d["plan"], args_of(d)
@@ -2287,40 +2605,24 @@ def radix_ab(dev, st: dict, full: str, reps: int):
             plain(p, *args)
             sync(dev)
             plain_ms = (time.perf_counter() - t0) * 1e3
-            errs = {}
-            for label, fn in designs.items():
-                errs[label] = outputs_equal(flatten_outs(fn(p, *args)), want)
-                require(errs[label] == 0, f"{name} ({label}) equals {name}_plain at {key} "
-                                          f"(max abs diff {errs[label]})")
-            ms = {label: [] for label in designs}
-            calls = {}
-            for label in [*designs, *reversed(designs)]:
-                fn = designs[label]
-                dev_ms, calls[label] = time_ms(dev, lambda fn=fn: fn(p, *args), reps)
-                ms[label].append(dev_ms)
+            err = outputs_equal(flatten_outs(kernel(p, *args)), want)
+            require(err == 0, f"{name} equals {name}_plain at {key} (max abs diff {err})")
+            dev_ms, call_ms = time_ms(dev, lambda: kernel(p, *args), reps)
             b_ms = radix_bytes(name, d) / HBM_BYTES_PER_S * 1e3
-            row = {"plan": key, "bound_ms": b_ms, "plain_ms": plain_ms,
-                   "max_abs_err": max(errs.values())}
-            for label in designs:
-                row[f"{label}_ms"] = sum(ms[label]) / 2
-                row[f"{label}_runs"], row[f"{label}_call_ms"] = ms[label], calls[label]
-                row[f"share_{label}"] = b_ms / row[f"{label}_ms"]
-            rows.append(row)
-            print(f"  A/B {name} at {key}: " + ", ".join(
-                      f"{label} {row[f'{label}_ms']:.4f} ms" for label in designs)
-                  + f" on the device ({row['v1_ms'] / row['v2_ms']:.2f}x v1 / v2), bound "
-                  f"{b_ms:.5f} ms (bytes); share of the bound " + ", ".join(
-                      f"{label} {row[f'share_{label}']:.3f}" for label in designs)
-                  + f"; plain {plain_ms:.1f} ms", flush=True)
+            rows.append({"plan": key, "bound_ms": b_ms, "plain_ms": plain_ms,
+                         "max_abs_err": err, "ms": dev_ms, "call_ms": call_ms,
+                         "share": b_ms / dev_ms})
+            print(f"  {name} at {key}: {dev_ms:.4f} ms on the device, bound {b_ms:.5f} ms "
+                  f"(bytes); share of the bound {b_ms / dev_ms:.3f}; plain {plain_ms:.1f} ms",
+                  flush=True)
         top = next(r for r in rows if r["plan"] == full)
         src, tpu_file, line = KERNEL_TABLE[name][:3]
-        for label, rec_name in (("v2", name), ("v1", name + "_v1")):
-            recs.append({"name": rec_name, "route": "cuda", "source": CSRC + src,
-                         "replaces": f"{tpu_file}:{line}", "launches": 0,
-                         "max_abs_err": max(r["max_abs_err"] for r in rows),
-                         "ms": top[f"{label}_ms"], "plain_ms": top["plain_ms"],
-                         "bound_ms": top["bound_ms"], "bound_by": "bytes", "library_ms": None,
-                         "shape": full, "call_ms": top[f"{label}_call_ms"], "radix_ab": rows})
+        recs.append({"name": name, "route": "cuda", "source": CSRC + src,
+                     "replaces": f"{tpu_file}:{line}", "launches": 0,
+                     "max_abs_err": max(r["max_abs_err"] for r in rows),
+                     "ms": top["ms"], "plain_ms": top["plain_ms"],
+                     "bound_ms": top["bound_ms"], "bound_by": "bytes", "library_ms": None,
+                     "shape": full, "call_ms": top["call_ms"], "radix_ab": rows})
     return recs
 
 
@@ -2328,8 +2630,8 @@ def check_radix_kernels(dev, logn: int, reps: int):
     """The four kernels of csrc/radix.cuh against their plain versions at a
     ragged plan and at the plan of one 2^L window (L = max(logn, 17), c =
     pick_window), shuffle and compact timed there.  Each kernel's inputs come
-    from the kernels before it.  Then radix_rank and radix_pass_b, each
-    beside its first design (radix_ab), at those plans and at: the split top
+    from the kernels before it.  Then radix_rank and radix_pass_b (radix_ab)
+    at those plans and at: the split top
     window's width at 2^L (max_scalar_bits = 254), and 2^17, c = 12 on
     uniform keys and on keys below 7 (phase 15's: every row in coarse
     partition 0, every tile overflowing).  Returns (the JSON records, the
@@ -2468,18 +2770,6 @@ def pass_b_routes(dev, full, reps: int):
 # phase 13: the radix route of the MSM
 # ---------------------------------------------------------------------------
 
-@contextlib.contextmanager
-def radix_first_designs():
-    """The radix route with rank and pass B by their first designs
-    (radix_rank_v1, radix_pass_b_v1), for a comparison beside a path."""
-    rank, pass_b = CR.rank, CR.pass_b
-    CR.rank, CR.pass_b = CR.rank_v1, CR.pass_b_v1
-    try:
-        yield
-    finally:
-        CR.rank, CR.pass_b = rank, pass_b
-
-
 def timed_msms(dev, scalars, pts, bits: int, runs: int = 3):
     """Three timed best_multiexp calls after a warm-up (host clock, each
     ending in a synchronise), the launch counts and peak memory of the first,
@@ -2578,24 +2868,11 @@ def radix_msm_path(dev, base_pts, logn: int):
     for name in RADIX_KERNELS:
         require(r["counts"][name] == num_windows,
                 f"{name} was launched once a window on the radix route ({r['counts'][name]})")
-    require(all(r["counts"][name] == 0 for name in RADIX_V1),
-            "the first designs (radix_rank_v1, radix_pass_b_v1) were not launched on the route")
     for route in ("radix", "classic"):
         o = out[route]
         print(f"  {route}: runs " + ", ".join(f"{t:.4f}" for t in o["runs"])
               + f" s; device busy {o['busy_ms']:.2f} ms; peak {o['peak'] / 2**20:.0f} MiB; "
               f"{o['launches']} kernel launches of the port's", flush=True)
-    # the same MSM with rank and pass B by their first designs, its device
-    # busy beside the route's (a comparison, not a path)
-    try:
-        config.RADIX_MSM = True
-        with radix_first_designs():
-            out["radix_v1_busy_ms"] = device_busy_ms(
-                dev, lambda: M.best_multiexp(CURVE, scalars, pts, max_scalar_bits=bits))
-    finally:
-        config.RADIX_MSM = False
-    print(f"  radix route with rank and pass B by their first designs: device busy "
-          f"{out['radix_v1_busy_ms']:.2f} ms, against {r['busy_ms']:.2f} ms", flush=True)
     out.update(windows=num_windows, split=split)
 
     # spilled rows of every window at the width it runs at, and the top
@@ -2651,8 +2928,7 @@ def radix_msm_path(dev, base_pts, logn: int):
 
 def radix_window_routes(dev, base_pts, logn: int, reps: int = 5):
     """One c = pick_window window of the main path's inputs (window 0) by both
-    routes: the reorder alone (by the radix route also with rank and pass B
-    by their first designs) and the whole window, host clock (best of `reps`
+    routes: the reorder alone and the whole window, host clock (best of `reps`
     after a warm-up, each ending in a synchronise) and device busy time of
     one call.  The window sums must be equal, and one radix_window must
     launch each radix kernel once."""
@@ -2672,20 +2948,12 @@ def radix_window_routes(dev, base_pts, logn: int, reps: int = 5):
             windows[route] = M._make_one_window(E, c, "fast", pay, n)
         finally:
             config.RADIX_MSM = False
-    def reorder_v1():
-        with radix_first_designs():
-            return RX.radix_window(plan, keys, pay)
-
     CF.reset_launch_counts()
-    got = RX.radix_window(plan, keys, pay)
-    require(all(CF.LAUNCHES[k] == 1 for k in RADIX_KERNELS)
-            and not any(CF.LAUNCHES[k] for k in RADIX_V1),
-            "one radix_window launched each of the four radix kernels once, no first design")
-    require(all(torch.equal(a, b) for a, b in zip(got, reorder_v1())),
-            "the reorder by the first designs of rank and pass B gives the same outputs")
+    RX.radix_window(plan, keys, pay)
+    require(all(CF.LAUNCHES[k] == 1 for k in RADIX_KERNELS),
+            "one radix_window launched each of the four radix kernels once")
     fns = {
         ("reorder", "radix"): lambda: RX.radix_window(plan, keys, pay),
-        ("reorder", "radix, first designs"): reorder_v1,
         ("reorder", "classic"): lambda: (pay[torch.sort(keys, stable=True).indices],
                                          M.bucket_bounds_hist(keys, c)),
         ("window", "radix"): lambda: windows["radix"](keys),
@@ -2743,10 +3011,8 @@ def radix_overflow_path(dev, base_pts, logn: int = 17):
         config.RADIX_MSM = True
         CF.reset_launch_counts()
         _, exc = M._best_multiexp(CURVE, c, 3, "fast", scalars, pts)
-        require(all(CF.LAUNCHES[k] == 1 for k in RADIX_KERNELS)
-                and not any(CF.LAUNCHES[k] for k in RADIX_V1),
-                "the four radix kernels were launched once on the overflowing window, no "
-                "first design")
+        require(all(CF.LAUNCHES[k] == 1 for k in RADIX_KERNELS),
+                "the four radix kernels were launched once on the overflowing window")
         require(bool(exc), "the radix route's fast flavor flags the overflow")
         CF.reset_launch_counts()
         res = M.best_multiexp(CURVE, scalars, pts, max_scalar_bits=3)
@@ -3610,8 +3876,9 @@ def main() -> int:
     tally, busy = launch_tally(dev, base_pts, args.logn, pts, rnd)
     lines_in = capture_lines_inputs(pts, rnd)
     radix_by_name = {rec["name"]: rec for rec in radix_recs if rec["name"] in RADIX_AB}
-    ab, ranking = ab_phase(dev, base_pts, tally, lines_in, args.logn, ragged, shapes,
-                           radix_by_name, reps=50)
+    ab, ranking, v1_recs = ab_phase(dev, base_pts, tally, lines_in, args.logn, ragged, shapes,
+                                    radix_by_name, reps=50)
+    recs += v1_recs
     # the coefficient levels' two: their records at the shape of the most
     # products in a round and at a ragged one; the merge head's at a ragged
     # width and the widest of the round
@@ -3635,6 +3902,8 @@ def main() -> int:
         require(fallback_counts[name] > 0,
                 f"{name} was launched by the fallback's round_sums "
                 f"({fallback_counts[name]} times)")
+    safe = safe_msm_path(dev, base_pts, args.logn)
+    ranking["ec_add_mixed"].update(safe_rule2(ab["ec_add_mixed"], safe))
     routes = time_window_routes(dev, base_pts, (6, 7, 8, 10, 12, 14, 16))
     cpu_round_path(dev, base_pts, min(10, args.logn))
     divisor_fallback_path(dev)
@@ -3667,13 +3936,13 @@ def main() -> int:
                 "launches_fallback": fallback_counts, "launches_round": rnd["counts"],
                 "launches_radix_msm": radix_counts, "launches_add_mixed_fast": amf_counts,
                 "launches_naive": naive["counts"], "launches_model": model["counts"],
-                "launches_config4": cfg4["counts"]}
+                "launches_config4": cfg4["counts"], "launches_safe_msm": safe["counts"]}
     for rec in recs:
         name = rec["name"]
         rec["launches"] = (fallback_counts if name in FALLBACK_KERNELS else
                            rnd["counts"] if name in ROUND_KERNELS + POLY_KERNELS
                            + ("affine_lines",) else
-                           radix_counts if name in RADIX_KERNELS + RADIX_V1 else
+                           radix_counts if name in RADIX_KERNELS else
                            amf_counts if name == "ec_add_mixed_fast" else msm_counts).get(name, 0)
         for key, counts in by_phase.items():
             rec[key] = counts.get(name, 0)
@@ -3682,10 +3951,12 @@ def main() -> int:
               f"{rec['launches_round']} (one round), {rec['launches_radix_msm']} (radix-route "
               f"MSM), {rec['launches_add_mixed_fast']} (EC.add_mixed_fast), "
               f"{rec['launches_naive']} (naive arrangement), {rec['launches_model']} (model "
-              f"forward), {rec['launches_config4']} (config 4); {rec['ms']} ms each on "
-              f"the device at shape {rec['shape']}", flush=True)
-        if name in RADIX_V1:
-            require(rec["launches"] == 0, f"{name}, a first design, was launched on no path")
+              f"forward), {rec['launches_config4']} (config 4), {rec['launches_safe_msm']} "
+              f"(safe MSM); {rec['ms']} ms each on the device at shape {rec['shape']}",
+              flush=True)
+        if name in FIRST_DESIGNS:
+            require(all(rec[key] == 0 for key in by_phase),
+                    f"{name}, a first design, was launched on no path")
         else:
             require(rec["launches"] > 0, f"{name} was launched on the path that runs it")
 
@@ -3705,6 +3976,10 @@ def main() -> int:
           f"peak_mib = {rnd['peak'] / 2**20}, setup_s = {rnd['setup_s']}, card = {card}",
           flush=True)
     print(f"add_mixed_fast: n = {n}, seconds = {amf_s}, card = {card}", flush=True)
+    print(f"safe msm: n = {n}, windows = {safe['windows']}, seconds = {safe['seconds']}, "
+          f"runs = {safe['runs']}, device_busy_ms = {safe['busy_ms']}, launches = "
+          f"{safe['launches']}, ec_add_mixed = {safe['counts']['ec_add_mixed']}, ec_double = "
+          f"{safe['counts']['ec_double']}, card = {card}", flush=True)
     print(f"naive: slots = {rnd['slots']}, seconds = {naive['seconds']}, pos_lines = "
           f"{naive['n_pos']}, neg_lines = {naive['n_neg']}, ratio_check_s = {naive['ratio_s']}, "
           f"card = {card}", flush=True)
@@ -3722,9 +3997,6 @@ def main() -> int:
         print(f"msm route: route = {route}, n = {1 << radix_logn}, runs = {o['runs']}, "
               f"device_busy_ms = {o['busy_ms']}, peak_mib = {o['peak'] / 2**20}, "
               f"launches = {o['launches']}, card = {card}", flush=True)
-    print(f"msm route: route = radix, rank and pass B by their first designs, n = "
-          f"{1 << radix_logn}, device_busy_ms = {radix['radix_v1_busy_ms']}, card = {card}",
-          flush=True)
     print(f"msm route: route = radix at {CURVE.scalar_field.p.bit_length()} bits (safe redo), "
           f"n = {1 << radix_logn}, seconds = {radix['overflowing']['seconds']}, "
           f"launches = {radix['overflowing']['launches']}, card = {card}", flush=True)

@@ -470,10 +470,103 @@ ec_add_fast_kernel(FieldParams P, const uint32_t* x1, const uint32_t* y1, const 
 }
 
 // ---- 5. ec_double: replaces pallas_ff.ec_double ---------------------------------
+//
+// Replaces pallas_ff.py:832 ec_double (its body k_ec_double), k times over:
+// the counterpart of the JAX package's msm._double_n, a fori_loop of
+// doublings in one program.  The paths call it on one point: the MSM's
+// Horner fold doubles its accumulator c times a window, the carry stage its
+// carry twice a round (scalar_mul_small by base 5).  One thread a point (the
+// first design, ec_double_v1 below) runs the 7 products of dbl-2009-l as one
+// chain, and a launch a doubling.  Here the point lives in shared memory
+// between its k doublings, and ADD_LANES = 4 neighbouring lanes share it by
+// ec_add's slot machinery: a doubling is three rounds of independent
+// products,
+//   {X^2, Y^2, Y Z} -> {B^2, (X + B)^2, E^2} -> {E (D - X3)},
+// the least the formula allows (each round needs the one before), each
+// followed by a round of adds that every lane computes alike and whose
+// results it keeps by its lane index (no branch).  A round writes the new X,
+// Y or Z over the old one only after the last round of the doubling that
+// reads it.  The values are those of ec_double_plain, fully reduced, so the
+// Jacobian representative is the same limb for limb; Z = 0 stays the
+// identity (Z3 = 2 Y Z).  k = 0 copies the point.  A ragged last block loads
+// point n - 1 into its spare groups and stores nothing from them.
+
+enum DblSlot {
+  D_X, D_Y, D_Z,  // the point: lane k writes coordinate k at the end
+  D_A, D_B, D_YZ, D_XB, D_E, D_C, D_T, D_F, D_DX, D_C8, D_EDX,
+  D_SINK1, D_SINK2, D_SINK3,  // where an idle lane writes
+  DBL_SLOTS
+};
+#define DBL_STRIDE (2 * DBL_SLOTS + 1)
+
+// One of four values by lane index, without a branch.
+__device__ __forceinline__ Fe lane_pick(int lane, const Fe& a, const Fe& b, const Fe& c,
+                                        const Fe& d) {
+  return fe_select(lane == 0, a, fe_select(lane == 1, b, fe_select(lane == 2, c, d)));
+}
+
+__global__ void __launch_bounds__(ADD_BLOCK)
+ec_double_kernel(FieldParams P, const uint32_t* x1, const uint32_t* y1, const uint32_t* z1,
+                 uint32_t* ox, uint32_t* oy, uint32_t* oz, int64_t n, int k) {
+  __shared__ uint4 dbl_sm[ADD_PTS * DBL_STRIDE];
+  const int lane = threadIdx.x % ADD_LANES;
+  const int pt = threadIdx.x / ADD_LANES;
+  const int64_t i = (int64_t)blockIdx.x * ADD_PTS + pt;
+  const int64_t src = i < n ? i : n - 1;
+  uint4* sc = dbl_sm + pt * DBL_STRIDE;
+  if (lane < 3)
+    slot_store(sc, lane, fe_load((lane == 0 ? x1 : lane == 1 ? y1 : z1) + src * ELEMS_PER_ROW));
+  __syncwarp();
+#pragma unroll 1
+  for (int r = 0; r < k; r++) {
+    // Lane:              0                    1                    2                 3
+    slot_mul_round(sc, lane, LANES4(D_X, D_Y, D_Y, D_X), LANES4(D_X, D_Y, D_Z, D_X),
+                   LANES4(D_A, D_B, D_YZ, D_SINK3), P);
+    {
+      // X + B, E = 2A + A and Z3 = 2 YZ; lane 2 writes Z3 over Z
+      const Fe a = slot_load(sc, D_A);
+      const Fe xb = fe_add(slot_load(sc, D_X), slot_load(sc, D_B), P);
+      const Fe e = fe_add(fe_double(a, P), a, P);
+      const Fe z3 = fe_double(slot_load(sc, D_YZ), P);
+      slot_store(sc, lane_slot(LANES4(D_XB, D_E, D_Z, D_SINK3), lane),
+                 lane_pick(lane, xb, e, z3, z3));
+      __syncwarp();
+    }
+    slot_mul_round(sc, lane, LANES4(D_B, D_XB, D_E, D_A), LANES4(D_B, D_XB, D_E, D_A),
+                   LANES4(D_C, D_T, D_F, D_SINK3), P);
+    {
+      // D = 2 ((T - A) - C), X3 = F - 2D, D - X3 and 8C; lane 0 writes X3
+      // over X
+      const Fe c = slot_load(sc, D_C);
+      const Fe d = fe_double(fe_sub(fe_sub(slot_load(sc, D_T), slot_load(sc, D_A), P), c, P), P);
+      const Fe x3 = fe_sub(slot_load(sc, D_F), fe_double(d, P), P);
+      const Fe c8 = fe_double(fe_double(fe_double(c, P), P), P);
+      slot_store(sc, lane_slot(LANES4(D_X, D_DX, D_C8, D_SINK3), lane),
+                 lane_pick(lane, x3, fe_sub(d, x3, P), c8, c8));
+      __syncwarp();
+    }
+    slot_mul_round(sc, lane, LANES4(D_E, D_E, D_E, D_E), LANES4(D_DX, D_DX, D_DX, D_DX),
+                   LANES4(D_EDX, D_SINK1, D_SINK2, D_SINK3), P);
+    {
+      // Y3 = E (D - X3) - 8C over Y
+      const Fe y3 = fe_sub(slot_load(sc, D_EDX), slot_load(sc, D_C8), P);
+      slot_store(sc, lane_slot(LANES4(D_Y, D_SINK1, D_SINK2, D_SINK3), lane), y3);
+      __syncwarp();
+    }
+  }
+  if (lane < 3 && i < n)
+    fe_store((lane == 0 ? ox : lane == 1 ? oy : oz) + i * ELEMS_PER_ROW, slot_load(sc, lane));
+}
+
+// ---- 5 (first design). ec_double_v1 ----------------------------------------
+//
+// One doubling, one thread a point: ec.cuh's ec_double, its 7 products one
+// chain.  No path launches it; chip_smoke.py holds it against the same plain
+// version and times k launches of it beside one launch of the above.
 
 __global__ void __launch_bounds__(BLOCK)
-ec_double_kernel(FieldParams P, const uint32_t* x1, const uint32_t* y1, const uint32_t* z1,
-                 uint32_t* ox, uint32_t* oy, uint32_t* oz, int64_t n) {
+ec_double_v1_kernel(FieldParams P, const uint32_t* x1, const uint32_t* y1, const uint32_t* z1,
+                    uint32_t* ox, uint32_t* oy, uint32_t* oz, int64_t n) {
   int64_t i = global_index();
   if (i >= n) return;
   jac_store(ox, oy, oz, i, ec_double(jac_load(x1, y1, z1, i), P));
@@ -633,19 +726,168 @@ ec_madd_xyzz_fast_kernel(FieldParams P, const uint32_t* x1, const uint32_t* y1,
 
 // ---- 8. ec_add_mixed: replaces pallas_ff.ec_add_mixed ---------------------------
 //
-// Complete Jacobian + affine add, the step of the safe flavor's prefix scan.
-// 18 products (the generic sum and the doubling, both computed, then
-// selected) on 5 rows and one mask byte in, 3 rows out: bytes and operations
-// nearly level, bytes the larger by a hair (513 bytes against 18 products and
-// 21 adds an element).
-// The JAX package streams the identity mask as a (B, 16) row; here it is one
-// byte an element.
+// Replaces pallas_ff.py:599 ec_add_mixed (its body k_ec_add_mixed), w times
+// over: the counterpart of the JAX package's jax.lax.scan of E.add_mixed in
+// msm.prefix_scan_parts_affine, the safe flavor's prefix scan of a window.
+// Carry j (of g) starts at (x1, y1, z1)[j] and takes, at step t, the
+// complete Jacobian + affine add of row j w + t of (qx, qy) with its
+// identity mask byte (the scan's column layout as the rows lie: carry j's w
+// rows are consecutive), and writes the new carry to row j w + t of the
+// inner prefixes; at the end its total to row j of tx, ty, tz (unless tx is
+// null).  w = 1 is the single complete mixed add of EC.add_mixed.
+//
+// One thread a point and a launch a step (the first design, ec_add_mixed_v1
+// below: 138 registers, 128 blocks of 4 warps at a window's g = 16,384 for
+// 132 SMs, the 18 products one chain).  Here the carry stays in shared
+// memory between the steps, and MIX_LANES = 2 neighbouring lanes share it
+// by ec_add's slot machinery: the 11 products of madd-2007-bl in six rounds
+// of up to two independent products,
+//   {Z1^2} -> {u2, Z1 Z1Z1} -> {s2, h^2} -> {h hh, X1 hh} -> {r^2, Z1 h}
+//   -> {r (v - x3), Y1 hhh},
+// with the subtractions for h, r, x3 and v - x3 between them.  The doubling
+// of the carry (7 products), which k_ec_add_mixed computes in every lane
+// and selects where q == carry, is computed only where it is selected (h ==
+// 0 and r == 0, the same in both lanes of a carry), by ec.cuh's ec_double in
+// each of the two lanes: no barrier in that branch, which a warp takes only
+// at a step where one of its carries equals the row it meets (a lane whose
+// rows open on a point twice).  Then both lanes run k_ec_add_mixed's selects
+// in its order
+// (doubling, inverse, q identity, p identity, both) on the carry and the
+// step's point read into registers at the step's start; lane 0 writes x and
+// y of the new carry, lane 1 z, to their slots and to the inner prefixes.
+// Two lanes and not four: the madd chain has at most three products a
+// round, so four lanes would leave their product slots idle or give them to
+// the doubling, and at a 2^20 window (g = 16,384, w = 64) the scan is bound
+// by the instructions those slots take, not by its chain (PERF.md).  Every
+// value is that of ec_add_mixed_plain, fully reduced, so every output equals
+// the plain version's limb for limb.  The
+// next step's row and mask byte are loaded into registers while a step
+// runs.  Spare carries of a ragged last block walk carry g - 1 and store
+// nothing.
+
+#define MIX_LANES 2
+#define MIX_BLOCK 64
+#define MIX_CARRIES (MIX_BLOCK / MIX_LANES)
+
+enum MixedSlot {
+  MX_X1, MX_Y1, MX_Z1,  // the carry
+  MX_QX, MX_QY,         // the step's affine point
+  MX_Z1Z1, MX_U2, MX_Z1C, MX_H, MX_S2, MX_HH, MX_R, MX_HHH, MX_V, MX_RR, MX_Z3, MX_X3, MX_VX,
+  MX_RY, MX_SH,
+  MX_SINK,              // where lane 1 writes when it has no product
+  MIXED_SLOTS
+};
+#define MIXED_STRIDE (2 * MIXED_SLOTS + 1)
+
+__global__ void __launch_bounds__(MIX_BLOCK)
+ec_add_mixed_kernel(FieldParams P, const uint32_t* x1, const uint32_t* y1, const uint32_t* z1,
+                    const uint32_t* __restrict__ qx, const uint32_t* __restrict__ qy,
+                    const uint8_t* __restrict__ q_ident, int w, int64_t g,
+                    uint32_t* ix, uint32_t* iy, uint32_t* iz,
+                    uint32_t* tx, uint32_t* ty, uint32_t* tz) {
+  __shared__ uint4 mixed_sm[MIX_CARRIES * MIXED_STRIDE];
+  const int lane = threadIdx.x % MIX_LANES;
+  const int64_t j = (int64_t)blockIdx.x * MIX_CARRIES + threadIdx.x / MIX_LANES;
+  const int64_t src = j < g ? j : g - 1;
+  uint4* sc = mixed_sm + (threadIdx.x / MIX_LANES) * MIXED_STRIDE;
+  // lane 0 loads and writes x and y, lane 1 z (and reads the qy rows)
+  slot_store(sc, lane == 0 ? MX_X1 : MX_Z1,
+             fe_load((lane == 0 ? x1 : z1) + src * ELEMS_PER_ROW));
+  if (lane == 0) slot_store(sc, MX_Y1, fe_load(y1 + src * ELEMS_PER_ROW));
+  const uint32_t* qrow = (lane == 0 ? qx : qy) + src * w * ELEMS_PER_ROW;
+  const uint8_t* qid = q_ident + src * w;
+  uint32_t* inner1 = (lane == 0 ? ix : iz) + src * w * ELEMS_PER_ROW;
+  uint32_t* inner2 = iy + src * w * ELEMS_PER_ROW;
+  const Fe one = fe_one(P);
+  Jac ident;
+  ident.x = one;
+  ident.y = one;
+  ident.z = fe_zero();
+  Fe q = fe_load(qrow);
+  bool q_next = qid[0] != 0;
+  Jac o;
+#pragma unroll 1
+  for (int t = 0; t < w; t++) {
+    // the barrier after this store also ends the step before, whose last
+    // round wrote the carry
+    slot_store(sc, MX_QX + lane, q);
+    const bool q_id = q_next;
+    __syncwarp();
+    if (t + 1 < w) {
+      q = fe_load(qrow + (int64_t)(t + 1) * ELEMS_PER_ROW);
+      q_next = qid[t + 1] != 0;
+    }
+    // the carry and the step's point in registers: the last round writes
+    // their slots while the other lane may still be reading
+    Jac p, qa;
+    p.x = slot_load(sc, MX_X1);
+    p.y = slot_load(sc, MX_Y1);
+    p.z = slot_load(sc, MX_Z1);
+    qa.x = slot_load(sc, MX_QX);
+    qa.y = slot_load(sc, MX_QY);
+    qa.z = one;
+    // Lane:                            0         1
+    slot_mul_round(sc, lane, LANES2(MX_Z1, MX_Z1), LANES2(MX_Z1, MX_Z1),
+                   LANES2(MX_Z1Z1, MX_SINK), P);
+    slot_mul_round(sc, lane, LANES2(MX_QX, MX_Z1), LANES2(MX_Z1Z1, MX_Z1Z1),
+                   LANES2(MX_U2, MX_Z1C), P);
+    slot_lin_round(sc, lane, LANES2(MX_U2, MX_X1), LANES2(MX_X1, MX_X1),
+                   LANES2(MX_H, MX_SINK), 0x1u, P);
+    slot_mul_round(sc, lane, LANES2(MX_QY, MX_H), LANES2(MX_Z1C, MX_H), LANES2(MX_S2, MX_HH), P);
+    slot_lin_round(sc, lane, LANES2(MX_S2, MX_X1), LANES2(MX_Y1, MX_X1),
+                   LANES2(MX_R, MX_SINK), 0x1u, P);
+    slot_mul_round(sc, lane, LANES2(MX_H, MX_X1), LANES2(MX_HH, MX_HH), LANES2(MX_HHH, MX_V), P);
+    slot_mul_round(sc, lane, LANES2(MX_R, MX_Z1), LANES2(MX_R, MX_H), LANES2(MX_RR, MX_Z3), P);
+    {
+      // x3 = (r^2 - hhh) - 2v and v - x3, the same body in both lanes
+      const Fe v = slot_load(sc, MX_V);
+      const Fe x3 = fe_sub(fe_sub(slot_load(sc, MX_RR), slot_load(sc, MX_HHH), P),
+                           fe_double(v, P), P);
+      slot_store(sc, lane == 0 ? MX_X3 : MX_VX, fe_select(lane == 0, x3, fe_sub(v, x3, P)));
+      __syncwarp();
+    }
+    slot_mul_round(sc, lane, LANES2(MX_R, MX_Y1), LANES2(MX_VX, MX_HHH),
+                   LANES2(MX_RY, MX_SH), P);
+    // the new carry, the same body in both lanes: the generic sum, the
+    // doubling where it is taken (h == 0 and r == 0: both lanes agree), then
+    // k_ec_add_mixed's selects in its order
+    const bool h0 = fe_is_zero(slot_load(sc, MX_H));
+    const bool r0 = fe_is_zero(slot_load(sc, MX_R));
+    const bool id1 = fe_is_zero(p.z);
+    o.x = slot_load(sc, MX_X3);
+    o.y = fe_sub(slot_load(sc, MX_RY), slot_load(sc, MX_SH), P);
+    o.z = slot_load(sc, MX_Z3);
+    if (h0 && r0) o = ec_double(p, P);
+    o = jac_select(h0 && !r0, ident, o);
+    o = jac_select(q_id && !id1, p, o);
+    o = jac_select(id1 && !q_id, qa, o);
+    o = jac_select(id1 && q_id, ident, o);
+    slot_store(sc, lane == 0 ? MX_X1 : MX_Z1, lane == 0 ? o.x : o.z);
+    if (lane == 0) slot_store(sc, MX_Y1, o.y);
+    if (j < g) {
+      fe_store(inner1 + (int64_t)t * ELEMS_PER_ROW, lane == 0 ? o.x : o.z);
+      if (lane == 0) fe_store(inner2 + (int64_t)t * ELEMS_PER_ROW, o.y);
+    }
+  }
+  if (j < g && tx != nullptr) {
+    fe_store((lane == 0 ? tx : tz) + j * ELEMS_PER_ROW, lane == 0 ? o.x : o.z);
+    if (lane == 0) fe_store(ty + j * ELEMS_PER_ROW, o.y);
+  }
+}
+
+// ---- 8 (first design). ec_add_mixed_v1 -------------------------------------
+//
+// One complete mixed add, one thread a point: ec.cuh's
+// ec_add_mixed_complete, 18 products (the generic sum and the doubling, both
+// computed, then selected) on 5 rows and one mask byte in, 3 rows out.  No
+// path launches it; chip_smoke.py holds it against the same plain version
+// and times w launches of it beside one launch of the scan above.
 
 __global__ void __launch_bounds__(BLOCK)
-ec_add_mixed_kernel(FieldParams P, const uint32_t* x1, const uint32_t* y1,
-                    const uint32_t* z1, const uint32_t* qx, const uint32_t* qy,
-                    const uint8_t* __restrict__ q_ident,
-                    uint32_t* ox, uint32_t* oy, uint32_t* oz, int64_t n) {
+ec_add_mixed_v1_kernel(FieldParams P, const uint32_t* x1, const uint32_t* y1,
+                       const uint32_t* z1, const uint32_t* qx, const uint32_t* qy,
+                       const uint8_t* __restrict__ q_ident,
+                       uint32_t* ox, uint32_t* oy, uint32_t* oz, int64_t n) {
   int64_t i = global_index();
   if (i >= n) return;
   Jac r = ec_add_mixed_complete(jac_load(x1, y1, z1, i),
@@ -731,10 +973,21 @@ int ec_add_fast_launch(const FieldParams* P, const void* x1, const void* y1, con
   return (int)cudaGetLastError();
 }
 
+// k >= 0 doublings of each point.
 int ec_double_launch(const FieldParams* P, const void* x1, const void* y1, const void* z1,
-                     void* ox, void* oy, void* oz, int64_t n, void* stream) {
+                     void* ox, void* oy, void* oz, int64_t n, int k, void* stream) {
   if (n > 0)
-    ec_double_kernel<<<grid_for(n, BLOCK), BLOCK, 0, (cudaStream_t)stream>>>(
+    ec_double_kernel<<<grid_for(n, ADD_PTS), ADD_BLOCK, 0, (cudaStream_t)stream>>>(
+        *P, (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)z1,
+        (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, n, k);
+  return (int)cudaGetLastError();
+}
+
+// The first design: one doubling.
+int ec_double_v1_launch(const FieldParams* P, const void* x1, const void* y1, const void* z1,
+                        void* ox, void* oy, void* oz, int64_t n, void* stream) {
+  if (n > 0)
+    ec_double_v1_kernel<<<grid_for(n, BLOCK), BLOCK, 0, (cudaStream_t)stream>>>(
         *P, (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)z1,
         (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, n);
   return (int)cudaGetLastError();
@@ -777,12 +1030,29 @@ int ec_madd_xyzz_fast_launch(const FieldParams* P, const void* x1, const void* y
   return (int)cudaGetLastError();
 }
 
+// x1, y1, z1: (g, 16) carries; qx, qy: (g * w, 16) rows and q_ident (g * w)
+// bytes, carry j's steps at rows j w .. j w + w - 1; -> the inner prefixes
+// ix, iy, iz (g * w, 16) and, unless tx is null, the totals tx, ty, tz (g, 16).
 int ec_add_mixed_launch(const FieldParams* P, const void* x1, const void* y1,
                         const void* z1, const void* qx, const void* qy,
-                        const void* q_ident, void* ox, void* oy, void* oz,
-                        int64_t n, void* stream) {
+                        const void* q_ident, int w, int64_t g, void* ix, void* iy, void* iz,
+                        void* tx, void* ty, void* tz, void* stream) {
+  if (g > 0 && w > 0)
+    ec_add_mixed_kernel<<<grid_for(g, MIX_CARRIES), MIX_BLOCK, 0, (cudaStream_t)stream>>>(
+        *P, (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)z1,
+        (const uint32_t*)qx, (const uint32_t*)qy, (const uint8_t*)q_ident, w, g,
+        (uint32_t*)ix, (uint32_t*)iy, (uint32_t*)iz,
+        (uint32_t*)tx, (uint32_t*)ty, (uint32_t*)tz);
+  return (int)cudaGetLastError();
+}
+
+// The first design: one complete mixed add a point.
+int ec_add_mixed_v1_launch(const FieldParams* P, const void* x1, const void* y1,
+                           const void* z1, const void* qx, const void* qy,
+                           const void* q_ident, void* ox, void* oy, void* oz,
+                           int64_t n, void* stream) {
   if (n > 0)
-    ec_add_mixed_kernel<<<grid_for(n, BLOCK), BLOCK, 0, (cudaStream_t)stream>>>(
+    ec_add_mixed_v1_kernel<<<grid_for(n, BLOCK), BLOCK, 0, (cudaStream_t)stream>>>(
         *P, (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)z1,
         (const uint32_t*)qx, (const uint32_t*)qy, (const uint8_t*)q_ident,
         (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, n);

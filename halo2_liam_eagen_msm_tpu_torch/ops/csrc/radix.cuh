@@ -30,11 +30,6 @@
 // (one thread an id, in shared memory) each warp's base; the same scan
 // carries the running count from chunk to chunk, so the ranks are stable in
 // row order.  No thread walks the rows of a chunk.
-//
-// First designs: radix_rank_v1 and radix_pass_b_v1 rank by a serial walk
-// (one thread a partition or fine id numbers the rows of a chunk in order).
-// No path launches them; chip_smoke.py holds each against the same plain
-// version as its second design and times the two on the same inputs.
 #pragma once
 
 #define RADIX_RANK_THREADS 512     // rows a chunk of the rank; >= P (cb <= 9)
@@ -46,7 +41,6 @@
 #ifndef RADIX_PASS_B_STASH        // the host rehearsal builds with a smaller one
 #define RADIX_PASS_B_STASH 16384   // R up to which pass B keeps its fine ids in shared memory
 #endif
-#define RADIX_PASS_B_V1_THREADS 256
 #define RADIX_MAX_BINS 65          // 2^fb + 1 fine ids (fb <= 6), the last = no point
 #define RADIX_PAY_CHUNKS 4         // 16-byte chunks of a 64-byte payload row
 #define RADIX_IMG_CHUNKS 5         // ... of an 80-byte image row (payload, key, 3 zero words)
@@ -171,65 +165,6 @@ radix_rank_kernel(const int32_t* __restrict__ keys, const uint4* __restrict__ pa
       dst[base + i] = d;
     }
     spill_base += total;  // spill_w is rewritten after the next chunk's first barrier
-  }
-  if (t < P) cnt[(int64_t)blockIdx.x * P + t] = run;
-}
-
-// ---- 15 (first design). radix_rank_v1 ----------------------------------------
-//
-// The same function.  For each chunk a thread writes its row's coarse id to
-// shared memory; then thread p walks the chunk in row order and numbers the
-// rows of partition p, and a Hillis-Steele scan of the spill flags (nine
-// barriers) gives the spill ranks.
-
-__global__ void __launch_bounds__(RADIX_RANK_THREADS)
-radix_rank_v1_kernel(const int32_t* __restrict__ keys, const uint4* __restrict__ pay,
-                     int32_t* __restrict__ dst, int32_t* __restrict__ cnt, int T, int fb,
-                     int P, int S, int SP, int out_rows) {
-  __shared__ int part[RADIX_RANK_THREADS];
-  __shared__ int rank[RADIX_RANK_THREADS];
-  __shared__ int scan[2][RADIX_RANK_THREADS];
-  const int t = threadIdx.x;
-  const int64_t base = (int64_t)blockIdx.x * T;
-  int run = 0;         // thread p: valid rows of partition p so far
-  int spill_base = 0;  // spilled rows of the earlier chunks
-  for (int c0 = 0; c0 < T; c0 += RADIX_RANK_THREADS) {
-    const int i = c0 + t;
-    int coarse = -1;
-    if (i < T && radix_row_nonzero(pay + (base + i) * RADIX_PAY_CHUNKS)) {
-      const int k = keys[base + i] >> fb;
-      if (k >= 0 && k < P) coarse = k;
-    }
-    part[t] = coarse;
-    __syncthreads();
-    if (t < P) {
-      const int m = T - c0 < RADIX_RANK_THREADS ? T - c0 : RADIX_RANK_THREADS;
-      for (int j = 0; j < m; j++)
-        if (part[j] == t) rank[j] = run++;
-    }
-    __syncthreads();
-    const int r = coarse >= 0 ? rank[t] : 0;
-    const int spill = coarse >= 0 && r >= S;
-    scan[0][t] = spill;
-    __syncthreads();
-    int src = 0;
-    for (int d = 1; d < RADIX_RANK_THREADS; d <<= 1) {
-      int v = scan[src][t];
-      if (t >= d) v += scan[src][t - d];
-      scan[src ^ 1][t] = v;
-      src ^= 1;
-      __syncthreads();
-    }
-    if (i < T) {
-      const int sp_rank = spill_base + scan[src][t] - 1;
-      int d;
-      if (coarse < 0 || (spill && sp_rank >= SP)) d = out_rows;
-      else if (spill) d = P * S + sp_rank;
-      else d = coarse * S + r;
-      dst[base + i] = d;
-    }
-    spill_base += scan[src][RADIX_RANK_THREADS - 1];
-    __syncthreads();  // part, rank and scan are reused by the next chunk
   }
   if (t < P) cnt[(int64_t)blockIdx.x * P + t] = run;
 }
@@ -374,64 +309,6 @@ radix_pass_b_kernel(const uint4* __restrict__ main_rows, uint4* __restrict__ par
     out[k] = radix_zero4();
 }
 
-// ---- 17 (first design). radix_pass_b_v1 --------------------------------------
-//
-// The same function.  A histogram by one shared atomic a row and its
-// exclusive scan give each fine id its first place; then the rows in chunks
-// of RADIX_PASS_B_V1_THREADS: each thread holds its row in registers, thread
-// f walks the chunk in row order and hands out the places of fine id f, and
-// each thread stores its row there.  Rows [R, R_pad) are zeroed.  It reads
-// every row twice, payload and key word.
-
-__global__ void __launch_bounds__(RADIX_PASS_B_V1_THREADS)
-radix_pass_b_v1_kernel(const uint4* __restrict__ main_rows, uint4* __restrict__ parts,
-                       int32_t* __restrict__ fc, int64_t R, int64_t R_pad, int fb) {
-  __shared__ int hist[RADIX_MAX_BINS];
-  __shared__ int fine[RADIX_PASS_B_V1_THREADS];
-  __shared__ int place[RADIX_PASS_B_V1_THREADS];
-  const int t = threadIdx.x;
-  const int nf = 1 << fb;
-  const int bins = nf + 1;
-  const uint4* in = main_rows + (int64_t)blockIdx.x * R * RADIX_IMG_CHUNKS;
-  uint4* out = parts + (int64_t)blockIdx.x * R_pad * RADIX_PAY_CHUNKS;
-  if (t < bins) hist[t] = 0;
-  __syncthreads();
-  for (int64_t j = t; j < R; j += RADIX_PASS_B_V1_THREADS)
-    atomicAdd(&hist[radix_fine_id(in + j * RADIX_IMG_CHUNKS, nf)], 1);
-  __syncthreads();
-  int run = 0;  // thread f: the next place of fine id f
-  if (t < bins) {
-    fc[(int64_t)blockIdx.x * bins + t] = hist[t];
-    for (int f = 0; f < t; f++) run += hist[f];
-  }
-  for (int64_t c0 = 0; c0 < R; c0 += RADIX_PASS_B_V1_THREADS) {
-    const int64_t j = c0 + t;
-    uint4 row[RADIX_PAY_CHUNKS];
-    int f = -1;
-    if (j < R) {
-      const uint4* src = in + j * RADIX_IMG_CHUNKS;
-      for (int k = 0; k < RADIX_PAY_CHUNKS; k++) row[k] = src[k];
-      f = radix_fine_id(src, nf);
-    }
-    fine[t] = f;
-    __syncthreads();
-    if (t < bins) {
-      const int m = R - c0 < RADIX_PASS_B_V1_THREADS ? (int)(R - c0) : RADIX_PASS_B_V1_THREADS;
-      for (int k = 0; k < m; k++)
-        if (fine[k] == t) place[k] = run++;
-    }
-    __syncthreads();
-    if (j < R) {
-      uint4* o = out + (int64_t)place[t] * RADIX_PAY_CHUNKS;
-      for (int k = 0; k < RADIX_PAY_CHUNKS; k++) o[k] = row[k];
-    }
-    __syncthreads();  // fine and place are reused by the next chunk
-  }
-  for (int64_t k = R * RADIX_PAY_CHUNKS + t; k < R_pad * RADIX_PAY_CHUNKS;
-       k += RADIX_PASS_B_V1_THREADS)
-    out[k] = radix_zero4();
-}
-
 // ---- 18. radix_compact: replaces radix._compact_kernel ---------------------
 //
 // The TPU issues one ordered copy per partition, R_pad rows to base4[p], so
@@ -473,18 +350,6 @@ int radix_rank_launch(const void* keys, const void* pay, void* dst, void* cnt, i
   return (int)cudaGetLastError();
 }
 
-// The first design, same arguments.
-int radix_rank_v1_launch(const void* keys, const void* pay, void* dst, void* cnt,
-                         int64_t n_tiles, int T, int fb, int P, int S, int SP, int out_rows,
-                         void* stream) {
-  if (n_tiles > 0)
-    radix_rank_v1_kernel<<<(unsigned int)n_tiles, RADIX_RANK_THREADS, 0,
-                           (cudaStream_t)stream>>>(
-        (const int32_t*)keys, (const uint4*)pay, (int32_t*)dst, (int32_t*)cnt, T, fb, P, S, SP,
-        out_rows);
-  return (int)cudaGetLastError();
-}
-
 // -> tiles (n_tiles, out_rows, 20); out_rows <= RADIX_MAX_OUT_ROWS.
 int radix_shuffle_launch(const void* keys, const void* dst, const void* pay, void* tiles,
                          int64_t n_tiles, int T, int out_rows, void* stream) {
@@ -501,16 +366,6 @@ int radix_pass_b_launch(const void* main_rows, void* parts, void* fc, int P, int
                         int64_t R_pad, int fb, void* stream) {
   if (P > 0)
     radix_pass_b_kernel<<<(unsigned int)P, RADIX_PASS_B_THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint4*)main_rows, (uint4*)parts, (int32_t*)fc, R, R_pad, fb);
-  return (int)cudaGetLastError();
-}
-
-// The first design: main (P, R, 20) -> parts (P, R_pad, 16), fc (P, 2^fb + 1).
-int radix_pass_b_v1_launch(const void* main_rows, void* parts, void* fc, int P, int64_t R,
-                           int64_t R_pad, int fb, void* stream) {
-  if (P > 0)
-    radix_pass_b_v1_kernel<<<(unsigned int)P, RADIX_PASS_B_V1_THREADS, 0,
-                             (cudaStream_t)stream>>>(
         (const uint4*)main_rows, (uint4*)parts, (int32_t*)fc, R, R_pad, fb);
   return (int)cudaGetLastError();
 }

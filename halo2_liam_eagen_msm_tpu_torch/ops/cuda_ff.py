@@ -12,13 +12,15 @@ layer's entry points (sources under ops/csrc/, CUDA C++ for sm_90a):
   mont_addsub             mont_addsub                   (a +- b) mod p
   ec_add                  ec_add                        complete Jacobian add
   ec_add_fast             ec_add_fast                   generic add + flag
-  ec_double               ec_double                     Jacobian doubling
+  ec_double               ec_double                     k Jacobian doublings
   fused_madd_scan_xyzz    fused_madd_scan_xyzz          one window's blinded
                                                         XYZZ prefix scan
   ec_madd_xyzz_fast       ec_madd_xyzz_fast             one XYZZ + affine step
                                                         with a flag
-  ec_add_mixed            ec_add_mixed                  complete Jacobian +
-                                                        affine add
+  ec_add_mixed            ec_add_mixed                  w steps of complete
+                                                        Jacobian + affine adds:
+                                                        the safe scan of a
+                                                        window (w = 1: one add)
   ec_add_mixed_fast       ec_add_mixed_fast             Jacobian + affine add
                                                         with a flag
 
@@ -27,9 +29,13 @@ at most 136 multiply-adds of 32 bits), and the curve kernels sit at the
 crossover of bytes and integer operations; so each does its whole formula in
 registers on 8 limbs of 32 bits and touches device memory once per input and
 output.  See ops/csrc/ff.cuh for the limb repacking.  mont_addsub spreads a
-row over four lanes, ec_add and ec_add_fast a point over four.  batch_inv
-runs a chain of products a thread and is bound by the latency of its power
-(see csrc/kernels.cu).
+row over four lanes, ec_add, ec_add_fast and ec_double a point over four,
+ec_add_mixed a carry over two; ec_double keeps its point on chip through k
+doublings and ec_add_mixed its carries through w steps.  batch_inv runs a chain of
+products a thread and is bound by the latency of its power (see
+csrc/kernels.cu).  The first designs of ec_double and ec_add_mixed (a
+thread a point, one doubling or one add a launch) stay as ec_double_v1 and
+ec_add_mixed_v1 for one comparison on the card; no path calls them.
 
 Tensors are (..., 16) int32, little-endian 16-bit limbs in Montgomery form
 (R = 2^256), fully reduced to [0, p); a kernel reads the same buffer as
@@ -71,12 +77,12 @@ from ..fields import CurveSpec, FieldSpec, LIMB_BITS, LIMB_MASK, N_LIMBS, R
 KERNELS = ("mont_mul", "batch_inv", "mont_addsub", "ec_add", "ec_add_fast",
            "ec_double", "fused_madd_scan_xyzz", "ec_madd_xyzz_fast", "ec_add_mixed",
            "ec_add_mixed_fast",
+           # the first designs of two of them (no path launches those)
+           "ec_double_v1", "ec_add_mixed_v1",
            # the divisor merge tree's five, in csrc/ntt.cuh (ops/cuda_ntt.py)
            "lm_mul", "lm_addsub", "lm_mul_const", "stage_big", "stages_small",
-           # the radix reorder's four, in csrc/radix.cuh (ops/cuda_radix.py),
-           # and the first designs of two of them (no path launches those)
+           # the radix reorder's four, in csrc/radix.cuh (ops/cuda_radix.py)
            "radix_rank", "radix_shuffle", "radix_pass_b", "radix_compact",
-           "radix_rank_v1", "radix_pass_b_v1",
            # the coefficient levels' two, in csrc/poly.cuh (ops/cuda_poly.py)
            "poly_mul_naive", "kate_div",
            # the merge head's, in csrc/lines.cuh (ops/cuda_lines.py)
@@ -180,11 +186,13 @@ def _lib():
             "mont_addsub_launch": [fpp, ci, vp, vp, vp, i64, vp],
             "ec_add_launch": [fpp] + [vp] * 9 + [i64, vp],
             "ec_add_fast_launch": [fpp] + [vp] * 10 + [i64, vp],
-            "ec_double_launch": [fpp] + [vp] * 6 + [i64, vp],
+            "ec_double_launch": [fpp] + [vp] * 6 + [i64, ci, vp],
+            "ec_double_v1_launch": [fpp] + [vp] * 6 + [i64, vp],
             "fused_madd_scan_xyzz_launch":
                 [fpp, u32p, u32p, vp, ci, i64] + [vp] * 9 + [vp],
             "ec_madd_xyzz_fast_launch": [fpp] + [vp] * 11 + [i64, vp],
-            "ec_add_mixed_launch": [fpp] + [vp] * 9 + [i64, vp],
+            "ec_add_mixed_launch": [fpp] + [vp] * 6 + [ci, i64] + [vp] * 6 + [vp],
+            "ec_add_mixed_v1_launch": [fpp] + [vp] * 9 + [i64, vp],
             "ec_add_mixed_fast_launch": [fpp] + [vp] * 9 + [i64, vp],
             "lm_mul_launch": [fpp, vp, vp, vp, i64, vp],
             "lm_addsub_launch": [fpp, ci, vp, vp, vp, i64, vp],
@@ -192,10 +200,8 @@ def _lib():
             "stage_big_launch": [fpp, ci, vp, vp, vp, i64, i64, i64, vp],
             "stages_small_launch": [fpp, ci, vp, vp, vp, i64, ci, i64, vp],
             "radix_rank_launch": [vp, vp, vp, vp, i64] + [ci] * 6 + [vp],
-            "radix_rank_v1_launch": [vp, vp, vp, vp, i64] + [ci] * 6 + [vp],
             "radix_shuffle_launch": [vp, vp, vp, vp, i64, ci, ci, vp],
             "radix_pass_b_launch": [vp, vp, vp, ci, i64, i64, ci, vp],
-            "radix_pass_b_v1_launch": [vp, vp, vp, ci, i64, i64, ci, vp],
             "radix_compact_launch": [vp, vp, vp, ci, i64, i64, vp],
             "poly_mul_naive_launch":
                 [fpp, vp, vp, vp, i64, ci, ci, i64, i64, ci, ci, ci, ci, vp],
@@ -338,13 +344,29 @@ def ec_add_fast(curve: CurveSpec, x1, y1, z1, x2, y2, z2):
     return tuple(o.reshape(lead + (N_LIMBS,)) for o in outs) + (exc.reshape(lead),)
 
 
-def ec_double(curve: CurveSpec, x1, y1, z1):
-    """Batched Jacobian doubling (a = 0), one kernel launch."""
+def ec_double(curve: CurveSpec, x1, y1, z1, k: int = 1):
+    """Batched Jacobian doubling (a = 0), k >= 0 times over, one kernel launch
+    (four lanes a point, the point on chip between its doublings); k = 0
+    copies the points."""
     _require_a_zero(curve)
+    if k < 0:
+        raise ValueError(f"ec_double: k = {k} < 0")
     _check_cuda("ec_double", x1, y1, z1)
     lead, flat = _flatten(x1, y1, z1)
     outs = tuple(torch.empty_like(flat[0]) for _ in range(3))
     _launch("ec_double", flat[0].device, ctypes.byref(_field_params(curve.field)),
+            *_ptrs(flat + outs), flat[0].shape[0], k)
+    return tuple(o.reshape(lead + (N_LIMBS,)) for o in outs)
+
+
+def ec_double_v1(curve: CurveSpec, x1, y1, z1):
+    """One batched Jacobian doubling by the first design (a thread a point),
+    one kernel launch.  No path calls it."""
+    _require_a_zero(curve)
+    _check_cuda("ec_double_v1", x1, y1, z1)
+    lead, flat = _flatten(x1, y1, z1)
+    outs = tuple(torch.empty_like(flat[0]) for _ in range(3))
+    _launch("ec_double_v1", flat[0].device, ctypes.byref(_field_params(curve.field)),
             *_ptrs(flat + outs), flat[0].shape[0])
     return tuple(o.reshape(lead + (N_LIMBS,)) for o in outs)
 
@@ -365,19 +387,67 @@ def ec_madd_xyzz_fast(curve: CurveSpec, x1, y1, zz1, zzz1, qx, qy):
         (exc.reshape(lead) != 0,)
 
 
+def _mixed_mask(name: str, q_is_identity, like, shape):
+    """The identity mask as one contiguous byte an element (a bool's own
+    storage) of the given leading shape."""
+    if q_is_identity.dtype != torch.bool or q_is_identity.device != like.device:
+        raise TypeError(f"{name}: q_is_identity must be a bool tensor on the device of "
+                        "the points")
+    return q_is_identity.expand(shape).reshape(-1).contiguous()
+
+
 def ec_add_mixed(curve: CurveSpec, x1, y1, z1, qx, qy, q_is_identity):
-    """Batched complete Jacobian + affine addition, one kernel launch.
-    q_is_identity: (...,) bool mask of the affine identity slots; the kernel
-    reads it as one byte an element."""
+    """Batched complete Jacobian + affine addition: the scan kernel's one
+    step (w = 1), one kernel launch (two lanes a point).  q_is_identity:
+    (...,) bool mask of the affine identity slots; the kernel reads it as
+    one byte an element."""
+    lead = torch.broadcast_shapes(*(a.shape[:-1] for a in (x1, y1, z1, qx, qy)))
+    rows = (a.expand(lead + (N_LIMBS,)) for a in (x1, y1, z1, qx, qy))
+    return ec_add_mixed_scan(curve, *rows, q_is_identity, 1)[0]
+
+
+def ec_add_mixed_scan(curve: CurveSpec, x1, y1, z1, qx, qy, q_is_identity, w: int):
+    """The safe flavor's blocked prefix scan in one kernel launch (two lanes
+    a carry, the carries on chip between the steps): the counterpart of the
+    JAX package's jax.lax.scan of E.add_mixed.
+
+    x1, y1, z1: (..., g, 16) carries to start from; qx, qy: (..., g*w, 16)
+    affine rows and q_is_identity (..., g*w) bool, carry j's steps at rows
+    j*w .. j*w + w - 1 (the scan's column layout as the rows lie).  Returns
+    (inner, totals): inner the 3-tuple of (..., g*w, 16) tensors with
+    inner[j*w + t] = carry j after step t, totals the 3-tuple of (..., g, 16)
+    final carries (inner itself where w = 1)."""
+    kernel = "ec_add_mixed"
     _require_a_zero(curve)
-    _check_cuda("ec_add_mixed", x1, y1, z1, qx, qy)
-    if q_is_identity.dtype != torch.bool or q_is_identity.device != x1.device:
-        raise TypeError("ec_add_mixed: q_is_identity must be a bool tensor on "
-                        "the device of the points")
+    _check_cuda(kernel, x1, y1, z1, qx, qy)
+    if w <= 0:
+        raise ValueError(f"{kernel}: w = {w} <= 0")
+    lead, carry = _flatten(x1, y1, z1)
+    rows_lead, rows = _flatten(qx, qy)
+    n_carry, n_rows = carry[0].shape[0], rows[0].shape[0]
+    if n_rows != n_carry * w or rows_lead[:-1] != lead[:-1]:
+        raise ValueError(f"{kernel}: {tuple(rows_lead)} rows are not w = {w} a carry of "
+                         f"{tuple(lead)}")
+    mask = _mixed_mask(kernel, q_is_identity, x1, rows_lead)
+    inner = tuple(torch.empty_like(rows[0]) for _ in range(3))
+    # the kernel writes no totals where they are the inner prefixes (null)
+    totals = inner if w == 1 else tuple(torch.empty_like(carry[0]) for _ in range(3))
+    _launch(kernel, carry[0].device, ctypes.byref(_field_params(curve.field)),
+            *_ptrs(carry + rows), mask.data_ptr(), w, n_carry, *_ptrs(inner),
+            *(_ptrs(totals) if w > 1 else (None,) * 3))
+    return (tuple(o.reshape(rows_lead + (N_LIMBS,)) for o in inner),
+            tuple(o.reshape(lead + (N_LIMBS,)) for o in totals))
+
+
+def ec_add_mixed_v1(curve: CurveSpec, x1, y1, z1, qx, qy, q_is_identity):
+    """One batched complete Jacobian + affine addition by the first design (a
+    thread a point), one kernel launch.  No path calls it."""
+    _require_a_zero(curve)
+    _check_cuda("ec_add_mixed_v1", x1, y1, z1, qx, qy)
     lead, flat = _flatten(x1, y1, z1, qx, qy)
-    mask = q_is_identity.expand(lead).reshape(-1).contiguous()  # 1 byte a bool
+    mask = _mixed_mask("ec_add_mixed_v1", q_is_identity, x1, lead)
     outs = tuple(torch.empty_like(flat[0]) for _ in range(3))
-    _launch("ec_add_mixed", flat[0].device, ctypes.byref(_field_params(curve.field)),
+    _launch("ec_add_mixed_v1", flat[0].device, ctypes.byref(_field_params(curve.field)),
             *_ptrs(flat), mask.data_ptr(), *_ptrs(outs), flat[0].shape[0])
     return tuple(o.reshape(lead + (N_LIMBS,)) for o in outs)
 
@@ -732,21 +802,26 @@ def _sel(mask, a, b):
     return torch.where(mask[..., None], a, b)
 
 
-def ec_double_plain(curve: CurveSpec, x1, y1, z1):
-    """Plain version of ec_double: dbl-2009-l with a = 0, identity-safe."""
+def ec_double_plain(curve: CurveSpec, x1, y1, z1, k: int = 1):
+    """Plain version of ec_double: dbl-2009-l with a = 0, identity-safe, k
+    times over (k = 0 gives the points back)."""
     _require_a_zero(curve)
+    if k < 0:
+        raise ValueError(f"ec_double: k = {k} < 0")
     f = _PlainField(curve.field)
-    A = f.sqr(x1)
-    B = f.sqr(y1)
-    C = f.sqr(B)
-    t = f.sqr(f.add(x1, B))
-    D = f.double(f.sub(f.sub(t, A), C))
-    E = f.add(f.double(A), A)
-    F = f.sqr(E)
-    x3 = f.sub(F, f.double(D))
-    y3 = f.sub(f.mul(E, f.sub(D, x3)), f.double(f.double(f.double(C))))
-    z3 = f.double(f.mul(y1, z1))
-    return x3, y3, z3
+    x1, y1, z1 = _broadcast_rows(x1, y1, z1)
+    for _ in range(k):
+        A = f.sqr(x1)
+        B = f.sqr(y1)
+        C = f.sqr(B)
+        t = f.sqr(f.add(x1, B))
+        D = f.double(f.sub(f.sub(t, A), C))
+        E = f.add(f.double(A), A)
+        F = f.sqr(E)
+        x3 = f.sub(F, f.double(D))
+        y3 = f.sub(f.mul(E, f.sub(D, x3)), f.double(f.double(f.double(C))))
+        x1, y1, z1 = x3, y3, f.double(f.mul(y1, z1))
+    return x1, y1, z1
 
 
 def _add_core_plain(f: _PlainField, x1, y1, z1, x2, y2, z2):
@@ -836,6 +911,29 @@ def ec_add_mixed_plain(curve: CurveSpec, x1, y1, z1, qx, qy, q_is_identity):
     id2 = q_is_identity.expand(x1.shape[:-1])
     return _dispatch_complete(f, (x3, y3, z3), dbl, (x1, y1, z1),
                               (qx, qy, f.one(qx)), h0, r0, _is_zero(z1), id2)
+
+
+def ec_add_mixed_scan_plain(curve: CurveSpec, x1, y1, z1, qx, qy, q_is_identity, w: int):
+    """Plain version of ec_add_mixed_scan: a Python loop of w
+    ec_add_mixed_plain steps over all carries (the stepwise safe scan);
+    same arguments and results."""
+    if w <= 0:
+        raise ValueError(f"ec_add_mixed: w = {w} <= 0")
+    lead = x1.shape[:-1]
+    g = lead[-1]
+    if qx.shape[:-1] != lead[:-1] + (g * w,):
+        raise ValueError(f"ec_add_mixed: {tuple(qx.shape[:-1])} rows are not w = {w} a "
+                         f"carry of {tuple(lead)}")
+    qx, qy = (c.reshape(lead + (w, N_LIMBS)) for c in (qx, qy))
+    mask = q_is_identity.reshape(lead + (w,))
+    carry = (x1, y1, z1)
+    steps = []
+    for t in range(w):
+        carry = ec_add_mixed_plain(curve, *carry, qx[..., t, :], qy[..., t, :], mask[..., t])
+        steps.append(carry)
+    inner = tuple(torch.stack([s[k] for s in steps], dim=-2).reshape(
+        lead[:-1] + (g * w, N_LIMBS)) for k in range(3))
+    return inner, carry
 
 
 def ec_add_mixed_fast_plain(curve: CurveSpec, x1, y1, z1, qx, qy):

@@ -17,9 +17,7 @@ ops/cuda_ff.py's library, launcher and LAUNCHES) carry ops/radix.radix_window:
                                             their 64-row aligned bases
 
 radix_rank and radix_pass_b rank rows by warp votes and a scan of per-warp
-counts; their first designs, which walk the rows of a chunk serially, stay
-as rank_v1 and pass_b_v1 (kernels radix_rank_v1, radix_pass_b_v1) for one
-comparison on the card.  No path calls them.
+counts.
 
 Every function takes the window's RadixPlan (ops/radix.make_plan) for its
 shapes.  Tensors are int32: keys (n,) in [0, 2^c); packed payload rows (n,
@@ -74,22 +72,13 @@ def rank(plan, keys, pay):
     next ones while the tile's SP spill rows last, OUT_ROWS (dropped) for a
     row of no point, a key past 2^c (the caller flags those) and spills past
     SP.  cnt: valid rows of each (tile, partition), spilled ones included."""
-    return _rank_by("radix_rank", plan, keys, pay)
-
-
-def rank_v1(plan, keys, pay):
-    """rank by the first design (radix_rank_v1)."""
-    return _rank_by("radix_rank_v1", plan, keys, pay)
-
-
-def _rank_by(kernel: str, plan, keys, pay):
-    _check_window(kernel, plan, keys, pay)
+    _check_window("radix_rank", plan, keys, pay)
     if not CF._use_kernel(keys):
         return rank_plain(plan, keys, pay)
-    _check(kernel, keys, pay)
+    _check("radix_rank", keys, pay)
     dst = torch.empty_like(keys)
     cnt = torch.empty((plan.n_tiles, plan.P), dtype=torch.int32, device=keys.device)
-    CF._launch(kernel, keys.device, keys.data_ptr(), pay.data_ptr(), dst.data_ptr(),
+    CF._launch("radix_rank", keys.device, keys.data_ptr(), pay.data_ptr(), dst.data_ptr(),
                cnt.data_ptr(), plan.n_tiles, plan.T, plan.fb, plan.P, plan.S, plan.SP,
                plan.OUT_ROWS)
     return dst, cnt
@@ -121,15 +110,7 @@ def pass_b(plan, main):
     last column the rows of no point.  The kernel keeps its first pass's fine
     ids in shared memory where R <= RADIX_PASS_B_STASH of csrc/radix.cuh,
     else it reads the rows' key words again."""
-    return _pass_b_by("radix_pass_b", plan, main)
-
-
-def pass_b_v1(plan, main):
-    """pass_b by the first design (radix_pass_b_v1)."""
-    return _pass_b_by("radix_pass_b_v1", plan, main)
-
-
-def _pass_b_by(kernel: str, plan, main):
+    kernel = "radix_pass_b"
     if plan.fb > MAX_FB:
         raise ValueError(f"{kernel}: fb = {plan.fb} > {MAX_FB} (2^fb + 1 fine ids "
                          "must fit the pass's 65 bins, as the TPU's FB_COLS == 128)")

@@ -8,9 +8,10 @@ Counterpart of the JAX package's ops/ec.py.
     cases are computed in parallel and mask-selected
   * identity is encoded as Z == 0
 
-Routing is by the tensor: on a CUDA tensor `double`, `add`, `add_fast`,
-`add_mixed`, `add_mixed_fast` and `madd_xyzz_fast` launch their kernels
-(ops/cuda_ff.py); on a CPU tensor they run the kernels' plain versions.
+Routing is by the tensor: on a CUDA tensor `double`, `double_n`, `add`,
+`add_fast`, `add_mixed`, `add_mixed_fast` and `madd_xyzz_fast` launch their
+kernels (ops/cuda_ff.py); on a CPU tensor they run the kernels' plain
+versions.
 
 All supported curves (Pallas, Vesta, Grumpkin) have a = 0.
 """
@@ -83,8 +84,13 @@ class EC:
     # ------------------------------------------------------------- group law
     def double(self, p: JPoint) -> JPoint:
         """dbl-2009-l (a = 0).  Identity-safe: Z3 = 2YZ = 0 when Z = 0."""
+        return self.double_n(p, 1)
+
+    def double_n(self, p: JPoint, k: int) -> JPoint:
+        """p doubled k >= 0 times (dbl-2009-l each time): one kernel launch on
+        the card, whatever k."""
         fn = cuda_ff.ec_double if p.x.is_cuda else cuda_ff.ec_double_plain
-        return JPoint(*fn(self.curve, p.x, p.y, p.z))
+        return JPoint(*fn(self.curve, p.x, p.y, p.z, k))
 
     def add(self, p: JPoint, q: JPoint) -> JPoint:
         """Branchless complete addition (add-2007-bl + mask dispatch)."""
@@ -196,17 +202,19 @@ class EC:
     # ------------------------------------------------------------ arithmetic
     def scalar_mul_small(self, p: JPoint, k: int) -> JPoint:
         """p * k for a small static k >= 0 (double-and-add over the bits of
-        k; the carry stage's carry * base).  k = 0 gives the identity."""
+        k; the carry stage's carry * base), each run of doublings between two
+        adds one double_n.  k = 0 gives the identity."""
         if k < 0:
             raise ValueError("scalar_mul_small: k must be non-negative")
         if k == 0:
             return self.identity(tuple(p.z.shape[:-1]), p.z.device)
-        acc = p
+        acc, run = p, 0
         for bit in bin(k)[3:]:
-            acc = self.double(acc)
+            run += 1
             if bit == "1":
-                acc = self.add(acc, p)
-        return acc
+                acc = self.add(self.double_n(acc, run), p)
+                run = 0
+        return self.double_n(acc, run) if run else acc
 
     def sum(self, p: JPoint, axis: int = 0) -> JPoint:
         """Reduce a batch of points along `axis` of the limb tensors (0 is the

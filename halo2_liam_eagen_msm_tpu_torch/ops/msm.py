@@ -185,7 +185,9 @@ def prefix_scan_parts(E: EC, p: JPoint):
 
 def prefix_scan_parts_affine(E: EC, ax, ay, aident):
     """prefix_scan_parts for AFFINE inputs (x, y, identity mask): the inner
-    scan uses complete mixed additions."""
+    scan uses complete mixed additions, all w steps in one kernel launch on
+    the card (cuda_ff.ec_add_mixed_scan), the loop of its plain version on
+    the CPU."""
     n = ax.shape[-2]
     lead = tuple(ax.shape[:-2])
     w = _pick_block_width(n, ax.is_cuda)
@@ -197,14 +199,9 @@ def prefix_scan_parts_affine(E: EC, ax, ay, aident):
         ay = torch.cat([ay, zeros], dim=-2)
         aident = torch.cat([aident, torch.ones(lead + (pad,), dtype=torch.bool,
                                                device=ax.device)], dim=-1)
-    xc, yc = _to_cols(ax, g, w), _to_cols(ay, g, w)
-    mc = aident.reshape(lead + (g, w)).movedim(-1, 0)
-    carry = E.identity(lead + (g,), ax.device)
-    steps = []
-    for t in range(w):
-        carry = E.add_mixed(carry, xc[t], yc[t], mc[t])
-        steps.append(carry)
-    inner = JPoint(*(_from_cols([s[k] for s in steps], g, w) for k in range(3)))
+    scan = cuda_ff.ec_add_mixed_scan if ax.is_cuda else cuda_ff.ec_add_mixed_scan_plain
+    inner, totals = scan(E.curve, *E.identity(lead + (g,), ax.device), ax, ay, aident, w)
+    inner, carry = JPoint(*inner), JPoint(*totals)
     if g == 1:
         return inner, E.identity(lead + (1,), ax.device), w
     return inner, _offsets_from_totals(E, carry), w
@@ -699,8 +696,7 @@ def _best_multiexp(curve: CurveSpec, c: int, total_bits: int, flavor: str,
 
     acc = E.identity((), dev)
     for i in range(num_windows):
-        for _ in range(c):
-            acc = E.double(acc)
+        acc = _double_n(E, acc, c)
         acc = E.add(acc, JPoint(*(cc[num_windows - 1 - i] for cc in window_sums)))
     if flavor == "fast":
         return acc, excs.any()
@@ -743,6 +739,12 @@ def round_sums(curve: CurveSpec, base: int, digits, pts: JPoint) -> JPoint:
         safe = _round_sums(curve, base, "safe", digits[idx], pts)
         sums = JPoint(*(s.index_copy(0, idx, v) for s, v in zip(sums, safe)))
     return sums
+
+
+def _double_n(E: EC, p: JPoint, k: int) -> JPoint:
+    """p doubled k times: one ec_double launch on the card (the JAX
+    package's fori_loop of E.double)."""
+    return E.double_n(p, k)
 
 
 # ---------------------------------------------------------------------------

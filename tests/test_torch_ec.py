@@ -18,6 +18,7 @@ from halo2_liam_eagen_msm_tpu_torch.convert import (
 from halo2_liam_eagen_msm_tpu_torch.fields import GRUMPKIN, PALLAS
 from halo2_liam_eagen_msm_tpu_torch.limbs import ints_to_mont_limbs, mont_limbs_to_ints
 from halo2_liam_eagen_msm_tpu_torch.ops import cuda_ff as CF
+from halo2_liam_eagen_msm_tpu_torch.ops import msm as M
 from halo2_liam_eagen_msm_tpu_torch.ops.ec import ec
 from halo2_liam_eagen_msm_tpu_torch.utils import pyref
 
@@ -160,6 +161,34 @@ def test_add_mixed_fast_and_projective_coords_vs_jax_and_pyref(curve, rng):
         [[x * z % pp for x, z in zip(X, Z)], Y, [z ** 3 % pp for z in Z]]
 
 
+@pytest.fixture(scope="module")
+def jax_double_n():
+    """The JAX package's msm._double_n on the Pallas curve, jitted with k
+    traced: one compile for every k."""
+    import jax
+    from halo2_liam_eagen_msm_tpu.ops import msm as jax_msm
+
+    JE = jax_ec(JF.PALLAS)
+    return jax.jit(lambda p, k: jax_msm._double_n(JE, p, k))
+
+
+@pytest.mark.parametrize("k", [0, 1, 2, 15])
+def test_double_n_vs_jax_and_pyref(k, rng, jax_double_n):
+    """msm._double_n and EC.double_n (the plain version of the k-doubling
+    kernel) against the JAX package's msm._double_n limb for limb, and
+    against [2^k]P on Python ints: random points in random Jacobian
+    representatives, identities (z = 0, any x and y) among them."""
+    curve = PALLAS
+    E = ec(curve)
+    pts = pyref.random_points(rng, curve, 6)
+    pts[0] = pts[3] = None
+    t, j = _both(_jacobian_numpy(rng, curve, pts))
+    got = M._double_n(E, JPoint(*t), k)
+    _same(got, jax_double_n(JaxPoint(*j), k))
+    assert all(torch.equal(a, b) for a, b in zip(got, E.double_n(JPoint(*t), k)))
+    assert E.points_to_ints(got) == [pyref.ec_mul(p, 1 << k, curve) for p in pts]
+
+
 @pytest.mark.parametrize("k", [0, 1, 2, 5, 7])
 def test_scalar_mul_small_vs_pyref(k, rng):
     curve = PALLAS
@@ -171,6 +200,27 @@ def test_scalar_mul_small_vs_pyref(k, rng):
     assert E.points_to_ints(got) == [pyref.ec_mul(p, k, curve) for p in pts]
     with pytest.raises(ValueError):
         E.scalar_mul_small(got, -1)
+
+
+@pytest.mark.parametrize("k", [5, 8, 10, 11])
+def test_scalar_mul_small_runs_of_doublings(k, rng, monkeypatch):
+    """scalar_mul_small doubles by one double_n a run of doublings between
+    two adds (base 5: one run of 2), and equals [k]P on Python ints."""
+    curve = PALLAS
+    E = ec(curve)
+    runs = []
+    real = E.double_n
+
+    def double_n(p, n):
+        runs.append(n)
+        return real(p, n)
+
+    monkeypatch.setattr(E, "double_n", double_n)
+    pts = pyref.random_points(rng, curve, 3)
+    pts[2] = None
+    got = E.scalar_mul_small(E.points_from_ints(pts, "cpu"), k)
+    assert runs == {5: [2], 8: [3], 10: [2, 1], 11: [2, 1]}[k]
+    assert E.points_to_ints(got) == [pyref.ec_mul(p, k, curve) for p in pts]
 
 
 def test_constants_conversions_sum(rng):

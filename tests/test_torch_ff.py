@@ -220,6 +220,39 @@ def test_batch_inv_bound_counts_the_function(n):
         assert by == "bytes" and b_ms == pytest.approx(0.0801, abs=1e-4)
 
 
+def test_ec_add_mixed_bound_counts_the_doublings_taken():
+    """chip_smoke.py's bound for ec_add_mixed counts madd-2007-bl's 11
+    products and 7 adds at every step and the doubling's 7 and 14 only at
+    the steps whose carry equals the row it meets: mixed_doublings counts
+    those steps of a planted safe scan (q == carry in lane 3, q == -carry in
+    lane 4, affine identities) as running sums on Python ints do."""
+    import chip_smoke
+    from halo2_liam_eagen_msm_tpu_torch.utils import pyref
+
+    curve = chip_smoke.CURVE
+    base = pyref.random_points(random.Random(0xBE7C), curve, 4)
+    g, w = 8, 6
+    carries, qx, qy, mask, host = chip_smoke.safe_scan_inputs(
+        np.random.default_rng(3), base, g, w, "cpu")
+    inner, _ = CF.ec_add_mixed_scan_plain(curve, *carries, qx, qy, mask, w)
+    before = [torch.cat([c[:, None], i.reshape(g, w, TF.N_LIMBS)[:, :-1]], dim=1).reshape(
+        g * w, TF.N_LIMBS) for c, i in zip(carries, inner)]
+    want = 0
+    for j in range(g):
+        acc = None
+        for q in host[j * w:(j + 1) * w]:
+            want += acc is not None and acc == q
+            acc = pyref.ec_add(acc, q, curve)
+    doublings = chip_smoke.mixed_doublings(*before, qx, qy)
+    assert doublings == want > 0
+    rows = g * w
+    b_ms, by = chip_smoke.mixed_bound(rows, doublings, 0)
+    ops = (11 * rows + 7 * doublings) * chip_smoke.MUL_OPS + \
+        (7 * rows + 14 * doublings) * chip_smoke.ADD_OPS
+    assert by == "operations"
+    assert b_ms == pytest.approx(ops / chip_smoke.INT32_OPS_PER_S * 1e3, rel=1e-12)
+
+
 @pytest.mark.parametrize("chain", [1, 4, 64])
 def test_batch_inv_plain_chains_on_the_host(chain, rng):
     """batch_inv_plain on a (2, 300) batch with zeros, at chain lengths 1 (a

@@ -358,23 +358,20 @@ def _radix_windows(nprng):
 
 
 def _radix_case(name, nprng):
-    """The four kernels of csrc/radix.cuh and the first designs of rank and
-    pass B, at the plans above; pass B also at a plan cut to 3 partitions of
+    """The four kernels of csrc/radix.cuh at the plans above; pass B also at a plan cut to 3 partitions of
     300 rows (2^3 + 1 fine ids, a zero tail to 320), compact at 6 partitions
     whose bases repeat (0, 64, 64, 128, 192, 192: partitions 1 and 4 are
     overwritten by the next) with rows past the last one."""
-    if name in ("radix_rank", "radix_rank_v1", "radix_shuffle"):
+    if name in ("radix_rank", "radix_shuffle"):
         wins = _radix_windows(nprng)
-        if name != "radix_shuffle":
-            fn = CR.rank if name == "radix_rank" else CR.rank_v1
-            return (lambda *a: tuple(fn(p, k, y) for p, k, y in wins),
+        if name == "radix_rank":
+            return (lambda *a: tuple(CR.rank(p, k, y) for p, k, y in wins),
                     lambda *a: tuple(CR.rank_plain(p, k, y) for p, k, y in wins), ())
         dsts = [CR.rank_plain(p, k, y)[0] for p, k, y in wins]
         return (lambda *a: tuple(CR.shuffle(p, k, d, y) for (p, k, y), d in zip(wins, dsts)),
                 lambda *a: tuple(CR.shuffle_plain(p, k, d, y)
                                  for (p, k, y), d in zip(wins, dsts)), ())
-    if name in ("radix_pass_b", "radix_pass_b_v1"):
-        fn = CR.pass_b if name == "radix_pass_b" else CR.pass_b_v1
+    if name == "radix_pass_b":
         p, k, y = _radix_windows(nprng)[0]
         tiles = CR.shuffle_plain(p, k, CR.rank_plain(p, k, y)[0], y)
         main = tiles[:, :p.P * p.S].reshape(p.n_tiles, p.P, p.S, 20).transpose(0, 1) \
@@ -383,7 +380,7 @@ def _radix_case(name, nprng):
         rnd = torch.from_numpy(nprng.integers(-1 << 31, 1 << 31, size=(3, 300, 20)).astype("int32"))
         rnd[torch.from_numpy(nprng.random((3, 300)) < 0.2), :16] = 0
         cases = ((p, main), (cut, rnd))
-        return (lambda *a: tuple(fn(q, m) for q, m in cases),
+        return (lambda *a: tuple(CR.pass_b(q, m) for q, m in cases),
                 lambda *a: tuple(CR.pass_b_plain(q, m) for q, m in cases), ())
     assert name == "radix_compact"
     plan = dataclasses.replace(RX.make_plan(512, 8, 256), P=6, R_pad=64, n_ext=300)
@@ -450,14 +447,15 @@ def _case(name, rng, nprng):
                 lambda *a: tuple(CP.kate_div_plain(SPEC, c, b) for c, b in cases), ())
     hp, hq = _edge_points(rng)
     p = _jacobian(rng, nprng, hp)
-    if name in ("ec_add", "ec_add_fast", "ec_double"):
-        args = tuple(p) if name == "ec_double" else (*p, *_jacobian(rng, nprng, hq))
+    if name in ("ec_add", "ec_add_fast", "ec_double", "ec_double_v1"):
+        args = tuple(p) if name.startswith("ec_double") else (*p, *_jacobian(rng, nprng, hq))
         kernel = getattr(CF, name)
-        plain = getattr(CF, name + "_plain")
+        plain = getattr(CF, name.removesuffix("_v1") + "_plain")
         return (lambda *a: kernel(CURVE, *a)), (lambda *a: plain(CURVE, *a)), args
     qx, qy, qid = E.to_affine(E.points_from_ints(hq, "cpu"))
-    if name == "ec_add_mixed":
-        return (lambda *a: CF.ec_add_mixed(CURVE, *a),
+    if name in ("ec_add_mixed", "ec_add_mixed_v1"):
+        kernel = getattr(CF, name)
+        return (lambda *a: kernel(CURVE, *a),
                 lambda *a: CF.ec_add_mixed_plain(CURVE, *a), (*p, qx, qy, qid))
     if name == "ec_add_mixed_fast":
         return (lambda *a: CF.ec_add_mixed_fast(CURVE, *a),
@@ -632,8 +630,7 @@ RADIX_EDGE_CASES = ["one partition", "identity tile", "keys out of range", "fb =
 @pytest.mark.parametrize("case", RADIX_EDGE_CASES)
 def test_radix_ranks_edges_on_host(case, host_kernels, nprng):
     """radix_rank and radix_pass_b at the edges of stable ranks, equal to
-    their plain versions and to their first designs (radix_rank_v1,
-    radix_pass_b_v1) output for output: a tile wholly in one partition (every
+    their plain versions output for output: a tile wholly in one partition (every
     lane of a warp a peer; spills past SP dropped), a tile of identity rows
     only, keys past 2^c and negative keys, fb = 3, 5 and 6, a pass-B
     partition whose R is not a multiple of the chunk, one fine id in every
@@ -643,15 +640,92 @@ def test_radix_ranks_edges_on_host(case, host_kernels, nprng):
     calls = _radix_edge_calls(case, nprng)
     for kind, plan, *args in calls:
         args = [torch.from_numpy(a) for a in args]
-        fns = (CR.rank, CR.rank_v1) if kind == "rank" else (CR.pass_b, CR.pass_b_v1)
+        fn = CR.rank if kind == "rank" else CR.pass_b
         want = (CR.rank_plain if kind == "rank" else CR.pass_b_plain)(plan, *args)
         before = CF.LAUNCHES["radix_" + kind]
-        got, v1 = (fn(plan, *args) for fn in fns)
+        got = fn(plan, *args)
         assert CF.LAUNCHES["radix_" + kind] == before + 1
-        assert all(torch.equal(g, w) and torch.equal(u, w) for g, u, w in zip(got, v1, want))
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
     if case == "one partition":
         dst = CR.rank_plain(*calls[0][1:2], *map(torch.from_numpy, calls[0][2:]))[0]
         assert int((dst[:768] == calls[0][1].OUT_ROWS).sum()) == 768 - 14 - 128
+
+
+@pytest.mark.parametrize("k", [0, 1, 2, 15])
+def test_ec_double_k_on_host(k, host_kernels, rng, nprng):
+    """ec_double (four lanes a point, k doublings a launch) at ragged B = 37
+    with identities at lanes 0 and 2: equal to the plain version's k
+    doublings limb for limb, to k launches of the first design, and to [2^k]P
+    on Python ints."""
+    hp, _ = _edge_points(rng)
+    p = _jacobian(rng, nprng, hp)
+    before = CF.LAUNCHES["ec_double"]
+    got = CF.ec_double(CURVE, *p, k=k)
+    assert CF.LAUNCHES["ec_double"] == before + 1
+    assert all(torch.equal(g, w) for g, w in zip(got, CF.ec_double_plain(CURVE, *p, k=k)))
+    v1 = tuple(p)
+    for _ in range(k):
+        v1 = CF.ec_double_v1(CURVE, *v1)
+    assert all(torch.equal(g, u) for g, u in zip(got, v1))
+    assert ec(CURVE).points_to_ints(JPoint(*got)) == \
+        [pyref.ec_mul(u, 1 << k, CURVE) if u else None for u in hp]
+
+
+def _scan_rows(rng, g: int, w: int):
+    """g carries and g*w affine rows of a safe scan, and the expected
+    inclusive prefixes on Python ints.  Lanes open on an identity carry (0,
+    34), an affine identity (1), q == the carry, a doubling (2, 32), q ==
+    -carry, the identity (3), and both identities (4); where w > 2 the third
+    row of lanes 5 and 33 doubles the carry and that of lane 6 cancels it.
+    Identity rows are sprinkled in.  Both blocks of the kernel (32 carries
+    a block) hold edges, so that the rehearsal runs them in both orders of
+    its threads."""
+    carries = pyref.random_points(rng, CURVE, g)
+    base = pyref.random_points(rng, CURVE, 8)
+    rows = [rng.choice(base) if rng.random() > 0.15 else None for _ in range(g * w)]
+    carries[0] = carries[4] = carries[34] = None
+    rows[w] = rows[4 * w] = None
+    rows[2 * w], rows[32 * w] = carries[2], carries[32]
+    rows[3 * w] = pyref.ec_neg(carries[3], CURVE)
+    want = []
+    for j in range(g):
+        acc = carries[j]
+        for t in range(w):
+            i = j * w + t
+            if w > 2 and t == 2 and j in (5, 6, 33):
+                rows[i] = pyref.ec_neg(acc, CURVE) if j == 6 and acc else acc
+            acc = pyref.ec_add(acc, rows[i], CURVE)
+            want.append(acc)
+    return carries, rows, want
+
+
+@pytest.mark.parametrize("w", [1, 2, 64])
+def test_ec_add_mixed_scan_on_host(w, host_kernels, rng, nprng):
+    """ec_add_mixed's w-step scan (two lanes a carry) at ragged g = 37 lanes
+    (two blocks of 32, the second partial) on the edges of _scan_rows: inner
+    prefixes and totals equal to the plain version's loop limb for limb, to
+    w launches of the first design, and to the prefixes on Python ints; w = 1
+    through the single add's wrapper too."""
+    g = 37
+    carries, rows, want = _scan_rows(rng, g, w)
+    E = ec(CURVE)
+    p = _jacobian(rng, nprng, carries)
+    qx, qy, qid = E.to_affine(E.points_from_ints(rows, "cpu"))
+    before = CF.LAUNCHES["ec_add_mixed"]
+    inner, totals = CF.ec_add_mixed_scan(CURVE, *p, qx, qy, qid, w)
+    assert CF.LAUNCHES["ec_add_mixed"] == before + 1
+    want_inner, want_totals = CF.ec_add_mixed_scan_plain(CURVE, *p, qx, qy, qid, w)
+    assert all(torch.equal(a, b) for a, b in zip(inner + totals, want_inner + want_totals))
+    v1 = tuple(p)
+    cols = [c.reshape(g, w, *c.shape[1:]) for c in (qx, qy, qid)]
+    for t in range(w):
+        v1 = CF.ec_add_mixed_v1(CURVE, *v1, *(c[:, t] for c in cols))
+        assert all(torch.equal(a.reshape(g, w, 16)[:, t], b) for a, b in zip(inner, v1))
+    assert E.points_to_ints(JPoint(*inner)) == want
+    assert E.points_to_ints(JPoint(*totals)) == want[w - 1::w]
+    if w == 1:
+        got = CF.ec_add_mixed(CURVE, *p, qx, qy, qid)
+        assert all(torch.equal(a, b) for a, b in zip(got, inner))
 
 
 def test_fused_merge_level_on_host_kernels(host_kernels, rng):

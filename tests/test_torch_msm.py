@@ -92,6 +92,56 @@ def test_prefix_scan_parts_decompositions(rng):
     assert E.points_to_ints(full) == want
 
 
+def test_safe_scan_plain_vs_stepwise_and_jax(rng):
+    """The safe scan's plain version (cuda_ff.ec_add_mixed_scan_plain, which
+    prefix_scan_parts_affine runs on the CPU) at n = 70 with an identity slot
+    and a repeated point: inner prefixes and lane totals limb for limb equal
+    to a stepwise loop of EC.add_mixed over the scan's columns, and to the
+    JAX package's prefix_scan_parts_affine (the same w, the same inner
+    prefixes; offsets as affine points, their scans' add orders differ)."""
+    import jax
+    from halo2_liam_eagen_msm_tpu import fields as JF
+    from halo2_liam_eagen_msm_tpu.ops import msm as jax_msm
+    from halo2_liam_eagen_msm_tpu.ops.ec import ec as jax_ec
+
+    curve = PALLAS
+    E = ec(curve)
+    n = 70
+    pts = pyref.random_points(rng, curve, n)
+    pts[1] = None
+    pts[n - 1] = pts[0]
+    ax, ay, aident = E.to_affine(E.points_from_ints(pts, "cpu"))
+    inner, offsets, w = M.prefix_scan_parts_affine(E, ax, ay, aident)
+
+    g = -(-n // w)
+    pad = g * w - n
+    zeros = torch.zeros((pad, N_LIMBS), dtype=ax.dtype)
+    px, py = torch.cat([ax, zeros]), torch.cat([ay, zeros])
+    pid = torch.cat([aident, torch.ones(pad, dtype=torch.bool)])
+    cols = [c.reshape((g, w) + c.shape[1:]) for c in (px, py, pid)]
+    carry, steps = E.identity((g,), "cpu"), []
+    for t in range(w):
+        carry = E.add_mixed(carry, *(c[:, t] for c in cols))
+        steps.append(carry)
+    stepwise = [torch.stack([s[k] for s in steps], dim=1).reshape(g * w, N_LIMBS)
+                for k in range(3)]
+    assert all(torch.equal(a, b) for a, b in zip(inner, stepwise))
+    _, totals = CF.ec_add_mixed_scan_plain(curve, *E.identity((g,), "cpu"), px, py, pid, w)
+    assert all(torch.equal(a, b) for a, b in zip(totals, carry))
+
+    JE = jax_ec(JF.PALLAS)
+    jinner, joffsets, jw = jax.jit(lambda a, b, c: jax_msm.prefix_scan_parts_affine(
+        JE, a, b, c))(jax.numpy.asarray(limbs_to_numpy(ax)), jax.numpy.asarray(limbs_to_numpy(ay)),
+                      jax.numpy.asarray(aident.numpy()))
+    assert int(jw) == w
+    assert all(np.array_equal(limbs_to_numpy(a), np.asarray(b)) for a, b in zip(inner, jinner))
+    assert E.points_to_ints(offsets) == E.points_to_ints(JPoint(
+        *(limbs_from_numpy(np.asarray(c), "cpu") for c in joffsets)))
+    idx = torch.arange(n)
+    full = E.add(M._take(offsets, idx // w), M._take(inner, idx))
+    assert E.points_to_ints(full) == _running_sums(pts, curve)
+
+
 def test_fused_scan_plain_vs_affine_fast_and_pyref(rng):
     """fused_madd_scan_xyzz_plain (the packed, limb-major contract the CUDA
     kernel follows) against the step-by-step blinded scan and against running

@@ -12,10 +12,14 @@ without a card, and on any failed build, failed launch or mismatch.  It
      PyTorch version on the card: torch.equal on every output (integer
      arithmetic, tolerance zero), on seeded inputs with edge lanes, at a
      ragged size and at the shape its path gives it, and times both there
-     (ec_madd_xyzz_fast at the lanes of the stepwise scan's widest window,
-     the only shape a card path launches it with; batch_inv at 2^21 rows,
-     the lm tail's width at the top level, and at the ragged size against
-     FF._inv_host too; ec_double one doubling, ec_add_mixed one step),
+     (ec_madd_xyzz_fast's scan at (g, w) = (ragged, 1), (2048, 32), (64, 1)
+     and the stepwise scan's of the widest window below
+     FUSED_SCAN_MIN_ROWS, (64, 2), the only shape a card path launches it
+     with, and against w launches of its first design and running sums on
+     Python ints too;
+     batch_inv at 2^21 rows, the lm tail's width at the top level, and at
+     the ragged size against FF._inv_host too; ec_double one doubling,
+     ec_add_mixed one step),
   4. drives the MSM path: best_multiexp on the Pallas curve at 2^20 points
      with full-width scalars (64 random base points tiled, as the headline
      benchmark makes them), checks the result against the exact Python-int
@@ -29,16 +33,18 @@ without a card, and on any failed build, failed launch or mismatch.  It
      so that exactly one round is flagged and recomputed with complete adds,
      exact in every round, at 2^14 points (the fused scan flags) and at half
      of ops/msm.FUSED_SCAN_MIN_ROWS (the stepwise scan flags), so that
-     ec_madd_xyzz_fast and ec_add_mixed are both launched, ec_add_mixed once
-     for the recomputed round's window scan; then best_multiexp at n = 16
-     (safe flavor) against the oracle,
+     ec_madd_xyzz_fast and ec_add_mixed are both launched, the scan's kernel
+     once a round's window and ec_add_mixed once for the recomputed round's
+     window scan; then best_multiexp at n = 16 (safe flavor) against the
+     oracle,
   6b. drives best_multiexp's safe flavor on the MSM phase's 2^logn inputs:
      the oracle's result, one ec_add_mixed launch (the window's whole scan)
      and one ec_double launch (c doublings) a window; seconds of three runs
      and the device's busy time of one,
   7. times one window by the fused and the stepwise scan at 2^6 to 2^16
      points, on the host clock and as the device's busy time (torch.profiler),
-     and requires equal window sums,
+     and requires equal window sums and one launch of each route's scan
+     kernel a window,
   8. holds the divisor merge tree's five limb-major kernels (ops/csrc/ntt.cuh)
      against their plain versions at a ragged size and at the shapes one
      round gives them, runs a 2^21 transform forward and back (n x back), and
@@ -60,23 +66,28 @@ without a card, and on any failed build, failed launch or mismatch.  It
      of stages_small by (E, tile, direction, transform size) and of
      fused_madd_scan_xyzz by (g, W) over one MSM, one carry stage and one
      round (one ec_double launch a window of the MSM and a round of the
-     carry stage: checked), and reads the device's busy time of one MSM and
-     one carry stage; holds mont_mul, mont_addsub and ec_add_fast against
+     carry stage: checked), and reads the device's busy time and device
+     events (kernels, copies, fills) of one MSM and one carry stage; holds
+     mont_mul, mont_addsub and ec_add_fast against
      their plain
      versions bit for bit, with edge lanes (the carry edges of a row;
      identities, P + P, P + (-P)), at every B the tally gives them
      (mont_addsub and ec_add_fast at the kernel phase's shape and the ragged
      size too) and times them there; holds ec_double (four lanes a point, k
-     doublings a launch) against its plain version, k launches of its first
-     design (ec_double_v1) and the Python-int oracle at every (B, k) the
-     tally gives it and at B = 1, k = 1, 2 and 15, and times both designs
-     there; holds ec_add_mixed's window scan (two lanes a carry, w steps a
-     launch) against its plain version (the loop of w plain steps) and w
-     launches of its first design (ec_add_mixed_v1) at a safe 2^logn
-     window's scan (g = 2^logn / 64 lanes, w = 64 steps: identity carries at
-     every lane's head, q == carry, q == -carry and affine identities
-     planted) and at one step of it, first lanes against the Python-int
-     oracle, and times both designs there; holds poly_mul_naive and kate_div at every shape the tally
+     doublings a launch) against its plain version and the Python-int oracle
+     at every (B, k) the tally gives it and at B = 1, k = 1, 2 and 15, and
+     times it there; holds ec_add_mixed's window scan (two lanes a carry, w
+     steps a launch) against its plain version (the loop of w plain steps)
+     at a safe 2^logn window's scan (g = 2^logn / 64 lanes, w = 64 steps:
+     identity carries at every lane's head, q == carry, q == -carry and
+     affine identities planted) and at one step of it, first lanes against
+     the Python-int oracle, and times it there; holds ec_madd_xyzz_fast's
+     scan (four lanes a carry, w steps a launch) at (g, w) = (64, 2), the
+     fallback's, and (2048, 32), a 2^16 window's, against its plain version
+     and w launches of its first design (ec_madd_xyzz_fast_v1), flags
+     included, and times it in turns with them and with the fused scan's
+     kernel at the same (g, w) (two lanes a carry, the same formula: lines
+     `A/B ec_madd_xyzz_fast at g = ...`); holds poly_mul_naive and kate_div at every shape the tally
      gives them against their plain versions and the Python-int Poly, with
      edge pairs (raw p - 1 everywhere, zero terms, the root 0), and times
      them there, kate_div at one pair too (one chain's latency); holds
@@ -143,7 +154,10 @@ without a card, and on any failed build, failed launch or mismatch.  It
      carry, an affine identity and carry == +-Q planted; exactly those flagged
      that should be, unflagged lanes equal to EC.add_mixed (complete) as
      affine points, 64 sampled lanes equal to the Python-int oracle, and
-     EC.projective_coords there equal to the Python-int change of coordinates,
+     EC.projective_coords there equal to the Python-int change of
+     coordinates; the call is one launch of ec_add_mixed_fast and no PyTorch
+     op around it launches a kernel (no flag conversion), its flags the bool
+     tensor the kernel wrote,
  17. drives the naive line arrangement (compute_divisor_witness_naive_device)
      on the round phase's 1,048,582 slots and holds it against the round's
      merge-tree witness f by the ratio check: both have the divisor
@@ -203,9 +217,8 @@ without a card, and on any failed build, failed launch or mismatch.  It
      sent a rank by collective kind and peak memory printed.  Four ranks
      time-share one card: the seconds say nothing about scaling,
  23. prints one JSON line describing the kernels (with phase 9b's shapes,
-     the rule-2 ranking and phase 9b's A/B of ec_double and ec_add_mixed
-     against their first designs; the first designs with no launch, which
-     is checked) and, last, one JSON line {"ok": true,
+     the rule-2 ranking and phase 9b's A/B of ec_madd_xyzz_fast against its
+     first design; the first design with no launch, which is checked) and, last, one JSON line {"ok": true,
      "device": {...}}.
 
 Phases 16-19 run after the radix phases, on the round's (phase 9) slots and
@@ -250,6 +263,7 @@ import time
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from halo2_liam_eagen_msm_tpu_torch import argument as A
 from halo2_liam_eagen_msm_tpu_torch import config
@@ -304,7 +318,9 @@ KERNEL_TABLE = {
     "ec_add_fast": ("kernels.cu", PALLAS_FF, 630, 16, 7, 9),
     "ec_double": ("kernels.cu", PALLAS_FF, 832, 7, 14, 6),             # a doubling: k stages
     "fused_madd_scan_xyzz": ("kernels.cu", PALLAS_FF, 740, 10, 7, 5),  # per packed row: 1 in, 4 out
-    "ec_madd_xyzz_fast": ("kernels.cu", PALLAS_FF, 699, 10, 7, 10),    # 6 in, 4 out (+ 1 flag byte)
+    # a step: 2 in, 4 out; a carry's 4 in (+ 4 totals out where w > 1, + 1 flag
+    # byte): xyzz_bound
+    "ec_madd_xyzz_fast": ("kernels.cu", PALLAS_FF, 699, 10, 7, 6),
     # a step: 2 in, 3 out (+ 1 mask byte); a lane's carry 3 in (+ 3 totals out);
     # madd-2007-bl's products and adds, the doubling's where the data takes it
     # (mixed_bound)
@@ -319,9 +335,8 @@ KERNEL_TABLE = {
     "radix_shuffle": ("radix.cuh", RADIX_PY, 270, 0, 0, 0),
     "radix_pass_b": ("radix.cuh", RADIX_PY, 363, 0, 0, 0),
     "radix_compact": ("radix.cuh", RADIX_PY, 421, 0, 0, 0),
-    # first designs
-    "ec_double_v1": ("kernels.cu", PALLAS_FF, 832, 7, 14, 6),
-    "ec_add_mixed_v1": ("kernels.cu", PALLAS_FF, 599, 18, 21, 8),
+    # first design
+    "ec_madd_xyzz_fast_v1": ("kernels.cu", PALLAS_FF, 699, 10, 7, 10),  # 6 in, 4 out (+ 1 flag byte)
     # mont_mul (and mont_addsub) at the coefficient levels' shapes: products,
     # adds and rows from the shape (mul_naive_bound, kate_div_bound)
     "poly_mul_naive": ("poly.cuh", PALLAS_FF, 515, None, None, 0),
@@ -339,7 +354,7 @@ ROUND_KERNELS = ("lm_mul", "lm_addsub", "lm_mul_const", "stage_big", "stages_sma
 POLY_KERNELS = ("poly_mul_naive", "kate_div")
 POLY_PER_LEVEL = {"poly_mul_naive": 10, "kate_div": 4}
 RADIX_KERNELS = ("radix_rank", "radix_shuffle", "radix_pass_b", "radix_compact")
-FIRST_DESIGNS = ("ec_double_v1", "ec_add_mixed_v1")  # no path launches them
+FIRST_DESIGNS = ("ec_madd_xyzz_fast_v1",)  # no path launches it
 ROUND_K = 28  # the round of the carry stage the round phase takes (= d // 2)
 BASE = 5  # radix of the argument's digit rounds
 CURVE = PALLAS
@@ -423,6 +438,13 @@ def mixed_bound(rows: int, doublings: int, extra_bytes: int):
     d_muls, d_adds = KERNEL_TABLE["ec_double"][3:5]
     return bound_ms("ec_add_mixed", rows, extra_bytes, muls=muls + d_muls * doublings / rows,
                     adds=adds + d_adds * doublings / rows)
+
+
+def xyzz_bound(g: int, w: int):
+    """bound_ms of ec_madd_xyzz_fast's scan of g carries by w steps:
+    madd-2008-s's 10 products and 7 adds a step, 2 rows in and 4 out a step,
+    and a carry's 4 rows in, 4 totals out (where w > 1) and its flag byte."""
+    return bound_ms("ec_madd_xyzz_fast", g * w, g * ((4 + (4 if w > 1 else 0)) * ROW_BYTES + 1))
 
 
 def inv_muls(n: int) -> float:
@@ -539,6 +561,53 @@ def mixed_inputs(nprng, base_pts, b: int, dev):
         hp[0] = hp[2] = None
         hq[1] = hq[2] = None
     return p, qx, qy, mask_t, hp, hq
+
+
+def xyzz_scan_inputs(nprng, base_pts, g: int, w: int, dev):
+    """A blinded stepwise scan's inputs: g XYZZ carries (zz = z^2, zzz = z^3
+    of mixed_inputs' Jacobian points; the identity all zero in zz, zzz) and
+    g*w affine rows, carry j's at rows j*w .. j*w + w - 1.  Step 0 holds
+    mixed_inputs' edges: an identity carry (lane 0), an affine identity
+    (lanes 1 and 2; lane 2's carry the identity too), q == carry (lane 3),
+    q == -carry (lane 4); every row of lane 2 is an affine identity, so it
+    stays the identity, unflagged.  The other rows are base points drawn at
+    random, 5 % of them affine identities (qx = qy = 0).  Returns ((x, y,
+    zz, zzz, qx, qy), host carries, host rows), the host lists covering the
+    first min(g, 64) lanes."""
+    p, qx0, qy0, _, hp, hq0 = mixed_inputs(nprng, base_pts, g, dev)
+    zz = CF.mont_mul_plain(SPEC, p.z, p.z)
+    zzz = CF.mont_mul_plain(SPEC, zz, p.z)
+    n = g * w
+    bx = limbs_from_numpy(ints_to_mont_limbs([q[0] for q in base_pts], SPEC), dev)
+    by = limbs_from_numpy(ints_to_mont_limbs([q[1] for q in base_pts], SPEC), dev)
+    idx = nprng.integers(0, len(base_pts), size=n)
+    ident = nprng.random(n) < 0.05
+    if g >= 5:
+        ident[2 * w:3 * w] = True
+    it = torch.from_numpy(idx).to(dev)
+    mask = torch.from_numpy(ident).to(dev)[:, None]
+    qx = torch.where(mask, torch.zeros_like(bx[it]), bx[it])
+    qy = torch.where(mask, torch.zeros_like(by[it]), by[it])
+    qx.view(g, w, N_LIMBS)[:, 0] = qx0
+    qy.view(g, w, N_LIMBS)[:, 0] = qy0
+    host = [hq0[i // w] if i % w == 0 else None if ident[i] else base_pts[idx[i]]
+            for i in range(len(hp) * w)]
+    return (p.x, p.y, zz, zzz, qx, qy), hp, host
+
+
+def xyzz_v1_scan(args, w: int):
+    """w launches of ec_madd_xyzz_fast_v1 over the scan's steps, the flags
+    ORed: (inner, totals, exc) as ec_madd_xyzz_fast_scan returns them."""
+    g = args[0].shape[0]
+    cols = [c.view(g, w, N_LIMBS).transpose(0, 1).contiguous() for c in args[4:6]]
+    carry, exc, steps = args[:4], None, []
+    for t in range(w):
+        *carry, e = CF.ec_madd_xyzz_fast_v1(CURVE, *carry, cols[0][t], cols[1][t])
+        exc = e if exc is None else exc | e
+        steps.append(carry)
+    inner = tuple(torch.stack([s[k] for s in steps], dim=1).reshape(g * w, N_LIMBS)
+                  for k in range(4))
+    return inner, tuple(carry), exc
 
 
 def scan_t_limbs():
@@ -727,6 +796,8 @@ def check_kernels(dev, base_pts, ragged: int, shapes: dict, scan_small_g: int, r
                 f"an ordinary and with an identity carry (lanes 1, 2) passes unflagged")
         require(all(torch.equal(g[1:3], a[1:3]) for g, a in zip(got[:3], args[:3])),
                 f"lanes 1 and 2 (qy == 0) hold the carry itself, limb for limb, at size {size}")
+        require(got[3].dtype == torch.bool,
+                f"the flags are the bool tensor the kernel wrote at size {size}")
         pts = E.points_to_ints(JPoint(*(c[:k] for c in got[:3])))
         want = [pyref.ec_add(a, b, CURVE) for a, b in zip(host["p"], host["q"])]
         keep = [i for i in range(k) if i not in (0, 3, 4)]
@@ -740,33 +811,40 @@ def check_kernels(dev, base_pts, ragged: int, shapes: dict, scan_small_g: int, r
         lambda b: mixed(b)[:5], [ragged, shapes["ec_add_mixed_fast"]], reps,
         extra_bytes_of=lambda b: b, host_check=mixed_fast_flags))
 
-    def xyzz_step(b):
-        """The carry in XYZZ form (zz = z^2, zzz = z^3; the identity all
-        zero in zz, zzz) and an affine q, the affine identity as qy == 0."""
-        p, qx, qy, _, hp, hq = mixed_inputs(nprng, base_pts, b, dev)
-        host["p"], host["q"] = hp, hq
-        zz = CF.mont_mul_plain(SPEC, p.z, p.z)
-        return (p.x, p.y, zz, CF.mont_mul_plain(SPEC, zz, p.z), qx, qy)
+    def xyzz_scan(size):
+        g, w = size
+        args, host["p"], host["q"] = xyzz_scan_inputs(nprng, base_pts, g, w, dev)
+        return (*args, w)
 
     def xyzz_flags(size, args, got):
-        k = len(host["p"])
-        flags = got[4].nonzero().flatten().tolist()
-        require(flags == [0, 3, 4],
-                f"ec_madd_xyzz_fast flags the identity carry (lane 0), carry == Q "
-                f"(lane 3) and carry == -Q (lane 4) and nothing else at size {size}; "
-                f"qy == 0 (lanes 1, 2) passes unflagged")
-        pts = E.points_to_ints(E.xyzz_to_jacobian(*(c[:k] for c in got[:4])))
-        want = [pyref.ec_add(a, b, CURVE) for a, b in zip(host["p"], host["q"])]
-        keep = [i for i in range(k) if i not in (0, 3, 4)]
+        (g, w), k = size, len(host["p"])
+        inner, exc = got[:4], got[8]
+        require(exc.dtype == torch.bool and exc.nonzero().flatten().tolist() == [0, 3, 4],
+                f"ec_madd_xyzz_fast's scan flags the identity carry (lane 0), carry == Q "
+                f"(lane 3) and carry == -Q (lane 4) and nothing else at g = {g}, w = {w}; "
+                f"qy == 0 (lanes 1, 2) passes unflagged; the flags are a bool tensor")
+        require(outputs_equal(got, flatten_outs(xyzz_v1_scan(args[:6], w))) == 0,
+                f"it equals {w} launches of its first design (ec_madd_xyzz_fast_v1), limb for "
+                f"limb and flag for flag (ORed over the steps), at g = {g}, w = {w}")
+        pts = E.points_to_ints(E.xyzz_to_jacobian(*(c[:k * w] for c in inner)))
+        want = []
+        for j in range(k):
+            acc = host["p"][j]
+            for t in range(w):
+                acc = pyref.ec_add(acc, host["q"][j * w + t], CURVE)
+                want.append(acc)
+        keep = [i for i in range(k * w) if i // w not in (0, 3, 4)]
         require([pts[i] for i in keep] == [want[i] for i in keep],
-                f"unflagged lanes among the first {k} equal the Python-int oracle "
-                f"at size {size}")
+                f"the inner prefixes of the unflagged lanes among the first {k} equal running "
+                f"sums on Python ints at g = {g}, w = {w}")
 
     recs.append(check_kernel(
-        dev, "ec_madd_xyzz_fast", lambda *a: CF.ec_madd_xyzz_fast(CURVE, *a),
-        lambda *a: CF.ec_madd_xyzz_fast_plain(CURVE, *a),
-        xyzz_step, [ragged, shapes["ec_madd_xyzz_fast"]], reps,
-        extra_bytes_of=lambda b: b, host_check=xyzz_flags))
+        dev, "ec_madd_xyzz_fast", lambda *a: CF.ec_madd_xyzz_fast_scan(CURVE, *a),
+        lambda *a: CF.ec_madd_xyzz_fast_scan_plain(CURVE, *a),
+        xyzz_scan, [(ragged, 1), (2048, 32), (shapes["ec_madd_xyzz_fast"][0], 1),
+                    shapes["ec_madd_xyzz_fast"]], reps,
+        bound_of=lambda s: xyzz_bound(*s), host_check=xyzz_flags,
+        shape_of=lambda s: f"g = {s[0]}, w = {s[1]}"))
 
     w = CF.SCAN_W
     t_limbs = scan_t_limbs()
@@ -957,11 +1035,18 @@ def profile_round(dev, fn) -> dict:
 
 
 def device_busy_ms(dev, fn) -> float:
-    """The device's busy time over one call of fn: the sum of the times of
+    """device_profile's busy time of one call of fn."""
+    return device_profile(dev, fn)[0]
+
+
+def device_profile(dev, fn):
+    """The device's busy time over one call of fn, the sum of the times of
     every kernel and copy it ran there, as torch.profiler traces them (the
-    "Self CUDA time total" of its table).  A trace with no device event in it
-    is taken once more (the profiler has returned one on the card for a call
-    that ran kernels); a second empty trace fails."""
+    "Self CUDA time total" of its table), and the number of those device
+    events (kernels, copies and fills), the profiler's own buffer requests
+    left out.  A trace with no device event in it is taken once more (the
+    profiler has returned one on the card for a call that ran kernels); a
+    second empty trace fails.  Returns (ms, number of events)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -969,13 +1054,15 @@ def device_busy_ms(dev, fn) -> float:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             sync(dev)
-        busy_us = 0.0
+        busy_us, events = 0.0, 0
         for ev in prof.key_averages():
             if ev.device_type == DeviceType.CUDA and not getattr(ev, "is_user_annotation", False):
                 own = getattr(ev, "self_device_time_total", None)
                 busy_us += own if own is not None else ev.self_cuda_time_total
+                if not ev.key.startswith("Activity Buffer"):
+                    events += ev.count
         if busy_us > 0:
-            return busy_us / 1e3
+            return busy_us / 1e3, events
         print("  the profiler traced no device time; tracing the call once more", flush=True)
     raise Failure("the profiler traced no device time, twice")
 
@@ -1126,9 +1213,11 @@ def fallback_path(dev, base_pts, logn: int):
             for k in range(rounds)]
     require(got == want, f"round_sums equals the Python-int oracle in all {rounds} rounds")
     require(counts["ec_add_mixed"] == 1 and counts[
-        "ec_madd_xyzz_fast" if route == "stepwise" else "fused_madd_scan_xyzz"] > 0,
+        "ec_madd_xyzz_fast" if route == "stepwise" else "fused_madd_scan_xyzz"] == rounds,
             f"round_sums launched ec_add_mixed once (the recomputed round's window scan: "
-            f"{counts['ec_add_mixed']} times) and the {route} scan's kernel")
+            f"{counts['ec_add_mixed']} times) and the {route} scan's kernel once a round's "
+            f"window ({rounds} rounds: {counts['ec_madd_xyzz_fast']} ec_madd_xyzz_fast, "
+            f"{counts['fused_madd_scan_xyzz']} fused_madd_scan_xyzz launches)")
 
     rng = random.Random(0x5AFE)
     q = CURVE.scalar_field.p
@@ -1191,18 +1280,15 @@ def safe_msm_path(dev, base_pts, logn: int):
 def safe_rule2(recs: list, safe: dict) -> dict:
     """ec_add_mixed in the rule-2 ranking on its own path: launches x (ms -
     bound) over one safe MSM (phase 6b's launches), at the window scan's time
-    from phase 9b, for it and for its first design (w launches a window)."""
+    from phase 9b."""
     scan = recs[0]
     launches = safe["counts"]["ec_add_mixed"]
-    loss = {lab: launches * (scan[key] - scan["bound_ms"])
-            for lab, key in (("v2", "ms"), ("v1", "v1_ms"))}
+    loss = launches * (scan["ms"] - scan["bound_ms"])
     print(f"  rule-2 ranking, safe flavor: ec_add_mixed: 0 launches on the main path; "
           f"{launches} launches a safe MSM ({scan['shape']}), launches x (ms - bound) = "
-          f"{loss['v2']:.3f} ms a safe MSM (first design, {scan['w']} launches a window: "
-          f"{loss['v1']:.3f} ms), share of the bound by time "
+          f"{loss:.3f} ms a safe MSM, share of the bound by time "
           f"{scan['bound_ms'] / scan['ms']:.3f}", flush=True)
-    return {"launches_safe_msm": launches, "gap_ms_safe_msm": loss["v2"],
-            "gap_ms_safe_msm_v1": loss["v1"],
+    return {"launches_safe_msm": launches, "gap_ms_safe_msm": loss,
             "bound_share_by_time_safe_msm": scan["bound_ms"] / scan["ms"]}
 
 
@@ -1242,8 +1328,9 @@ def time_window_routes(dev, base_pts, logns, reps: int = 5):
                 sync(dev)
                 used = CF.LAUNCHES["fused_madd_scan_xyzz" if route == "fused"
                                    else "ec_madd_xyzz_fast"]
-                if used == 0 or bool(exc):
-                    raise Failure(f"the {route} route did not run clean at n = {n}")
+                if used != 1 or bool(exc):
+                    raise Failure(f"the {route} route did not run clean at n = {n} in one "
+                                  f"launch of its scan ({used} launches)")
                 sums[route] = one_point(res)
                 best = float("inf")
                 for _ in range(reps):
@@ -1646,9 +1733,13 @@ def launch_tally(dev, base_pts, logn: int, pts: JPoint, rnd):
             f"ec_double: one launch of {c} doublings a window of the MSM ({windows}) and one "
             f"of 2 a round of the carry stage ({rounds}: carry * {BASE}); "
             f"{out['ec_double']['msm']}, {out['ec_double']['carry stage']}")
-    busy = {phase: device_busy_ms(dev, fn) for phase, fn in phases[:2]}
-    print(f"device busy: one MSM {busy['msm']:.3f} ms, one carry stage "
-          f"{busy['carry stage']:.3f} ms", flush=True)
+    busy, events = {}, {}
+    for phase, fn in phases[:2]:
+        busy[phase], events[phase] = device_profile(dev, fn)
+    print(f"device busy: one MSM {busy['msm']:.3f} ms in {events['msm']} device events "
+          f"(kernels, copies, fills), one carry stage {busy['carry stage']:.3f} ms in "
+          f"{events['carry stage']}", flush=True)
+    busy["events"] = events
     return out, busy
 
 
@@ -1817,46 +1908,35 @@ def turns(dev, fns: dict, reps: int):
 # (B, k) ec_double is timed at besides the tally's: the Horner fold's c = 15,
 # the carry stage's 2, one doubling
 EC_DOUBLE_FIXED = ((1, 1), (1, 2), (1, 15))
+# (g, w) of the stepwise scan of a 2^16-point window (time_window_routes'
+# widest), where ec_madd_xyzz_fast is timed besides the fallback's shape
+XYZZ_WIDE = (2048, 32)
 
 
-def ec_double_ab(dev, base_pts, keys, launches: dict, reps: int):
+def ec_double_by_key(dev, base_pts, keys, launches: dict, reps: int):
     """ec_double (four lanes a point, k doublings a launch) at each (B, k) of
-    keys against its plain version, k launches of its first design
-    (ec_double_v1) and [2^k]P on Python ints (the first 64 lanes, the edge
-    lanes of curve_inputs among them), bit for bit; one launch of it and
-    the first design's k launches timed in turns.  Returns the records."""
+    keys against its plain version and [2^k]P on Python ints (the first 64
+    lanes, the edge lanes of curve_inputs among them), bit for bit; one
+    launch timed.  Returns the records."""
     nprng = np.random.default_rng(0xAB0D)
     E = ec(CURVE)
     out = []
     for b, k in keys:
         p, _, hp, _ = curve_inputs(nprng, base_pts, b, dev)
-
-        def v1_chain(p=p, k=k):
-            q = tuple(p)
-            for _ in range(k):
-                q = CF.ec_double_v1(CURVE, *q)
-            return q
-
         new = CF.ec_double(CURVE, *p, k=k)
         pts = E.points_to_ints(JPoint(*(c[:len(hp)] for c in new)))
         require(outputs_equal(new, CF.ec_double_plain(CURVE, *p, k=k)) == 0
-                and outputs_equal(new, v1_chain()) == 0
                 and pts == [pyref.ec_mul(u, 1 << k, CURVE) for u in hp],
-                f"ec_double (k = {k}) == ec_double_plain and {k} launches of ec_double_v1 "
-                f"at B = {b}; the first {len(hp)} lanes (edge lanes among them) equal "
-                f"[2^{k}]P on Python ints")
-        ms, call = turns(dev, {"v2": lambda p=p, k=k: CF.ec_double(CURVE, *p, k=k),
-                               "v1": v1_chain}, reps)
+                f"ec_double (k = {k}) == ec_double_plain at B = {b}; the first {len(hp)} "
+                f"lanes (edge lanes among them) equal [2^{k}]P on Python ints")
+        ms, call = time_ms(dev, lambda p=p, k=k: CF.ec_double(CURVE, *p, k=k), reps)
         b_ms, b_by = bound_ms("ec_double", b, stages=k)
         key = (b, k)
-        out.append({"shape": f"B = {b}, k = {k}", "b": b, "k": k, "ms": ms["v2"],
-                    "v1_ms": ms["v1"], "call_ms": call["v2"], "v1_call_ms": call["v1"],
+        out.append({"shape": f"B = {b}, k = {k}", "b": b, "k": k, "ms": ms, "call_ms": call,
                     "bound_ms": b_ms, "bound_by": b_by, "launches": launches.get(key, 0)})
-        print(f"  A/B ec_double at B = {b}, k = {k} ({launches.get(key, 0)} launches on the "
-              f"path): {ms['v2']:.4f} ms a launch on the device; first design {ms['v1']:.4f} ms "
-              f"for {k} launches ({ms['v1'] / k:.4f} a launch; {ms['v1'] / ms['v2']:.2f}x); "
-              f"bound {b_ms:.7f} ms ({b_by}); host {call['v2']:.4f} and {call['v1']:.4f} ms a "
-              f"call", flush=True)
+        print(f"  ec_double at B = {b}, k = {k} ({launches.get(key, 0)} launches on the path): "
+              f"{ms:.4f} ms a launch on the device; bound {b_ms:.7f} ms ({b_by}); host "
+              f"{call:.4f} ms a call", flush=True)
     return out
 
 
@@ -1892,15 +1972,13 @@ def safe_scan_inputs(nprng, base_pts, g: int, w: int, dev):
     return carries, qx, qy, mask, host
 
 
-def ec_add_mixed_ab(dev, base_pts, logn: int, reps: int):
+def ec_add_mixed_by_shape(dev, base_pts, logn: int, reps: int):
     """ec_add_mixed (two lanes a carry) at the shapes of a safe 2^logn
     window: its whole scan (g = 2^logn / w lanes of w = _pick_block_width
-    steps, one launch; safe_scan_inputs) against the plain version's loop,
-    w launches of the first design (ec_add_mixed_v1) step by step and the
-    first 8 lanes' running sums on Python ints; and one step at B = g
-    (mixed_inputs' edge lanes) against its plain version and the first
-    design.  Both designs timed in turns at each.  Returns (the records,
-    the first design's record for the kernels line)."""
+    steps, one launch; safe_scan_inputs) against the plain version's loop
+    and the first 8 lanes' running sums on Python ints; and one step at B =
+    g (mixed_inputs' edge lanes) against its plain version and the
+    Python-int oracle.  Timed at each.  Returns the records."""
     nprng = np.random.default_rng(0xAB8)
     n = 1 << logn
     w = M._pick_block_width(n, True)
@@ -1913,19 +1991,6 @@ def ec_add_mixed_ab(dev, base_pts, logn: int, reps: int):
     want = CF.ec_add_mixed_scan_plain(CURVE, *carries, qx, qy, mask, w)
     sync(dev)
     plain_ms = (time.perf_counter() - t0) * 1e3
-    cols = [c.reshape((g, w) + c.shape[1:]).transpose(0, 1).contiguous() for c in (qx, qy, mask)]
-
-    def v1_scan():
-        carry = carries
-        for t in range(w):
-            carry = CF.ec_add_mixed_v1(CURVE, *carry, cols[0][t], cols[1][t], cols[2][t])
-        return carry
-
-    carry, same = carries, True
-    for t in range(w):
-        carry = CF.ec_add_mixed_v1(CURVE, *carry, cols[0][t], cols[1][t], cols[2][t])
-        same = same and all(torch.equal(a.reshape(g, w, N_LIMBS)[:, t], b)
-                            for a, b in zip(inner, carry))
     lanes = len(host) // w
     got = E.points_to_ints(JPoint(*(c[:lanes * w] for c in inner)))
     running = []
@@ -1934,27 +1999,22 @@ def ec_add_mixed_ab(dev, base_pts, logn: int, reps: int):
         for t in range(w):
             acc = pyref.ec_add(acc, host[j * w + t], CURVE)
             running.append(acc)
-    require(outputs_equal(inner + totals, want[0] + want[1]) == 0 and same
-            and got == running,
-            f"ec_add_mixed's scan == ec_add_mixed_scan_plain (inner prefixes and totals) and "
-            f"{w} launches of ec_add_mixed_v1 at g = {g}, w = {w}; the first {lanes} lanes "
-            f"(q == carry, q == -carry, affine identities among them) equal running sums on "
-            f"Python ints")
-    ms, call = turns(dev, {"v2": lambda: CF.ec_add_mixed_scan(CURVE, *carries, qx, qy, mask, w),
-                           "v1": v1_scan}, max(1, reps // 5))
+    require(outputs_equal(inner + totals, want[0] + want[1]) == 0 and got == running,
+            f"ec_add_mixed's scan == ec_add_mixed_scan_plain (inner prefixes and totals) at "
+            f"g = {g}, w = {w}; the first {lanes} lanes (q == carry, q == -carry, affine "
+            f"identities among them) equal running sums on Python ints")
+    ms, call = time_ms(dev, lambda: CF.ec_add_mixed_scan(CURVE, *carries, qx, qy, mask, w),
+                       max(1, reps // 5))
     before = [torch.cat([c[:, None], i.reshape(g, w, N_LIMBS)[:, :-1]], dim=1).reshape(
         g * w, N_LIMBS) for c, i in zip(carries, inner)]
     doublings = mixed_doublings(*before, qx, qy)
     b_ms, b_by = mixed_bound(g * w, doublings, g * w + 6 * g * ROW_BYTES)
-    recs = [{"shape": f"g = {g}, w = {w} (a window's scan)", "g": g, "w": w, "ms": ms["v2"],
-             "v1_ms": ms["v1"], "call_ms": call["v2"], "v1_call_ms": call["v1"],
-             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "launches": 0,
-             "doublings": doublings}]
-    print(f"  A/B ec_add_mixed, a safe window's scan, g = {g}, w = {w}: {ms['v2']:.4f} ms (one "
-          f"launch) on the device; first design {ms['v1']:.4f} ms for {w} launches "
-          f"({ms['v1'] / ms['v2']:.2f}x); bound {b_ms:.5f} ms ({b_by}; {doublings} of the "
-          f"{g * w} steps take the doubling); host {call['v2']:.4f} and {call['v1']:.4f} ms a "
-          f"call; plain {plain_ms:.1f} ms", flush=True)
+    recs = [{"shape": f"g = {g}, w = {w} (a window's scan)", "g": g, "w": w, "ms": ms,
+             "call_ms": call, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+             "launches": 0, "doublings": doublings}]
+    print(f"  ec_add_mixed, a safe window's scan, g = {g}, w = {w}: {ms:.4f} ms (one launch) "
+          f"on the device; bound {b_ms:.5f} ms ({b_by}; {doublings} of the {g * w} steps take "
+          f"the doubling); host {call:.4f} ms a call; plain {plain_ms:.1f} ms", flush=True)
 
     p, sx, sy, smask, hp, hq = mixed_inputs(nprng, base_pts, g, dev)
     args = (*p, sx, sy, smask)
@@ -1967,28 +2027,85 @@ def ec_add_mixed_ab(dev, base_pts, logn: int, reps: int):
     k = len(hp)
     pts = E.points_to_ints(JPoint(*(c[:k] for c in new)))
     require(outputs_equal(new, want) == 0
-            and outputs_equal(new, CF.ec_add_mixed_v1(CURVE, *args)) == 0
             and pts == [pyref.ec_add(a, b, CURVE) for a, b in zip(hp, hq)],
-            f"ec_add_mixed (one step) == ec_add_mixed_plain and ec_add_mixed_v1 at B = {g}, "
-            f"the first {k} lanes (edge lanes among them) equal to the Python-int oracle")
-    ms1, call1 = turns(dev, {"v2": lambda: CF.ec_add_mixed(CURVE, *args),
-                             "v1": lambda: CF.ec_add_mixed_v1(CURVE, *args)}, reps)
+            f"ec_add_mixed (one step) == ec_add_mixed_plain at B = {g}, the first {k} lanes "
+            f"(edge lanes among them) equal to the Python-int oracle")
+    ms1, call1 = time_ms(dev, lambda: CF.ec_add_mixed(CURVE, *args), reps)
     s_ms, s_by = mixed_bound(g, mixed_doublings(*args[:5]), g * (1 + 3 * ROW_BYTES))
-    recs.append({"shape": f"B = {g}, w = 1 (a step)", "g": g, "w": 1, "ms": ms1["v2"],
-                 "v1_ms": ms1["v1"], "call_ms": call1["v2"], "v1_call_ms": call1["v1"],
-                 "plain_ms": step_plain_ms, "bound_ms": s_ms, "bound_by": s_by, "launches": 0})
-    print(f"  A/B ec_add_mixed, one step at B = {g}: {ms1['v2']:.4f} ms on the device; first "
-          f"design {ms1['v1']:.4f} ms ({ms1['v1'] / ms1['v2']:.2f}x); bound {s_ms:.5f} ms "
-          f"({s_by}); host {call1['v2']:.4f} and {call1['v1']:.4f} ms a call; plain "
-          f"{step_plain_ms:.1f} ms", flush=True)
-    v1_ms, v1_by = bound_ms("ec_add_mixed_v1", g, g)
-    v1_rec = {"name": "ec_add_mixed_v1", "route": "cuda", "source": CSRC + "kernels.cu",
-              "replaces": f"{PALLAS_FF}:{KERNEL_TABLE['ec_add_mixed_v1'][2]}", "launches": 0,
-              "max_abs_err": 0, "ms": ms1["v1"], "plain_ms": step_plain_ms,
-              "bound_ms": v1_ms, "bound_by": v1_by, "library_ms": None,
-              "shape": f"B = {g}", "call_ms": call1["v1"], "scan_ms": ms["v1"],
-              "scan_shape": f"g = {g}, w = {w}"}
-    return recs, v1_rec
+    recs.append({"shape": f"B = {g}, w = 1 (a step)", "g": g, "w": 1, "ms": ms1,
+                 "call_ms": call1, "plain_ms": step_plain_ms, "bound_ms": s_ms,
+                 "bound_by": s_by, "launches": 0})
+    print(f"  ec_add_mixed, one step at B = {g}: {ms1:.4f} ms on the device; bound {s_ms:.5f} "
+          f"ms ({s_by}); host {call1:.4f} ms a call; plain {step_plain_ms:.1f} ms", flush=True)
+    return recs
+
+
+def first_design_record(name: str, ms: float, call_ms: float, plain_ms: float, bound, shape,
+                        **extra) -> dict:
+    """A first design's record for the kernels line: no launch on any path."""
+    return {"name": name, "route": "cuda", "source": CSRC + "kernels.cu",
+            "replaces": f"{PALLAS_FF}:{KERNEL_TABLE[name][2]}", "launches": 0,
+            "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": None, "shape": shape, "call_ms": call_ms,
+            **extra}
+
+
+def xyzz_scan_ab(dev, base_pts, keys, reps: int):
+    """ec_madd_xyzz_fast's scan (four lanes a carry, w steps a launch) at each
+    (g, w) of keys (xyzz_scan_inputs' edges) against its plain version and w
+    launches of its first design (ec_madd_xyzz_fast_v1), limb for limb and
+    flag for flag; timed in turns with the first design's w launches and
+    with one launch of the fused scan's kernel at the same (g, w) (two lanes
+    a carry, the same formula from T on the same rows, packed).  Returns
+    (the records, the first design's record at the first key: one step)."""
+    nprng = np.random.default_rng(0xAB7)
+    t_limbs = scan_t_limbs()
+    out, v1_rec = [], None
+    for g, w in keys:
+        args, _, _ = xyzz_scan_inputs(nprng, base_pts, g, w, dev)
+        new = flatten_outs(CF.ec_madd_xyzz_fast_scan(CURVE, *args, w))
+        sync(dev)
+        t0 = time.perf_counter()
+        want = flatten_outs(CF.ec_madd_xyzz_fast_scan_plain(CURVE, *args, w))
+        sync(dev)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        require(outputs_equal(new, want) == 0
+                and outputs_equal(new, flatten_outs(xyzz_v1_scan(args, w))) == 0
+                and new[8].nonzero().flatten().tolist() == [0, 3, 4],
+                f"ec_madd_xyzz_fast's scan == ec_madd_xyzz_fast_scan_plain and {w} launches of "
+                f"ec_madd_xyzz_fast_v1 at g = {g}, w = {w} (inner, totals, flags), lanes 0, 3 "
+                f"and 4 flagged and no other")
+        cols = [c.view(g, w, N_LIMBS).transpose(0, 1).contiguous() for c in args[4:6]]
+
+        def v1_steps(args=args, cols=cols, w=w):
+            carry = args[:4]
+            for t in range(w):
+                carry = CF.ec_madd_xyzz_fast_v1(CURVE, *carry, cols[0][t], cols[1][t])[:4]
+            return carry
+
+        rows = M._pack_pair(args[4], args[5]).contiguous()
+        ms, call = turns(dev, {
+            "v2": lambda args=args, w=w: CF.ec_madd_xyzz_fast_scan(CURVE, *args, w),
+            "v1": v1_steps,
+            "two lanes": lambda rows=rows, w=w: CF.fused_madd_scan_xyzz(CURVE, t_limbs, rows, w)},
+            reps)
+        b_ms, b_by = xyzz_bound(g, w)
+        out.append({"shape": f"g = {g}, w = {w}", "g": g, "w": w, "ms": ms["v2"],
+                    "v1_ms": ms["v1"], "two_lane_ms": ms["two lanes"], "call_ms": call["v2"],
+                    "v1_call_ms": call["v1"], "plain_ms": plain_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "launches": 0})
+        print(f"  A/B ec_madd_xyzz_fast at g = {g}, w = {w}: {ms['v2']:.4f} ms (one launch, four "
+              f"lanes a carry) on the device; first design {ms['v1']:.4f} ms for {w} launches "
+              f"({ms['v1'] / ms['v2']:.2f}x); two lanes a carry (fused_madd_scan_xyzz at the "
+              f"same g, w) {ms['two lanes']:.4f} ms; bound {b_ms:.6f} ms ({b_by}); host "
+              f"{call['v2']:.4f} and {call['v1']:.4f} ms a call; plain {plain_ms:.1f} ms",
+              flush=True)
+        if v1_rec is None:
+            v1_rec = first_design_record(
+                "ec_madd_xyzz_fast_v1", ms["v1"] / w, call["v1"] / w, plain_ms / w,
+                bound_ms("ec_madd_xyzz_fast_v1", g, g), f"B = {g} (a step)",
+                scan_ms=ms["v1"], scan_shape=f"g = {g}, w = {w}")
+    return out, v1_rec
 
 
 # (log2 n, E) of the fused levels of a 2^20 round, timed at every --logn
@@ -2121,14 +2238,14 @@ def ab_phase(dev, base_pts, tally, lines_in: dict, logn: int, ragged: int, row_s
     (and the fused levels' shapes of a 2^20 round), batch_inv at every
     (rows, chain length) (and n = 33, 512, 700, 2^16 and 2^(logn + 1)), the
     fused scan at every g (and 256 and 4096).  ec_double at every (B, k) of
-    the tally and EC_DOUBLE_FIXED and ec_add_mixed at a safe window's shapes
-    against their first designs (ec_double_ab, ec_add_mixed_ab).  Last, the
-    rule-2 ranking of the fourteen over the main path (one MSM, one carry
-    stage and 56 rounds like the tallied one): ec_add_mixed, radix_rank and
-    radix_pass_b with no launch there (the safe flavor is a fallback, the
-    radix route is off), the radix kernels at phase 12's full plan
-    (radix_recs).  Returns ({kernel: per-shape records}, the ranking, the
-    first designs' records for the kernels line)."""
+    the tally and EC_DOUBLE_FIXED (ec_double_by_key), ec_add_mixed at a safe
+    window's shapes (ec_add_mixed_by_shape) and ec_madd_xyzz_fast's scan
+    against its first design (xyzz_scan_ab).  Last, the rule-2 ranking of
+    the fourteen over the main path (one MSM, one carry stage and 56 rounds
+    like the tallied one): ec_add_mixed, radix_rank and radix_pass_b with no
+    launch there (the safe flavor is a fallback, the radix route is off),
+    the radix kernels at phase 12's full plan (radix_recs).  Returns ({kernel: per-shape records}, the ranking, the
+    first design's record for the kernels line)."""
     rounds = A.num_digits_for(CURVE, BASE)
     on_path = {name: path_launches(tally[name], rounds)
                for name in ("mont_mul", "mont_addsub", "ec_add", "ec_add_fast")}
@@ -2148,23 +2265,13 @@ def ab_phase(dev, base_pts, tally, lines_in: dict, logn: int, ragged: int, row_s
             dev, base_pts,
             sorted(set(on_path["ec_add_fast"]) | {row_shapes["ec_add_fast"], ragged}),
             on_path["ec_add_fast"], reps),
-        "ec_double": ec_double_ab(dev, base_pts,
-                                  sorted(set(EC_DOUBLE_FIXED) | set(by_key["ec_double"])),
-                                  by_key["ec_double"], reps),
+        "ec_double": ec_double_by_key(dev, base_pts,
+                                      sorted(set(EC_DOUBLE_FIXED) | set(by_key["ec_double"])),
+                                      by_key["ec_double"], reps),
+        "ec_add_mixed": ec_add_mixed_by_shape(dev, base_pts, logn, reps),
     }
-    out["ec_add_mixed"], mixed_v1 = ec_add_mixed_ab(dev, base_pts, logn, reps)
-    one = next(r for r in out["ec_double"] if (r["b"], r["k"]) == (1, 1))
-    p1 = curve_inputs(np.random.default_rng(0xAB0E), base_pts, 1, dev)[0]
-    sync(dev)
-    t0 = time.perf_counter()
-    CF.ec_double_plain(CURVE, *p1)
-    sync(dev)
-    double_v1 = {"name": "ec_double_v1", "route": "cuda", "source": CSRC + "kernels.cu",
-                 "replaces": f"{PALLAS_FF}:{KERNEL_TABLE['ec_double_v1'][2]}", "launches": 0,
-                 "max_abs_err": 0, "ms": one["v1_ms"],
-                 "plain_ms": (time.perf_counter() - t0) * 1e3, "bound_ms": one["bound_ms"],
-                 "bound_by": one["bound_by"], "library_ms": None, "shape": "B = 1",
-                 "call_ms": one["v1_call_ms"]}
+    out["ec_madd_xyzz_fast"], xyzz_v1 = xyzz_scan_ab(
+        dev, base_pts, [row_shapes["ec_madd_xyzz_fast"], XYZZ_WIDE], reps)
     for name in POLY_KERNELS:
         out[name] = poly_by_shape(dev, name, tally[name]["round"], rounds, reps)
     out["affine_lines"] = affine_lines_by_width(dev, base_pts, lines_in,
@@ -2188,7 +2295,7 @@ def ab_phase(dev, base_pts, tally, lines_in: dict, logn: int, ragged: int, row_s
     for name, rec in radix_recs.items():
         out[name] = [{"shape": rec["shape"], "launches": 0, "ms": rec["ms"],
                       "bound_ms": rec["bound_ms"]}]
-    return out, rule2_ranking(out), [double_v1, mixed_v1]
+    return out, rule2_ranking(out), [xyzz_v1]
 
 
 def radix_rule2(radix_recs: dict, plans: dict, radix: dict) -> dict:
@@ -3026,6 +3133,25 @@ def radix_overflow_path(dev, base_pts, logn: int = 17):
 # phase 16: the curve layer's entry point EC.add_mixed_fast at full width
 # ---------------------------------------------------------------------------
 
+class AtenOps(TorchDispatchMode):
+    """The names of the aten ops run inside the mode (a kernel of the port,
+    launched through ctypes, is none of them)."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.names.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+# aten ops that launch no kernel: allocation and views
+NO_KERNEL_OPS = ("aten.empty", "aten.view", "aten._unsafe_view", "aten.reshape", "aten.expand",
+                 "aten.alias", "aten.detach", "aten.as_strided", "aten.slice", "aten.select",
+                 "aten.unsqueeze", "aten.squeeze")
+
+
 def add_mixed_fast_path(dev, base_pts, logn: int):
     """EC.add_mixed_fast on 2^logn lanes: the carries 3 B_i made by
     EC.scalar_mul_small from the tiled base points (Jacobian, Z != 1), the
@@ -3060,6 +3186,12 @@ def add_mixed_fast_path(dev, base_pts, logn: int):
     require(counts["ec_add_mixed_fast"] == 1 and sum(counts.values()) == 1,
             f"EC.add_mixed_fast is one launch of ec_add_mixed_fast on the card "
             f"({seconds * 1e3:.3f} ms on the host clock)")
+    with AtenOps() as ops:
+        E.add_mixed_fast(carry, qx, qy)
+    computing = sorted({op for op in ops.names if not op.startswith(NO_KERNEL_OPS)})
+    require(not computing and exc.dtype == torch.bool,
+            f"and no PyTorch op around it launches a kernel (ops: "
+            f"{sorted(set(ops.names))}); its flags are the bool tensor the kernel wrote")
     require(exc.nonzero().flatten().tolist() == [0, 2, 3],
             "it flags exactly the identity carry (lane 0), carry == Q (lane 2) and "
             "carry == -Q (lane 3); qy == 0 (lane 1) passes unflagged")
@@ -3847,15 +3979,17 @@ def main() -> int:
     g = max(1, n // CF.SCAN_W)
     nb = 1 << M.pick_window(n)
     # ec_madd_xyzz_fast runs only in card windows below FUSED_SCAN_MIN_ROWS
-    # points: its shape is the lanes of the widest of them, the one the
-    # fallback phase drives.  ec_add_mixed: one step of a safe window at n.
+    # points: its shape is the (carries, steps) of the stepwise scan of the
+    # widest of them, the one the fallback phase drives.  ec_add_mixed: one
+    # step of a safe window at n.
     step_logn = (M.FUSED_SCAN_MIN_ROWS // 2).bit_length() - 1
-    step_lanes = (1 << step_logn) // M._pick_block_width(1 << step_logn, True)
+    step_w = M._pick_block_width(1 << step_logn, True)
+    step_lanes = (1 << step_logn) // step_w
     # ec_add_fast: a step of a window's triangle scan, nb buckets in blocks
     # of _pick_block_width steps (2048 lanes at c = 15)
     shapes = {"mont_mul": n, "batch_inv": 2 * n, "mont_addsub": nb, "ec_add": min(g, 2048),
               "ec_add_fast": nb // M._pick_block_width(nb, True), "ec_double": 1,
-              "fused_madd_scan_xyzz": g, "ec_madd_xyzz_fast": step_lanes, "ec_add_mixed": g,
+              "fused_madd_scan_xyzz": g, "ec_madd_xyzz_fast": (step_lanes, step_w), "ec_add_mixed": g,
               "ec_add_mixed_fast": n}
     ragged = 5000
     recs = check_kernels(dev, base_pts, ragged=ragged, shapes=shapes,
@@ -3902,6 +4036,9 @@ def main() -> int:
         require(fallback_counts[name] > 0,
                 f"{name} was launched by the fallback's round_sums "
                 f"({fallback_counts[name]} times)")
+    for r in ab["ec_madd_xyzz_fast"]:  # the stepwise round_sums runs at the first shape
+        if (r["g"], r["w"]) == shapes["ec_madd_xyzz_fast"]:
+            r["launches"] = fallback_counts["ec_madd_xyzz_fast"]
     safe = safe_msm_path(dev, base_pts, args.logn)
     ranking["ec_add_mixed"].update(safe_rule2(ab["ec_add_mixed"], safe))
     routes = time_window_routes(dev, base_pts, (6, 7, 8, 10, 12, 14, 16))
@@ -3965,6 +4102,8 @@ def main() -> int:
     print(f"carries: n = {n}, base = {BASE}, rounds = {rounds}, seconds = {carry_s}, "
           f"card = {card}", flush=True)
     print(f"device busy: msm_ms = {busy['msm']}, carry_stage_ms = {busy['carry stage']}, "
+          f"msm_device_events = {busy['events']['msm']}, carry_stage_device_events = "
+          f"{busy['events']['carry stage']}, "
           f"card = {card}", flush=True)
     for rn, fused_ms, step_ms, fused_dev, step_dev in routes:
         print(f"window routes: n = {rn}, fused_ms = {fused_ms}, stepwise_ms = {step_ms}, "

@@ -1,13 +1,15 @@
-// The eleven kernels of the field and curve layers and their C launchers,
+// The ten kernels of the field and curve layers (and the first design of
+// one of them, kept for one comparison on the card) and their C launchers,
 // with those of the kernels included below: the divisor merge tree's five in
 // ntt.cuh, the MSM's radix reorder's four in radix.cuh, the coefficient
 // levels' two (poly_mul_naive and kate_div) in poly.cuh and the merge head's
 // affine_lines in lines.cuh.
-// Most are one thread per element: it
-// reads its (16,) rows, does the whole formula in registers (ff.cuh, ec.cuh)
-// and writes its rows back; mont_addsub spreads one row over four lanes,
-// ec_add and ec_add_fast one point over four, fused_madd_scan_xyzz one carry
-// over two, and batch_inv gives a thread a chain of rows (see there).
+// mont_mul and ec_add_mixed_fast are one thread per element: each reads its
+// (16,) rows, does the whole formula in registers (ff.cuh, ec.cuh) and writes
+// its rows back; mont_addsub spreads one row over four lanes, ec_add,
+// ec_add_fast and ec_double one point over four, ec_madd_xyzz_fast one carry
+// over four, fused_madd_scan_xyzz and ec_add_mixed one carry over two, and
+// batch_inv gives a thread a chain of rows (see each).
 // No kernel allocates or synchronises; a launcher enqueues on the stream it
 // is given and returns cudaGetLastError().
 //
@@ -476,8 +478,8 @@ ec_add_fast_kernel(FieldParams P, const uint32_t* x1, const uint32_t* y1, const 
 // doublings in one program.  The paths call it on one point: the MSM's
 // Horner fold doubles its accumulator c times a window, the carry stage its
 // carry twice a round (scalar_mul_small by base 5).  One thread a point (the
-// first design, ec_double_v1 below) runs the 7 products of dbl-2009-l as one
-// chain, and a launch a doubling.  Here the point lives in shared memory
+// first design, retired after its comparison) runs the 7 products of
+// dbl-2009-l as one chain, and a launch a doubling.  Here the point lives in shared memory
 // between its k doublings, and ADD_LANES = 4 neighbouring lanes share it by
 // ec_add's slot machinery: a doubling is three rounds of independent
 // products,
@@ -556,20 +558,6 @@ ec_double_kernel(FieldParams P, const uint32_t* x1, const uint32_t* y1, const ui
   }
   if (lane < 3 && i < n)
     fe_store((lane == 0 ? ox : lane == 1 ? oy : oz) + i * ELEMS_PER_ROW, slot_load(sc, lane));
-}
-
-// ---- 5 (first design). ec_double_v1 ----------------------------------------
-//
-// One doubling, one thread a point: ec.cuh's ec_double, its 7 products one
-// chain.  No path launches it; chip_smoke.py holds it against the same plain
-// version and times k launches of it beside one launch of the above.
-
-__global__ void __launch_bounds__(BLOCK)
-ec_double_v1_kernel(FieldParams P, const uint32_t* x1, const uint32_t* y1, const uint32_t* z1,
-                    uint32_t* ox, uint32_t* oy, uint32_t* oz, int64_t n) {
-  int64_t i = global_index();
-  if (i >= n) return;
-  jac_store(ox, oy, oz, i, ec_double(jac_load(x1, y1, z1, i), P));
 }
 
 // ---- 6. fused_madd_scan_xyzz: replaces pallas_ff.fused_madd_scan_xyzz ------------
@@ -694,19 +682,131 @@ fused_madd_scan_xyzz_kernel(FieldParams P, Fe tx, Fe ty,
 
 // ---- 7. ec_madd_xyzz_fast: replaces pallas_ff.ec_madd_xyzz_fast -----------------
 //
-// One step of the blinded XYZZ prefix scan as a kernel of its own, for scans
-// that step through their rows in Python (card windows below
-// ops/msm.FUSED_SCAN_MIN_ROWS points, which the fused scan would walk with a
-// handful of threads).  10 products on 6 rows in, 4 rows and a flag byte out:
-// bound by bytes, and by the launch itself at the widths it is called with
-// (half a window's points, so fewer than FUSED_SCAN_MIN_ROWS / 2 lanes).
+// Replaces pallas_ff.py:699 ec_madd_xyzz_fast (its body k_ec_madd_xyzz_fast),
+// w times over: the counterpart of the JAX package's jax.lax.scan of
+// E.madd_xyzz_fast in msm.prefix_scan_parts_affine_fast, the blinded stepwise
+// scan of a card window below ops/msm.FUSED_SCAN_MIN_ROWS points.  Carry j (of
+// g) starts at (x1, y1, zz1, zzz1)[j] (XYZZ; the blinding point T on the
+// path) and takes, at step t, the XYZZ + affine add (madd-2008-s, no
+// exceptional path) of row j w + t of (qx, qy), and writes the new carry to
+// row j w + t of the inner prefixes; at the end its total to row j of tx, ty,
+// tzz, tzzz (unless tx is null) and its flag byte, the OR over its steps (an
+// identity carry or carry == +-Q where qy != 0).  w = 1 is the single step of
+// EC.madd_xyzz_fast, a flag an element.
+//
+// The paths call it at g = 32 to 2048 carries (half a window's points at
+// most, w = 2 to 32 steps): a few blocks, so latency bounds it, not bytes
+// (10 products on 6 rows a step).  One thread a carry and a launch a step
+// (the first design, ec_madd_xyzz_fast_v1 below) runs the 10 products as one
+// chain, and the stepwise scan's w launches paid a launch each and PyTorch's
+// flag ORs and stacks besides.  Here the carry stays in shared memory between
+// the steps, and ADD_LANES = 4 neighbouring lanes share it by ec_add's slot
+// machinery: a step is four rounds of up to three independent products,
+//   {u2, s2} -> {pp^2, r^2} -> {ppp, q, zz3} -> {r (q - x3), y ppp, zzz3},
+// the least the formula allows (each round needs the one before), with the
+// subtractions for pp and r, and x3 and q - x3 (lane 0 alone: only it reads
+// them), between them.  In the last round lane k takes coordinate k of the
+// new carry through the affine identity's select and writes it back to its
+// slot and to the inner prefixes.  The values are those of
+// ec_madd_xyzz_fast_plain, each fully reduced, in its select order, so every
+// output equals the plain version's limb for limb.  The next step's row is
+// loaded into registers while a step runs.  Spare carries of a ragged last
+// block walk carry g - 1 and store nothing.
 
-__global__ void __launch_bounds__(BLOCK)
+enum XyzzSlot {
+  Z_X, Z_Y, Z_ZZ, Z_ZZZ,  // the carry: lane k writes coordinate k at the end of a step
+  Z_QX, Z_QY,             // the step's affine row
+  Z_U2, Z_S2, Z_PP, Z_R, Z_PPSQ, Z_RR, Z_PPP, Z_Q, Z_ZZ3, Z_X3, Z_D, Z_RD, Z_YPPP, Z_ZZZ3,
+  Z_ZERO,                     // zero: x3 - 0, zz3 - 0 and zzz3 - 0 in the last round
+  Z_SINK1, Z_SINK2, Z_SINK3,  // where an idle lane writes
+  XYZZ_SLOTS
+};
+#define XYZZ_STRIDE (2 * XYZZ_SLOTS + 1)
+
+__global__ void __launch_bounds__(ADD_BLOCK)
 ec_madd_xyzz_fast_kernel(FieldParams P, const uint32_t* x1, const uint32_t* y1,
                          const uint32_t* zz1, const uint32_t* zzz1,
-                         const uint32_t* qx, const uint32_t* qy,
-                         uint32_t* ox, uint32_t* oy, uint32_t* ozz, uint32_t* ozzz,
-                         uint8_t* exc, int64_t n) {
+                         const uint32_t* __restrict__ qx, const uint32_t* __restrict__ qy,
+                         int w, int64_t g, uint32_t* ix, uint32_t* iy, uint32_t* izz,
+                         uint32_t* izzz, uint32_t* tx, uint32_t* ty, uint32_t* tzz,
+                         uint32_t* tzzz, uint8_t* __restrict__ exc) {
+  __shared__ uint4 xyzz_sm[ADD_PTS * XYZZ_STRIDE];
+  const int lane = threadIdx.x % ADD_LANES;
+  const int64_t j = (int64_t)blockIdx.x * ADD_PTS + threadIdx.x / ADD_LANES;
+  const int64_t src = j < g ? j : g - 1;
+  uint4* sc = xyzz_sm + (threadIdx.x / ADD_LANES) * XYZZ_STRIDE;
+  // lane k loads and writes coordinate k
+  const uint32_t* carry = lane == 0 ? x1 : lane == 1 ? y1 : lane == 2 ? zz1 : zzz1;
+  uint32_t* inner = (lane == 0 ? ix : lane == 1 ? iy : lane == 2 ? izz : izzz) +
+                    src * w * ELEMS_PER_ROW;
+  uint32_t* total = lane == 0 ? tx : lane == 1 ? ty : lane == 2 ? tzz : tzzz;
+  slot_store(sc, lane, fe_load(carry + src * ELEMS_PER_ROW));
+  if (lane == 3) slot_store(sc, Z_ZERO, fe_zero());
+  // lanes 0 and 2 read the steps' x, lanes 1 and 3 their y
+  const uint32_t* qrow = ((lane & 1) ? qy : qx) + src * w * ELEMS_PER_ROW;
+  Fe q = fe_load(qrow);
+  Fe o;
+  bool any = false;
+#pragma unroll 1
+  for (int t = 0; t < w; t++) {
+    // the barrier after this store also ends the step before, whose last
+    // round wrote the carry
+    slot_store(sc, lane_slot(LANES4(Z_QX, Z_QY, Z_SINK2, Z_SINK3), lane), q);
+    __syncwarp();
+    if (t + 1 < w) q = fe_load(qrow + (int64_t)(t + 1) * ELEMS_PER_ROW);
+    // Lane:              0                    1                    2                 3
+    slot_mul_round(sc, lane, LANES4(Z_QX, Z_QY, Z_X, Z_X), LANES4(Z_ZZ, Z_ZZZ, Z_X, Z_X),
+                   LANES4(Z_U2, Z_S2, Z_SINK2, Z_SINK3), P);
+    slot_lin_round(sc, lane, LANES4(Z_U2, Z_S2, Z_X, Z_X), LANES4(Z_X, Z_Y, Z_X, Z_X),
+                   LANES4(Z_PP, Z_R, Z_SINK2, Z_SINK3), 0x3u, P);
+    // the affine identity (qy == 0) keeps the carry; an identity carry or
+    // carry == +-Q (pp == 0) flags the carry
+    const bool id2 = fe_is_zero(slot_load(sc, Z_QY));
+    any = any || (!id2 && (fe_is_zero(slot_load(sc, Z_ZZ)) || fe_is_zero(slot_load(sc, Z_PP))));
+    slot_mul_round(sc, lane, LANES4(Z_PP, Z_R, Z_X, Z_X), LANES4(Z_PP, Z_R, Z_X, Z_X),
+                   LANES4(Z_PPSQ, Z_RR, Z_SINK2, Z_SINK3), P);
+    slot_mul_round(sc, lane, LANES4(Z_PP, Z_X, Z_ZZ, Z_X), LANES4(Z_PPSQ, Z_PPSQ, Z_PPSQ, Z_X),
+                   LANES4(Z_PPP, Z_Q, Z_ZZ3, Z_SINK3), P);
+    {
+      // x3 = (r^2 - ppp) - 2q and d = q - x3, the same body in every lane;
+      // lane 0 keeps them, the others write their sinks.  No barrier: only
+      // lane 0 reads what it wrote.
+      const Fe qq = slot_load(sc, Z_Q);
+      const Fe x3 = fe_sub(fe_sub(slot_load(sc, Z_RR), slot_load(sc, Z_PPP), P),
+                           fe_double(qq, P), P);
+      slot_store(sc, lane_slot(LANES4(Z_X3, Z_SINK1, Z_SINK2, Z_SINK3), lane), x3);
+      slot_store(sc, lane_slot(LANES4(Z_D, Z_SINK1, Z_SINK2, Z_SINK3), lane), fe_sub(qq, x3, P));
+    }
+    slot_mul_round(sc, lane, LANES4(Z_R, Z_Y, Z_ZZZ, Z_X), LANES4(Z_D, Z_PPP, Z_PPP, Z_X),
+                   LANES4(Z_RD, Z_YPPP, Z_ZZZ3, Z_SINK3), P);
+    // lane k: coordinate k of the new carry, x3 - 0, r d - y ppp, zz3 - 0 or
+    // zzz3 - 0, or the carry's own where q is the affine identity
+    o = fe_select(id2, slot_load(sc, lane),
+                  fe_sub(slot_load(sc, lane_slot(LANES4(Z_X3, Z_RD, Z_ZZ3, Z_ZZZ3), lane)),
+                         slot_load(sc, lane_slot(LANES4(Z_ZERO, Z_YPPP, Z_ZERO, Z_ZERO), lane)),
+                         P));
+    slot_store(sc, lane, o);
+    if (j < g) fe_store(inner + (int64_t)t * ELEMS_PER_ROW, o);
+  }
+  if (j < g) {
+    if (total != nullptr) fe_store(total + j * ELEMS_PER_ROW, o);
+    if (lane == 0) exc[j] = any ? 1 : 0;
+  }
+}
+
+// ---- 7 (first design). ec_madd_xyzz_fast_v1 ---------------------------------
+//
+// One step, one thread a carry: ec.cuh's ec_madd_xyzz_fast, its 10 products
+// one chain, 6 rows in, 4 rows and a flag byte out.  No path launches it;
+// chip_smoke.py holds it against the same plain version and times w launches
+// of it beside one launch of the scan above.
+
+__global__ void __launch_bounds__(BLOCK)
+ec_madd_xyzz_fast_v1_kernel(FieldParams P, const uint32_t* x1, const uint32_t* y1,
+                            const uint32_t* zz1, const uint32_t* zzz1,
+                            const uint32_t* qx, const uint32_t* qy,
+                            uint32_t* ox, uint32_t* oy, uint32_t* ozz, uint32_t* ozzz,
+                            uint8_t* exc, int64_t n) {
   int64_t i = global_index();
   if (i >= n) return;
   Xyzz c;
@@ -736,8 +836,8 @@ ec_madd_xyzz_fast_kernel(FieldParams P, const uint32_t* x1, const uint32_t* y1,
 // inner prefixes; at the end its total to row j of tx, ty, tz (unless tx is
 // null).  w = 1 is the single complete mixed add of EC.add_mixed.
 //
-// One thread a point and a launch a step (the first design, ec_add_mixed_v1
-// below: 138 registers, 128 blocks of 4 warps at a window's g = 16,384 for
+// One thread a point and a launch a step (the first design, retired after
+// its comparison: 138 registers, 128 blocks of 4 warps at a window's g = 16,384 for
 // 132 SMs, the 18 products one chain).  Here the carry stays in shared
 // memory between the steps, and MIX_LANES = 2 neighbouring lanes share it
 // by ec_add's slot machinery: the 11 products of madd-2007-bl in six rounds
@@ -875,34 +975,27 @@ ec_add_mixed_kernel(FieldParams P, const uint32_t* x1, const uint32_t* y1, const
   }
 }
 
-// ---- 8 (first design). ec_add_mixed_v1 -------------------------------------
-//
-// One complete mixed add, one thread a point: ec.cuh's
-// ec_add_mixed_complete, 18 products (the generic sum and the doubling, both
-// computed, then selected) on 5 rows and one mask byte in, 3 rows out.  No
-// path launches it; chip_smoke.py holds it against the same plain version
-// and times w launches of it beside one launch of the scan above.
-
-__global__ void __launch_bounds__(BLOCK)
-ec_add_mixed_v1_kernel(FieldParams P, const uint32_t* x1, const uint32_t* y1,
-                       const uint32_t* z1, const uint32_t* qx, const uint32_t* qy,
-                       const uint8_t* __restrict__ q_ident,
-                       uint32_t* ox, uint32_t* oy, uint32_t* oz, int64_t n) {
-  int64_t i = global_index();
-  if (i >= n) return;
-  Jac r = ec_add_mixed_complete(jac_load(x1, y1, z1, i),
-                                fe_load(qx + i * ELEMS_PER_ROW),
-                                fe_load(qy + i * ELEMS_PER_ROW), q_ident[i] != 0, P);
-  jac_store(ox, oy, oz, i, r);
-}
-
 // ---- 9. ec_add_mixed_fast: replaces pallas_ff.ec_add_mixed_fast -----------------
 //
-// Jacobian + affine add with no exceptional path, the entry point
-// EC.add_mixed_fast: 3 squarings and 8 products on 5 rows in, 3 rows and a
-// flag byte out.  Bound by bytes (513 bytes against 11 products an element).
-// The JAX package streams the flag as a (B, 16) row block; here it is one
-// byte an element.
+// Replaces pallas_ff.py:664 ec_add_mixed_fast (its body k_ec_madd_fast): the
+// Jacobian + affine add with no exceptional path of the entry point
+// EC.add_mixed_fast, 3 squarings and 8 products on 5 rows in, 3 rows and a
+// flag byte out, called at 2^20 points.  Its bound is the bytes' (513 an
+// element; the 11 products, counted at the card's int32 rate, take a third
+// of that), but fe_mul issues several instructions for each multiply-add it
+// is counted at (64-bit sums of 32-bit words), one chain of them a product,
+// so the products take the time: their chain at a few thousand points, their
+// instructions at 2^20 (stages_small and batch_inv show the same).
+//
+// One thread a point, its rows read and written in place (four 16-byte
+// accesses a row) and the whole formula in registers (ec.cuh's
+// ec_add_mixed_fast, k_ec_madd_fast's select: the affine identity passes the
+// carry through unflagged).  The flag is one byte 0 or 1 a point, written
+// into the wrapper's bool tensor.  Two other designs lost to this one at
+// 2^16 and 2^20 (PERF.md row 9): one thread a point with its rows staged
+// through shared memory by coalesced copies, and two lanes a point on
+// staged rows (five rounds of two products); the access pattern is not what
+// holds it.
 
 __global__ void __launch_bounds__(BLOCK)
 ec_add_mixed_fast_kernel(FieldParams P, const uint32_t* x1, const uint32_t* y1,
@@ -983,16 +1076,6 @@ int ec_double_launch(const FieldParams* P, const void* x1, const void* y1, const
   return (int)cudaGetLastError();
 }
 
-// The first design: one doubling.
-int ec_double_v1_launch(const FieldParams* P, const void* x1, const void* y1, const void* z1,
-                        void* ox, void* oy, void* oz, int64_t n, void* stream) {
-  if (n > 0)
-    ec_double_v1_kernel<<<grid_for(n, BLOCK), BLOCK, 0, (cudaStream_t)stream>>>(
-        *P, (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)z1,
-        (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, n);
-  return (int)cudaGetLastError();
-}
-
 // tx, ty: the blinding point's Montgomery coordinates as 8 words of 32 bits.
 static inline void words_to_fe(const uint32_t* words, Fe* f) {
   for (int k = 0; k < FE_WORDS; k++) f->v[k] = words[k];
@@ -1017,12 +1100,31 @@ int fused_madd_scan_xyzz_launch(const FieldParams* P, const uint32_t* tx, const 
   return (int)cudaGetLastError();
 }
 
+// x1, y1, zz1, zzz1: (g, 16) XYZZ carries; qx, qy: (g * w, 16) affine rows,
+// carry j's steps at rows j w .. j w + w - 1; -> the inner prefixes ix, iy,
+// izz, izzz (g * w, 16), unless tx is null the totals tx, ty, tzz, tzzz (g,
+// 16), and a flag byte a carry.
 int ec_madd_xyzz_fast_launch(const FieldParams* P, const void* x1, const void* y1,
                              const void* zz1, const void* zzz1, const void* qx,
-                             const void* qy, void* ox, void* oy, void* ozz, void* ozzz,
-                             void* exc, int64_t n, void* stream) {
+                             const void* qy, int w, int64_t g, void* ix, void* iy, void* izz,
+                             void* izzz, void* tx, void* ty, void* tzz, void* tzzz, void* exc,
+                             void* stream) {
+  if (g > 0 && w > 0)
+    ec_madd_xyzz_fast_kernel<<<grid_for(g, ADD_PTS), ADD_BLOCK, 0, (cudaStream_t)stream>>>(
+        *P, (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)zz1,
+        (const uint32_t*)zzz1, (const uint32_t*)qx, (const uint32_t*)qy, w, g,
+        (uint32_t*)ix, (uint32_t*)iy, (uint32_t*)izz, (uint32_t*)izzz,
+        (uint32_t*)tx, (uint32_t*)ty, (uint32_t*)tzz, (uint32_t*)tzzz, (uint8_t*)exc);
+  return (int)cudaGetLastError();
+}
+
+// The first design: one step, a thread a carry.
+int ec_madd_xyzz_fast_v1_launch(const FieldParams* P, const void* x1, const void* y1,
+                                const void* zz1, const void* zzz1, const void* qx,
+                                const void* qy, void* ox, void* oy, void* ozz, void* ozzz,
+                                void* exc, int64_t n, void* stream) {
   if (n > 0)
-    ec_madd_xyzz_fast_kernel<<<grid_for(n, BLOCK), BLOCK, 0, (cudaStream_t)stream>>>(
+    ec_madd_xyzz_fast_v1_kernel<<<grid_for(n, BLOCK), BLOCK, 0, (cudaStream_t)stream>>>(
         *P, (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)zz1,
         (const uint32_t*)zzz1, (const uint32_t*)qx, (const uint32_t*)qy,
         (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)ozz, (uint32_t*)ozzz,
@@ -1043,19 +1145,6 @@ int ec_add_mixed_launch(const FieldParams* P, const void* x1, const void* y1,
         (const uint32_t*)qx, (const uint32_t*)qy, (const uint8_t*)q_ident, w, g,
         (uint32_t*)ix, (uint32_t*)iy, (uint32_t*)iz,
         (uint32_t*)tx, (uint32_t*)ty, (uint32_t*)tz);
-  return (int)cudaGetLastError();
-}
-
-// The first design: one complete mixed add a point.
-int ec_add_mixed_v1_launch(const FieldParams* P, const void* x1, const void* y1,
-                           const void* z1, const void* qx, const void* qy,
-                           const void* q_ident, void* ox, void* oy, void* oz,
-                           int64_t n, void* stream) {
-  if (n > 0)
-    ec_add_mixed_v1_kernel<<<grid_for(n, BLOCK), BLOCK, 0, (cudaStream_t)stream>>>(
-        *P, (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)z1,
-        (const uint32_t*)qx, (const uint32_t*)qy, (const uint8_t*)q_ident,
-        (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)oz, n);
   return (int)cudaGetLastError();
 }
 

@@ -15,8 +15,11 @@ layer's entry points (sources under ops/csrc/, CUDA C++ for sm_90a):
   ec_double               ec_double                     k Jacobian doublings
   fused_madd_scan_xyzz    fused_madd_scan_xyzz          one window's blinded
                                                         XYZZ prefix scan
-  ec_madd_xyzz_fast       ec_madd_xyzz_fast             one XYZZ + affine step
-                                                        with a flag
+  ec_madd_xyzz_fast       ec_madd_xyzz_fast             w steps of XYZZ + affine
+                                                        adds with a flag a
+                                                        carry: the stepwise
+                                                        blinded scan (w = 1:
+                                                        one step)
   ec_add_mixed            ec_add_mixed                  w steps of complete
                                                         Jacobian + affine adds:
                                                         the safe scan of a
@@ -30,12 +33,15 @@ crossover of bytes and integer operations; so each does its whole formula in
 registers on 8 limbs of 32 bits and touches device memory once per input and
 output.  See ops/csrc/ff.cuh for the limb repacking.  mont_addsub spreads a
 row over four lanes, ec_add, ec_add_fast and ec_double a point over four,
-ec_add_mixed a carry over two; ec_double keeps its point on chip through k
-doublings and ec_add_mixed its carries through w steps.  batch_inv runs a chain of
-products a thread and is bound by the latency of its power (see
-csrc/kernels.cu).  The first designs of ec_double and ec_add_mixed (a
-thread a point, one doubling or one add a launch) stay as ec_double_v1 and
-ec_add_mixed_v1 for one comparison on the card; no path calls them.
+ec_madd_xyzz_fast a carry over four, ec_add_mixed a carry over two;
+ec_double keeps its point on chip through k doublings, ec_madd_xyzz_fast and
+ec_add_mixed their carries through w steps.  ec_add_mixed_fast is one
+thread a point, its rows read in place.  batch_inv runs a chain of products
+a thread and is bound by the latency of its power (see csrc/kernels.cu).  The
+first design of ec_madd_xyzz_fast (a thread a carry, one step a launch) stays
+as ec_madd_xyzz_fast_v1 for one comparison on the card; no path calls it.
+Every flag a wrapper returns is a bool tensor the kernel wrote itself (a byte
+0 or 1 a flag).
 
 Tensors are (..., 16) int32, little-endian 16-bit limbs in Montgomery form
 (R = 2^256), fully reduced to [0, p); a kernel reads the same buffer as
@@ -77,8 +83,8 @@ from ..fields import CurveSpec, FieldSpec, LIMB_BITS, LIMB_MASK, N_LIMBS, R
 KERNELS = ("mont_mul", "batch_inv", "mont_addsub", "ec_add", "ec_add_fast",
            "ec_double", "fused_madd_scan_xyzz", "ec_madd_xyzz_fast", "ec_add_mixed",
            "ec_add_mixed_fast",
-           # the first designs of two of them (no path launches those)
-           "ec_double_v1", "ec_add_mixed_v1",
+           # the first design of one of them (no path launches it)
+           "ec_madd_xyzz_fast_v1",
            # the divisor merge tree's five, in csrc/ntt.cuh (ops/cuda_ntt.py)
            "lm_mul", "lm_addsub", "lm_mul_const", "stage_big", "stages_small",
            # the radix reorder's four, in csrc/radix.cuh (ops/cuda_radix.py)
@@ -187,12 +193,11 @@ def _lib():
             "ec_add_launch": [fpp] + [vp] * 9 + [i64, vp],
             "ec_add_fast_launch": [fpp] + [vp] * 10 + [i64, vp],
             "ec_double_launch": [fpp] + [vp] * 6 + [i64, ci, vp],
-            "ec_double_v1_launch": [fpp] + [vp] * 6 + [i64, vp],
             "fused_madd_scan_xyzz_launch":
                 [fpp, u32p, u32p, vp, ci, i64] + [vp] * 9 + [vp],
-            "ec_madd_xyzz_fast_launch": [fpp] + [vp] * 11 + [i64, vp],
+            "ec_madd_xyzz_fast_launch": [fpp] + [vp] * 6 + [ci, i64] + [vp] * 9 + [vp],
+            "ec_madd_xyzz_fast_v1_launch": [fpp] + [vp] * 11 + [i64, vp],
             "ec_add_mixed_launch": [fpp] + [vp] * 6 + [ci, i64] + [vp] * 6 + [vp],
-            "ec_add_mixed_v1_launch": [fpp] + [vp] * 9 + [i64, vp],
             "ec_add_mixed_fast_launch": [fpp] + [vp] * 9 + [i64, vp],
             "lm_mul_launch": [fpp, vp, vp, vp, i64, vp],
             "lm_addsub_launch": [fpp, ci, vp, vp, vp, i64, vp],
@@ -336,8 +341,7 @@ def ec_add_fast(curve: CurveSpec, x1, y1, z1, x2, y2, z2):
     _check_cuda("ec_add_fast", x1, y1, z1, x2, y2, z2)
     lead, flat = _flatten(x1, y1, z1, x2, y2, z2)
     outs = tuple(torch.empty_like(flat[0]) for _ in range(3))
-    # the kernel writes each flag as a byte 0 or 1, a bool's own storage, so
-    # no conversion launch follows it
+    # a flag byte 0 or 1 is a bool's own storage: no conversion launch follows
     exc = torch.empty(flat[0].shape[0], dtype=torch.bool, device=flat[0].device)
     _launch("ec_add_fast", flat[0].device, ctypes.byref(_field_params(curve.field)),
             *_ptrs(flat + outs), exc.data_ptr(), flat[0].shape[0])
@@ -359,32 +363,64 @@ def ec_double(curve: CurveSpec, x1, y1, z1, k: int = 1):
     return tuple(o.reshape(lead + (N_LIMBS,)) for o in outs)
 
 
-def ec_double_v1(curve: CurveSpec, x1, y1, z1):
-    """One batched Jacobian doubling by the first design (a thread a point),
-    one kernel launch.  No path calls it."""
-    _require_a_zero(curve)
-    _check_cuda("ec_double_v1", x1, y1, z1)
-    lead, flat = _flatten(x1, y1, z1)
-    outs = tuple(torch.empty_like(flat[0]) for _ in range(3))
-    _launch("ec_double_v1", flat[0].device, ctypes.byref(_field_params(curve.field)),
-            *_ptrs(flat + outs), flat[0].shape[0])
-    return tuple(o.reshape(lead + (N_LIMBS,)) for o in outs)
-
-
 def ec_madd_xyzz_fast(curve: CurveSpec, x1, y1, zz1, zzz1, qx, qy):
-    """Batched XYZZ + affine addition without exceptional paths, one kernel
-    launch: returns (x3, y3, zz3, zzz3, exc) with exc a (...,) bool tensor
-    (identity carry or carry == +-Q; the affine identity qy == 0 passes the
-    carry through unflagged)."""
-    _check_cuda("ec_madd_xyzz_fast", x1, y1, zz1, zzz1, qx, qy)
+    """Batched XYZZ + affine addition without exceptional paths: the scan
+    kernel's one step (w = 1), one kernel launch (four lanes a carry).
+    Returns (x3, y3, zz3, zzz3, exc) with exc a (...,) bool tensor (identity
+    carry or carry == +-Q; the affine identity qy == 0 passes the carry
+    through unflagged)."""
+    lead = torch.broadcast_shapes(*(a.shape[:-1] for a in (x1, y1, zz1, zzz1, qx, qy)))
+    rows = (a.expand(lead + (N_LIMBS,)) for a in (x1, y1, zz1, zzz1, qx, qy))
+    inner, _, exc = ec_madd_xyzz_fast_scan(curve, *rows, 1)
+    return inner + (exc,)
+
+
+def ec_madd_xyzz_fast_scan(curve: CurveSpec, x1, y1, zz1, zzz1, qx, qy, w: int):
+    """The blinded stepwise prefix scan in one kernel launch (four lanes a
+    carry, the carries on chip between the steps): the counterpart of the
+    JAX package's jax.lax.scan of E.madd_xyzz_fast in
+    msm.prefix_scan_parts_affine_fast.
+
+    x1, y1, zz1, zzz1: (..., g, 16) XYZZ carries to start from; qx, qy:
+    (..., g*w, 16) affine rows (qy == 0 the affine identity), carry j's steps
+    at rows j*w .. j*w + w - 1.  Returns (inner, totals, exc): inner the
+    XYZZ 4-tuple of (..., g*w, 16) tensors with inner[j*w + t] = carry j
+    after step t, totals the 4-tuple of (..., g, 16) final carries (inner
+    itself where w = 1), exc a (..., g) bool tensor, a carry's flags ORed
+    over its steps."""
+    kernel = "ec_madd_xyzz_fast"
+    _check_cuda(kernel, x1, y1, zz1, zzz1, qx, qy)
+    if w <= 0:
+        raise ValueError(f"{kernel}: w = {w} <= 0")
+    lead, carry = _flatten(x1, y1, zz1, zzz1)
+    rows_lead, rows = _flatten(qx, qy)
+    n_carry, n_rows = carry[0].shape[0], rows[0].shape[0]
+    if n_rows != n_carry * w or rows_lead[:-1] != lead[:-1]:
+        raise ValueError(f"{kernel}: {tuple(rows_lead)} rows are not w = {w} a carry of "
+                         f"{tuple(lead)}")
+    inner = tuple(torch.empty_like(rows[0]) for _ in range(4))
+    # the kernel writes no totals where they are the inner prefixes (null)
+    totals = inner if w == 1 else tuple(torch.empty_like(carry[0]) for _ in range(4))
+    # a flag byte 0 or 1 is a bool's own storage: no conversion launch follows
+    exc = torch.empty(n_carry, dtype=torch.bool, device=carry[0].device)
+    _launch(kernel, carry[0].device, ctypes.byref(_field_params(curve.field)),
+            *_ptrs(carry + rows), w, n_carry, *_ptrs(inner),
+            *(_ptrs(totals) if w > 1 else (None,) * 4), exc.data_ptr())
+    return (tuple(o.reshape(rows_lead + (N_LIMBS,)) for o in inner),
+            tuple(o.reshape(lead + (N_LIMBS,)) for o in totals), exc.reshape(lead))
+
+
+def ec_madd_xyzz_fast_v1(curve: CurveSpec, x1, y1, zz1, zzz1, qx, qy):
+    """One batched XYZZ + affine step by the first design (a thread a
+    carry), one kernel launch; results as ec_madd_xyzz_fast's.  No path
+    calls it."""
+    _check_cuda("ec_madd_xyzz_fast_v1", x1, y1, zz1, zzz1, qx, qy)
     lead, flat = _flatten(x1, y1, zz1, zzz1, qx, qy)
     outs = tuple(torch.empty_like(flat[0]) for _ in range(4))
-    exc = torch.empty(flat[0].shape[0], dtype=torch.uint8, device=flat[0].device)
-    _launch("ec_madd_xyzz_fast", flat[0].device,
-            ctypes.byref(_field_params(curve.field)),
+    exc = torch.empty(flat[0].shape[0], dtype=torch.bool, device=flat[0].device)
+    _launch("ec_madd_xyzz_fast_v1", flat[0].device, ctypes.byref(_field_params(curve.field)),
             *_ptrs(flat + outs), exc.data_ptr(), flat[0].shape[0])
-    return tuple(o.reshape(lead + (N_LIMBS,)) for o in outs) + \
-        (exc.reshape(lead) != 0,)
+    return tuple(o.reshape(lead + (N_LIMBS,)) for o in outs) + (exc.reshape(lead),)
 
 
 def _mixed_mask(name: str, q_is_identity, like, shape):
@@ -439,33 +475,20 @@ def ec_add_mixed_scan(curve: CurveSpec, x1, y1, z1, qx, qy, q_is_identity, w: in
             tuple(o.reshape(lead + (N_LIMBS,)) for o in totals))
 
 
-def ec_add_mixed_v1(curve: CurveSpec, x1, y1, z1, qx, qy, q_is_identity):
-    """One batched complete Jacobian + affine addition by the first design (a
-    thread a point), one kernel launch.  No path calls it."""
-    _require_a_zero(curve)
-    _check_cuda("ec_add_mixed_v1", x1, y1, z1, qx, qy)
-    lead, flat = _flatten(x1, y1, z1, qx, qy)
-    mask = _mixed_mask("ec_add_mixed_v1", q_is_identity, x1, lead)
-    outs = tuple(torch.empty_like(flat[0]) for _ in range(3))
-    _launch("ec_add_mixed_v1", flat[0].device, ctypes.byref(_field_params(curve.field)),
-            *_ptrs(flat), mask.data_ptr(), *_ptrs(outs), flat[0].shape[0])
-    return tuple(o.reshape(lead + (N_LIMBS,)) for o in outs)
-
-
 def ec_add_mixed_fast(curve: CurveSpec, x1, y1, z1, qx, qy):
     """Batched Jacobian + affine addition without exceptional paths, one
-    kernel launch: returns (x3, y3, z3, exc) with exc a (...,) bool tensor
-    (identity carry or carry == +-Q; the affine identity qy == 0 passes the
-    carry through unflagged).  A flagged lane holds the generic formula's
-    values, as the reference's does."""
+    kernel launch (a thread a point): returns (x3, y3, z3, exc) with exc a
+    (...,) bool tensor (identity carry or carry == +-Q; the affine identity
+    qy == 0 passes the carry through unflagged).  A flagged lane holds the
+    generic formula's values, as the reference's does."""
     _check_cuda("ec_add_mixed_fast", x1, y1, z1, qx, qy)
     lead, flat = _flatten(x1, y1, z1, qx, qy)
     outs = tuple(torch.empty_like(flat[0]) for _ in range(3))
-    exc = torch.empty(flat[0].shape[0], dtype=torch.uint8, device=flat[0].device)
+    # a flag byte 0 or 1 is a bool's own storage: no conversion launch follows
+    exc = torch.empty(flat[0].shape[0], dtype=torch.bool, device=flat[0].device)
     _launch("ec_add_mixed_fast", flat[0].device, ctypes.byref(_field_params(curve.field)),
             *_ptrs(flat + outs), exc.data_ptr(), flat[0].shape[0])
-    return tuple(o.reshape(lead + (N_LIMBS,)) for o in outs) + \
-        (exc.reshape(lead) != 0,)
+    return tuple(o.reshape(lead + (N_LIMBS,)) for o in outs) + (exc.reshape(lead),)
 
 
 def _limbs_to_int(limbs) -> int:
@@ -500,11 +523,12 @@ def fused_madd_scan_xyzz(curve: CurveSpec, t_limbs, rows, w: int = SCAN_W):
                   for _ in range(4))
     totals = tuple(torch.empty((g, N_LIMBS), dtype=torch.int32, device=dev)
                    for _ in range(4))
-    exc = torch.empty(g, dtype=torch.uint8, device=dev)
+    # a flag byte 0 or 1 is a bool's own storage: no conversion launch follows
+    exc = torch.empty(g, dtype=torch.bool, device=dev)
     tx, ty = (_words32(_limbs_to_int(c)) for c in t_limbs)
     _launch(kernel, dev, ctypes.byref(_field_params(curve.field)),
             tx, ty, rows.data_ptr(), w, g, *_ptrs(inner + totals), exc.data_ptr())
-    return inner, totals, exc != 0
+    return inner, totals, exc
 
 
 # ---------------------------------------------------------------------------
@@ -972,6 +996,30 @@ def ec_madd_xyzz_fast_plain(curve: CurveSpec, x1, y1, zz1, zzz1, qx, qy):
     exc = ~id2 & (id1 | _is_zero(pp))
     return (_sel(id2, x1, x3), _sel(id2, y1, y3), _sel(id2, zz1, zz3),
             _sel(id2, zzz1, zzz3), exc)
+
+
+def ec_madd_xyzz_fast_scan_plain(curve: CurveSpec, x1, y1, zz1, zzz1, qx, qy, w: int):
+    """Plain version of ec_madd_xyzz_fast_scan: a Python loop of w
+    ec_madd_xyzz_fast_plain steps over all carries, the flags ORed (the
+    stepwise blinded scan); same arguments and results."""
+    if w <= 0:
+        raise ValueError(f"ec_madd_xyzz_fast: w = {w} <= 0")
+    carry = _broadcast_rows(x1, y1, zz1, zzz1)
+    lead = carry[0].shape[:-1]
+    g = lead[-1]
+    if qx.shape[:-1] != lead[:-1] + (g * w,) or qy.shape != qx.shape:
+        raise ValueError(f"ec_madd_xyzz_fast: {tuple(qx.shape[:-1])} rows are not w = {w} a "
+                         f"carry of {tuple(lead)}")
+    qx, qy = (c.reshape(lead + (w, N_LIMBS)) for c in (qx, qy))
+    exc = torch.zeros(lead, dtype=torch.bool, device=x1.device)
+    steps = []
+    for t in range(w):
+        *carry, e = ec_madd_xyzz_fast_plain(curve, *carry, qx[..., t, :], qy[..., t, :])
+        exc = exc | e
+        steps.append(carry)
+    inner = tuple(torch.stack([s[k] for s in steps], dim=-2).reshape(
+        lead[:-1] + (g * w, N_LIMBS)) for k in range(4))
+    return inner, tuple(carry), exc
 
 
 def unpack_rows(rows):

@@ -38,8 +38,9 @@ last point axis and lets leading axes ride along.  On the CPU the windows of
 one MSM run together on such a leading axis (eager PyTorch pays per op, not
 per element, at test sizes); on the card they run one after another.  There a
 window of at least FUSED_SCAN_MIN_ROWS points goes through the fused scan
-kernel (cuda_ff.fused_madd_scan_xyzz); a smaller one steps through its rows
-with cuda_ff.ec_madd_xyzz_fast, as the JAX package does for windows that are
+kernel (cuda_ff.fused_madd_scan_xyzz); a smaller one takes the stepwise
+blinded scan (prefix_scan_parts_affine_fast), whose w steps are one launch of
+cuda_ff.ec_madd_xyzz_fast_scan, as the JAX package does for windows that are
 no multiple of its fused scan's unit.
 """
 
@@ -58,18 +59,18 @@ from . import radix as RX
 from .ec import EC, JPoint, SUM_G, ec
 
 
-# Card windows below this many points take the stepwise blinded scan (w =
-# _pick_block_width launches of ec_madd_xyzz_fast), larger ones the fused scan
-# kernel, which pads to SCAN_W rows a lane and so has only n/64 threads, each
-# walking 64 dependent steps.  The JAX package draws the line at its fused
-# scan's unit of 64 * 1024 rows.  Here chip_smoke.py times one window by both
-# routes at 2^6 to 2^16 points.  On the wall clock, which the host paces, the
-# fused route wins at every size (its offsets scan runs over n/64 lanes, the
-# stepwise one over n/w >= n/64, each round a launch).  On the device's busy
-# time the stepwise route is the cheaper one up to 2^14.  So the line is not a
-# measured crossover: it keeps the stepwise route alive, at sizes where it
-# costs a few ms a window and no prover's traffic lies, as the route to widen
-# once a window's launches are batched and the device's time is what counts.
+# Card windows below this many points take the stepwise blinded scan (one
+# launch of ec_madd_xyzz_fast's scan of w = _pick_block_width steps, four
+# lanes a carry, then the offsets scan over n/w lanes), larger ones the fused
+# scan kernel, which pads to SCAN_W rows a lane and so has only n/64 threads,
+# each walking 64 dependent steps.  The JAX package draws the line at its
+# fused scan's unit of 64 * 1024 rows.  Here chip_smoke.py times one window by
+# both routes at 2^6 to 2^16 points.  On the device's busy time the stepwise
+# route is the cheaper one at every size timed; on the wall clock, which the
+# host paces, neither leads across the sizes.  So the line is not a measured
+# crossover: it keeps the stepwise route alive, at sizes where no prover's
+# traffic lies, as the route to widen once a window's launches no longer wait
+# on the host and the device's time is what counts.
 FUSED_SCAN_MIN_ROWS = 1 << 8
 
 # The radix reorder (config.RADIX_MSM) takes windows of at least
@@ -218,7 +219,10 @@ def _unblind_totals(E: EC, tx, ty, tzz, tzzz) -> JPoint:
 def prefix_scan_parts_affine_fast(E: EC, ax, ay):
     """Offset-blinded fast variant of prefix_scan_parts_affine: every block
     carry is seeded at the fixed blinding point T (EC.offset_point), so the
-    inner scan can use the exception-free XYZZ mixed add (2 sqr + 8 mul).
+    inner scan can use the exception-free XYZZ mixed add (2 sqr + 8 mul),
+    all w steps in one kernel launch on the card
+    (cuda_ff.ec_madd_xyzz_fast_scan), the loop of its plain version on the
+    CPU.
     Exceptional slots (identity carry / carry == +-Q) cannot occur unless
     inputs are aligned with T; they are detected and reported so the caller
     can fall back to the safe scan.  The affine identity is encoded as
@@ -239,19 +243,13 @@ def prefix_scan_parts_affine_fast(E: EC, ax, ay):
         zeros = torch.zeros(lead + (pad, N_LIMBS), dtype=ax.dtype, device=ax.device)
         ax = torch.cat([ax, zeros], dim=-2)
         ay = torch.cat([ay, zeros], dim=-2)
-    xc, yc = _to_cols(ax, g, w), _to_cols(ay, g, w)
-    carry = E.xyzz_offset(lead + (g,), ax.device)
-    exc_v = torch.zeros(lead + (g,), dtype=torch.bool, device=ax.device)
-    steps = []
-    for t in range(w):
-        *carry, e = E.madd_xyzz_fast(*carry, xc[t], yc[t])
-        exc_v = exc_v | e
-        steps.append(carry)
+    scan = cuda_ff.ec_madd_xyzz_fast_scan if ax.is_cuda \
+        else cuda_ff.ec_madd_xyzz_fast_scan_plain
+    inner, totals, exc_v = scan(E.curve, *E.xyzz_offset(lead + (g,), ax.device), ax, ay, w)
     exc = exc_v.any(dim=-1)
-    inner = tuple(_from_cols([s[k] for s in steps], g, w) for k in range(4))
     if g == 1:
         return inner, E.identity(lead + (1,), ax.device), w, exc
-    return inner, _offsets_from_totals(E, _unblind_totals(E, *carry)), w, exc
+    return inner, _offsets_from_totals(E, _unblind_totals(E, *totals)), w, exc
 
 
 def prefix_scan_parts_packed_fast(E: EC, pay_sorted, w: int = cuda_ff.SCAN_W):

@@ -253,6 +253,24 @@ def test_ec_add_mixed_bound_counts_the_doublings_taken():
     assert b_ms == pytest.approx(ops / chip_smoke.INT32_OPS_PER_S * 1e3, rel=1e-12)
 
 
+@pytest.mark.parametrize("g, w", [(64, 1), (64, 2), (2048, 32)])
+def test_ec_madd_xyzz_bound_counts_the_scan(g, w):
+    """chip_smoke.py's bound for ec_madd_xyzz_fast's scan of g carries by w
+    steps: madd-2008-s's 10 products and 7 adds a step; 2 rows in and 4 out
+    a step, a carry's 4 rows in, 4 totals out where w > 1 (w = 1 writes its
+    totals as the inner prefixes) and one flag byte."""
+    import chip_smoke
+
+    b_ms, by = chip_smoke.xyzz_bound(g, w)
+    row = 4 * TF.N_LIMBS
+    t_bytes = (g * w * 6 * row + g * ((8 if w > 1 else 4) * row + 1)) / \
+        chip_smoke.HBM_BYTES_PER_S * 1e3
+    t_ops = g * w * (10 * chip_smoke.MUL_OPS + 7 * chip_smoke.ADD_OPS) / \
+        chip_smoke.INT32_OPS_PER_S * 1e3
+    assert b_ms == pytest.approx(max(t_bytes, t_ops), rel=1e-12)
+    assert by == ("bytes" if t_bytes >= t_ops else "operations")
+
+
 @pytest.mark.parametrize("chain", [1, 4, 64])
 def test_batch_inv_plain_chains_on_the_host(chain, rng):
     """batch_inv_plain on a (2, 300) batch with zeros, at chain lengths 1 (a

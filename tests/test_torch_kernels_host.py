@@ -447,24 +447,22 @@ def _case(name, rng, nprng):
                 lambda *a: tuple(CP.kate_div_plain(SPEC, c, b) for c, b in cases), ())
     hp, hq = _edge_points(rng)
     p = _jacobian(rng, nprng, hp)
-    if name in ("ec_add", "ec_add_fast", "ec_double", "ec_double_v1"):
-        args = tuple(p) if name.startswith("ec_double") else (*p, *_jacobian(rng, nprng, hq))
+    if name in ("ec_add", "ec_add_fast", "ec_double"):
+        args = tuple(p) if name == "ec_double" else (*p, *_jacobian(rng, nprng, hq))
         kernel = getattr(CF, name)
-        plain = getattr(CF, name.removesuffix("_v1") + "_plain")
+        plain = getattr(CF, name + "_plain")
         return (lambda *a: kernel(CURVE, *a)), (lambda *a: plain(CURVE, *a)), args
     qx, qy, qid = E.to_affine(E.points_from_ints(hq, "cpu"))
-    if name in ("ec_add_mixed", "ec_add_mixed_v1"):
-        kernel = getattr(CF, name)
-        return (lambda *a: kernel(CURVE, *a),
+    if name == "ec_add_mixed":
+        return (lambda *a: CF.ec_add_mixed(CURVE, *a),
                 lambda *a: CF.ec_add_mixed_plain(CURVE, *a), (*p, qx, qy, qid))
+    kernel = getattr(CF, name, None)
     if name == "ec_add_mixed_fast":
-        return (lambda *a: CF.ec_add_mixed_fast(CURVE, *a),
+        return (lambda *a: kernel(CURVE, *a),
                 lambda *a: CF.ec_add_mixed_fast_plain(CURVE, *a), (*p, qx, qy))
-    if name == "ec_madd_xyzz_fast":
-        zz = CF.mont_mul_plain(SPEC, p.z, p.z)
-        args = (p.x, p.y, zz, CF.mont_mul_plain(SPEC, zz, p.z), qx, qy)
-        return (lambda *a: CF.ec_madd_xyzz_fast(CURVE, *a),
-                lambda *a: CF.ec_madd_xyzz_fast_plain(CURVE, *a), args)
+    if name in ("ec_madd_xyzz_fast", "ec_madd_xyzz_fast_v1"):
+        return (lambda *a: kernel(CURVE, *a),
+                lambda *a: CF.ec_madd_xyzz_fast_plain(CURVE, *a), (*_xyzz(p), qx, qy))
     assert name == "fused_madd_scan_xyzz"
     w, g = 4, 9  # nine carries of two lanes each: one ragged block of 32 carries
     pts = pyref.random_points(rng, CURVE, 8) * 5
@@ -477,6 +475,13 @@ def _case(name, rng, nprng):
     return (lambda rows: CF.fused_madd_scan_xyzz(CURVE, t_limbs, rows, w),
             lambda rows: CF.fused_madd_scan_xyzz_plain(CURVE, t_limbs, rows, w),
             (M._pack_pair(ax, ay).contiguous(),))
+
+
+def _xyzz(p):
+    """A Jacobian batch in XYZZ form: (x, y, z^2, z^3); the identity has zz
+    = zzz = 0."""
+    zz = CF.mont_mul_plain(SPEC, p.z, p.z)
+    return p.x, p.y, zz, CF.mont_mul_plain(SPEC, zz, p.z)
 
 
 def _lines_inputs(p, q):
@@ -544,7 +549,7 @@ def test_kernel_source_on_host_equals_plain(name, host_kernels, rng, nprng):
     for g, w in zip(got, want):
         assert g.shape == w.shape and g.dtype == w.dtype
         assert torch.equal(g, w)
-    if name in ("ec_madd_xyzz_fast", "ec_add_mixed_fast"):
+    if name.startswith(("ec_madd_xyzz_fast", "ec_add_mixed_fast")):
         # identity carry, carry == Q, carry == -Q; qy == 0 passes unflagged
         assert got[-1].nonzero().flatten().tolist() == [0, 3, 4]
     if name == "fused_madd_scan_xyzz":
@@ -655,18 +660,13 @@ def test_radix_ranks_edges_on_host(case, host_kernels, nprng):
 def test_ec_double_k_on_host(k, host_kernels, rng, nprng):
     """ec_double (four lanes a point, k doublings a launch) at ragged B = 37
     with identities at lanes 0 and 2: equal to the plain version's k
-    doublings limb for limb, to k launches of the first design, and to [2^k]P
-    on Python ints."""
+    doublings limb for limb and to [2^k]P on Python ints."""
     hp, _ = _edge_points(rng)
     p = _jacobian(rng, nprng, hp)
     before = CF.LAUNCHES["ec_double"]
     got = CF.ec_double(CURVE, *p, k=k)
     assert CF.LAUNCHES["ec_double"] == before + 1
     assert all(torch.equal(g, w) for g, w in zip(got, CF.ec_double_plain(CURVE, *p, k=k)))
-    v1 = tuple(p)
-    for _ in range(k):
-        v1 = CF.ec_double_v1(CURVE, *v1)
-    assert all(torch.equal(g, u) for g, u in zip(got, v1))
     assert ec(CURVE).points_to_ints(JPoint(*got)) == \
         [pyref.ec_mul(u, 1 << k, CURVE) if u else None for u in hp]
 
@@ -703,9 +703,9 @@ def _scan_rows(rng, g: int, w: int):
 def test_ec_add_mixed_scan_on_host(w, host_kernels, rng, nprng):
     """ec_add_mixed's w-step scan (two lanes a carry) at ragged g = 37 lanes
     (two blocks of 32, the second partial) on the edges of _scan_rows: inner
-    prefixes and totals equal to the plain version's loop limb for limb, to
-    w launches of the first design, and to the prefixes on Python ints; w = 1
-    through the single add's wrapper too."""
+    prefixes and totals equal to the plain version's loop limb for limb and
+    to the prefixes on Python ints; w = 1 through the single add's wrapper
+    too."""
     g = 37
     carries, rows, want = _scan_rows(rng, g, w)
     E = ec(CURVE)
@@ -716,16 +716,155 @@ def test_ec_add_mixed_scan_on_host(w, host_kernels, rng, nprng):
     assert CF.LAUNCHES["ec_add_mixed"] == before + 1
     want_inner, want_totals = CF.ec_add_mixed_scan_plain(CURVE, *p, qx, qy, qid, w)
     assert all(torch.equal(a, b) for a, b in zip(inner + totals, want_inner + want_totals))
-    v1 = tuple(p)
-    cols = [c.reshape(g, w, *c.shape[1:]) for c in (qx, qy, qid)]
-    for t in range(w):
-        v1 = CF.ec_add_mixed_v1(CURVE, *v1, *(c[:, t] for c in cols))
-        assert all(torch.equal(a.reshape(g, w, 16)[:, t], b) for a, b in zip(inner, v1))
     assert E.points_to_ints(JPoint(*inner)) == want
     assert E.points_to_ints(JPoint(*totals)) == want[w - 1::w]
     if w == 1:
         got = CF.ec_add_mixed(CURVE, *p, qx, qy, qid)
         assert all(torch.equal(a, b) for a, b in zip(got, inner))
+
+
+def _xyzz_scan_rows(rng, g: int, w: int):
+    """g carries and g*w affine rows of a blinded stepwise scan, each
+    carry's flag and (flagged so far, inclusive prefix) at every step on
+    Python ints.  Every block of the kernel (16 carries) holds edge lanes:
+    an identity carry (0, 16, 32), an affine identity (1, 17), q == the
+    carry (2, 18), q == -carry (3, 33) and both identities (4, 20), each at
+    the lane's first step; where w > 2 the third row of lanes 5 and 21
+    equals the running carry and that of lane 6 its negation.  Identity
+    rows are sprinkled in."""
+    carries = pyref.random_points(rng, CURVE, g)
+    base = pyref.random_points(rng, CURVE, 8)
+    rows = [rng.choice(base) if rng.random() > 0.15 else None for _ in range(g * w)]
+    for j in (0, 4, 16, 20, 32):
+        carries[j] = None
+    for j in (1, 4, 17, 20):
+        rows[j * w] = None
+    for j in (2, 18):
+        rows[j * w] = carries[j]
+    for j in (3, 33):
+        rows[j * w] = pyref.ec_neg(carries[j], CURVE)
+    flags, want = [], []
+    for j in range(g):
+        acc, flag = carries[j], False
+        for t in range(w):
+            i = j * w + t
+            if w > 2 and t == 2 and j in (5, 6, 21):
+                rows[i] = pyref.ec_neg(acc, CURVE) if j == 6 else acc
+            q = rows[i]
+            flag = flag or (q is not None and (acc is None or q in (acc, pyref.ec_neg(acc, CURVE))))
+            acc = pyref.ec_add(acc, q, CURVE)
+            want.append((flag, acc))
+        flags.append(flag)
+    return carries, rows, flags, want
+
+
+@pytest.mark.parametrize("w", [1, 2, 32])
+def test_ec_madd_xyzz_fast_scan_on_host(w, host_kernels, rng, nprng):
+    """ec_madd_xyzz_fast's w-step scan (four lanes a carry) at ragged g = 37
+    carries (blocks of 16, the third partial) on the edges of
+    _xyzz_scan_rows: inner prefixes, totals and flags equal to the plain
+    version's loop limb for limb and flag for flag, to w launches of the
+    first design, and to the Python-int oracle (the flags exactly at the
+    identity carries and carry == +-Q, the prefixes of every unflagged
+    step); w = 1 through the single step's wrapper too."""
+    g = 37
+    carries, rows, flags, want = _xyzz_scan_rows(rng, g, w)
+    E = ec(CURVE)
+    c = _xyzz(_jacobian(rng, nprng, carries))
+    qx, qy, _ = E.to_affine(E.points_from_ints(rows, "cpu"))
+    before = CF.LAUNCHES["ec_madd_xyzz_fast"]
+    inner, totals, exc = CF.ec_madd_xyzz_fast_scan(CURVE, *c, qx, qy, w)
+    assert CF.LAUNCHES["ec_madd_xyzz_fast"] == before + 1
+    want_inner, want_totals, want_exc = CF.ec_madd_xyzz_fast_scan_plain(CURVE, *c, qx, qy, w)
+    assert all(torch.equal(a, b) for a, b in zip(inner + totals, want_inner + want_totals))
+    assert exc.dtype == torch.bool and torch.equal(exc, want_exc) and exc.tolist() == flags
+    v1, v1_exc = c, torch.zeros(g, dtype=torch.bool)
+    cols = [r.reshape(g, w, 16) for r in (qx, qy)]
+    for t in range(w):
+        *v1, e = CF.ec_madd_xyzz_fast_v1(CURVE, *v1, cols[0][:, t], cols[1][:, t])
+        v1_exc = v1_exc | e
+        assert all(torch.equal(a.reshape(g, w, 16)[:, t], b) for a, b in zip(inner, v1))
+    assert torch.equal(v1_exc, exc)
+    got = E.points_to_ints(E.xyzz_to_jacobian(*inner))
+    assert [u for u, (f, _) in zip(got, want) if not f] == [a for f, a in want if not f]
+    if w == 1:
+        *one, one_exc = CF.ec_madd_xyzz_fast(CURVE, *c, qx, qy)
+        assert all(torch.equal(a, b) for a, b in zip(one, inner)) and torch.equal(one_exc, exc)
+
+
+@pytest.mark.parametrize("n", [137, 300])
+def test_ec_add_mixed_fast_on_host(n, host_kernels, rng, nprng):
+    """ec_add_mixed_fast (a thread a point, blocks of 128) at ragged B, two
+    and three blocks with the last one partial, with edge lanes in each
+    block: an identity carry, an affine identity, both, carry == Q and
+    carry == -Q, and carry == Q at the last row.  Equal to the plain version
+    limb for limb and flag for flag; the flags exactly at the identity
+    carries and carry == +-Q; every unflagged lane equal to the Python-int
+    oracle."""
+    E = ec(CURVE)
+    hp = pyref.random_points(rng, CURVE, n)
+    hq = pyref.random_points(rng, CURVE, n)
+    flagged = []
+    for b in range(0, n, 128):
+        hp[b] = None
+        hq[b + 1] = None
+        hp[b + 2] = hq[b + 2] = None
+        hq[b + 3] = hp[b + 3]
+        hq[b + 4] = pyref.ec_neg(hp[b + 4], CURVE)
+        flagged += [b, b + 3, b + 4]
+    hq[n - 1] = hp[n - 1]
+    flagged.append(n - 1)
+    p = _jacobian(rng, nprng, hp)
+    qx, qy, _ = E.to_affine(E.points_from_ints(hq, "cpu"))
+    before = CF.LAUNCHES["ec_add_mixed_fast"]
+    got = CF.ec_add_mixed_fast(CURVE, *p, qx, qy)
+    assert CF.LAUNCHES["ec_add_mixed_fast"] == before + 1
+    want = CF.ec_add_mixed_fast_plain(CURVE, *p, qx, qy)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert got[3].nonzero().flatten().tolist() == flagged
+    pts = E.points_to_ints(JPoint(*got[:3]))
+    assert [pts[i] for i in range(n) if i not in flagged] == \
+        [pyref.ec_add(hp[i], hq[i], CURVE) for i in range(n) if i not in flagged]
+
+
+def test_flag_outputs_are_bool(host_kernels, rng, nprng):
+    """Every flag a curve wrapper returns is a bool tensor, the one its
+    kernel wrote: no comparison op (aten.ne, aten.eq) runs in the wrapper
+    after the kernel.  The plain versions return bool flags too."""
+    from chip_smoke import AtenOps
+
+    E = ec(CURVE)
+    hp, hq = _edge_points(rng)
+    p, q = _jacobian(rng, nprng, hp), _jacobian(rng, nprng, hq)
+    qx, qy, _ = E.to_affine(E.points_from_ints(hq, "cpu"))
+    c = _xyzz(p)
+    rows = M._pack_pair(qx[:36], qy[:36]).contiguous()
+    t_limbs = tuple(tuple(int(v) for v in ints_to_mont_limbs([u], SPEC)[0])
+                    for u in E.offset_point_ints())
+    cols = [r[:36] for r in (qx, qy)]
+    calls = {
+        "ec_add_fast": (lambda: CF.ec_add_fast(CURVE, *p, *q)[-1],
+                        lambda: CF.ec_add_fast_plain(CURVE, *p, *q)[-1]),
+        "ec_madd_xyzz_fast": (lambda: CF.ec_madd_xyzz_fast(CURVE, *c, qx, qy)[-1],
+                              lambda: CF.ec_madd_xyzz_fast_plain(CURVE, *c, qx, qy)[-1]),
+        "ec_madd_xyzz_fast_scan": (
+            lambda: CF.ec_madd_xyzz_fast_scan(CURVE, *(u[:18] for u in c), *cols, 2)[-1],
+            lambda: CF.ec_madd_xyzz_fast_scan_plain(CURVE, *(u[:18] for u in c), *cols, 2)[-1]),
+        "ec_madd_xyzz_fast_v1": (lambda: CF.ec_madd_xyzz_fast_v1(CURVE, *c, qx, qy)[-1],
+                                 lambda: CF.ec_madd_xyzz_fast_plain(CURVE, *c, qx, qy)[-1]),
+        "ec_add_mixed_fast": (lambda: CF.ec_add_mixed_fast(CURVE, *p, qx, qy)[-1],
+                              lambda: CF.ec_add_mixed_fast_plain(CURVE, *p, qx, qy)[-1]),
+        "fused_madd_scan_xyzz": (
+            lambda: CF.fused_madd_scan_xyzz(CURVE, t_limbs, rows, 4)[-1],
+            lambda: CF.fused_madd_scan_xyzz_plain(CURVE, t_limbs, rows, 4)[-1]),
+    }
+    for name, (wrapper, plain) in calls.items():
+        with AtenOps() as ops:
+            flags = wrapper()
+        assert flags.dtype == torch.bool, name
+        assert not [op for op in ops.names if op.startswith(("aten.ne", "aten.eq"))], name
+        assert torch.equal(flags, plain()), name
 
 
 def test_fused_merge_level_on_host_kernels(host_kernels, rng):

@@ -142,6 +142,56 @@ def test_safe_scan_plain_vs_stepwise_and_jax(rng):
     assert E.points_to_ints(full) == _running_sums(pts, curve)
 
 
+def test_fast_scan_plain_vs_stepwise_and_jax(rng):
+    """The blinded stepwise scan's plain version
+    (cuda_ff.ec_madd_xyzz_fast_scan_plain, which
+    prefix_scan_parts_affine_fast runs on the CPU) at n = 70 with an
+    identity slot and a repeated point: inner prefixes, lane totals and
+    flags limb for limb equal to a stepwise loop of EC.madd_xyzz_fast over
+    the scan's columns, and to the JAX package's
+    prefix_scan_parts_affine_fast (the same w, inner prefixes and flag;
+    offsets as affine points)."""
+    import jax
+    from halo2_liam_eagen_msm_tpu import fields as JF
+    from halo2_liam_eagen_msm_tpu.ops import msm as jax_msm
+    from halo2_liam_eagen_msm_tpu.ops.ec import ec as jax_ec
+
+    curve = PALLAS
+    E = ec(curve)
+    n = 70
+    pts = pyref.random_points(rng, curve, n)
+    pts[1] = None
+    pts[n - 1] = pts[0]
+    ax, ay, _ = E.to_affine(E.points_from_ints(pts, "cpu"))
+    inner, offsets, w, exc = M.prefix_scan_parts_affine_fast(E, ax, ay)
+    assert not bool(exc)
+
+    g = -(-n // w)
+    zeros = torch.zeros((g * w - n, N_LIMBS), dtype=ax.dtype)
+    px, py = torch.cat([ax, zeros]), torch.cat([ay, zeros])
+    cols = [c.reshape(g, w, N_LIMBS) for c in (px, py)]
+    carry, flags, steps = E.xyzz_offset((g,), "cpu"), torch.zeros(g, dtype=torch.bool), []
+    for t in range(w):
+        *carry, e = E.madd_xyzz_fast(*carry, cols[0][:, t], cols[1][:, t])
+        flags = flags | e
+        steps.append(carry)
+    stepwise = [torch.stack([s[k] for s in steps], dim=1).reshape(g * w, N_LIMBS)
+                for k in range(4)]
+    assert all(torch.equal(a, b) for a, b in zip(inner, stepwise))
+    _, totals, exc_v = CF.ec_madd_xyzz_fast_scan_plain(curve, *E.xyzz_offset((g,), "cpu"),
+                                                       px, py, w)
+    assert all(torch.equal(a, b) for a, b in zip(totals, carry))
+    assert exc_v.dtype == torch.bool and torch.equal(exc_v, flags)
+
+    JE = jax_ec(JF.PALLAS)
+    jinner, joffsets, jw, jexc = jax.jit(lambda a, b: jax_msm.prefix_scan_parts_affine_fast(
+        JE, a, b))(jax.numpy.asarray(limbs_to_numpy(ax)), jax.numpy.asarray(limbs_to_numpy(ay)))
+    assert int(jw) == w and bool(jexc) == bool(exc)
+    assert all(np.array_equal(limbs_to_numpy(a), np.asarray(b)) for a, b in zip(inner, jinner))
+    assert E.points_to_ints(offsets) == E.points_to_ints(JPoint(
+        *(limbs_from_numpy(np.asarray(c), "cpu") for c in joffsets)))
+
+
 def test_fused_scan_plain_vs_affine_fast_and_pyref(rng):
     """fused_madd_scan_xyzz_plain (the packed, limb-major contract the CUDA
     kernel follows) against the step-by-step blinded scan and against running

@@ -15,8 +15,7 @@ without a card, and on any failed build, failed launch or mismatch.  It
      (ec_madd_xyzz_fast's scan at (g, w) = (ragged, 1), (2048, 32), (64, 1)
      and the stepwise scan's of the widest window below
      FUSED_SCAN_MIN_ROWS, (64, 2), the only shape a card path launches it
-     with, and against w launches of its first design and running sums on
-     Python ints too;
+     with, and against running sums on Python ints too;
      batch_inv at 2^21 rows, the lm tail's width at the top level, and at
      the ragged size against FF._inv_host too; ec_double one doubling,
      ec_add_mixed one step),
@@ -49,6 +48,18 @@ without a card, and on any failed build, failed launch or mismatch.  It
      against their plain versions at a ragged size and at the shapes one
      round gives them, runs a 2^21 transform forward and back (n x back), and
      the limb-major forward transform against the element-major one,
+  8b. holds the product by a constant on the tensor cores (ops/mxu_ff.py,
+     csrc/mxu.cuh; no path calls it) against its plain version limb for
+     limb: mxu_mul_const at 2^logn rows and at a ragged 5,003, by a random
+     constant and by 0, 1 and p - 1 (Montgomery forms), the rows 0, 1 and
+     p - 1 among the inputs, and 64 rows against FF.mul (mont_mul) by the
+     constant broadcast; mxu_mul_table at the NTT stage's shape (2^(logn -
+     logn / 2) rows at each of 2^(logn / 2) positions) and at a ragged
+     (5, 8), the table holding 0 and 1; and times, in turns, the kernel,
+     mont_mul by the constant materialised as rows and by the broadcast
+     view (_flatten's copy inside the time) and lm_mul_const at E = 2^logn
+     (the constant by value, limb-major), each beside its bound, the plain
+     version on the host clock,
   9. drives one full-width round of the argument's witness: round 28 of the
      carry stage's 2^20 points (1,048,582 slots, 20 merge levels, 15 of them
      fused) through compute_divisor_witness_partial on the card; the output
@@ -83,9 +94,8 @@ without a card, and on any failed build, failed launch or mismatch.  It
      affine identities planted) and at one step of it, first lanes against
      the Python-int oracle, and times it there; holds ec_madd_xyzz_fast's
      scan (four lanes a carry, w steps a launch) at (g, w) = (64, 2), the
-     fallback's, and (2048, 32), a 2^16 window's, against its plain version
-     and w launches of its first design (ec_madd_xyzz_fast_v1), flags
-     included, and times it in turns with them and with the fused scan's
+     fallback's, and (2048, 32), a 2^16 window's, against its plain version,
+     flags included, and times it in turns with the fused scan's
      kernel at the same (g, w) (two lanes a carry, the same formula: lines
      `A/B ec_madd_xyzz_fast at g = ...`); holds poly_mul_naive and kate_div at every shape the tally
      gives them against their plain versions and the Python-int Poly, with
@@ -216,10 +226,10 @@ without a card, and on any failed build, failed launch or mismatch.  It
      replicated rerun, exact; each part's D, backend, sizes, seconds, bytes
      sent a rank by collective kind and peak memory printed.  Four ranks
      time-share one card: the seconds say nothing about scaling,
- 23. prints one JSON line describing the kernels (with phase 9b's shapes,
-     the rule-2 ranking and phase 9b's A/B of ec_madd_xyzz_fast against its
-     first design; the first design with no launch, which is checked) and, last, one JSON line {"ok": true,
-     "device": {...}}.
+ 23. prints one JSON line describing the kernels (with phase 9b's shapes
+     and the rule-2 ranking; phase 8b's two, which no path launches, with no
+     launch on any path, which is checked) and, last, one JSON line {"ok":
+     true, "device": {...}}.
 
 Phases 16-19 run after the radix phases, on the round's (phase 9) slots and
 witness and the carry stage's inputs, which are kept alive until then.
@@ -286,6 +296,7 @@ from halo2_liam_eagen_msm_tpu_torch.ops import cuda_ntt as CN
 from halo2_liam_eagen_msm_tpu_torch.ops import cuda_poly as CP
 from halo2_liam_eagen_msm_tpu_torch.ops import cuda_radix as CR
 from halo2_liam_eagen_msm_tpu_torch.ops import msm as M
+from halo2_liam_eagen_msm_tpu_torch.ops import mxu_ff as MX
 from halo2_liam_eagen_msm_tpu_torch.ops import ntt as NTT
 from halo2_liam_eagen_msm_tpu_torch.ops import poly as P
 from halo2_liam_eagen_msm_tpu_torch.ops import radix as RX
@@ -307,6 +318,7 @@ CSRC = "halo2_liam_eagen_msm_tpu_torch/ops/csrc/"
 PALLAS_FF = "halo2_liam_eagen_msm_tpu/ops/pallas_ff.py"
 PALLAS_NTT = "halo2_liam_eagen_msm_tpu/ops/pallas_ntt.py"
 RADIX_PY = "halo2_liam_eagen_msm_tpu/ops/radix.py"
+MXU_FF = "halo2_liam_eagen_msm_tpu/ops/mxu_ff.py"
 # kernel -> (source, TPU kernel's file, line of its function, field products,
 #            field adds, rows read + written per element; per stage for
 #            stages_small; the radix kernels' bytes come as extra bytes)
@@ -335,14 +347,18 @@ KERNEL_TABLE = {
     "radix_shuffle": ("radix.cuh", RADIX_PY, 270, 0, 0, 0),
     "radix_pass_b": ("radix.cuh", RADIX_PY, 363, 0, 0, 0),
     "radix_compact": ("radix.cuh", RADIX_PY, 421, 0, 0, 0),
-    # first design
-    "ec_madd_xyzz_fast_v1": ("kernels.cu", PALLAS_FF, 699, 10, 7, 10),  # 6 in, 4 out (+ 1 flag byte)
     # mont_mul (and mont_addsub) at the coefficient levels' shapes: products,
     # adds and rows from the shape (mul_naive_bound, kate_div_bound)
     "poly_mul_naive": ("poly.cuh", PALLAS_FF, 515, None, None, 0),
     "kate_div": ("poly.cuh", PALLAS_FF, 515, None, None, 0),
     # and at the merge head's: products from the run's slots (lines_bound)
     "affine_lines": ("lines.cuh", PALLAS_FF, 515, None, None, 0),
+    # the product by a constant on the tensor cores (no TPU kernel: the JAX
+    # module's mul_const and mul_table); a row in and one out (mul_table: and
+    # its position's table row once), no field product or add on the int32
+    # pipes: its operations are tensor-core ones and the carries' (mxu_bound)
+    "mxu_mul_const": ("mxu.cuh", MXU_FF, 89, 0, 0, 2),
+    "mxu_mul_table": ("mxu.cuh", MXU_FF, 114, 0, 0, 2),
 }
 MSM_KERNELS = ("mont_mul", "batch_inv", "mont_addsub", "ec_add", "ec_add_fast",
                "ec_double", "fused_madd_scan_xyzz")
@@ -354,7 +370,7 @@ ROUND_KERNELS = ("lm_mul", "lm_addsub", "lm_mul_const", "stage_big", "stages_sma
 POLY_KERNELS = ("poly_mul_naive", "kate_div")
 POLY_PER_LEVEL = {"poly_mul_naive": 10, "kate_div": 4}
 RADIX_KERNELS = ("radix_rank", "radix_shuffle", "radix_pass_b", "radix_compact")
-FIRST_DESIGNS = ("ec_madd_xyzz_fast_v1",)  # no path launches it
+OFF_PATH = ("mxu_mul_const", "mxu_mul_table")  # kernels no path launches (phase 8b's)
 ROUND_K = 28  # the round of the carry stage the round phase takes (= d // 2)
 BASE = 5  # radix of the argument's digit rounds
 CURVE = PALLAS
@@ -595,21 +611,6 @@ def xyzz_scan_inputs(nprng, base_pts, g: int, w: int, dev):
     return (p.x, p.y, zz, zzz, qx, qy), hp, host
 
 
-def xyzz_v1_scan(args, w: int):
-    """w launches of ec_madd_xyzz_fast_v1 over the scan's steps, the flags
-    ORed: (inner, totals, exc) as ec_madd_xyzz_fast_scan returns them."""
-    g = args[0].shape[0]
-    cols = [c.view(g, w, N_LIMBS).transpose(0, 1).contiguous() for c in args[4:6]]
-    carry, exc, steps = args[:4], None, []
-    for t in range(w):
-        *carry, e = CF.ec_madd_xyzz_fast_v1(CURVE, *carry, cols[0][t], cols[1][t])
-        exc = e if exc is None else exc | e
-        steps.append(carry)
-    inner = tuple(torch.stack([s[k] for s in steps], dim=1).reshape(g * w, N_LIMBS)
-                  for k in range(4))
-    return inner, tuple(carry), exc
-
-
 def scan_t_limbs():
     """The blinding point T's Montgomery limbs, as the fused scan takes them."""
     return tuple(tuple(int(v) for v in ints_to_mont_limbs([c], SPEC)[0])
@@ -823,9 +824,6 @@ def check_kernels(dev, base_pts, ragged: int, shapes: dict, scan_small_g: int, r
                 f"ec_madd_xyzz_fast's scan flags the identity carry (lane 0), carry == Q "
                 f"(lane 3) and carry == -Q (lane 4) and nothing else at g = {g}, w = {w}; "
                 f"qy == 0 (lanes 1, 2) passes unflagged; the flags are a bool tensor")
-        require(outputs_equal(got, flatten_outs(xyzz_v1_scan(args[:6], w))) == 0,
-                f"it equals {w} launches of its first design (ec_madd_xyzz_fast_v1), limb for "
-                f"limb and flag for flag (ORed over the steps), at g = {g}, w = {w}")
         pts = E.points_to_ints(E.xyzz_to_jacobian(*(c[:k * w] for c in inner)))
         want = []
         for j in range(k):
@@ -1039,18 +1037,29 @@ def device_busy_ms(dev, fn) -> float:
     return device_profile(dev, fn)[0]
 
 
+# set once the profiler has traced no device time twice in a row in this run:
+# device_profile then traces a call once before it times it with CUDA events
+PROFILER_EMPTY_TWICE = False
+
+
 def device_profile(dev, fn):
     """The device's busy time over one call of fn, the sum of the times of
     every kernel and copy it ran there, as torch.profiler traces them (the
     "Self CUDA time total" of its table), and the number of those device
     events (kernels, copies and fills), the profiler's own buffer requests
     left out.  A trace with no device event in it is taken once more (the
-    profiler has returned one on the card for a call that ran kernels); a
-    second empty trace fails.  Returns (ms, number of events)."""
+    profiler has returned one on the card for a call that ran kernels, and
+    twice in a row in one run); where the second is empty too, the call is
+    timed with CUDA events instead: its span on the device from before its
+    first launch to after its last, idle gaps included, so no less than its
+    busy time, and its events go uncounted (None).  Once that has happened,
+    later calls are traced once before they fall back.  Returns (ms, number
+    of events or None)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(2):
+    global PROFILER_EMPTY_TWICE
+    for _ in range(1 if PROFILER_EMPTY_TWICE else 2):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             sync(dev)
@@ -1063,8 +1072,17 @@ def device_profile(dev, fn):
                     events += ev.count
         if busy_us > 0:
             return busy_us / 1e3, events
-        print("  the profiler traced no device time; tracing the call once more", flush=True)
-    raise Failure("the profiler traced no device time, twice")
+        print("  the profiler traced no device time for this call", flush=True)
+    PROFILER_EMPTY_TWICE = True
+    print("  timing the call with CUDA events instead "
+          "(its span on the device, idle gaps included; device events not counted)", flush=True)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    sync(dev)
+    start.record()
+    fn()
+    end.record()
+    sync(dev)
+    return start.elapsed_time(end), None
 
 
 # ---------------------------------------------------------------------------
@@ -1444,6 +1462,126 @@ def check_ntt_kernels(dev, ragged: int, reps: int, top_logn: int):
                         NTT.ntt_dif(SPEC, em)),
             "ntt_dif_lm equals the element-major ntt_dif (mont_mul, mont_addsub) on 8 "
             "transforms at n = 2^12")
+    return recs
+
+
+# ---------------------------------------------------------------------------
+# phase 8b: the product by a constant on the tensor cores (ops/mxu_ff.py)
+# ---------------------------------------------------------------------------
+
+INT8_TC_OPS_PER_S = 1.979e15  # the data sheet's dense int8 tensor-core rate
+# u8 multiply-adds a row of the three products (a c: 32 x 64, t_lo mu: 32 x
+# 32, m p: 32 x 64), as operations
+MXU_TC_OPS = 2 * 32 * (64 + 32 + 64)
+# the carry network a row on the int32 pipes: five carry chains of 16 columns
+# (t_lo, m, the low halves' carry, the >= p test, the result) at 3 operations
+# a column, and 80 pairs of byte columns combined at 2
+MXU_INT_OPS = 5 * 16 * 3 + 80 * 2
+
+
+def mxu_bound(name: str, rows: int, extra_bytes: int = 0):
+    """bound_ms of the tensor-core product: a row in and a row out (and
+    extra_bytes), against its tensor-core operations at the int8 rate and
+    its carry network at the int32 rate."""
+    t_bytes = (rows * KERNEL_TABLE[name][5] * ROW_BYTES + extra_bytes) / HBM_BYTES_PER_S
+    t_ops = max(rows * MXU_TC_OPS / INT8_TC_OPS_PER_S, rows * MXU_INT_OPS / INT32_OPS_PER_S)
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def mxu_rows(nprng, b: int, dev):
+    """b random reduced rows, the Montgomery forms of 0, 1 and p - 1 first."""
+    a = random_field(nprng, b, dev)
+    k = min(b, 3)
+    a[:k] = limbs_from_numpy(ints_to_mont_limbs([0, 1, SPEC.p - 1][:k], SPEC), dev)
+    return a
+
+
+def mxu_phase(dev, logn: int, reps: int):
+    """Phase 8b.  mxu_mul_const and mxu_mul_table (csrc/mxu.cuh) against
+    their plain versions limb for limb, and timed in turns beside mont_mul
+    and lm_mul_const at the same rows.  Returns their two records for the
+    kernels line (launches 0: no path calls them)."""
+    nprng = np.random.default_rng(0x3A7)
+    n = 1 << logn
+    n_pos = 1 << (logn // 2)
+    batch = n // n_pos
+    c_rand = mont(int(nprng.integers(1, 1 << 62)) ** 4 % SPEC.p)
+    consts = {"random": c_rand, "0": 0, "1": mont(1), "p - 1": mont(SPEC.p - 1)}
+    worst = {"mxu_mul_const": 0, "mxu_mul_table": 0}
+
+    def held(name, got, want, what):
+        err = outputs_equal([got], [want])
+        worst[name] = max(worst[name], err)
+        require(err == 0 and got.dtype == torch.int32,
+                f"{name} equals its plain version {what} (max abs diff {err})")
+
+    print("kernel mxu_mul_const, mxu_mul_table", flush=True)
+    for b in (5003, n):
+        a = mxu_rows(nprng, b, dev)
+        for label, c in consts.items():
+            held("mxu_mul_const", MX.mul_const(SPEC, a, c), MX.mul_const_plain(SPEC, a, c),
+                 f"at B = {b}, c = {label} (rows 0, 1, p - 1 among them)")
+    c_row = limbs_from_numpy(ints_to_limbs([c_rand]), dev)[0]  # the constant's limbs
+    spot = a[:64]
+    require(torch.equal(MX.mul_const(SPEC, spot, c_rand), ff(SPEC).mul(spot, c_row.expand(64, 16))),
+            "mxu_mul_const equals FF.mul (mont_mul) by the constant broadcast on 64 rows")
+    tables = {}
+    for lead, pos in ((5, 8), (batch, n_pos)):
+        table = random_field(nprng, pos, dev)
+        table[1] = 0
+        table[-1] = limbs_from_numpy(ints_to_mont_limbs([1], SPEC), dev)[0]
+        at = mxu_rows(nprng, lead * pos, dev).reshape(lead, pos, N_LIMBS)
+        tables[(lead, pos)] = (at, table)
+        held("mxu_mul_table", MX.mul_table(SPEC, at, table), MX.mul_table_plain(SPEC, at, table),
+             f"at ({lead}, {pos}), the table's rows 1 and {pos - 1} 0 and 1")
+
+    # timing at n rows: the kernel, mont_mul by the constant as rows (made
+    # outside the time) and by the broadcast view (_flatten's copy of it
+    # inside the time), lm_mul_const (the constant by value, limb-major)
+    a_lm = CN.to_lm(a)
+    c_rows = c_row.expand(n, N_LIMBS).contiguous()
+    c_view = c_row.expand(n, N_LIMBS)
+    at, table = tables[(batch, n_pos)]
+    fns = {"mxu_mul_const": lambda: MX.mul_const(SPEC, a, c_rand),
+           "mxu_mul_table": lambda: MX.mul_table(SPEC, at, table),
+           "mont_mul": lambda: ff(SPEC).mul(a, c_rows),
+           "mont_mul, broadcast view": lambda: ff(SPEC).mul(a, c_view),
+           "lm_mul_const": lambda: CN.lm_mul_const(SPEC, a_lm, c_rand)}
+    ms, call = turns(dev, fns, reps)
+    plain_ms = {}
+    for name, fn in (("mxu_mul_const", lambda: MX.mul_const_plain(SPEC, a, c_rand)),
+                     ("mxu_mul_table", lambda: MX.mul_table_plain(SPEC, at, table))):
+        plain_ms[name] = float("inf")
+        for _ in range(2):  # the first call also pays for PyTorch's own start-up
+            t0 = time.perf_counter()
+            fn()
+            sync(dev)
+            plain_ms[name] = min(plain_ms[name], (time.perf_counter() - t0) * 1e3)
+    bounds = {"mxu_mul_const": mxu_bound("mxu_mul_const", n),
+              "mxu_mul_table": mxu_bound("mxu_mul_table", n, n_pos * ROW_BYTES),
+              "mont_mul": bound_ms("mont_mul", n),
+              "mont_mul, broadcast view": bound_ms("mont_mul", n),
+              "lm_mul_const": bound_ms("lm_mul_const", n)}
+    for label in fns:
+        b_ms, b_by = bounds[label]
+        print(f"  time {label} at {n} rows: {ms[label]:.4f} ms on the device, "
+              f"{call[label]:.4f} ms a call on the host, bound {b_ms:.5f} ms ({b_by}), share "
+              f"{b_ms / ms[label]:.3f}", flush=True)
+    recs = []
+    for name, shape in (("mxu_mul_const", f"B = {n}"),
+                        ("mxu_mul_table", f"({batch}, {n_pos}): {batch} rows at {n_pos} "
+                                          f"positions")):
+        b_ms, b_by = bounds[name]
+        recs.append({"name": name, "route": "cuda", "source": CSRC + "mxu.cuh",
+                     "replaces": f"{MXU_FF}:{KERNEL_TABLE[name][2]}", "launches": 0,
+                     "max_abs_err": worst[name], "ms": ms[name], "plain_ms": plain_ms[name],
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "shape": shape,
+                     "call_ms": call[name], "mont_mul_ms": ms["mont_mul"],
+                     "mont_mul_broadcast_view_ms": ms["mont_mul, broadcast view"],
+                     "lm_mul_const_ms": ms["lm_mul_const"],
+                     "mxu_mul_const_ms": ms["mxu_mul_const"]})
+        print(f"  time {name} at {shape}: kernel {ms[name]:.4f} ms on the device, plain "
+              f"{plain_ms[name]:.1f} ms, bound {b_ms:.5f} ms ({b_by})", flush=True)
     return recs
 
 
@@ -2040,27 +2178,15 @@ def ec_add_mixed_by_shape(dev, base_pts, logn: int, reps: int):
     return recs
 
 
-def first_design_record(name: str, ms: float, call_ms: float, plain_ms: float, bound, shape,
-                        **extra) -> dict:
-    """A first design's record for the kernels line: no launch on any path."""
-    return {"name": name, "route": "cuda", "source": CSRC + "kernels.cu",
-            "replaces": f"{PALLAS_FF}:{KERNEL_TABLE[name][2]}", "launches": 0,
-            "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
-            "bound_by": bound[1], "library_ms": None, "shape": shape, "call_ms": call_ms,
-            **extra}
-
-
 def xyzz_scan_ab(dev, base_pts, keys, reps: int):
     """ec_madd_xyzz_fast's scan (four lanes a carry, w steps a launch) at each
-    (g, w) of keys (xyzz_scan_inputs' edges) against its plain version and w
-    launches of its first design (ec_madd_xyzz_fast_v1), limb for limb and
-    flag for flag; timed in turns with the first design's w launches and
-    with one launch of the fused scan's kernel at the same (g, w) (two lanes
-    a carry, the same formula from T on the same rows, packed).  Returns
-    (the records, the first design's record at the first key: one step)."""
+    (g, w) of keys (xyzz_scan_inputs' edges) against its plain version, limb
+    for limb and flag for flag; timed in turns with one launch of the fused
+    scan's kernel at the same (g, w) (two lanes a carry, the same formula
+    from T on the same rows, packed).  Returns the records."""
     nprng = np.random.default_rng(0xAB7)
     t_limbs = scan_t_limbs()
-    out, v1_rec = [], None
+    out = []
     for g, w in keys:
         args, _, _ = xyzz_scan_inputs(nprng, base_pts, g, w, dev)
         new = flatten_outs(CF.ec_madd_xyzz_fast_scan(CURVE, *args, w))
@@ -2069,43 +2195,24 @@ def xyzz_scan_ab(dev, base_pts, keys, reps: int):
         want = flatten_outs(CF.ec_madd_xyzz_fast_scan_plain(CURVE, *args, w))
         sync(dev)
         plain_ms = (time.perf_counter() - t0) * 1e3
-        require(outputs_equal(new, want) == 0
-                and outputs_equal(new, flatten_outs(xyzz_v1_scan(args, w))) == 0
-                and new[8].nonzero().flatten().tolist() == [0, 3, 4],
-                f"ec_madd_xyzz_fast's scan == ec_madd_xyzz_fast_scan_plain and {w} launches of "
-                f"ec_madd_xyzz_fast_v1 at g = {g}, w = {w} (inner, totals, flags), lanes 0, 3 "
-                f"and 4 flagged and no other")
-        cols = [c.view(g, w, N_LIMBS).transpose(0, 1).contiguous() for c in args[4:6]]
-
-        def v1_steps(args=args, cols=cols, w=w):
-            carry = args[:4]
-            for t in range(w):
-                carry = CF.ec_madd_xyzz_fast_v1(CURVE, *carry, cols[0][t], cols[1][t])[:4]
-            return carry
-
+        require(outputs_equal(new, want) == 0 and new[8].nonzero().flatten().tolist() == [0, 3, 4],
+                f"ec_madd_xyzz_fast's scan == ec_madd_xyzz_fast_scan_plain at g = {g}, w = {w} "
+                f"(inner, totals, flags), lanes 0, 3 and 4 flagged and no other")
         rows = M._pack_pair(args[4], args[5]).contiguous()
         ms, call = turns(dev, {
-            "v2": lambda args=args, w=w: CF.ec_madd_xyzz_fast_scan(CURVE, *args, w),
-            "v1": v1_steps,
+            "four lanes": lambda args=args, w=w: CF.ec_madd_xyzz_fast_scan(CURVE, *args, w),
             "two lanes": lambda rows=rows, w=w: CF.fused_madd_scan_xyzz(CURVE, t_limbs, rows, w)},
             reps)
         b_ms, b_by = xyzz_bound(g, w)
-        out.append({"shape": f"g = {g}, w = {w}", "g": g, "w": w, "ms": ms["v2"],
-                    "v1_ms": ms["v1"], "two_lane_ms": ms["two lanes"], "call_ms": call["v2"],
-                    "v1_call_ms": call["v1"], "plain_ms": plain_ms, "bound_ms": b_ms,
-                    "bound_by": b_by, "launches": 0})
-        print(f"  A/B ec_madd_xyzz_fast at g = {g}, w = {w}: {ms['v2']:.4f} ms (one launch, four "
-              f"lanes a carry) on the device; first design {ms['v1']:.4f} ms for {w} launches "
-              f"({ms['v1'] / ms['v2']:.2f}x); two lanes a carry (fused_madd_scan_xyzz at the "
-              f"same g, w) {ms['two lanes']:.4f} ms; bound {b_ms:.6f} ms ({b_by}); host "
-              f"{call['v2']:.4f} and {call['v1']:.4f} ms a call; plain {plain_ms:.1f} ms",
-              flush=True)
-        if v1_rec is None:
-            v1_rec = first_design_record(
-                "ec_madd_xyzz_fast_v1", ms["v1"] / w, call["v1"] / w, plain_ms / w,
-                bound_ms("ec_madd_xyzz_fast_v1", g, g), f"B = {g} (a step)",
-                scan_ms=ms["v1"], scan_shape=f"g = {g}, w = {w}")
-    return out, v1_rec
+        out.append({"shape": f"g = {g}, w = {w}", "g": g, "w": w, "ms": ms["four lanes"],
+                    "two_lane_ms": ms["two lanes"], "call_ms": call["four lanes"],
+                    "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by, "launches": 0})
+        print(f"  A/B ec_madd_xyzz_fast at g = {g}, w = {w}: {ms['four lanes']:.4f} ms (one "
+              f"launch, four lanes a carry) on the device; two lanes a carry "
+              f"(fused_madd_scan_xyzz at the same g, w) {ms['two lanes']:.4f} ms; bound "
+              f"{b_ms:.6f} ms ({b_by}); host {call['four lanes']:.4f} ms a call; plain "
+              f"{plain_ms:.1f} ms", flush=True)
+    return out
 
 
 # (log2 n, E) of the fused levels of a 2^20 round, timed at every --logn
@@ -2240,12 +2347,13 @@ def ab_phase(dev, base_pts, tally, lines_in: dict, logn: int, ragged: int, row_s
     fused scan at every g (and 256 and 4096).  ec_double at every (B, k) of
     the tally and EC_DOUBLE_FIXED (ec_double_by_key), ec_add_mixed at a safe
     window's shapes (ec_add_mixed_by_shape) and ec_madd_xyzz_fast's scan
-    against its first design (xyzz_scan_ab).  Last, the rule-2 ranking of
+    against its plain version, timed beside the fused scan's kernel
+    (xyzz_scan_ab).  Last, the rule-2 ranking of
     the fourteen over the main path (one MSM, one carry stage and 56 rounds
     like the tallied one): ec_add_mixed, radix_rank and radix_pass_b with no
     launch there (the safe flavor is a fallback, the radix route is off),
-    the radix kernels at phase 12's full plan (radix_recs).  Returns ({kernel: per-shape records}, the ranking, the
-    first design's record for the kernels line)."""
+    the radix kernels at phase 12's full plan (radix_recs).  Returns
+    ({kernel: per-shape records}, the ranking)."""
     rounds = A.num_digits_for(CURVE, BASE)
     on_path = {name: path_launches(tally[name], rounds)
                for name in ("mont_mul", "mont_addsub", "ec_add", "ec_add_fast")}
@@ -2270,7 +2378,7 @@ def ab_phase(dev, base_pts, tally, lines_in: dict, logn: int, ragged: int, row_s
                                       by_key["ec_double"], reps),
         "ec_add_mixed": ec_add_mixed_by_shape(dev, base_pts, logn, reps),
     }
-    out["ec_madd_xyzz_fast"], xyzz_v1 = xyzz_scan_ab(
+    out["ec_madd_xyzz_fast"] = xyzz_scan_ab(
         dev, base_pts, [row_shapes["ec_madd_xyzz_fast"], XYZZ_WIDE], reps)
     for name in POLY_KERNELS:
         out[name] = poly_by_shape(dev, name, tally[name]["round"], rounds, reps)
@@ -2295,7 +2403,7 @@ def ab_phase(dev, base_pts, tally, lines_in: dict, logn: int, ragged: int, row_s
     for name, rec in radix_recs.items():
         out[name] = [{"shape": rec["shape"], "launches": 0, "ms": rec["ms"],
                       "bound_ms": rec["bound_ms"]}]
-    return out, rule2_ranking(out), [xyzz_v1]
+    return out, rule2_ranking(out)
 
 
 def radix_rule2(radix_recs: dict, plans: dict, radix: dict) -> dict:
@@ -3995,6 +4103,7 @@ def main() -> int:
     recs = check_kernels(dev, base_pts, ragged=ragged, shapes=shapes,
                          scan_small_g=2050, reps=50)
     recs += check_ntt_kernels(dev, ragged=5000, reps=50, top_logn=args.logn + 1)
+    recs += mxu_phase(dev, args.logn, reps=50)
     radix_recs, radix_plans = check_radix_kernels(dev, args.logn, reps=50)
     recs += radix_recs
 
@@ -4010,9 +4119,8 @@ def main() -> int:
     tally, busy = launch_tally(dev, base_pts, args.logn, pts, rnd)
     lines_in = capture_lines_inputs(pts, rnd)
     radix_by_name = {rec["name"]: rec for rec in radix_recs if rec["name"] in RADIX_AB}
-    ab, ranking, v1_recs = ab_phase(dev, base_pts, tally, lines_in, args.logn, ragged, shapes,
-                                    radix_by_name, reps=50)
-    recs += v1_recs
+    ab, ranking = ab_phase(dev, base_pts, tally, lines_in, args.logn, ragged, shapes,
+                           radix_by_name, reps=50)
     # the coefficient levels' two: their records at the shape of the most
     # products in a round and at a ragged one; the merge head's at a ragged
     # width and the widest of the round
@@ -4091,9 +4199,9 @@ def main() -> int:
               f"forward), {rec['launches_config4']} (config 4), {rec['launches_safe_msm']} "
               f"(safe MSM); {rec['ms']} ms each on the device at shape {rec['shape']}",
               flush=True)
-        if name in FIRST_DESIGNS:
+        if name in OFF_PATH:
             require(all(rec[key] == 0 for key in by_phase),
-                    f"{name}, a first design, was launched on no path")
+                    f"{name}, a kernel of no path, was launched on no path")
         else:
             require(rec["launches"] > 0, f"{name} was launched on the path that runs it")
 

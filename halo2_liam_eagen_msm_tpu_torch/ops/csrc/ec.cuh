@@ -1,7 +1,7 @@
 // Curve formulas for the CUDA kernels, on short-Weierstrass curves with
 // a = 0 (every supported curve): the device-side counterpart of the curve
 // formulas of the JAX package (ops/pallas_ff.py: k_ec_double, k_ec_add,
-// k_ec_add_fast, k_ec_add_mixed, k_ec_madd_fast, k_ec_madd_xyzz_fast).  Each
+// k_ec_add_fast, k_ec_add_mixed, k_ec_madd_fast).  Each
 // follows the same formula and the same select order, so the Jacobian
 // representative is the same limb for limb.
 //
@@ -12,10 +12,6 @@
 
 struct Jac {
   Fe x, y, z;
-};
-
-struct Xyzz {
-  Fe x, y, zz, zzz;
 };
 
 // dbl-2009-l, a = 0.  Identity-safe: Z3 = 2YZ = 0 when Z = 0.
@@ -148,32 +144,4 @@ __device__ __forceinline__ Jac ec_add_fast(const Jac& p, const Jac& q,
   bool id2 = fe_is_zero(q.z);
   *exc = !id1 && !id2 && c.h0 && c.r0;
   return jac_select(id2, p, jac_select(id1, q, c.sum));
-}
-
-// XYZZ + affine mixed add (madd-2008-s), no exceptional paths: 8 mul + 2 sqr.
-// The affine identity (qy == 0) passes the carry through unflagged; an
-// identity carry or carry == +-Q sets *exc.
-__device__ __forceinline__ Xyzz ec_madd_xyzz_fast(const Xyzz& c, const Fe& qx,
-                                                  const Fe& qy,
-                                                  const FieldParams& P, bool* exc) {
-  Fe u2 = fe_mul(qx, c.zz, P);
-  Fe s2 = fe_mul(qy, c.zzz, P);
-  Fe pp = fe_sub(u2, c.x, P);
-  Fe r = fe_sub(s2, c.y, P);
-  Fe ppsq = fe_sqr(pp, P);
-  Fe ppp = fe_mul(pp, ppsq, P);
-  Fe q = fe_mul(c.x, ppsq, P);
-  Fe x3 = fe_sub(fe_sub(fe_sqr(r, P), ppp, P), fe_double(q, P), P);
-  Fe y3 = fe_sub(fe_mul(r, fe_sub(q, x3, P), P), fe_mul(c.y, ppp, P), P);
-  Fe zz3 = fe_mul(c.zz, ppsq, P);
-  Fe zzz3 = fe_mul(c.zzz, ppp, P);
-  bool id1 = fe_is_zero(c.zz);
-  bool id2 = fe_is_zero(qy);
-  *exc = !id2 && (id1 || fe_is_zero(pp));
-  Xyzz o;
-  o.x = fe_select(id2, c.x, x3);
-  o.y = fe_select(id2, c.y, y3);
-  o.zz = fe_select(id2, c.zz, zz3);
-  o.zzz = fe_select(id2, c.zzz, zzz3);
-  return o;
 }

@@ -1,9 +1,9 @@
-// The ten kernels of the field and curve layers (and the first design of
-// one of them, kept for one comparison on the card) and their C launchers,
-// with those of the kernels included below: the divisor merge tree's five in
+// The ten kernels of the field and curve layers and their C launchers, with
+// those of the kernels included below: the divisor merge tree's five in
 // ntt.cuh, the MSM's radix reorder's four in radix.cuh, the coefficient
-// levels' two (poly_mul_naive and kate_div) in poly.cuh and the merge head's
-// affine_lines in lines.cuh.
+// levels' two (poly_mul_naive and kate_div) in poly.cuh, the merge head's
+// affine_lines in lines.cuh and the tensor-core product by a constant
+// (mxu_mul_const, mxu_mul_table: ops/mxu_ff.py's, on no path) in mxu.cuh.
 // mont_mul and ec_add_mixed_fast are one thread per element: each reads its
 // (16,) rows, does the whole formula in registers (ff.cuh, ec.cuh) and writes
 // its rows back; mont_addsub spreads one row over four lanes, ec_add,
@@ -37,6 +37,7 @@ __device__ __forceinline__ int64_t global_index() {
 #include "radix.cuh"
 #include "poly.cuh"
 #include "lines.cuh"
+#include "mxu.cuh"
 
 // ---- 1. mont_mul: replaces pallas_ff.mont_mul ---------------------------------
 
@@ -697,9 +698,9 @@ fused_madd_scan_xyzz_kernel(FieldParams P, Fe tx, Fe ty,
 // The paths call it at g = 32 to 2048 carries (half a window's points at
 // most, w = 2 to 32 steps): a few blocks, so latency bounds it, not bytes
 // (10 products on 6 rows a step).  One thread a carry and a launch a step
-// (the first design, ec_madd_xyzz_fast_v1 below) runs the 10 products as one
-// chain, and the stepwise scan's w launches paid a launch each and PyTorch's
-// flag ORs and stacks besides.  Here the carry stays in shared memory between
+// (the first design, retired after its comparison: PERF.md row 7) ran the 10
+// products as one chain, and the stepwise scan's w launches paid a launch
+// each and PyTorch's flag ORs and stacks besides.  Here the carry stays in shared memory between
 // the steps, and ADD_LANES = 4 neighbouring lanes share it by ec_add's slot
 // machinery: a step is four rounds of up to three independent products,
 //   {u2, s2} -> {pp^2, r^2} -> {ppp, q, zz3} -> {r (q - x3), y ppp, zzz3},
@@ -792,36 +793,6 @@ ec_madd_xyzz_fast_kernel(FieldParams P, const uint32_t* x1, const uint32_t* y1,
     if (total != nullptr) fe_store(total + j * ELEMS_PER_ROW, o);
     if (lane == 0) exc[j] = any ? 1 : 0;
   }
-}
-
-// ---- 7 (first design). ec_madd_xyzz_fast_v1 ---------------------------------
-//
-// One step, one thread a carry: ec.cuh's ec_madd_xyzz_fast, its 10 products
-// one chain, 6 rows in, 4 rows and a flag byte out.  No path launches it;
-// chip_smoke.py holds it against the same plain version and times w launches
-// of it beside one launch of the scan above.
-
-__global__ void __launch_bounds__(BLOCK)
-ec_madd_xyzz_fast_v1_kernel(FieldParams P, const uint32_t* x1, const uint32_t* y1,
-                            const uint32_t* zz1, const uint32_t* zzz1,
-                            const uint32_t* qx, const uint32_t* qy,
-                            uint32_t* ox, uint32_t* oy, uint32_t* ozz, uint32_t* ozzz,
-                            uint8_t* exc, int64_t n) {
-  int64_t i = global_index();
-  if (i >= n) return;
-  Xyzz c;
-  c.x = fe_load(x1 + i * ELEMS_PER_ROW);
-  c.y = fe_load(y1 + i * ELEMS_PER_ROW);
-  c.zz = fe_load(zz1 + i * ELEMS_PER_ROW);
-  c.zzz = fe_load(zzz1 + i * ELEMS_PER_ROW);
-  bool e;
-  Xyzz r = ec_madd_xyzz_fast(c, fe_load(qx + i * ELEMS_PER_ROW),
-                             fe_load(qy + i * ELEMS_PER_ROW), P, &e);
-  fe_store(ox + i * ELEMS_PER_ROW, r.x);
-  fe_store(oy + i * ELEMS_PER_ROW, r.y);
-  fe_store(ozz + i * ELEMS_PER_ROW, r.zz);
-  fe_store(ozzz + i * ELEMS_PER_ROW, r.zzz);
-  exc[i] = e ? 1 : 0;
 }
 
 // ---- 8. ec_add_mixed: replaces pallas_ff.ec_add_mixed ---------------------------
@@ -1115,20 +1086,6 @@ int ec_madd_xyzz_fast_launch(const FieldParams* P, const void* x1, const void* y
         (const uint32_t*)zzz1, (const uint32_t*)qx, (const uint32_t*)qy, w, g,
         (uint32_t*)ix, (uint32_t*)iy, (uint32_t*)izz, (uint32_t*)izzz,
         (uint32_t*)tx, (uint32_t*)ty, (uint32_t*)tzz, (uint32_t*)tzzz, (uint8_t*)exc);
-  return (int)cudaGetLastError();
-}
-
-// The first design: one step, a thread a carry.
-int ec_madd_xyzz_fast_v1_launch(const FieldParams* P, const void* x1, const void* y1,
-                                const void* zz1, const void* zzz1, const void* qx,
-                                const void* qy, void* ox, void* oy, void* ozz, void* ozzz,
-                                void* exc, int64_t n, void* stream) {
-  if (n > 0)
-    ec_madd_xyzz_fast_v1_kernel<<<grid_for(n, BLOCK), BLOCK, 0, (cudaStream_t)stream>>>(
-        *P, (const uint32_t*)x1, (const uint32_t*)y1, (const uint32_t*)zz1,
-        (const uint32_t*)zzz1, (const uint32_t*)qx, (const uint32_t*)qy,
-        (uint32_t*)ox, (uint32_t*)oy, (uint32_t*)ozz, (uint32_t*)ozzz,
-        (uint8_t*)exc, n);
   return (int)cudaGetLastError();
 }
 

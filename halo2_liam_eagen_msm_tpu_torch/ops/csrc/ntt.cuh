@@ -326,4 +326,17 @@ int stages_small_launch(const FieldParams* P, int inverse, const void* x, void* 
   return stages_small_launch_r<SMALL_R>(P, inverse, x, out, tw, tw_stride, log_tile, e, stream);
 }
 
+// Test-only: the 1-bit window (R = 1) at any tile, which stages_small_launch
+// takes at a tile of 2 alone (section 14).  No path calls it; the host
+// rehearsal (tests/test_torch_kernels_host.py) and the card probe
+// (ops/cuda_ntt.probe_stages_small_r1) do.
+int stages_small_r1_probe_launch(const FieldParams* P, int inverse, const void* x, void* out,
+                                 const void* tw, int64_t tw_stride, int tile, int64_t e,
+                                 void* stream) {
+  int log_tile = 0;
+  while ((1 << log_tile) < tile) log_tile++;
+  if (e <= 0) return (int)cudaGetLastError();
+  return stages_small_launch_r<1>(P, inverse, x, out, tw, tw_stride, log_tile, e, stream);
+}
+
 }  // extern "C"

@@ -37,9 +37,7 @@ ec_madd_xyzz_fast a carry over four, ec_add_mixed a carry over two;
 ec_double keeps its point on chip through k doublings, ec_madd_xyzz_fast and
 ec_add_mixed their carries through w steps.  ec_add_mixed_fast is one
 thread a point, its rows read in place.  batch_inv runs a chain of products
-a thread and is bound by the latency of its power (see csrc/kernels.cu).  The
-first design of ec_madd_xyzz_fast (a thread a carry, one step a launch) stays
-as ec_madd_xyzz_fast_v1 for one comparison on the card; no path calls it.
+a thread and is bound by the latency of its power (see csrc/kernels.cu).
 Every flag a wrapper returns is a bool tensor the kernel wrote itself (a byte
 0 or 1 a flag).
 
@@ -63,7 +61,10 @@ schoolbook product and the Horner division), whose wrappers and plain
 versions are in ops/cuda_poly.py, and the merge head's affine_lines
 (csrc/lines.cuh: mont_mul's and mont_addsub's work at the affine
 normalisation and the lines of divisor.merge_head and divisor.seeds), whose
-wrapper and plain version are in ops/cuda_lines.py.
+wrapper and plain version are in ops/cuda_lines.py; and mxu_mul_const /
+mxu_mul_table (csrc/mxu.cuh: the product by a constant, or by a table row
+a position, on the tensor cores), whose wrappers and plain versions are in
+ops/mxu_ff.py and which no path launches.
 """
 
 from __future__ import annotations
@@ -83,8 +84,6 @@ from ..fields import CurveSpec, FieldSpec, LIMB_BITS, LIMB_MASK, N_LIMBS, R
 KERNELS = ("mont_mul", "batch_inv", "mont_addsub", "ec_add", "ec_add_fast",
            "ec_double", "fused_madd_scan_xyzz", "ec_madd_xyzz_fast", "ec_add_mixed",
            "ec_add_mixed_fast",
-           # the first design of one of them (no path launches it)
-           "ec_madd_xyzz_fast_v1",
            # the divisor merge tree's five, in csrc/ntt.cuh (ops/cuda_ntt.py)
            "lm_mul", "lm_addsub", "lm_mul_const", "stage_big", "stages_small",
            # the radix reorder's four, in csrc/radix.cuh (ops/cuda_radix.py)
@@ -92,7 +91,10 @@ KERNELS = ("mont_mul", "batch_inv", "mont_addsub", "ec_add", "ec_add_fast",
            # the coefficient levels' two, in csrc/poly.cuh (ops/cuda_poly.py)
            "poly_mul_naive", "kate_div",
            # the merge head's, in csrc/lines.cuh (ops/cuda_lines.py)
-           "affine_lines")
+           "affine_lines",
+           # the product by a constant on the tensor cores, in csrc/mxu.cuh
+           # (ops/mxu_ff.py; no path launches them)
+           "mxu_mul_const", "mxu_mul_table")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 SCAN_W = 64  # sequential madd steps per lane of the fused scan
@@ -196,7 +198,6 @@ def _lib():
             "fused_madd_scan_xyzz_launch":
                 [fpp, u32p, u32p, vp, ci, i64] + [vp] * 9 + [vp],
             "ec_madd_xyzz_fast_launch": [fpp] + [vp] * 6 + [ci, i64] + [vp] * 9 + [vp],
-            "ec_madd_xyzz_fast_v1_launch": [fpp] + [vp] * 11 + [i64, vp],
             "ec_add_mixed_launch": [fpp] + [vp] * 6 + [ci, i64] + [vp] * 6 + [vp],
             "ec_add_mixed_fast_launch": [fpp] + [vp] * 9 + [i64, vp],
             "lm_mul_launch": [fpp, vp, vp, vp, i64, vp],
@@ -204,6 +205,7 @@ def _lib():
             "lm_mul_const_launch": [fpp, u32p, vp, vp, i64, vp],
             "stage_big_launch": [fpp, ci, vp, vp, vp, i64, i64, i64, vp],
             "stages_small_launch": [fpp, ci, vp, vp, vp, i64, ci, i64, vp],
+            "stages_small_r1_probe_launch": [fpp, ci, vp, vp, vp, i64, ci, i64, vp],
             "radix_rank_launch": [vp, vp, vp, vp, i64] + [ci] * 6 + [vp],
             "radix_shuffle_launch": [vp, vp, vp, vp, i64, ci, ci, vp],
             "radix_pass_b_launch": [vp, vp, vp, ci, i64, i64, ci, vp],
@@ -212,6 +214,8 @@ def _lib():
                 [fpp, vp, vp, vp, i64, ci, ci, i64, i64, ci, ci, ci, ci, vp],
             "kate_div_launch": [fpp, vp, vp, vp, i64, ci, i64, vp],
             "affine_lines_launch": [fpp] + [vp] * 5 + [i64, ci, vp],
+            "mxu_mul_const_launch": [fpp, ctypes.c_void_p, vp, vp, i64, vp],
+            "mxu_mul_table_launch": [fpp, ctypes.c_void_p, vp, vp, vp, i64, i64, vp],
         }
         for name, argtypes in sigs.items():
             fn = getattr(lib, name)
@@ -408,19 +412,6 @@ def ec_madd_xyzz_fast_scan(curve: CurveSpec, x1, y1, zz1, zzz1, qx, qy, w: int):
             *(_ptrs(totals) if w > 1 else (None,) * 4), exc.data_ptr())
     return (tuple(o.reshape(rows_lead + (N_LIMBS,)) for o in inner),
             tuple(o.reshape(lead + (N_LIMBS,)) for o in totals), exc.reshape(lead))
-
-
-def ec_madd_xyzz_fast_v1(curve: CurveSpec, x1, y1, zz1, zzz1, qx, qy):
-    """One batched XYZZ + affine step by the first design (a thread a
-    carry), one kernel launch; results as ec_madd_xyzz_fast's.  No path
-    calls it."""
-    _check_cuda("ec_madd_xyzz_fast_v1", x1, y1, zz1, zzz1, qx, qy)
-    lead, flat = _flatten(x1, y1, zz1, zzz1, qx, qy)
-    outs = tuple(torch.empty_like(flat[0]) for _ in range(4))
-    exc = torch.empty(flat[0].shape[0], dtype=torch.bool, device=flat[0].device)
-    _launch("ec_madd_xyzz_fast_v1", flat[0].device, ctypes.byref(_field_params(curve.field)),
-            *_ptrs(flat + outs), exc.data_ptr(), flat[0].shape[0])
-    return tuple(o.reshape(lead + (N_LIMBS,)) for o in outs) + (exc.reshape(lead),)
 
 
 def _mixed_mask(name: str, q_is_identity, like, shape):

@@ -216,6 +216,31 @@ def stages_small(spec: FieldSpec, x, tile: int, inverse: bool, tw):
     return out
 
 
+def stages_small_r1(spec: FieldSpec, x, tile: int, inverse: bool, tw):
+    """Test-only: stages_small's stages by the 1-bit window (R = 1) at any
+    tile, one launch of csrc/ntt.cuh's stages_small_r1_probe_launch.  The
+    path's launcher takes R = 1 at a tile of 2 alone: from a tile of 8 up it
+    hung on the card when it was tried (PERF.md section 7).  No path calls
+    it and it counts no launch; its plain version is stages_small_plain.
+    A CPU tensor is refused (there is nothing to fall back to: this exists
+    to run the kernel)."""
+    _check_stage("stages_small_r1", x, tile, tw)
+    if tile > BLOCK:
+        raise ValueError(f"stages_small_r1: tile {tile} above {BLOCK}")
+    if not CF._use_kernel(x):
+        raise ValueError("stages_small_r1: the probe runs the kernel, on a CUDA tensor")
+    _check_lm("stages_small_r1", x)
+    _check_lm("stages_small_r1", tw)
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream if x.is_cuda else None
+    rc = CF._lib().stages_small_r1_probe_launch(
+        ctypes.byref(CF._field_params(spec)), int(bool(inverse)), x.data_ptr(), out.data_ptr(),
+        tw.data_ptr(), tw.shape[1], tile, x.shape[1], stream)
+    if rc != 0:
+        raise RuntimeError(f"stages_small_r1: kernel launch failed with CUDA error {rc}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # plain versions (any device; int64 arithmetic through ops/cuda_ff)
 # ---------------------------------------------------------------------------

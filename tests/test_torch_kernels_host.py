@@ -45,6 +45,7 @@ from halo2_liam_eagen_msm_tpu_torch.ops import cuda_ntt as CN
 from halo2_liam_eagen_msm_tpu_torch.ops import cuda_poly as CP
 from halo2_liam_eagen_msm_tpu_torch.ops import cuda_radix as CR
 from halo2_liam_eagen_msm_tpu_torch.ops import msm as M
+from halo2_liam_eagen_msm_tpu_torch.ops import mxu_ff as MX
 from halo2_liam_eagen_msm_tpu_torch.ops import radix as RX
 from halo2_liam_eagen_msm_tpu_torch.ops.ec import ec
 from halo2_liam_eagen_msm_tpu_torch.ops.ff import ff
@@ -69,6 +70,8 @@ _SHIM = """
 #define __restrict__
 #define __launch_bounds__(...)
 #define __shared__ static
+#define __align__(n) __attribute__((aligned(n)))
+struct uint2 { uint32_t x, y; };
 struct uint4 { uint32_t x, y, z, w; };
 struct idx3 { unsigned int x; };
 static idx3 blockIdx, threadIdx, blockDim, gridDim;
@@ -226,7 +229,7 @@ def host_library(tmp_path_factory):
         pytest.skip("no g++ to compile the CUDA sources for the host")
     out = tmp_path_factory.mktemp("host_kernels")
     n = 0
-    for name in ("kernels.cu", "ntt.cuh", "radix.cuh", "poly.cuh", "lines.cuh"):
+    for name in ("kernels.cu", "ntt.cuh", "radix.cuh", "poly.cuh", "lines.cuh", "mxu.cuh"):
         src = (_CSRC / name).read_text().replace("#include <cuda_runtime.h>", _SHIM)
         src, count = _rewrite_launches(src)
         n += count
@@ -390,11 +393,43 @@ def _radix_case(name, nprng):
             lambda *a: (CR.compact_plain(plan, parts, base4),), ())
 
 
+def _mont(v: int) -> int:
+    return v * SPEC.r_mod_p % SPEC.p
+
+
+def _mxu_case(name, nprng):
+    """The tensor-core product by a constant (csrc/mxu.cuh).  mxu_mul_const
+    at ragged 37 rows (two warp tiles of 32, the second partial) and at 600
+    (19 tiles: two blocks, the warps of the first taking three tiles each),
+    by five constants: a random one, 0, 1, the Montgomery one and p - 1's
+    Montgomery form; the rows 0, p - 1 and 1 among the inputs (_field).
+    mxu_mul_table at a (5, 8) table with 0 and the Montgomery one among its
+    rows (a block a position, 5 of its 32 rows used), at (70, 5) and at
+    (520, 4) (17 tiles a position: two blocks a position, the second
+    block's warps starting at tile 4)."""
+    if name == "mxu_mul_const":
+        cs = [_mont(0x1234567 ** 5 % SPEC.p), 0, 1, SPEC.r_mod_p, _mont(SPEC.p - 1)]
+        return (lambda *x: tuple(MX.mul_const(SPEC, xi, c) for xi in x for c in cs),
+                lambda *x: tuple(MX.mul_const_plain(SPEC, xi, c) for xi in x for c in cs),
+                (_field(nprng, B), _field(nprng, 600)))
+    assert name == "mxu_mul_table"
+    cases = []
+    for lead, n_pos in ((5, 8), (70, 5), (520, 4)):
+        table = _field(nprng, n_pos)
+        table[1] = 0
+        table[-1] = torch.from_numpy(ints_to_mont_limbs([1], SPEC).view("int32").copy())[0]
+        cases.append((_field(nprng, lead * n_pos).reshape(lead, n_pos, 16), table))
+    return (lambda *x: tuple(MX.mul_table(SPEC, a, t) for a, t in cases),
+            lambda *x: tuple(MX.mul_table_plain(SPEC, a, t) for a, t in cases), ())
+
+
 def _case(name, rng, nprng):
     """(kernel call, plain call, arguments) for kernel `name`."""
     E = ec(CURVE)
     if name.startswith("lm_") or name.startswith("stage"):
         return _lm_case(name, nprng)
+    if name.startswith("mxu_"):
+        return _mxu_case(name, nprng)
     if name.startswith("radix_"):
         return _radix_case(name, nprng)
     if name == "mont_mul":
@@ -460,7 +495,7 @@ def _case(name, rng, nprng):
     if name == "ec_add_mixed_fast":
         return (lambda *a: kernel(CURVE, *a),
                 lambda *a: CF.ec_add_mixed_fast_plain(CURVE, *a), (*p, qx, qy))
-    if name in ("ec_madd_xyzz_fast", "ec_madd_xyzz_fast_v1"):
+    if name == "ec_madd_xyzz_fast":
         return (lambda *a: kernel(CURVE, *a),
                 lambda *a: CF.ec_madd_xyzz_fast_plain(CURVE, *a), (*_xyzz(p), qx, qy))
     assert name == "fused_madd_scan_xyzz"
@@ -758,13 +793,32 @@ def _xyzz_scan_rows(rng, g: int, w: int):
     return carries, rows, flags, want
 
 
+@pytest.mark.parametrize("logn", range(3, 11))
+def test_stages_small_r1_on_host(logn, host_kernels, nprng):
+    """stages_small's 1-bit window (R = 1, 512 threads a block of 1024
+    elements, a barrier a stage), which the path's launcher takes at a tile
+    of 2 alone, run at the tile 2^logn through the test-only launcher, forward
+    and inverse: equal to the plain stages (_stage_plain, stage by stage)
+    limb for limb, over two blocks (the second ragged below a tile of 1024:
+    its spare tiles computed on zeros and not stored)."""
+    tile = 1 << logn
+    e = 2048 if tile == CN.BLOCK else CN.BLOCK + 3 * tile
+    before = dict(CF.LAUNCHES)
+    for inverse in (False, True):
+        tw = CN.tables(SPEC, logn, inverse, "cpu")
+        x = _lm(nprng, e)
+        got = CN.stages_small_r1(SPEC, x, tile, inverse, tw)
+        assert torch.equal(got, CN.stages_small_plain(SPEC, x, tile, inverse, tw))
+    assert CF.LAUNCHES == before  # a probe, counted on no path
+
+
 @pytest.mark.parametrize("w", [1, 2, 32])
 def test_ec_madd_xyzz_fast_scan_on_host(w, host_kernels, rng, nprng):
     """ec_madd_xyzz_fast's w-step scan (four lanes a carry) at ragged g = 37
     carries (blocks of 16, the third partial) on the edges of
     _xyzz_scan_rows: inner prefixes, totals and flags equal to the plain
-    version's loop limb for limb and flag for flag, to w launches of the
-    first design, and to the Python-int oracle (the flags exactly at the
+    version's loop limb for limb and flag for flag, and to the Python-int
+    oracle (the flags exactly at the
     identity carries and carry == +-Q, the prefixes of every unflagged
     step); w = 1 through the single step's wrapper too."""
     g = 37
@@ -778,13 +832,6 @@ def test_ec_madd_xyzz_fast_scan_on_host(w, host_kernels, rng, nprng):
     want_inner, want_totals, want_exc = CF.ec_madd_xyzz_fast_scan_plain(CURVE, *c, qx, qy, w)
     assert all(torch.equal(a, b) for a, b in zip(inner + totals, want_inner + want_totals))
     assert exc.dtype == torch.bool and torch.equal(exc, want_exc) and exc.tolist() == flags
-    v1, v1_exc = c, torch.zeros(g, dtype=torch.bool)
-    cols = [r.reshape(g, w, 16) for r in (qx, qy)]
-    for t in range(w):
-        *v1, e = CF.ec_madd_xyzz_fast_v1(CURVE, *v1, cols[0][:, t], cols[1][:, t])
-        v1_exc = v1_exc | e
-        assert all(torch.equal(a.reshape(g, w, 16)[:, t], b) for a, b in zip(inner, v1))
-    assert torch.equal(v1_exc, exc)
     got = E.points_to_ints(E.xyzz_to_jacobian(*inner))
     assert [u for u, (f, _) in zip(got, want) if not f] == [a for f, a in want if not f]
     if w == 1:
@@ -851,8 +898,6 @@ def test_flag_outputs_are_bool(host_kernels, rng, nprng):
         "ec_madd_xyzz_fast_scan": (
             lambda: CF.ec_madd_xyzz_fast_scan(CURVE, *(u[:18] for u in c), *cols, 2)[-1],
             lambda: CF.ec_madd_xyzz_fast_scan_plain(CURVE, *(u[:18] for u in c), *cols, 2)[-1]),
-        "ec_madd_xyzz_fast_v1": (lambda: CF.ec_madd_xyzz_fast_v1(CURVE, *c, qx, qy)[-1],
-                                 lambda: CF.ec_madd_xyzz_fast_plain(CURVE, *c, qx, qy)[-1]),
         "ec_add_mixed_fast": (lambda: CF.ec_add_mixed_fast(CURVE, *p, qx, qy)[-1],
                               lambda: CF.ec_add_mixed_fast_plain(CURVE, *p, qx, qy)[-1]),
         "fused_madd_scan_xyzz": (

@@ -48,6 +48,11 @@ without a card, and on any failed build, failed launch or mismatch.  It
      against their plain versions at a ragged size and at the shapes one
      round gives them, runs a 2^21 transform forward and back (n x back), and
      the limb-major forward transform against the element-major one,
+  8a. holds stages_small's 1-bit window (R = 1; the path takes it at a tile
+     of 2 alone) against the plain stages at every tile from 2 to 1024,
+     forward and inverse, one launch each through the test-only launcher, in
+     a child process under a time limit (utils/probe_stages_small_r1): a
+     hang, a fault or a mismatch fails the run,
   8b. holds the product by a constant on the tensor cores (ops/mxu_ff.py,
      csrc/mxu.cuh; no path calls it) against its plain version limb for
      limb: mxu_mul_const at 2^logn rows and at a ragged 5,003, by a random
@@ -66,14 +71,15 @@ without a card, and on any failed build, failed launch or mismatch.  It
      must be the identity, the witness must vanish at 64 sampled slots (on
      the card, and at two of them by Python-int Horner on the host), no level
      may take the coefficient fallback, each of the five kernels must have
-     been launched as counted, poly_mul_naive ten times and kate_div four
-     times a coefficient level, affine_lines once a level (the seeds and
-     every merge) and mont_mul not at all,
+     been launched as counted, poly_mul_naive ten times and kate_div2 twice
+     a coefficient level (kate_div not at all), affine_lines once a level
+     (the seeds and every merge) and mont_mul not at all,
   9b. tallies the launches of mont_mul and mont_addsub by B (rows a launch)
      and caller (the nearest frame outside the field layer), of ec_add and
      ec_add_fast by B, of ec_double by (B, doublings k), of batch_inv by
      (rows, chain length),
-     of poly_mul_naive and kate_div by shape, of affine_lines by (B, mode),
+     of poly_mul_naive, kate_div and kate_div2 by shape, of affine_lines by
+     (B, mode),
      of stages_small by (E, tile, direction, transform size) and of
      fused_madd_scan_xyzz by (g, W) over one MSM, one carry stage and one
      round (one ec_double launch a window of the MSM and a round of the
@@ -97,13 +103,19 @@ without a card, and on any failed build, failed launch or mismatch.  It
      fallback's, and (2048, 32), a 2^16 window's, against its plain version,
      flags included, and times it in turns with the fused scan's
      kernel at the same (g, w) (two lanes a carry, the same formula: lines
-     `A/B ec_madd_xyzz_fast at g = ...`); holds poly_mul_naive and kate_div at every shape the tally
-     gives them against their plain versions and the Python-int Poly, with
-     edge pairs (raw p - 1 everywhere, zero terms, the root 0), and times
-     them there, kate_div at one pair too (one chain's latency); holds
-     affine_lines against its plain version at every width the tally gives
-     it, head and seeds, on the round's own inputs and the edge slots of
-     curve_inputs (identities, P = P, P = -P), and times it there; then
+     `A/B ec_madd_xyzz_fast at g = ...`); holds poly_mul_naive at every shape the tally
+     gives it against its plain version and the Python-int Poly, with edge
+     pairs (raw p - 1 everywhere, zero terms), and times it there; holds
+     kate_div2 at every shape the tally gives it against its plain version,
+     against its first design's route (kate_div launched twice) and the
+     Python-int Poly, with edge pairs (raw p - 1 everywhere, ra = 0, rb =
+     0, ra = rb, zero terms), and times the two in turns there, at one pair
+     too (one chain's latency; lines `A/B kate_div2 at ...`); holds
+     affine_lines (two lanes a slot) against its plain version and its
+     first design (affine_lines_v1) at every width the tally gives it, head
+     and seeds, on the round's own inputs and the edge slots of curve_inputs
+     (identities, P = P, P = -P), and times the two in turns there (lines
+     `A/B affine_lines at ...`); then
      holds the kernels redesigned before against their plain versions bit
      for bit and times them at every shape the tally gives them: ec_add at
      every B (and 2048), stages_small forward and inverse at every (E,
@@ -111,16 +123,18 @@ without a card, and on any failed build, failed launch or mismatch.  It
      2^20), (2^21, 2^21)), batch_inv at every (rows, chain length) (and n =
      33, 512, 700, 2^16 and 2^21 rows), zeros planted, against
      FF._inv_host too, the fused scan at every g the tally gives it (and g =
-     256 and 4096); and ranks the fourteen kernels that rule 2 covers by
+     256 and 4096); and ranks the sixteen kernels that rule 2 covers by
      launches x (device ms - bound) over the main path (one MSM, one carry
-     stage and 56 rounds like the tallied one; ec_add_mixed, radix_rank and
-     radix_pass_b with no launch there, and their loss on their own paths on
+     stage and 56 rounds like the tallied one; ec_add_mixed, radix_rank,
+     radix_pass_b and the first designs kate_div and affine_lines_v1 with
+     no launch there, and their loss on their own paths on
      lines of their own: ec_add_mixed's over phase 6b's safe MSM, the radix
      kernels' over a radix-route MSM after phase 13),
-  9c. holds poly_mul_naive and kate_div against their plain versions at a
-     ragged shape and at the round's shape of the most products, and
-     affine_lines at a ragged width and the widest of the round (the
-     records of the JSON line),
+  9c. holds poly_mul_naive, kate_div2 and kate_div against their plain
+     versions at a ragged shape and at the round's shape of the most
+     products (kate_div2's), and affine_lines and affine_lines_v1 at a
+     ragged width and the widest of the round (the records of the JSON
+     line),
  10. drives one round of the witness at a cut width, 2^10 points, on the card
      and on the CPU (plain versions): the carries' final carry equal to the
      Python-int oracle, round 28 closing on both and equal limb for limb,
@@ -227,7 +241,8 @@ without a card, and on any failed build, failed launch or mismatch.  It
      sent a rank by collective kind and peak memory printed.  Four ranks
      time-share one card: the seconds say nothing about scaling,
  23. prints one JSON line describing the kernels (with phase 9b's shapes
-     and the rule-2 ranking; phase 8b's two, which no path launches, with no
+     and the rule-2 ranking; phase 8b's two, which no path launches, and the
+     first designs kept for one A/B (kate_div, affine_lines_v1), with no
      launch on any path, which is checked) and, last, one JSON line {"ok":
      true, "device": {...}}.
 
@@ -248,10 +263,10 @@ twiddles (s rows for a stage of half-size s) once.  batch_inv counts what
 any batch inversion of this run's n rows needs, whatever the kernel's chain
 length: the Montgomery trick's 3 (n - 1) products and one power of p - 2
 (cuda_ff.pow_products), one row read and one written.  poly_mul_naive counts
-La Lb products and La Lb - (La + Lb - 1) adds a pair, kate_div n - 1 of each;
-both each input row once (a shared operand once for all pairs) and each
-output row once.  affine_lines counts 10 products and 5 subtractions a slot
-(two normalisations, two negations and a line, whose products by a Z of 0
+La Lb products and La Lb - (La + Lb - 1) adds a pair, kate_div n - 1 of each,
+kate_div2 2 (n - 1) of each; each input row once (a shared operand once for
+all pairs; kate_div2's two roots a pair) and each output row once.
+affine_lines counts 10 products and 5 subtractions a slot (two normalisations, two negations and a line, whose products by a Z of 0
 or 1 are selects) and 6 products and 3 subtractions more a degenerate slot
 (the third point and the second line), its 9 input rows and 7 (head) or 3
 (seeds) output rows and 2 flag bytes a slot.  The radix kernels move data and count: their bound is
@@ -305,6 +320,7 @@ from halo2_liam_eagen_msm_tpu_torch.ops.ff import ff
 from halo2_liam_eagen_msm_tpu_torch.ops.poly import Poly as PolyInts
 from halo2_liam_eagen_msm_tpu_torch.parallel import mesh as PM
 from halo2_liam_eagen_msm_tpu_torch.parallel.launch import run_world
+from halo2_liam_eagen_msm_tpu_torch.utils import probe_stages_small_r1 as R1
 from halo2_liam_eagen_msm_tpu_torch.utils import pyref, ref_divisor, rustsem
 
 HBM_BYTES_PER_S = 3.35e12
@@ -351,8 +367,10 @@ KERNEL_TABLE = {
     # adds and rows from the shape (mul_naive_bound, kate_div_bound)
     "poly_mul_naive": ("poly.cuh", PALLAS_FF, 515, None, None, 0),
     "kate_div": ("poly.cuh", PALLAS_FF, 515, None, None, 0),
+    "kate_div2": ("poly.cuh", PALLAS_FF, 515, None, None, 0),
     # and at the merge head's: products from the run's slots (lines_bound)
     "affine_lines": ("lines.cuh", PALLAS_FF, 515, None, None, 0),
+    "affine_lines_v1": ("lines.cuh", PALLAS_FF, 515, None, None, 0),
     # the product by a constant on the tensor cores (no TPU kernel: the JAX
     # module's mul_const and mul_table); a row in and one out (mul_table: and
     # its position's table row once), no field product or add on the int32
@@ -366,11 +384,16 @@ PR6_ROUND_MONT_MUL = 16154  # a round's mont_mul launches before batch_inv
 FALLBACK_KERNELS = ("ec_madd_xyzz_fast", "ec_add_mixed")
 ROUND_KERNELS = ("lm_mul", "lm_addsub", "lm_mul_const", "stage_big", "stages_small")
 # the coefficient levels' two, and their launches a coefficient level (rf_mul
-# twice: five schoolbook products each; kate_div twice for a, twice for b)
-POLY_KERNELS = ("poly_mul_naive", "kate_div")
-POLY_PER_LEVEL = {"poly_mul_naive": 10, "kate_div": 4}
+# twice: five schoolbook products each; kate_div2 once for a, once for b)
+POLY_KERNELS = ("poly_mul_naive", "kate_div2")
+POLY_PER_LEVEL = {"poly_mul_naive": 10, "kate_div2": 2}
 RADIX_KERNELS = ("radix_rank", "radix_shuffle", "radix_pass_b", "radix_compact")
 OFF_PATH = ("mxu_mul_const", "mxu_mul_table")  # kernels no path launches (phase 8b's)
+# first designs kept for one A/B, launched by no path: kate_div (twice, the
+# route kate_div2 replaced; poly.kate_div keeps it for other callers) and
+# affine_lines_v1
+FIRST_DESIGNS = ("kate_div", "affine_lines_v1")
+R1_TIMEOUT_S = 180  # phase 8a's child process, start-up included
 ROUND_K = 28  # the round of the carry stage the round phase takes (= d // 2)
 BASE = 5  # radix of the argument's digit rounds
 CURVE = PALLAS
@@ -959,7 +982,7 @@ def profile_call(dev, what: str, fn) -> None:
 
 # the functions whose device time a round's profile attributes: span -> (the
 # module that holds the function, the name its callers look it up by)
-ROUND_SPANS = {"mul_naive": (P, "mul_naive"), "kate_div": (P, "kate_div"),
+ROUND_SPANS = {"mul_naive": (P, "mul_naive"), "kate_div": (P, "kate_div2"),
                "lm tail": (D, "_merge_tail_fused_lm"), "head lines": (D, "_head_lines")}
 
 
@@ -1466,6 +1489,30 @@ def check_ntt_kernels(dev, ragged: int, reps: int, top_logn: int):
 
 
 # ---------------------------------------------------------------------------
+# phase 8a: stages_small's 1-bit window at every tile, in a child process
+# ---------------------------------------------------------------------------
+
+def r1_phase() -> list:
+    """stages_small's R = 1 instantiation against the plain stages at every
+    tile from 2 to 1024, forward and inverse, one launch each through the
+    test-only launcher, in one child process that the probe kills past
+    R1_TIMEOUT_S (utils/probe_stages_small_r1): a hang fails the run here,
+    within the limit, as a mismatch or a fault does."""
+    print(f"stages_small R = 1: tiles {R1.TILES[0]} .. {R1.TILES[-1]}, forward and inverse, "
+          f"a child process under {R1_TIMEOUT_S} s", flush=True)
+    t0 = time.perf_counter()
+    recs = R1.probe(R1.TILES, R1_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    for r in recs:
+        print(f"  R = 1 at tile {r['tile']}, {'inverse' if r['inverse'] else 'forward'}: "
+              f"{r['outcome']} ({r['detail']})", flush=True)
+    require(all(r["outcome"] == "matched" for r in recs),
+            f"stages_small's R = 1 window equals the plain stages at every tile from "
+            f"{R1.TILES[0]} to {R1.TILES[-1]}, both ways ({len(recs)} launches, {seconds:.1f} s)")
+    return recs
+
+
+# ---------------------------------------------------------------------------
 # phase 8b: the product by a constant on the tensor cores (ops/mxu_ff.py)
 # ---------------------------------------------------------------------------
 
@@ -1682,6 +1729,9 @@ def round_path(dev, pts: JPoint, carry_state, profile: bool):
             f"the round's inversions went through batch_inv ({counts['batch_inv']} launches): "
             f"mont_mul {counts['mont_mul']} launches, below the {PR6_ROUND_MONT_MUL} of the "
             f"chains of launches")
+    require(counts["kate_div"] == 0 and counts["affine_lines_v1"] == 0,
+            f"the first designs kate_div and affine_lines_v1 were not launched "
+            f"({counts['kate_div']}, {counts['affine_lines_v1']})")
     require(counts["affine_lines"] == levels + 1 and counts["mont_mul"] == 0,
             f"affine_lines was launched once a level ({counts['affine_lines']} for the seeds "
             f"and {levels} merges), mont_mul not at all ({counts['mont_mul']})")
@@ -1766,6 +1816,7 @@ TALLY_KEYS = {
                   (width_of(a), chain or CF.batch_inv_chain(width_of(a)))),
     "poly_mul_naive": (CP, lambda spec, a, b: mul_naive_key(a, b)),
     "kate_div": (CP, lambda spec, c, b: (width_of(c[..., 0, :], b), c.shape[-2])),
+    "kate_div2": (CP, lambda spec, c, ra, rb: (width_of(c[..., 0, :], ra, rb), c.shape[-2])),
     "affine_lines": (CL, lambda spec, head, x, y, zinv:
                      (width_of(x[0], y[0], zinv[0]), "head" if head else "seeds")),
     "stages_small": (CN, lambda spec, x, tile, inverse, tw:
@@ -1776,7 +1827,7 @@ TALLY_KEYS = {
 BY_CALLER = ("mont_mul", "mont_addsub")
 TALLY_FORMAT = {"ec_double": "(B, k)", "batch_inv": "(rows, L)", "poly_mul_naive": "(pairs, La, Lb, a shared, b shared)",
                 "stages_small": "(E, tile, inverse, n)", "fused_madd_scan_xyzz": "(g, W)",
-                "kate_div": "(pairs, n)", "affine_lines": "(B, mode)"}
+                "kate_div": "(pairs, n)", "kate_div2": "(pairs, n)", "affine_lines": "(B, mode)"}
 
 
 class Tally:
@@ -2302,8 +2353,9 @@ def fused_scan_by_g(dev, base_pts, gs, launches: dict, reps: int):
 
 
 RULE2_KERNELS = ("mont_mul", "mont_addsub", "ec_add_fast", "ec_double", "poly_mul_naive",
-                 "kate_div", "affine_lines", "stages_small", "batch_inv",
-                 "fused_madd_scan_xyzz", "ec_add", "ec_add_mixed", "radix_rank", "radix_pass_b")
+                 "kate_div2", "kate_div", "affine_lines", "affine_lines_v1", "stages_small",
+                 "batch_inv", "fused_madd_scan_xyzz", "ec_add", "ec_add_mixed", "radix_rank",
+                 "radix_pass_b")
 
 
 def rule2_ranking(ab: dict) -> dict:
@@ -2336,11 +2388,13 @@ def ab_phase(dev, base_pts, tally, lines_in: dict, logn: int, ragged: int, row_s
     """Phase 9b.  mont_mul, mont_addsub and ec_add_fast against their plain
     versions at every width the tally gives them (mont_addsub and
     ec_add_fast at their kernel-phase shape and the ragged size too),
-    ec_double at every width the tally gives it; poly_mul_naive and kate_div
-    at every shape the tally gives them against their plain versions
-    (poly_by_shape); affine_lines at every width against its plain version
-    (affine_lines_by_width).  Then the kernels redesigned before against
-    their plain versions at every shape the tally gives them: ec_add at
+    ec_double at every width the tally gives it; poly_mul_naive at every
+    shape the tally gives it against its plain version (poly_by_shape);
+    kate_div2 at every shape against its plain version and its first
+    design's route, kate_div launched twice, timed in turns with it
+    (kate_div_ab); affine_lines at every width against its plain version
+    and its first design, the two timed in turns (affine_lines_by_width).
+    Then the kernels redesigned before against their plain versions at every shape the tally gives them: ec_add at
     every width (and 2048), stages_small at every (E, tile, direction, n)
     (and the fused levels' shapes of a 2^20 round), batch_inv at every
     (rows, chain length) (and n = 33, 512, 700, 2^16 and 2^(logn + 1)), the
@@ -2349,7 +2403,8 @@ def ab_phase(dev, base_pts, tally, lines_in: dict, logn: int, ragged: int, row_s
     window's shapes (ec_add_mixed_by_shape) and ec_madd_xyzz_fast's scan
     against its plain version, timed beside the fused scan's kernel
     (xyzz_scan_ab).  Last, the rule-2 ranking of
-    the fourteen over the main path (one MSM, one carry stage and 56 rounds
+    the sixteen (the first designs kate_div and affine_lines_v1 among them,
+    with no launch) over the main path (one MSM, one carry stage and 56 rounds
     like the tallied one): ec_add_mixed, radix_rank and radix_pass_b with no
     launch there (the safe flavor is a fallback, the radix route is off),
     the radix kernels at phase 12's full plan (radix_recs).  Returns
@@ -2380,10 +2435,12 @@ def ab_phase(dev, base_pts, tally, lines_in: dict, logn: int, ragged: int, row_s
     }
     out["ec_madd_xyzz_fast"] = xyzz_scan_ab(
         dev, base_pts, [row_shapes["ec_madd_xyzz_fast"], XYZZ_WIDE], reps)
-    for name in POLY_KERNELS:
-        out[name] = poly_by_shape(dev, name, tally[name]["round"], rounds, reps)
-    out["affine_lines"] = affine_lines_by_width(dev, base_pts, lines_in,
-                                                tally["affine_lines"]["round"], rounds, reps)
+    out["poly_mul_naive"] = poly_by_shape(dev, "poly_mul_naive",
+                                          tally["poly_mul_naive"]["round"], rounds, reps)
+    out["kate_div2"], out["kate_div"] = kate_div_ab(dev, tally["kate_div2"]["round"], rounds,
+                                                    reps)
+    out["affine_lines"], out["affine_lines_v1"] = affine_lines_by_width(
+        dev, base_pts, lines_in, tally["affine_lines"]["round"], rounds, reps)
     g = max(1, (1 << logn) // CF.SCAN_W)
     small = {(e, min(1 << ln, CN.BLOCK), inverse, 1 << ln)
              for ln, e in STAGES_SMALL_FIXED for inverse in (False, True)}
@@ -2460,6 +2517,14 @@ def kate_div_bound(key):
     return bound_ms("kate_div", pairs, pairs * (2 * n + 1) * ROW_BYTES, muls=n - 1, adds=n - 1)
 
 
+def kate_div2_bound(key):
+    """kate_div2's bound at (pairs, n): 2 (n - 1) products and adds a pair;
+    n coefficient rows and two roots read, n rows written a pair."""
+    pairs, n = key
+    return bound_ms("kate_div2", pairs, pairs * (2 * n + 2) * ROW_BYTES, muls=2 * (n - 1),
+                    adds=2 * (n - 1))
+
+
 def raw_rows(vals, dev):
     """Python ints -> (len, 16) limbs taken as they are (no Montgomery form)."""
     return limbs_from_numpy(ints_to_limbs(vals), dev)
@@ -2505,11 +2570,33 @@ def kate_div_inputs(nprng, key, dev):
     return c, b
 
 
+def kate_div2_inputs(nprng, key, dev):
+    """(coefficients, ra, rb) of a kate_div2 shape: kate_div_inputs' pairs
+    with ra their root (pair 0 all raw p - 1, pair 1 ra = 0, pair 2 zero
+    coefficients), rb random but for raw p - 1 in pair 0, rb = 0 in pair 2
+    and rb = ra in pair 3."""
+    c, ra = kate_div_inputs(nprng, key, dev)
+    rb = random_field(nprng, key[0], dev)
+    rb[0] = raw_rows([SPEC.p - 1], dev)[0]
+    if key[0] > 3:
+        rb[2] = 0
+        rb[3] = ra[3]
+    return c, ra, rb
+
+
+def kate_div2_v1(c, ra, rb):
+    """kate_div2's first design's route: kate_div launched twice."""
+    return CP.kate_div(SPEC, CP.kate_div(SPEC, c, ra), rb)
+
+
 POLY_CALLS = {
     # name: (kernel, plain version, inputs, bound)
     "poly_mul_naive": (lambda a, b: CP.poly_mul_naive(SPEC, a, b),
                        lambda a, b: CP.poly_mul_naive_plain(SPEC, a, b),
                        mul_naive_inputs, mul_naive_bound),
+    "kate_div2": (lambda c, ra, rb: CP.kate_div2(SPEC, c, ra, rb),
+                  lambda c, ra, rb: CP.kate_div2_plain(SPEC, c, ra, rb),
+                  kate_div2_inputs, kate_div2_bound),
     "kate_div": (lambda c, b: CP.kate_div(SPEC, c, b),
                  lambda c, b: CP.kate_div_plain(SPEC, c, b),
                  kate_div_inputs, kate_div_bound),
@@ -2525,27 +2612,32 @@ def poly_vs_ints(name: str, args, got, pairs: int = 3) -> bool:
             want = PolyInts(SPEC, ints(args[0][i])).mul_naive(PolyInts(SPEC, ints(args[1][i])))
             if ints(got[i]) != want.coeffs:
                 return False
-        else:
-            b = ints(args[1][i:i + 1])[0]
-            if ints(got[i]) != PolyInts(SPEC, ints(args[0][i])).kate_div(b).coeffs + [0]:
-                return False
+            continue
+        c = PolyInts(SPEC, ints(args[0][i]))
+        for r in args[1:]:
+            c = c.kate_div(ints(r[i:i + 1])[0])
+        if ints(got[i]) != c.coeffs + [0] * min(got.shape[1], len(args) - 1):
+            return False
     return True
 
 
 def check_poly_kernels(dev, row_keys: dict, ragged_keys: dict, reps: int):
-    """poly_mul_naive and kate_div against their plain versions at a ragged
-    shape and at the shape of the most launches on the path, with the edge
-    pairs of their inputs, the first three pairs against Python-int Poly
-    too; timed at the latter.  Returns their records for the JSON line."""
+    """poly_mul_naive, kate_div2 and kate_div against their plain versions
+    at a ragged shape and at the shape of the most launches on the path
+    (kate_div's: kate_div2's), with the edge pairs of their inputs, the
+    first pairs against Python-int Poly too, kate_div2 against kate_div
+    launched twice; timed at the latter.  Returns their records for the JSON
+    line."""
     nprng = np.random.default_rng(0xC0EF)
     recs = []
-    for name in POLY_KERNELS:
-        kernel, plain, inputs, bound = POLY_CALLS[name]
-
+    for name, (kernel, plain, inputs, bound) in POLY_CALLS.items():
         def host(key, args, got, name=name):
-            require(poly_vs_ints(name, args, got[0]),
-                    f"{name}: the first three pairs (raw p - 1 everywhere, zero terms or the "
+            require(poly_vs_ints(name, args, got[0], pairs=4),
+                    f"{name}: the first four pairs (raw p - 1 everywhere, zero terms or a "
                     f"root 0) equal the Python-int Poly at {key}")
+            if name == "kate_div2":
+                require(torch.equal(got[0], kate_div2_v1(*args)),
+                        f"kate_div2 equals kate_div launched twice at {key}")
         recs.append(check_kernel(
             dev, name, lambda *a, k=kernel: (k(*a),), lambda *a, p=plain: (p(*a),),
             lambda key, f=inputs: f(nprng, key, dev), [ragged_keys[name], row_keys[name]],
@@ -2555,9 +2647,8 @@ def check_poly_kernels(dev, row_keys: dict, ragged_keys: dict, reps: int):
 
 def poly_by_shape(dev, name: str, round_tally: dict, rounds: int, reps: int):
     """`name` at every shape one round gives it: equal to its plain version,
-    limb for limb, the first three pairs to Python-int Poly; device ms,
-    kate_div's at one pair too (one chain's latency).  Launches on the main
-    path: a round's x `rounds`."""
+    limb for limb, the first three pairs to Python-int Poly; device ms.
+    Launches on the main path: a round's x `rounds`."""
     nprng = np.random.default_rng(0xAB7)
     kernel, plain, inputs, bound = POLY_CALLS[name]
     out = []
@@ -2572,15 +2663,55 @@ def poly_by_shape(dev, name: str, round_tally: dict, rounds: int, reps: int):
         rec["ms"], rec["call_ms"] = time_ms(dev, lambda: kernel(*args), reps_here)
         b_ms, b_by = bound(key)
         rec.update(bound_ms=b_ms, bound_by=b_by, launches=count * rounds)
-        if name == "kate_div":
-            one = tuple(a[:1] for a in args)
-            rec["chain_ms"] = time_ms(dev, lambda: kernel(*one), reps_here)[0]
         out.append(rec)
         print(f"  {name} at {key} ({count} a round): {rec['ms']:.4f} ms on the device; "
-              f"{rec['call_ms']:.4f} ms a call on the host; bound {b_ms:.5f} ms ({b_by})"
-              + (f"; one chain {rec['chain_ms']:.4f} ms" if "chain_ms" in rec else ""),
+              f"{rec['call_ms']:.4f} ms a call on the host; bound {b_ms:.5f} ms ({b_by})",
               flush=True)
     return out
+
+
+def kate_div_ab(dev, round_tally: dict, rounds: int, reps: int):
+    """kate_div2 at every shape one round gives it: equal to its plain
+    version and to its first design's route (kate_div launched twice), limb
+    for limb, edge pairs included, the first four pairs to Python-int Poly;
+    device ms of kate_div2, of the route and of one kate_div launch, in
+    turns, and of kate_div2 and the route at one pair (one chain's latency).
+    Launches on the main path: a round's x `rounds` (kate_div: none).
+    Returns (kate_div2's records, kate_div's)."""
+    nprng = np.random.default_rng(0xAB9)
+    new_recs, old_recs = [], []
+    for key, count in round_tally.items():
+        c, ra, rb = kate_div2_inputs(nprng, key, dev)
+        new = CP.kate_div2(SPEC, c, ra, rb)
+        require(torch.equal(new, CP.kate_div2_plain(SPEC, c, ra, rb))
+                and torch.equal(new, kate_div2_v1(c, ra, rb))
+                and poly_vs_ints("kate_div2", (c, ra, rb), new, pairs=4),
+                f"kate_div2 == kate_div2_plain == kate_div launched twice at {key}, edge pairs "
+                f"included (raw p - 1, ra = 0, rb = 0, ra = rb); the first pairs equal the "
+                f"Python-int Poly")
+        reps_here = max(1, reps // 10)
+        ms, call = turns(dev, {"v2": lambda: CP.kate_div2(SPEC, c, ra, rb),
+                               "v1": lambda: kate_div2_v1(c, ra, rb),
+                               "one": lambda: CP.kate_div(SPEC, c, ra)}, reps_here)
+        one = (c[:1], ra[:1], rb[:1])
+        chain, _ = turns(dev, {"v2": lambda: CP.kate_div2(SPEC, *one),
+                               "v1": lambda: kate_div2_v1(*one)}, reps_here)
+        b2, by2 = kate_div2_bound(key)
+        b1, by1 = kate_div_bound(key)
+        new_recs.append({"shape": str(key), "key": list(key), "ms": ms["v2"],
+                         "call_ms": call["v2"], "v1_ms": ms["v1"], "v1_call_ms": call["v1"],
+                         "bound_ms": b2, "bound_by": by2, "v1_bound_ms": 2 * b1,
+                         "launches": count * rounds, "chain_ms": chain["v2"],
+                         "v1_chain_ms": chain["v1"]})
+        old_recs.append({"shape": str(key), "key": list(key), "ms": ms["one"],
+                         "call_ms": call["one"], "bound_ms": b1, "bound_by": by1, "launches": 0,
+                         "route_ms": ms["v1"]})
+        print(f"  A/B kate_div2 at {key} ({count} a round): v2 {ms['v2']:.4f} ms, v1 (kate_div "
+              f"twice) {ms['v1']:.4f} ms ({ms['v1'] / ms['v2']:.2f}x), one kate_div "
+              f"{ms['one']:.4f} ms on the device; bound {b2:.5f} ms ({by2}), v1's "
+              f"{2 * b1:.5f} ms; one pair: v2 {chain['v2']:.4f}, v1 {chain['v1']:.4f} ms; "
+              f"host ms a call: v2 {call['v2']:.4f}, v1 {call['v1']:.4f}", flush=True)
+    return new_recs, old_recs
 
 
 def lines_inputs(nprng, base_pts, b: int, dev):
@@ -2622,63 +2753,76 @@ def lines_outputs(fn, head: bool, args):
 
 def lines_deg(head: bool, x, y, zinv) -> int:
     """The degenerate slots of affine_lines' inputs, whose third point the
-    function reads and whose second line it takes, from the plain version:
-    those the head flags (equal points; on the seeds' inputs, p1 == p2), and
-    in the seeds also the both-identity slots."""
-    deg = int(CL.affine_lines_plain(SPEC, True, x, y, zinv)[1][0].sum())
-    if not head:
-        deg += int((zinv[:2] == 0).all(dim=-1).all(dim=0).sum())
-    return deg
+    function needs and whose second line it takes, from the plain version:
+    those the head flags (equal points, neither the identity; on the seeds'
+    inputs, p1 == p2).  A bypass slot's line is the constant, whatever its
+    points (in the seeds two identities give a vanishing line too)."""
+    return int(CL.affine_lines_plain(SPEC, True, x, y, zinv)[1][0].sum())
 
 
-def lines_bound(b: int, head: bool, n_deg: int):
+def lines_bound(b: int, head: bool, n_deg: int, name: str = "affine_lines"):
     """affine_lines' bound at b slots: 10 products and 5 subtractions a slot
     and 6 products and 3 subtractions more a degenerate one; the first two
     points' 6 rows read a slot and the third's 3 a degenerate one, 7 (head)
     or 3 (seeds) rows and 2 flag bytes (head) written a slot."""
     rows = 6 + (CL.HEAD_ROWS if head else CL.SEEDS_ROWS)
     extra = (b * rows + 3 * n_deg) * ROW_BYTES + (2 * b if head else 0)
-    return bound_ms("affine_lines", b, extra, muls=10 + 6 * n_deg / b,
-                    adds=5 + 3 * n_deg / b)
+    return bound_ms(name, b, extra, muls=10 + 6 * n_deg / b, adds=5 + 3 * n_deg / b)
 
 
 def affine_lines_by_width(dev, base_pts, lines_in: dict, round_tally: dict, rounds: int,
                           reps: int):
     """affine_lines at every (B, mode) one round gives it: on the round's own
     inputs (lines_in) and on lines_inputs' slots, head and seeds, equal to
-    the plain version, outputs and flags, the tangent slot 3 flagged
-    degenerate in the head; device ms on the round's inputs; host ms a call.
-    Launches on the main path: a round's x `rounds`."""
+    the plain version and to its first design (affine_lines_v1), outputs
+    and flags, the tangent slot 3 flagged degenerate in the head; device ms
+    of the two in turns on the round's inputs; host ms a call.  Launches
+    on the main path: a round's x `rounds` (affine_lines_v1: none).  Returns (affine_lines' records,
+    affine_lines_v1's)."""
     nprng = np.random.default_rng(0xAB8)
-    out = []
+    out, v1_out = [], []
     for (b, mode), count in round_tally.items():
         head, *args = lines_in[(b, mode)]
         cases = [(head, args, "the round's")]
         cases += [(h, a, "edge") for h, a in lines_inputs(nprng, base_pts, b, dev).items()]
         for h, a, what in cases:
             got = lines_outputs(CL.affine_lines, h, a)
-            err = outputs_equal(got, lines_outputs(CL.affine_lines_plain, h, a))
+            err = max(outputs_equal(got, lines_outputs(fn, h, a))
+                      for fn in (CL.affine_lines_plain, CL.affine_lines_v1))
             require(err == 0 and (what != "edge" or b < 5 or not h or bool(got[1][0, 3])),
-                    f"affine_lines == affine_lines_plain at B = {b}, "
-                    f"{'head' if h else 'seeds'}, on {what} slots"
+                    f"affine_lines == affine_lines_plain == affine_lines_v1 "
+                    f"at B = {b}, {'head' if h else 'seeds'}, on {what} slots"
                     + (" (identities, P = P flagged, P = -P)" if what == "edge" else ""))
-        ms, call_ms = time_ms(dev, lambda: CL.affine_lines(SPEC, head, *args), reps)
-        b_ms, b_by = lines_bound(b, head, lines_deg(head, *args))
-        out.append({"shape": f"B = {b}, {mode}", "b": b, "ms": ms, "call_ms": call_ms,
-                    "bound_ms": b_ms, "bound_by": b_by, "launches": count * rounds})
-        print(f"  affine_lines at B = {b}, {mode} ({count} a round): {ms:.4f} ms on the "
-              f"device; {call_ms:.4f} ms a call on the host; bound {b_ms:.6f} ms ({b_by})",
-              flush=True)
-    return out
+        ms, call = turns(dev, {"v2": lambda: CL.affine_lines(SPEC, head, *args),
+                               "v1": lambda: CL.affine_lines_v1(SPEC, head, *args)},
+                         max(1, reps // 2))
+        n_deg = lines_deg(head, *args)
+        b_ms, b_by = lines_bound(b, head, n_deg)
+        out.append({"shape": f"B = {b}, {mode}", "b": b, "ms": ms["v2"], "call_ms": call["v2"],
+                    "v1_ms": ms["v1"], "v1_call_ms": call["v1"],
+                    "bound_ms": b_ms, "bound_by": b_by, "launches": count * rounds,
+                    "degenerate_slots": n_deg})
+        v1_out.append({"shape": f"B = {b}, {mode}", "b": b, "ms": ms["v1"],
+                       "call_ms": call["v1"], "bound_ms": b_ms, "bound_by": b_by,
+                       "launches": 0})
+        print(f"  A/B affine_lines at B = {b}, {mode} ({count} a round, {n_deg} degenerate): "
+              f"two lanes {ms['v2']:.4f} ms, v1 (a thread a "
+              f"slot) {ms['v1']:.4f} ms ({ms['v1'] / ms['v2']:.2f}x) on the device; bound "
+              f"{b_ms:.6f} ms ({b_by}); host ms a call: two lanes {call['v2']:.4f}, v1 "
+              f"{call['v1']:.4f}", flush=True)
+    return out, v1_out
 
 
-def check_lines_kernel(dev, base_pts, lines_in: dict, keys, reps: int):
-    """affine_lines against its plain version at each (B, mode) of keys: a
-    ragged width on lines_inputs' slots, then the widest of the round on
-    the round's own inputs, timed there.  Returns its record for the JSON
-    line."""
+def check_lines_kernel(dev, base_pts, lines_in: dict, keys, reps: int,
+                       name: str = "affine_lines"):
+    """affine_lines (or its first design, name affine_lines_v1) against its
+    plain version at each (B, mode) of keys: a ragged width on
+    lines_inputs' slots, then the widest of the round on the round's own
+    inputs, timed there; affine_lines against affine_lines_v1 too.  Returns
+    its record for the JSON line."""
     nprng = np.random.default_rng(0xC0F0)
     inputs = {}
+    fn = getattr(CL, name)
 
     def make_inputs(key):
         if key in lines_in:
@@ -2688,10 +2832,16 @@ def check_lines_kernel(dev, base_pts, lines_in: dict, keys, reps: int):
             inputs[key] = (head, *lines_inputs(nprng, base_pts, key[0], dev)[head])
         return inputs[key]
 
+    def against_v1(key, args, got):
+        if name == "affine_lines":
+            require(outputs_equal(got, lines_outputs(CL.affine_lines_v1, args[0], args[1:])) == 0,
+                    f"affine_lines equals affine_lines_v1 at {key}")
+
     return check_kernel(
-        dev, "affine_lines", lambda head, *a: lines_outputs(CL.affine_lines, head, a),
+        dev, name, lambda head, *a: lines_outputs(fn, head, a),
         lambda head, *a: lines_outputs(CL.affine_lines_plain, head, a), make_inputs, keys,
-        reps, bound_of=lambda key: lines_bound(key[0], inputs[key][0], lines_deg(*inputs[key])))
+        reps, host_check=against_v1,
+        bound_of=lambda key: lines_bound(key[0], inputs[key][0], lines_deg(*inputs[key]), name))
 
 
 # ---------------------------------------------------------------------------
@@ -3579,7 +3729,7 @@ def config4_path(dev, base_pts, pts: JPoint, carry_out, rnd):
 ORACLE_FF_N = 1 << 16     # field values held against the C++ oracle
 ORACLE_MSM_N = 1 << 12    # points of the MSM held against it (double-and-add)
 ORACLE_TREE_N = 1 << 12   # closing points of the merge tree held against it
-TREE_KERNELS = ("batch_inv", "affine_lines", "poly_mul_naive", "kate_div") + ROUND_KERNELS
+TREE_KERNELS = ("batch_inv", "affine_lines", "poly_mul_naive", "kate_div2") + ROUND_KERNELS
 
 
 def distinct_points(rng, curve, n: int):
@@ -4103,6 +4253,7 @@ def main() -> int:
     recs = check_kernels(dev, base_pts, ragged=ragged, shapes=shapes,
                          scan_small_g=2050, reps=50)
     recs += check_ntt_kernels(dev, ragged=5000, reps=50, top_logn=args.logn + 1)
+    r1_phase()
     recs += mxu_phase(dev, args.logn, reps=50)
     radix_recs, radix_plans = check_radix_kernels(dev, args.logn, reps=50)
     recs += radix_recs
@@ -4121,18 +4272,23 @@ def main() -> int:
     radix_by_name = {rec["name"]: rec for rec in radix_recs if rec["name"] in RADIX_AB}
     ab, ranking = ab_phase(dev, base_pts, tally, lines_in, args.logn, ragged, shapes,
                            radix_by_name, reps=50)
-    # the coefficient levels' two: their records at the shape of the most
-    # products in a round and at a ragged one; the merge head's at a ragged
+    # the coefficient levels' kernels: their records at the shape of the most
+    # products in a round (kate_div, on no path now, at kate_div2's) and at
+    # a ragged one; the merge head's and its first design's at a ragged
     # width and the widest of the round
     work = {"poly_mul_naive": lambda key: key[0] * key[1] * key[2],
-            "kate_div": lambda key: key[0] * (key[1] - 1)}
+            "kate_div2": lambda key: key[0] * (key[1] - 1)}
     row_keys = {name: max(tally[name]["round"].items(),
                           key=lambda kv, name=name: (kv[1] * work[name](kv[0]), kv[0]))[0]
                 for name in POLY_KERNELS}
+    row_keys["kate_div"] = row_keys["kate_div2"]
     recs += check_poly_kernels(dev, row_keys, {"poly_mul_naive": (5003, 9, 17, False, False),
-                                               "kate_div": (5003, 33)}, reps=50)
-    recs.append(check_lines_kernel(dev, base_pts, lines_in,
-                                   [(5003, "head"), max(tally["affine_lines"]["round"])], reps=50))
+                                               "kate_div2": (5003, 33), "kate_div": (5003, 33)},
+                               reps=50)
+    for name in ("affine_lines", "affine_lines_v1"):
+        recs.append(check_lines_kernel(dev, base_pts, lines_in,
+                                       [(5003, "head"), max(tally["affine_lines"]["round"])],
+                                       reps=50, name=name))
     del lines_in
     # at 2^14 the fused scan flags and the safe flavor redoes the round at a
     # real width; at half of FUSED_SCAN_MIN_ROWS the stepwise scan runs
@@ -4186,7 +4342,7 @@ def main() -> int:
         name = rec["name"]
         rec["launches"] = (fallback_counts if name in FALLBACK_KERNELS else
                            rnd["counts"] if name in ROUND_KERNELS + POLY_KERNELS
-                           + ("affine_lines",) else
+                           + ("affine_lines",) + FIRST_DESIGNS else
                            radix_counts if name in RADIX_KERNELS else
                            amf_counts if name == "ec_add_mixed_fast" else msm_counts).get(name, 0)
         for key, counts in by_phase.items():
@@ -4199,7 +4355,7 @@ def main() -> int:
               f"forward), {rec['launches_config4']} (config 4), {rec['launches_safe_msm']} "
               f"(safe MSM); {rec['ms']} ms each on the device at shape {rec['shape']}",
               flush=True)
-        if name in OFF_PATH:
+        if name in OFF_PATH + FIRST_DESIGNS:
             require(all(rec[key] == 0 for key in by_phase),
                     f"{name}, a kernel of no path, was launched on no path")
         else:

@@ -249,8 +249,8 @@ def merge_pairs(curve: CurveSpec, a: Level, b: Level, consts=None, tail=None) ->
     LEVEL_COUNTS["coefficient"] += 1
     root_a, root_b = roots
     num = rf_mul(curve, a.wtns, rf_mul(curve, b.wtns, _line_rf(*line)))
-    qa = P.kate_div(spec, P.kate_div(spec, num.a, root_a), root_b)
-    qb = P.kate_div(spec, P.kate_div(spec, num.b, root_a), root_b)
+    qa = P.kate_div2(spec, num.a, root_a, root_b)
+    qb = P.kate_div2(spec, num.b, root_a, root_b)
     return Level(out, RF(k.select(bypass[..., None], num.a, qa),
                          k.select(bypass[..., None], num.b, qb)))
 
@@ -265,11 +265,12 @@ def _unsafe(k, bypass, deg, neg_ys, den_zero) -> bool:
 
 def _div_coeff(spec, num_a, num_b, bypass, roots):
     """Exact coefficient-domain division of a level's numerators (the
-    fallback): two kate divisions each, bypass slots undivided."""
+    fallback): both kate divisions in one walk each (kate_div2), bypass
+    slots undivided."""
     k = ff(spec)
     root_a, root_b = roots
-    qa = P.kate_div(spec, P.kate_div(spec, num_a, root_a), root_b)
-    qb = P.kate_div(spec, P.kate_div(spec, num_b, root_a), root_b)
+    qa = P.kate_div2(spec, num_a, root_a, root_b)
+    qb = P.kate_div2(spec, num_b, root_a, root_b)
     return k.select(bypass[..., None], num_a, qa), k.select(bypass[..., None], num_b, qb)
 
 

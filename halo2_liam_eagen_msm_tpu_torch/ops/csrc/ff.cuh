@@ -116,6 +116,15 @@ __device__ __forceinline__ Fe fe_select(bool m, const Fe& a, const Fe& b) {
   return r;
 }
 
+// Lane src's element, within groups of `width` neighbouring lanes (every
+// lane of the warp takes part): eight word shuffles.
+__device__ __forceinline__ Fe fe_shfl(const Fe& a, int src, int width) {
+  Fe r;
+#pragma unroll
+  for (int k = 0; k < FE_WORDS; k++) r.v[k] = __shfl_sync(0xFFFFFFFFu, a.v[k], src, width);
+  return r;
+}
+
 __device__ __forceinline__ Fe fe_zero() {
   Fe r;
 #pragma unroll

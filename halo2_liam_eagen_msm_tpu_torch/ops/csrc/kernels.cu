@@ -1155,12 +1155,36 @@ int kate_div_launch(const FieldParams* P, const void* c, const void* b, void* ou
   return (int)cudaGetLastError();
 }
 
+// ra_stride, rb_stride: rows from one pair's root to the next's (0: one root
+// for all pairs).
+int kate_div2_launch(const FieldParams* P, const void* c, const void* ra, const void* rb,
+                     void* out, int64_t pairs, int n, int64_t ra_stride, int64_t rb_stride,
+                     void* stream) {
+  if (pairs > 0 && n > 0)
+    kate_div2_kernel<<<grid_for(2 * pairs, KDIV2_BLOCK), KDIV2_BLOCK, 0,
+                       (cudaStream_t)stream>>>(
+        *P, (const uint32_t*)c, (const uint32_t*)ra, (const uint32_t*)rb, (uint32_t*)out, pairs,
+        n, ra_stride, rb_stride);
+  return (int)cudaGetLastError();
+}
+
 // x, y, zinv: (3, n) rows, the three points of each slot; out: (7, n) rows
 // (head) or (3, n) (seeds); flags: (2, n) bytes, written in head mode only.
 int affine_lines_launch(const FieldParams* P, const void* x, const void* y, const void* zinv,
                         void* out, void* flags, int64_t n, int head, void* stream) {
   if (n > 0)
-    affine_lines_kernel<<<grid_for(n, LINES_BLOCK), LINES_BLOCK, 0, (cudaStream_t)stream>>>(
+    affine_lines_kernel<<<grid_for(LINES_LANES * n, LINES_BLOCK), LINES_BLOCK, 0,
+                          (cudaStream_t)stream>>>(
+        *P, (const uint32_t*)x, (const uint32_t*)y, (const uint32_t*)zinv, (uint32_t*)out,
+        (uint8_t*)flags, n, head);
+  return (int)cudaGetLastError();
+}
+
+// The first design, for the A/B: the same arguments.
+int affine_lines_v1_launch(const FieldParams* P, const void* x, const void* y, const void* zinv,
+                           void* out, void* flags, int64_t n, int head, void* stream) {
+  if (n > 0)
+    affine_lines_v1_kernel<<<grid_for(n, LINES_BLOCK), LINES_BLOCK, 0, (cudaStream_t)stream>>>(
         *P, (const uint32_t*)x, (const uint32_t*)y, (const uint32_t*)zinv, (uint32_t*)out,
         (uint8_t*)flags, n, head);
   return (int)cudaGetLastError();

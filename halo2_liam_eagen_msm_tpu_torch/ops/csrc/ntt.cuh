@@ -128,9 +128,10 @@ stage_big_kernel(FieldParams P, int inverse, const uint32_t* __restrict__ x,
 //    design (a butterfly a thread, __syncthreads() between stages); a
 //    product by PTX carry chains (mad.lo.cc / madc.hi.cc) ran slower than
 //    fe_mul's C, its chains being serial; a 1-bit window (R = 1)
-//    ran at a tile of 2 but hung on the card from a tile of 8 up, so it is
-//    kept for the tile of 2 alone (one window; tests and chip_smoke.py hold
-//    it there);
+//    is taken for the tile of 2 alone (one window): with the window loop
+//    written as a count it equals the plain stages at every tile from 2 to
+//    1024 both ways (chip_smoke.py holds it there in every run, through
+//    the test-only launcher below), but no tile is routed to it;
 //  - twiddles staged once a block: the tile - 1 columns of the limb-major
 //    table, read coalesced and packed to 8 words in shared memory (reading
 //    them from the table in each stage ran slower);
@@ -207,7 +208,13 @@ __device__ __forceinline__ void small_stages(const FieldParams& P, uint32_t* dat
     small_window<R, INV, false>(P, data, twid, t, log_tile - R, top_m_lo);
     __syncthreads();
   }
-  for (int c = INV ? 0 : full - 1; c >= 0 && c < full; c += INV ? 1 : -1) {
+  // the windows walked as a count, the window's index derived from it: nvcc
+  // compiled the R = 1 forward instantiation of a loop that stepped c down
+  // from full - 1 with the test c >= 0 && c < full into a back edge testing
+  // c <= full && full != 1, which hung the launch on the card from a tile
+  // of 4 up (PERF.md section 7)
+  for (int w = 0; w < full; w++) {
+    const int c = INV ? w : full - 1 - w;
     if (c == 0)
       small_window<R, INV, true>(P, data, twid, t, 0, 0);
     else
@@ -329,7 +336,7 @@ int stages_small_launch(const FieldParams* P, int inverse, const void* x, void* 
 // Test-only: the 1-bit window (R = 1) at any tile, which stages_small_launch
 // takes at a tile of 2 alone (section 14).  No path calls it; the host
 // rehearsal (tests/test_torch_kernels_host.py) and the card probe
-// (ops/cuda_ntt.probe_stages_small_r1) do.
+// (utils/probe_stages_small_r1.py, which chip_smoke.py runs) do.
 int stages_small_r1_probe_launch(const FieldParams* P, int inverse, const void* x, void* out,
                                  const void* tw, int64_t tw_stride, int tile, int64_t e,
                                  void* stream) {

@@ -1,7 +1,8 @@
-// The coefficient levels' two kernels: mont_mul's work at the shapes of the
+// The coefficient levels' kernels: mont_mul's work at the shapes of the
 // divisor merge tree's coefficient levels (divisor.merge_pairs below
-// FUSE_MIN_LA), each in one launch.  Included by kernels.cu; wrappers and
-// plain versions in ops/cuda_poly.py.
+// FUSE_MIN_LA), each in one launch: poly_mul_naive, and the divisions,
+// kate_div by one root and kate_div2 by two in one walk (the path's).
+// Included by kernels.cu; wrappers and plain versions in ops/cuda_poly.py.
 //
 // Both replace pallas_ff.py:515 mont_mul (and :541 mont_addsub) where the
 // JAX package's ops/poly.py compiles them into one body: mul_naive (:104,
@@ -320,4 +321,58 @@ kate_div_kernel(FieldParams P, const uint32_t* __restrict__ c, const uint32_t* _
     *reinterpret_cast<uint4*>(out + ((first + u / 4) * n + n - 1) * ELEMS_PER_ROW +
                               4 * (u & 3)) = z;
   }
+}
+
+// ---- kate_div2: both divisions of a coefficient level in one walk -------------
+//
+// For each pair, the quotient of c(x) by (x - ra)(x - rb) with the remainders
+// dropped, limb for limb kate_div(kate_div(c, ra), rb): the same static length
+// n, the last rows zero.  The two recurrences run top-down in one walk,
+//   q1_{k-1} = c_k + ra q1_k,   q2_{k-1} = q1_k + rb q2_k,   q1_{n-1} = q2_{n-1} = 0,
+// q2 written as it comes, q1 never leaving registers.  Two lanes a pair: the
+// even lane carries q1 (it reads the coefficients, one row ahead of the
+// step), the odd one q2 (it writes the quotient); at each step the odd lane
+// takes q1_k from the even one by __shfl_sync, so the two products of a step
+// run side by side on two lanes.
+//
+// Against kate_div launched twice, the first design's route (a warp a block,
+// a thread a pair, rows staged through shared memory a chunk at a time):
+// half the launches, half the bytes (q1 is never written and read back; n
+// rows in, n out and two roots a pair), four warps a block, each thread's
+// loads a row ahead, and one chain of n - 1 steps of one product each in
+// place of two.  What bounds it is the rate at which an SM sub-partition
+// dispatches fe_mul's instructions: a warp's product holds its
+// sub-partition about as many cycles as its chain takes alone, so the 2^14
+// pairs of 34-35 terms (two warps a sub-partition) run at about twice one
+// chain's time, and the 2^18 pairs of 4-5 terms at 2.4x their bytes bound.
+// One thread a pair, the two products of a step side by side in it, ran
+// 1.6x slower over a round (its two products do not overlap; PERF.md row
+// 1d).
+
+#define KDIV2_BLOCK 128
+
+__global__ void __launch_bounds__(KDIV2_BLOCK)
+kate_div2_kernel(FieldParams P, const uint32_t* __restrict__ c, const uint32_t* __restrict__ ra,
+                 const uint32_t* __restrict__ rb, uint32_t* __restrict__ out, int64_t pairs,
+                 int n, int64_t ra_stride, int64_t rb_stride) {
+  const int odd = threadIdx.x & 1;
+  const int64_t pair = global_index() >> 1;
+  const int64_t s = pair < pairs ? pair : pairs - 1;  // a ragged block's spare lanes
+  const bool store = odd && pair < pairs;
+  const Fe r = fe_load(odd ? rb + s * rb_stride * ELEMS_PER_ROW
+                           : ra + s * ra_stride * ELEMS_PER_ROW);
+  const uint32_t* crow = c + s * n * ELEMS_PER_ROW;
+  uint32_t* orow = out + s * n * ELEMS_PER_ROW;
+  Fe acc = fe_zero();
+  Fe next = fe_zero();
+  if (!odd && n >= 2) next = fe_load(crow + (int64_t)(n - 1) * ELEMS_PER_ROW);  // c_{n-1}
+#pragma unroll 1
+  for (int k = n - 1; k >= 1; k--) {
+    const Fe q1 = fe_shfl(acc, 0, 2);  // q1_k, the even lane's
+    const Fe addend = odd ? q1 : next;
+    if (!odd && k >= 2) next = fe_load(crow + (int64_t)(k - 1) * ELEMS_PER_ROW);
+    acc = fe_add(addend, fe_mul(r, acc, P), P);
+    if (store) fe_store(orow + (int64_t)(k - 1) * ELEMS_PER_ROW, acc);  // q2_{k-1}
+  }
+  if (store) fe_store(orow + (int64_t)(n - 1) * ELEMS_PER_ROW, fe_zero());
 }

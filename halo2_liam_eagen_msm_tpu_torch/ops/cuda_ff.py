@@ -56,12 +56,13 @@ launches its kernel.  The same library, counters and launcher carry the five
 kernels of the divisor merge tree (csrc/ntt.cuh), whose wrappers and plain
 versions are in ops/cuda_ntt.py, the four of the MSM's radix reorder
 (csrc/radix.cuh), whose wrappers and plain versions are in ops/cuda_radix.py,
-the coefficient levels' two (csrc/poly.cuh: mont_mul's work at the
-schoolbook product and the Horner division), whose wrappers and plain
-versions are in ops/cuda_poly.py, and the merge head's affine_lines
-(csrc/lines.cuh: mont_mul's and mont_addsub's work at the affine
-normalisation and the lines of divisor.merge_head and divisor.seeds), whose
-wrapper and plain version are in ops/cuda_lines.py; and mxu_mul_const /
+the coefficient levels' three (csrc/poly.cuh: mont_mul's work at the
+schoolbook product and the Horner division, by one root or by two in one
+walk), whose wrappers and plain versions are in ops/cuda_poly.py, and the
+merge head's affine_lines (csrc/lines.cuh: mont_mul's and mont_addsub's work
+at the affine normalisation and the lines of divisor.merge_head and
+divisor.seeds) with its first design affine_lines_v1, whose wrappers and
+plain version are in ops/cuda_lines.py; and mxu_mul_const /
 mxu_mul_table (csrc/mxu.cuh: the product by a constant, or by a table row
 a position, on the tensor cores), whose wrappers and plain versions are in
 ops/mxu_ff.py and which no path launches.
@@ -88,10 +89,13 @@ KERNELS = ("mont_mul", "batch_inv", "mont_addsub", "ec_add", "ec_add_fast",
            "lm_mul", "lm_addsub", "lm_mul_const", "stage_big", "stages_small",
            # the radix reorder's four, in csrc/radix.cuh (ops/cuda_radix.py)
            "radix_rank", "radix_shuffle", "radix_pass_b", "radix_compact",
-           # the coefficient levels' two, in csrc/poly.cuh (ops/cuda_poly.py)
-           "poly_mul_naive", "kate_div",
-           # the merge head's, in csrc/lines.cuh (ops/cuda_lines.py)
-           "affine_lines",
+           # the coefficient levels', in csrc/poly.cuh (ops/cuda_poly.py):
+           # kate_div2 both divisions of a level, kate_div one (twice: the
+           # first design's route, kept for one A/B)
+           "poly_mul_naive", "kate_div", "kate_div2",
+           # the merge head's, in csrc/lines.cuh (ops/cuda_lines.py), and its
+           # first design, kept for one A/B (no path launches it)
+           "affine_lines", "affine_lines_v1",
            # the product by a constant on the tensor cores, in csrc/mxu.cuh
            # (ops/mxu_ff.py; no path launches them)
            "mxu_mul_const", "mxu_mul_table")
@@ -213,7 +217,9 @@ def _lib():
             "poly_mul_naive_launch":
                 [fpp, vp, vp, vp, i64, ci, ci, i64, i64, ci, ci, ci, ci, vp],
             "kate_div_launch": [fpp, vp, vp, vp, i64, ci, i64, vp],
+            "kate_div2_launch": [fpp, vp, vp, vp, vp, i64, ci, i64, i64, vp],
             "affine_lines_launch": [fpp] + [vp] * 5 + [i64, ci, vp],
+            "affine_lines_v1_launch": [fpp] + [vp] * 5 + [i64, ci, vp],
             "mxu_mul_const_launch": [fpp, ctypes.c_void_p, vp, vp, i64, vp],
             "mxu_mul_table_launch": [fpp, ctypes.c_void_p, vp, vp, vp, i64, i64, vp],
         }

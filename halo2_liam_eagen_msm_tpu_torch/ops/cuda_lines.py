@@ -4,19 +4,23 @@ mont_mul's and mont_addsub's work at the shape of divisor.merge_head and
 divisor.seeds, in one launch a level (source in csrc/lines.cuh, CUDA C++ for
 sm_90a, built into the one library of ops/cuda_ff.py):
 
-  kernel         replaces                            what it computes
-  affine_lines   pallas_ff.mont_mul (:515) and       from three points a slot
-                 mont_addsub (:541), at the JAX      and their inverted Z: the
-                 divisor.merge_head / seeds' affine  affine normalisation, the
-                 normalisation (ec.to_affine) and    line through the first two
-                 linefunc_affine                     (through the first and the
-                                                     third where it vanishes),
-                                                     the masks
+  kernel           replaces                          what it computes
+  affine_lines     pallas_ff.mont_mul (:515) and     from three points a slot
+                   mont_addsub (:541), at the JAX    and their inverted Z: the
+                   divisor.merge_head / seeds'       affine normalisation, the
+                   affine normalisation              line through the first two
+                   (ec.to_affine) and                (through the first and the
+                   linefunc_affine                   third where it vanishes),
+                                                     the masks; a slot on two
+                                                     lanes
+  affine_lines_v1  the same; its first design, one   the same
+                   thread a slot, kept for one A/B
+                   (no path launches it)
 
-divisor.py takes it for a CUDA tensor and the plain version for a CPU one.
-_lines writes the computation on field ops passed in; on the plain products
-and subtractions of ops/cuda_ff.py it is the plain version.  Every value is
-fully reduced, so kernel and plain version agree limb for limb.
+divisor.py takes affine_lines for a CUDA tensor and the plain version for a
+CPU one.  _lines writes the computation on field ops passed in; on the plain
+products and subtractions of ops/cuda_ff.py it is the plain version.  Every
+value is fully reduced, so kernels and plain version agree limb for limb.
 """
 
 from __future__ import annotations
@@ -33,27 +37,37 @@ HEAD_ROWS = 7    # lx, ly, lz, the negated ys of a.out and b.out, the two roots
 SEEDS_ROWS = 3   # lx, ly, lz
 
 
-def affine_lines(spec: FieldSpec, head: bool, x, y, zinv):
-    """x, y, zinv: (3, ..., 16), the three points of each slot stacked (head:
-    a.out, b.out, a.out + b.out; seeds: p1, p2, -(p1 + p2)) and their inverted
-    Z (0 for the identity).  One kernel launch, a thread a slot.  Returns
-    (rows, flags): head rows (7, ..., 16) = lx, ly, lz, nay, nby, root_a,
-    root_b and flags (2, ...) bool = deg, bypass; seeds rows (3, ..., 16) =
-    lx, ly, lz and flags None."""
-    CF._check_cuda("affine_lines", x, y, zinv)
+def _lines_launch(name: str, spec: FieldSpec, head: bool, x, y, zinv):
+    CF._check_cuda(name, x, y, zinv)
     lead, (xf, yf, zf) = CF._flatten(x, y, zinv)
     if lead[:1] != (3,):
-        raise ValueError(f"affine_lines: three points a slot, got {tuple(lead)}")
+        raise ValueError(f"{name}: three points a slot, got {tuple(lead)}")
     n = xf.shape[0] // 3
     rows = HEAD_ROWS if head else SEEDS_ROWS
     out = torch.empty((rows * n, N_LIMBS), dtype=torch.int32, device=xf.device)
     flags = torch.empty(2 * n, dtype=torch.bool, device=xf.device) if head else None
     if n:
-        CF._launch("affine_lines", xf.device, ctypes.byref(CF._field_params(spec)),
+        CF._launch(name, xf.device, ctypes.byref(CF._field_params(spec)),
                    xf.data_ptr(), yf.data_ptr(), zf.data_ptr(), out.data_ptr(),
                    flags.data_ptr() if head else None, n, int(head))
     return (out.reshape((rows,) + lead[1:] + (N_LIMBS,)),
             flags.reshape((2,) + lead[1:]) if head else None)
+
+
+def affine_lines(spec: FieldSpec, head: bool, x, y, zinv):
+    """x, y, zinv: (3, ..., 16), the three points of each slot stacked (head:
+    a.out, b.out, a.out + b.out; seeds: p1, p2, -(p1 + p2)) and their inverted
+    Z (0 for the identity).  One kernel launch, a slot on two lanes.  Returns
+    (rows, flags): head rows (7, ..., 16) = lx, ly, lz, nay, nby, root_a,
+    root_b and flags (2, ...) bool = deg, bypass; seeds rows (3, ..., 16) =
+    lx, ly, lz and flags None."""
+    return _lines_launch("affine_lines", spec, head, x, y, zinv)
+
+
+def affine_lines_v1(spec: FieldSpec, head: bool, x, y, zinv):
+    """affine_lines by its first design, one thread a slot: the same
+    arguments and results.  Kept for one A/B; no path calls it."""
+    return _lines_launch("affine_lines_v1", spec, head, x, y, zinv)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""The coefficient levels' two CUDA kernels, with their plain versions.
+"""The coefficient levels' CUDA kernels, with their plain versions.
 
 mont_mul's work at the two heaviest shapes of the divisor merge tree's
 coefficient levels (divisor.merge_pairs below FUSE_MIN_LA), each in one
@@ -16,16 +16,23 @@ library of ops/cuda_ff.py):
   kate_div         pallas_ff.mont_mul and mont_addsub  synthetic division by
                    (:515, :541), at the JAX ops/poly   (x - b), remainder
                    .kate_div scan's body (n <= 64)     dropped, same length n
+  kate_div2        the same, at the two scans of a     the quotient by (x - ra)
+                   coefficient level (JAX divisor.py   (x - rb), remainders
+                   :342-343, :452-453, :533-534)       dropped, same length n:
+                                                       kate_div twice in one
+                                                       walk (two lanes a pair)
 
 ops/poly.py takes them for a CUDA tensor and the plain versions for a CPU
-one.  poly_mul_naive has two instantiations: the lazy sums where a diagonal
-has three products or more, and its first design (a thread an output, a
-full reduction a product) where no diagonal has more than two.  The plain
-versions are today's algorithms on the plain products and adds of
-ops/cuda_ff.py, device-agnostic: the outer product, its int64 anti-diagonal
-sums and one reduction a coefficient; the Horner chain of n - 1 products
-and adds.  Every result is fully reduced, so kernel and plain version agree
-limb for limb.
+one; the merge tree divides by kate_div2, and kate_div launched twice is its
+first design's route, kept for one A/B.  poly_mul_naive has two
+instantiations: the lazy sums where a diagonal has three products or more,
+and its first design (a thread an output, a full reduction a product) where
+no diagonal has more than two.  The plain versions are today's algorithms on
+the plain products and adds of ops/cuda_ff.py, device-agnostic: the outer
+product, its int64 anti-diagonal sums and one reduction a coefficient; the
+Horner chain of n - 1 products and adds, and the two chains side by side.
+Every result is fully reduced, so kernel and plain version agree limb for
+limb.
 """
 
 from __future__ import annotations
@@ -136,6 +143,28 @@ def kate_div(spec: FieldSpec, coeffs, b):
     return out
 
 
+def kate_div2(spec: FieldSpec, coeffs, ra, rb):
+    """The quotient of (..., n, 16) coefficients by (x - ra)(x - rb), ra and
+    rb (..., 16), the remainders dropped: kate_div(kate_div(coeffs, ra), rb)
+    limb for limb, one kernel launch (two lanes a pair, both recurrences in
+    one walk); returns (..., n, 16) with the last rows zero."""
+    CF._check_cuda("kate_div2", coeffs, ra, rb)
+    n = coeffs.shape[-2]
+    lead = torch.broadcast_shapes(coeffs.shape[:-2], ra.shape[:-1], rb.shape[:-1])
+    pairs = math.prod(lead)
+    cf = coeffs.expand(lead + (n, N_LIMBS)).contiguous()
+    if cf.data_ptr() % 16:
+        raise ValueError("limb rows must be 16-byte aligned")
+    raf, ra_stride = _pair_rows(ra[..., None, :], lead)
+    rbf, rb_stride = _pair_rows(rb[..., None, :], lead)
+    out = torch.empty_like(cf)
+    if pairs and n:
+        CF._launch("kate_div2", coeffs.device, ctypes.byref(CF._field_params(spec)),
+                   cf.data_ptr(), raf.data_ptr(), rbf.data_ptr(), out.data_ptr(), pairs, n,
+                   ra_stride, rb_stride)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the algorithms, on any field ops; the plain versions
 # ---------------------------------------------------------------------------
@@ -171,6 +200,20 @@ def _horner(coeffs, b, mul, add):
     return torch.stack(q[::-1], dim=-2)
 
 
+def _horner2(coeffs, ra, rb, mul, add):
+    """The quotient by (x - ra)(x - rb) as the two Horner chains in one walk:
+    q1_{k-1} = c_k + ra q1_k and q2_{k-1} = q1_k + rb q2_k from q1_{n-1} =
+    q2_{n-1} = 0; 2 (n - 1) products and adds over all pairs at once."""
+    n = coeffs.shape[-2]
+    lead = torch.broadcast_shapes(coeffs.shape[:-2], ra.shape[:-1], rb.shape[:-1])
+    q1 = q2 = torch.zeros(lead + (N_LIMBS,), dtype=coeffs.dtype, device=coeffs.device)
+    q = [q2]                       # q2_{n-1} = 0, the dropped slot
+    for j in range(n - 1, 0, -1):
+        q1, q2 = add(coeffs[..., j, :], mul(ra, q1)), add(q1, mul(rb, q2))
+        q.append(q2)
+    return torch.stack(q[::-1], dim=-2)
+
+
 def poly_mul_naive_plain(spec: FieldSpec, a, b):
     """Plain version of poly_mul_naive: _schoolbook on the plain products and
     the plain reduction."""
@@ -182,6 +225,12 @@ def kate_div_plain(spec: FieldSpec, coeffs, b):
     """Plain version of kate_div: _horner on the plain products and adds."""
     return _horner(coeffs, b, lambda x, y: CF.mont_mul_plain(spec, x, y),
                    lambda x, y: CF.mont_addsub_plain(spec, False, x, y))
+
+
+def kate_div2_plain(spec: FieldSpec, coeffs, ra, rb):
+    """Plain version of kate_div2: _horner2 on the plain products and adds."""
+    return _horner2(coeffs, ra, rb, lambda x, y: CF.mont_mul_plain(spec, x, y),
+                    lambda x, y: CF.mont_addsub_plain(spec, False, x, y))
 
 
 def reduction_edges(spec: FieldSpec, k: int, seed: int = 0):

@@ -9,12 +9,13 @@ Counterpart of the JAX package's ops/poly.py:
     reduced dot product
   * kate division (synthetic division by (x - b), remainder dropped): the
     sequential Horner chain for n <= 64, otherwise suffix sums of c_j b^j
-    scaled by inverse powers
+    scaled by inverse powers; kate_div2 divides by (x - ra)(x - rb), the
+    two Horner chains in one walk for n <= 64
   * short products are the schoolbook product; long products use the NTT;
     the dispatch is the reference's len < 32 rule
 
 Every op takes its device from its tensors.  The schoolbook product and the
-Horner chain (the divisor's coefficient levels) are one kernel launch each
+Horner chains (the divisor's coefficient levels) are one kernel launch each
 on a CUDA tensor (ops/cuda_poly.py) and their plain versions on a CPU one;
 the rest runs through ops/ff.py and ops/ntt.py.  `Poly` is the host-side
 exact-length polynomial (Python ints) of the tests and the oracles.
@@ -95,6 +96,22 @@ def kate_div(spec: FieldSpec, coeffs, b):
     q = k.mul(k.mul(s_next, powers(spec, b_inv, n)), b_inv[..., None, :])
     shifted = torch.cat([coeffs[..., 1:, :], _zeros_row(coeffs)], dim=-2)
     return k.select(b_is_zero[..., None], shifted, q)
+
+
+def kate_div2(spec: FieldSpec, coeffs, ra, rb):
+    """Division by (x - ra)(x - rb), dropping the remainders: kate_div(
+    kate_div(coeffs, ra), rb), the same static length with the last
+    coefficients zero.  n <= 64: both recurrences in one walk, one kate_div2
+    launch on the card (its plain version on the CPU); longer: kate_div
+    twice (the suffix sums)."""
+    n = coeffs.shape[-2]
+    if n <= 1:
+        return torch.zeros_like(coeffs)
+    if n <= 64:
+        if cuda_ff._use_kernel(coeffs):
+            return CP.kate_div2(spec, coeffs, ra, rb)
+        return CP.kate_div2_plain(spec, coeffs, ra, rb)
+    return kate_div(spec, kate_div(spec, coeffs, ra), rb)
 
 
 def mul_naive(spec: FieldSpec, a, b):

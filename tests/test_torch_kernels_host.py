@@ -460,7 +460,7 @@ def _case(name, rng, nprng):
         ops.append((_field(nprng, 9 * 5).reshape(9, 5, 16), _field(nprng, 4).expand(9, 4, 16)))
         return (lambda *a: tuple(CP.poly_mul_naive(SPEC, x, y) for x, y in ops),
                 lambda *a: tuple(CP.poly_mul_naive_plain(SPEC, x, y) for x, y in ops), ())
-    if name == "affine_lines":
+    if name.startswith("affine_lines"):
         # head and seeds on the edge slots of _edge_points (37 slots: a
         # ragged block)
         hp, hq = _edge_points(rng)
@@ -468,7 +468,7 @@ def _case(name, rng, nprng):
 
         def both(fn):
             return lambda *a: (*fn(SPEC, True, *ins[True]), fn(SPEC, False, *ins[False])[0])
-        return both(CL.affine_lines), both(CL.affine_lines_plain), ()
+        return both(getattr(CL, name)), both(CL.affine_lines_plain), ()
     if name == "kate_div":
         # 37 pairs (a ragged second block) at n = 5 and 34 (two chunks of the
         # chain, the second one row), b = 0 in pair 3; one b for all pairs
@@ -480,6 +480,18 @@ def _case(name, rng, nprng):
         cases.append((_field(nprng, 6 * 3).reshape(6, 3, 16), _field(nprng, 1)[0]))
         return (lambda *a: tuple(CP.kate_div(SPEC, c, b) for c, b in cases),
                 lambda *a: tuple(CP.kate_div_plain(SPEC, c, b) for c, b in cases), ())
+    if name == "kate_div2":
+        # 37 pairs (74 lanes: a ragged block of 128) at n = 5 and 34, ra = 0
+        # in pair 3 and rb = 0 in pair 4; one pair of roots (p - 1, 1) for all
+        # pairs
+        cases = []
+        for n in (5, 34):
+            ra, rb = _field(nprng, B), _field(nprng, B)
+            ra[3], rb[4] = 0, 0
+            cases.append((_field(nprng, B * n).reshape(B, n, 16), ra, rb))
+        cases.append((_field(nprng, 6 * 3).reshape(6, 3, 16), *_field(nprng, 4)[1:3]))
+        return (lambda *a: tuple(CP.kate_div2(SPEC, *c) for c in cases),
+                lambda *a: tuple(CP.kate_div2_plain(SPEC, *c) for c in cases), ())
     hp, hq = _edge_points(rng)
     p = _jacobian(rng, nprng, hp)
     if name in ("ec_add", "ec_add_fast", "ec_double"):
@@ -969,16 +981,20 @@ def test_mont_addsub_edges_on_host(name, host_kernels, rng):
         assert torch.equal(got, limbs(want))
 
 
-@pytest.mark.parametrize("name", ["ec_add_fast", "affine_lines head", "affine_lines seeds"])
+@pytest.mark.parametrize("name", ["ec_add_fast", "affine_lines head", "affine_lines seeds",
+                                  "affine_lines_v1 head", "affine_lines_v1 seeds"])
 def test_ec_add_fast_edges_on_host(name, host_kernels, rng, nprng):
     """The four-lane ec_add_fast at ragged B = 37 with the edge lanes: p identity (passes q), q identity (passes p), both
     identities, P + P (flagged, the only flag), P + (-P) (z = 0, unflagged);
     equal to the plain version limb for limb and to the Python-int oracle on
     every unflagged lane.  The identities carry x and y of other lanes (any
     x, y with z = 0 is the identity), so that lane 2 pins the selects' order:
-    a q identity passes p first.  affine_lines (head and seeds) on the same
-    slots (bypass slots 0-2, the tangent slot 3, P and -P in slot 4): equal
-    to its plain version and to the lines on Python ints, every slot."""
+    a q identity passes p first.  affine_lines (head and seeds; two lanes a
+    slot, and its first design, one thread) on the same slots (bypass
+    slots 0-2, the tangent slot 3, P and -P in slot 4; the tangent slot's
+    warp takes the second line, the others not): equal to its plain
+    version, to the first design and to the lines on Python ints, every
+    slot."""
     hp, hq = _edge_points(rng)
     p, q = _jacobian(rng, nprng, hp), _jacobian(rng, nprng, hq)
     for c, lane, src in ((p, 0, 5), (q, 1, 6), (p, 2, 7), (q, 2, 8)):
@@ -986,7 +1002,13 @@ def test_ec_add_fast_edges_on_host(name, host_kernels, rng, nprng):
     if name != "ec_add_fast":
         head = name.endswith("head")
         ins = _lines_inputs(p, q)[head]
-        rows, flags = CL.affine_lines(SPEC, head, *ins)
+        if name.startswith("affine_lines_v1"):
+            rows, flags = CL.affine_lines_v1(SPEC, head, *ins)
+        else:
+            rows, flags = CL.affine_lines(SPEC, head, *ins)
+            v1_rows, v1_flags = CL.affine_lines_v1(SPEC, head, *ins)
+            assert torch.equal(rows, v1_rows)
+            assert flags is v1_flags is None or torch.equal(flags, v1_flags)
         want_rows, want_flags = CL.affine_lines_plain(SPEC, head, *ins)
         assert torch.equal(rows, want_rows)
         assert flags is want_flags is None or torch.equal(flags, want_flags)
@@ -1078,13 +1100,20 @@ def test_poly_mul_naive_edges_on_host(staging, name, host_kernels, monkeypatch, 
                                    for x, y in zip(xs, ys)]
 
 
-@pytest.mark.parametrize("n", [2, 17, 64])
+@pytest.mark.parametrize("n", [2, 17, 64, 35] + [
+    pytest.param(("kate_div2", k), id=f"kate_div2-{k}") for k in (2, 17, 35, 64)])
 def test_kate_div_edges_on_host(n, host_kernels, rng):
     """kate_div at ragged B = 37 pairs of n coefficients (n = 17: one whole
-    chunk of the chain; 64: three and a part): b = 0 (the shift), b = p - 1
-    with every coefficient p - 1, zero coefficients, a zero polynomial; equal
-    to the plain version limb for limb and to Poly.kate_div on Python ints,
-    the last row zero."""
+    chunk of the chain; 35: the round's longest; 64: three and a part): b =
+    0 (the shift), b = p - 1 with every coefficient p - 1, zero
+    coefficients, a zero polynomial; equal to the plain version limb for limb
+    and to Poly.kate_div on Python ints, the last row zero.  kate_div2 on the
+    same kind of pairs with a second root (ra = 0 in pair 0, rb = 0 in pairs
+    4 and 5, ra = rb in pair 6): equal to its plain version, to kate_div
+    launched twice and to Poly.kate_div twice."""
+    if isinstance(n, tuple):
+        _kate_div2_edges(n[1], rng)
+        return
     p = SPEC.p
     cs = [[rng.randrange(p) for _ in range(n)] for _ in range(B)]
     bs = [rng.randrange(p) for _ in range(B)]
@@ -1097,6 +1126,26 @@ def test_kate_div_edges_on_host(n, host_kernels, rng):
     assert torch.equal(got, CP.kate_div_plain(SPEC, coeffs, b))
     assert _from_rows(got) == [Poly(SPEC, c).kate_div(x).coeffs + [0] for c, x in zip(cs, bs)]
     assert _from_rows(got)[0] == cs[0][1:] + [0]
+
+
+def _kate_div2_edges(n, rng):
+    p = SPEC.p
+    cs = [[rng.randrange(p) for _ in range(n)] for _ in range(B)]
+    ras = [rng.randrange(p) for _ in range(B)]
+    rbs = [rng.randrange(p) for _ in range(B)]
+    ras[0] = 0
+    cs[1], ras[1], rbs[1] = [p - 1] * n, p - 1, p - 1
+    cs[2][::3] = [0] * len(cs[2][::3])
+    cs[3] = [0] * n
+    rbs[4] = rbs[5] = 0
+    ras[5] = 0
+    rbs[6] = ras[6]
+    coeffs, ra, rb = _mont_rows(cs), _mont_rows([ras])[0], _mont_rows([rbs])[0]
+    got = CP.kate_div2(SPEC, coeffs, ra, rb)
+    assert torch.equal(got, CP.kate_div2_plain(SPEC, coeffs, ra, rb))
+    assert torch.equal(got, CP.kate_div(SPEC, CP.kate_div(SPEC, coeffs, ra), rb))
+    assert _from_rows(got) == [Poly(SPEC, c).kate_div(x).kate_div(y).coeffs + [0] * min(n, 2)
+                               for c, x, y in zip(cs, ras, rbs)]
 
 
 _NEIGHBOURS = """#include <cuda_runtime.h>

@@ -1,6 +1,7 @@
 """The polynomial layer of the PyTorch port (and the field layer's lazy sums
 under it): every function against the exact Python-int Poly of both packages,
-kate division on both sides of its n <= 64 switch and at b = 0, products on
+kate division (by one root and by two in one walk) on both sides of its n <=
+64 switch and at b = 0, products on
 both sides of the naive/NTT threshold, and one jitted JAX call at
 test_poly.py's shapes.
 
@@ -170,6 +171,31 @@ def test_kate_div_plain(rng, n):
                                                 for p, v in zip(ps, vals)]
 
 
+@pytest.mark.parametrize("n", [2, 5, 35, 64, 77])
+def test_kate_div2_plain(rng, n):
+    """Both divisions of a coefficient level in one walk: the plain version of
+    kate_div2 equals kate_div_plain twice and the host Poly.kate_div twice,
+    over six pairs (ra = 0, rb = 0, ra = rb, a zero polynomial, raw p - 1
+    everywhere), and with one pair of roots for all pairs; P.kate_div2 equals
+    it to n = 64 and composes P.kate_div twice above (n = 77)."""
+    p = SPEC.p
+    ps = [rand_poly(rng, n) for _ in range(6)]
+    ps[3] = Poly(SPEC, [0] * n)
+    ps[5] = Poly(SPEC, [p - 1] * n)
+    ras = [rng.randrange(p), 0, rng.randrange(p), 7, 5, p - 1]
+    rbs = [rng.randrange(p), rng.randrange(p), 0, 11, 5, p - 1]
+    coeffs = torch.stack([dev(x) for x in ps])
+    ra, rb = torch.stack([elem(v) for v in ras]), torch.stack([elem(v) for v in rbs])
+    for a, b, va, vb in ((ra, rb, ras, rbs), (ra[0], rb[0], [ras[0]] * 6, [rbs[0]] * 6)):
+        want = [x.kate_div(u).kate_div(v).coeffs + [0] * 2 for x, u, v in zip(ps, va, vb)]
+        got = P.kate_div2(SPEC, coeffs, a, b)
+        assert [back(g).coeffs for g in got] == want
+        if n <= 64:
+            plain = CP.kate_div2_plain(SPEC, coeffs, a, b)
+            assert torch.equal(plain, got)
+            assert torch.equal(plain, CP.kate_div_plain(SPEC, CP.kate_div_plain(SPEC, coeffs, a), b))
+
+
 def test_add_scale_shr_batched(rng):
     p, q = rand_poly(rng, 10), rand_poly(rng, 25)
     sc = rng.randrange(SPEC.p)
@@ -187,8 +213,10 @@ def test_device_functions_equal_jax(rng):
     """One jitted JAX call at test_poly.py's shapes (kate division at 77,
     b random and b = 0; a batched 6 x (9, 12) naive product; an evaluation
     of a 200-term polynomial at 4 points) and kate division at 33 (the JAX
-    package's lax.scan route, b random and b = 0): the same limbs as the
-    port."""
+    package's lax.scan route, b random and b = 0), then the same compiled
+    call once more on its quotients at 33 by the roots the other way round (a
+    coefficient level's two divisions): the same limbs as the port, the two
+    divisions as P.kate_div2 and its plain version."""
     p77, p200 = rand_poly(rng, 77), rand_poly(rng, 200)
     ps = np.stack([ints_to_mont_limbs(rand_poly(rng, 9).coeffs, SPEC) for _ in range(6)])
     qs = np.stack([ints_to_mont_limbs(rand_poly(rng, 12).coeffs, SPEC) for _ in range(6)])
@@ -204,9 +232,16 @@ def test_device_functions_equal_jax(rng):
                 jax_poly.eval_poly(JF.PALLAS_FP, c200[None], x4),
                 jax_poly.kate_div(JF.PALLAS_FP, c33, b))
 
-    want = jax.jit(jax_all)(*(jnp.asarray(v) for v in (c77, b, ps, qs, c200, x4, c33)))
+    jitted = jax.jit(jax_all)
+    want = jitted(*(jnp.asarray(v) for v in (c77, b, ps, qs, c200, x4, c33)))
+    # the second division: the same compiled call on the first's quotients
+    # and the roots the other way round
+    want = (*want, jitted(*(jnp.asarray(v) for v in (c77, b[::-1].copy(), ps, qs, c200, x4)),
+                          want[3])[3])
     t = lambda v: limbs_from_numpy(v, "cpu")
     got = (P.kate_div(SPEC, t(c77)[None], t(b)), P.mul_naive(SPEC, t(ps), t(qs)),
-           P.eval_poly(SPEC, t(c200)[None], t(x4)), P.kate_div(SPEC, t(c33), t(b)))
+           P.eval_poly(SPEC, t(c200)[None], t(x4)), P.kate_div(SPEC, t(c33), t(b)),
+           P.kate_div2(SPEC, t(c33), t(b), t(b[::-1].copy())))
     for g, w in zip(got, want):
         assert np.array_equal(limbs_to_numpy(g), np.asarray(w))
+    assert torch.equal(got[-1], CP.kate_div2_plain(SPEC, t(c33), t(b), t(b[::-1].copy())))
